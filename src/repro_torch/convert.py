@@ -1,0 +1,80 @@
+"""Carry weights and round state across from the JAX package via numpy.
+
+Both packages name and shape their params alike and pack flat state with
+the same segment table (``core.packer``), so a model or an ``HFLState``
+crosses as plain numpy arrays: the JAX side hands over ``np.asarray`` of
+each leaf (of each ``FlatBuffers.bufs`` entry for a flat state), this
+module builds the port's tensors, and :func:`to_numpy` goes back. Nothing
+here imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.core.engine import HFLState
+from repro_torch.core.packer import FlatBuffers, key_dtype, make_packer
+from repro_torch.core.tree import tree_map
+
+
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
+    """One array as a tensor on ``device`` (a copy). A bfloat16 array (the
+    ``ml_dtypes`` type JAX hands out) crosses bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(resolve_device(device))
+    return torch.from_numpy(np.array(a, copy=True)).to(resolve_device(device))
+
+
+def params_from_numpy(tree, device=None):
+    """A params tree (nested dict of arrays) as the port's params dict, same
+    names, shapes and dtypes, on ``device`` (``None``: the CUDA card)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: tensor_from_numpy(a, dev), tree)
+
+
+def state_from_numpy(params, z, y, dyn, round=0, *, template=None, rng=None,
+                     device=None) -> HFLState:
+    """An ``HFLState`` from numpy fields.
+
+    Tree layout (``template=None``): each of params / z / y / dyn is a
+    nested dict of stacked arrays. Flat layout: pass the single-model
+    ``template`` params tree (shapes and dtypes are all that is read); each
+    field is then a ``{dtype key: [*lead, N] array}`` dict -- the
+    reference's ``FlatBuffers.bufs`` -- wrapped with the segment table
+    ``make_packer(template)``, identical to the reference's.
+    """
+    dev = resolve_device(device)
+    if template is None:
+        fields = [params_from_numpy(f, dev) for f in (params, z, y, dyn)]
+    else:
+        packer = make_packer(tree_map(lambda a: torch.empty(
+            np.shape(a), dtype=key_dtype(np.asarray(a).dtype.name)), template))
+        fields = [FlatBuffers({k: tensor_from_numpy(v, dev) for k, v in f.items()}, packer)
+                  for f in (params, z, y, dyn)]
+    return HFLState(*fields, rng=rng,
+                    round=torch.as_tensor(np.asarray(round), dtype=torch.int32).to(dev))
+
+
+def to_numpy(obj: Any):
+    """Tensors -> numpy arrays, recursively through dicts, FlatBuffers (to
+    their ``bufs`` dict) and NamedTuples (``HFLState``, ``RoundMetrics``: to
+    a dict of fields, leaving out a None or ``torch.Generator`` field).
+    bfloat16 tensors come back as float32 arrays."""
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.numpy()
+    if isinstance(obj, FlatBuffers):
+        return {k: to_numpy(v) for k, v in obj.bufs.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return {f: to_numpy(v) for f, v in obj._asdict().items()
+                if v is not None and not isinstance(v, torch.Generator)}
+    if isinstance(obj, dict):
+        return {k: to_numpy(v) for k, v in obj.items()}
+    return obj

@@ -1,0 +1,376 @@
+"""The port's front door: ``ExperimentSpec`` -> ``build`` -> ``fit``.
+
+Port of the simulator path of ``src/repro/core/api.py``. The spec keeps
+the reference's full field list, so one set of keyword arguments builds
+both packages' specs; a field whose feature belongs to a later slice of
+the port raises ``ValueError`` naming that slice. :func:`build` turns a
+spec into a :class:`SimulatorEngine` on a device (the CUDA card unless
+``device="cpu"`` is passed) and :func:`fit` drives it through the horizon
+driver (``core.driver``)::
+
+    from repro_torch import api
+    spec = api.ExperimentSpec(
+        levels=(4, 5), algorithm="mtgc", lr=0.1,
+        schedule=api.RoundSchedule(group_rounds=4, local_steps=5))
+    engine = api.build(spec, loss_fn)                  # on cuda
+    data = engine.pack_arrays({"x": X, "y": Y}, client_index_pools,
+                              batch_size=32, rng=np.random.default_rng(0))
+    state, horizon = api.fit(engine, data, 30, params=model_params,
+                             eval_every=5, eval_fn=my_eval_fn)
+    model = engine.global_model(state)
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.config import HFLConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.core.driver import Horizon, PackedBatches, pack_client_shards, run_rounds
+from repro_torch.core.engine import (
+    ASYNC_SLICE,
+    COMPRESSION_SLICE,
+    FAULTS_SLICE,
+    PARTIAL_SLICE,
+    RoundMetrics,
+    _build_global_round,
+    global_model,
+    hfl_init,
+)
+
+Tree = Any
+
+ALGORITHMS = ("mtgc", "hfedavg", "local_corr", "group_corr", "fedprox", "feddyn")
+BACKENDS = ("simulator", "multilevel", "sharded")
+LAYOUTS = ("tree", "flat")
+FUSIONS = ("none", "fused")
+CLIENT_STATES = ("stateful", "stateless")
+STALENESS_POLICIES = ("sync", "naive", "discount", "delay_compensated")
+
+MULTILEVEL_SLICE = "the multilevel-backend slice of the port"
+SHARDED_SLICE = "the sharded-backend slice of the port"
+POPULATION_SLICE = "the virtual-population slice of the port"
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _needs(what: str, where: str) -> ValueError:
+    return ValueError(f"{what} needs {where}")
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundSchedule:
+    """When each timescale fires (the reference's fields).
+
+    group_rounds: E -- group aggregations per global round. A per-group
+        tuple ``(E_1, ..., E_G)`` is accepted when uniform; a non-uniform
+        one (async group rounds) needs the async-rounds slice.
+    local_steps: H -- local SGD steps per group round.
+    microbatches: A -- a sharded-backend knob (later slice).
+    periods: M-level aggregation periods -- a multilevel-backend knob
+        (later slice).
+    """
+
+    group_rounds: int | tuple[int, ...] = 2
+    local_steps: int = 5
+    microbatches: int | None = None
+    periods: tuple[int, ...] | None = None
+
+    def __post_init__(self):
+        if isinstance(self.group_rounds, (list, tuple)):
+            object.__setattr__(self, "group_rounds",
+                               tuple(int(e) for e in self.group_rounds))
+        if self.periods is not None:
+            object.__setattr__(self, "periods", tuple(int(p) for p in self.periods))
+
+    @property
+    def is_uniform(self) -> bool:
+        """True when every group runs the same number of group rounds."""
+        if isinstance(self.group_rounds, tuple):
+            return all(e == self.group_rounds[0] for e in self.group_rounds)
+        return True
+
+    @property
+    def max_group_rounds(self) -> int:
+        """max(E_g) -- equals E for uniform schedules."""
+        if isinstance(self.group_rounds, tuple):
+            return max(self.group_rounds)
+        return int(self.group_rounds)
+
+    def validate(self, levels: tuple[int, ...]) -> "RoundSchedule":
+        gr = self.group_rounds
+        if isinstance(gr, tuple):
+            _require(len(gr) == levels[0],
+                     f"per-group group_rounds needs one entry per group: "
+                     f"{len(gr)} entries for {levels[0]} groups")
+            _require(all(e >= 1 for e in gr), f"group_rounds must be >= 1: {gr}")
+        else:
+            _require(gr >= 1, f"group_rounds must be >= 1, got {gr}")
+        _require(self.local_steps >= 1,
+                 f"local_steps must be >= 1, got {self.local_steps}")
+        if not self.is_uniform:
+            raise _needs("non-uniform group_rounds (async group rounds)", ASYNC_SLICE)
+        if self.microbatches is not None:
+            raise _needs("schedule.microbatches", SHARDED_SLICE)
+        if self.periods is not None:
+            raise _needs("schedule.periods", MULTILEVEL_SLICE)
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentSpec:
+    """Everything that defines one HFL experiment (the reference's fields;
+    see ``src/repro/core/api.py`` for each one's meaning).
+
+    This slice runs the simulator backend at full participation under the
+    sync schedule, in either state layout, fused (mtgc) or not. ``faults``,
+    ``defense`` and ``compression`` take the reference's plan objects'
+    place; any value but None needs a later slice.
+    """
+
+    levels: tuple[int, ...] = (2, 2)
+    schedule: RoundSchedule = RoundSchedule()
+    algorithm: str = "mtgc"
+    lr: float = 0.1
+    backend: str = "simulator"
+    state_layout: str = "flat"
+    fusion: str = "none"
+    fused_mode: str | None = None
+    correction_init: str = "zero"
+    prox_mu: float = 0.0
+    feddyn_alpha: float = 0.0
+    server_lr: float = 1.0
+    client_participation: float = 1.0
+    group_participation: float = 1.0
+    level_participation: tuple[float, ...] | None = None
+    participation_mode: str = "uniform"
+    participation_weighting: str = "none"
+    correction_dtype: str | None = None
+    staleness: str = "sync"
+    max_staleness: int | None = None
+    population: int | None = None
+    cohort_size: int | None = None
+    client_state: str = "stateful"
+    faults: Any | None = None
+    defense: Any | None = None
+    compression: Any | None = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "levels", tuple(int(n) for n in self.levels))
+        if self.level_participation is not None:
+            object.__setattr__(self, "level_participation",
+                               tuple(float(p) for p in self.level_participation))
+
+    def validate(self) -> "ExperimentSpec":
+        _require(self.backend in BACKENDS,
+                 f"unknown backend {self.backend!r} (choose from {BACKENDS})")
+        if self.backend == "multilevel" or self.level_participation is not None:
+            raise _needs("the multilevel backend", MULTILEVEL_SLICE)
+        if (self.backend == "sharded" or self.fused_mode is not None
+                or self.correction_dtype is not None):
+            raise _needs("the sharded backend (fused_mode, correction_dtype)",
+                         SHARDED_SLICE)
+        _require(len(self.levels) == 2,
+                 f"the simulator is two-level (groups, clients), got {self.levels}")
+        _require(all(n >= 1 for n in self.levels),
+                 f"every topology dim must be >= 1: {self.levels}")
+        _require(self.staleness in STALENESS_POLICIES,
+                 f"unknown staleness policy {self.staleness!r} "
+                 f"(choose from {STALENESS_POLICIES})")
+        if self.staleness != "sync" or self.max_staleness is not None:
+            raise _needs(f"staleness={self.staleness!r} / max_staleness", ASYNC_SLICE)
+        self.schedule.validate(self.levels)
+        for name in ("client_participation", "group_participation"):
+            frac = getattr(self, name)
+            _require(0.0 < frac <= 1.0, f"{name} must be in (0, 1], got {frac}")
+        if not self.full_participation:
+            raise _needs("client/group participation < 1", PARTIAL_SLICE)
+        if self.faults is not None:
+            raise _needs("fault injection (faults=)", FAULTS_SLICE)
+        if self.defense is not None:
+            raise _needs("screened aggregation (defense=)", FAULTS_SLICE)
+        if self.compression is not None:
+            raise _needs("compressed uploads (compression=)", COMPRESSION_SLICE)
+        _require(self.client_state in CLIENT_STATES,
+                 f"unknown client_state {self.client_state!r} "
+                 f"(choose from {CLIENT_STATES})")
+        if (self.population is not None or self.cohort_size is not None
+                or self.client_state != "stateful"):
+            raise _needs("a virtual population (population, cohort_size, "
+                         "client_state)", POPULATION_SLICE)
+
+        _require(self.algorithm in ALGORITHMS,
+                 f"unknown algorithm {self.algorithm!r} (choose from {ALGORITHMS})")
+        _require(self.state_layout in LAYOUTS,
+                 f"unknown state_layout {self.state_layout!r} (choose from {LAYOUTS})")
+        _require(self.fusion in FUSIONS,
+                 f"unknown fusion {self.fusion!r} (choose from {FUSIONS})")
+        _require(self.fusion == "none" or self.algorithm == "mtgc",
+                 "fusion='fused' fuses exactly g + z + y: mtgc only")
+        _require(self.correction_init in ("zero", "gradient"),
+                 f"correction_init must be 'zero' or 'gradient', "
+                 f"got {self.correction_init!r}")
+        _require(self.participation_mode in ("uniform", "fixed"),
+                 f"participation_mode must be 'uniform' or 'fixed', "
+                 f"got {self.participation_mode!r}")
+        _require(self.participation_weighting in ("none", "inverse_prob"),
+                 f"participation_weighting must be 'none' or 'inverse_prob', "
+                 f"got {self.participation_weighting!r}")
+        return self
+
+    @property
+    def full_participation(self) -> bool:
+        return self.client_participation >= 1.0 and self.group_participation >= 1.0
+
+    def to_hfl_config(self) -> HFLConfig:
+        """The equivalent two-level ``HFLConfig`` (simulator engine)."""
+        _require(len(self.levels) == 2,
+                 f"HFLConfig is two-level; spec has levels={self.levels}")
+        return HFLConfig(
+            num_groups=self.levels[0],
+            clients_per_group=self.levels[1],
+            local_steps=self.schedule.local_steps,
+            group_rounds=self.schedule.max_group_rounds,
+            lr=self.lr,
+            algorithm=self.algorithm,
+            correction_init=self.correction_init,
+            prox_mu=self.prox_mu,
+            feddyn_alpha=self.feddyn_alpha,
+            server_lr=self.server_lr,
+            client_participation=self.client_participation,
+            group_participation=self.group_participation,
+            participation_mode=self.participation_mode,
+            participation_weighting=self.participation_weighting,
+            use_fused_update=self.fusion == "fused",
+            use_flat_state=self.state_layout == "flat",
+        )
+
+    @classmethod
+    def from_hfl_config(cls, cfg: HFLConfig) -> "ExperimentSpec":
+        return cls(
+            levels=(cfg.num_groups, cfg.clients_per_group),
+            schedule=RoundSchedule(group_rounds=cfg.group_rounds,
+                                   local_steps=cfg.local_steps),
+            algorithm=cfg.algorithm,
+            lr=cfg.lr,
+            state_layout="flat" if cfg.use_flat_state else "tree",
+            fusion="fused" if cfg.use_fused_update else "none",
+            correction_init=cfg.correction_init,
+            prox_mu=cfg.prox_mu,
+            feddyn_alpha=cfg.feddyn_alpha,
+            server_lr=cfg.server_lr,
+            client_participation=cfg.client_participation,
+            group_participation=cfg.group_participation,
+            participation_mode=cfg.participation_mode,
+            participation_weighting=cfg.participation_weighting,
+        )
+
+
+LossFn = Callable[[Tree, Tree], torch.Tensor]
+
+
+def _index_depth(indices) -> int:
+    depth = 0
+    node = indices
+    while isinstance(node, (list, tuple)):
+        depth += 1
+        node = node[0]
+    return depth
+
+
+class SimulatorEngine:
+    """The paper engine (``core.engine``) behind the uniform surface.
+
+    spec: the validated :class:`ExperimentSpec`.
+    device: where the state, the packed data and the kernels live.
+    round_fn: ``(state, batches) -> (state, metrics)`` over batches
+        ``[E, H, G, K, ...]`` (what ``select_round`` emits).
+    metric_fields: the names of :class:`RoundMetrics`' fields.
+    """
+
+    def __init__(self, spec: ExperimentSpec, loss_fn: LossFn, device: torch.device):
+        self.spec = spec
+        self.loss_fn = loss_fn
+        self.device = device
+        self._cfg = spec.to_hfl_config().validate()
+        self.metric_fields = RoundMetrics._fields
+        self.round_fn = _build_global_round(loss_fn, self._cfg)
+
+    def init(self, params: Tree, rng=None):
+        """Broadcast one model into the round state on the engine's device."""
+        return hfl_init(params, self._cfg, rng, device=self.device)
+
+    def global_model(self, state) -> Tree:
+        return global_model(state)
+
+    def pack_arrays(self, data_arrays: dict[str, np.ndarray], indices: list, *,
+                    batch_size: int, shards: int = 16, rng: np.random.Generator,
+                    generator: torch.Generator | None = None) -> PackedBatches:
+        """Pack a partitioned array dataset for :func:`fit` (uploads once)."""
+        _require(_index_depth(indices) == len(self.spec.levels),
+                 f"index nesting depth {_index_depth(indices)} does not "
+                 f"match levels={self.spec.levels}")
+        return pack_client_shards(
+            data_arrays, indices, group_rounds=self.spec.schedule.max_group_rounds,
+            local_steps=self.spec.schedule.local_steps, batch_size=batch_size,
+            shards=shards, rng=rng, generator=generator, device=self.device)
+
+
+def build(spec: ExperimentSpec, loss_fn: LossFn, *, device=None) -> SimulatorEngine:
+    """Validate ``spec`` and construct its engine on ``device`` (``None``:
+    the CUDA card; a host without one raises -- pass ``device="cpu"``)."""
+    spec = spec.validate()
+    return SimulatorEngine(spec, loss_fn, resolve_device(device))
+
+
+def fit(
+    engine: SimulatorEngine,
+    data: PackedBatches,
+    T: int,
+    *,
+    state: Tree | None = None,
+    params: Tree | None = None,
+    rng=None,
+    chunk: int | None = None,
+    eval_every: int = 1,
+    eval_fn: Callable[[Tree, Tree], Tree] | None = None,
+    shard_ids=None,
+) -> tuple[Tree, Horizon]:
+    """Train ``T`` global rounds through the horizon driver.
+
+    Pass either a ready ``state`` (to continue a run, with the previous
+    ``horizon.data``) or the initial model ``params``. ``shard_ids``
+    (``[T, E, G, K]``) fixes the per-round shard selection; otherwise it is
+    drawn from ``data.generator``. Returns ``(state, horizon)``.
+    """
+    if state is None:
+        _require(params is not None,
+                 "fit() needs either state=... or params=... to start from")
+        state = engine.init(params, rng)
+    state, _, horizon = run_rounds(
+        engine.round_fn, state, data, T, chunk=chunk, eval_every=eval_every,
+        eval_fn=eval_fn, shard_ids=shard_ids)
+    return state, horizon
+
+
+__all__ = [
+    "ALGORITHMS",
+    "BACKENDS",
+    "CLIENT_STATES",
+    "ExperimentSpec",
+    "FUSIONS",
+    "Horizon",
+    "LAYOUTS",
+    "PackedBatches",
+    "RoundSchedule",
+    "STALENESS_POLICIES",
+    "SimulatorEngine",
+    "build",
+    "fit",
+]

@@ -1,0 +1,228 @@
+"""The training horizon: packed client shards, per-round batch selection on
+the device, and ``run_rounds`` (port of ``src/repro/core/driver.py``).
+
+* **Packed dataset** (:class:`PackedBatches`): for every client, ``shards``
+  pre-formed blocks of ``H`` step-batches are sampled once on the host and
+  uploaded once -- tensors ``[G, K, S, H, B, ...]``. Each round then picks
+  one block per (group round, client) and gathers its batches on the
+  device (:func:`select_round`); the host never packs batches again.
+* **Shard ids.** The reference draws them with ``jax.random.randint``,
+  whose bits PyTorch cannot reproduce. Here :func:`select_round` takes the
+  ids as a tensor, and :func:`run_rounds` draws them from the dataset's
+  ``torch.Generator`` unless the caller passes them (the parity tests pass
+  the reference's ids).
+* **Horizon** (:func:`run_rounds`): ``T`` rounds in a Python loop. Metrics
+  come back to the host once per ``chunk`` rounds; the eval function runs
+  at multiples of ``eval_every`` and at the final round.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+Tree = Any
+
+
+class PackedBatches:
+    """A once-uploaded, device-resident training dataset for the driver.
+
+    arrays: dict of tensors ``[G, K, S, H, B, ...]`` -- ``S`` pre-sampled
+        blocks per client, each holding ``H`` step-batches.
+    generator: the ``torch.Generator`` that draws the shard ids; it
+        advances in place, so passing the same object to a later
+        ``run_rounds`` continues the stream.
+    group_rounds / local_steps: the static layout (E, H) of one round.
+    """
+
+    __slots__ = ("arrays", "generator", "group_rounds", "local_steps")
+
+    def __init__(self, arrays: dict, generator: torch.Generator,
+                 group_rounds: int, local_steps: int):
+        self.arrays = arrays
+        self.generator = generator
+        self.group_rounds = int(group_rounds)
+        self.local_steps = int(local_steps)
+
+    @property
+    def _first(self) -> torch.Tensor:
+        return next(iter(self.arrays.values()))
+
+    @property
+    def topology(self) -> tuple[int, int]:
+        return tuple(self._first.shape[:2])
+
+    @property
+    def num_shards(self) -> int:
+        return self._first.shape[2]
+
+    def __repr__(self) -> str:
+        shapes = [tuple(x.shape) for x in self.arrays.values()]
+        return (f"PackedBatches(E={self.group_rounds}, H={self.local_steps}, "
+                f"leaves={shapes})")
+
+
+def draw_shard_ids(data: PackedBatches) -> torch.Tensor:
+    """One shard index per (group round, client): int64 ``[E, G, K]``,
+    drawn from ``data.generator``."""
+    return torch.randint(0, data.num_shards, (data.group_rounds,) + data.topology,
+                         generator=data.generator, device=data.generator.device)
+
+
+def select_round(data: PackedBatches, sid) -> dict:
+    """Gather one global round of batches from the packed shards, on the
+    device. ``sid``: ``[E, G, K]`` shard indices. Returns tensors
+    ``[E, H, G, K, B, ...]``."""
+    E = data.group_rounds
+    G, K = data.topology
+    P = G * K
+    device = data._first.device
+    sid = torch.as_tensor(sid).to(device=device, dtype=torch.int64)
+    if tuple(sid.shape) != (E, G, K):
+        raise ValueError(f"shard ids must be [E, G, K] = {(E, G, K)}, got {tuple(sid.shape)}")
+    rows = torch.arange(P, device=device)[None, :]
+    sid = sid.reshape(E, P)
+
+    def gather(leaf):
+        sel = leaf.reshape((P,) + tuple(leaf.shape[2:]))[rows, sid]   # [E, P, H, ...]
+        sel = sel.movedim(2, 1)                                        # [E, H, P, ...]
+        return sel.reshape(tuple(sel.shape[:2]) + (G, K) + tuple(sel.shape[3:]))
+
+    return {name: gather(leaf) for name, leaf in data.arrays.items()}
+
+
+def pack_client_shards(
+    data_arrays: dict[str, np.ndarray],
+    indices: list,
+    *,
+    group_rounds: int,
+    local_steps: int,
+    batch_size: int,
+    shards: int = 16,
+    rng: np.random.Generator,
+    generator: torch.Generator | None = None,
+    device=None,
+) -> PackedBatches:
+    """Pack a partitioned array dataset (``data.partition``) for the driver.
+
+    For every client (row-major over ``indices[g][k]``), pre-samples
+    ``shards`` blocks of ``local_steps x batch_size`` examples with
+    replacement from its index pool with numpy's ``rng.choice`` -- draw for
+    draw as the reference packs -- and uploads the gathered features once
+    as ``[G, K, S, H, B, ...]`` tensors on ``device``. ``generator``
+    (default: a CPU generator seeded with 0) draws the per-round shard ids.
+    """
+    sel = np.stack([
+        np.stack([rng.choice(pool, size=(shards, local_steps, batch_size), replace=True)
+                  for pool in group])
+        for group in indices])                                     # [G, K, S, H, B]
+    arrays = {name: torch.from_numpy(np.ascontiguousarray(arr[sel])).to(device)
+              for name, arr in data_arrays.items()}
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return PackedBatches(arrays, generator, group_rounds, local_steps)
+
+
+class Horizon(NamedTuple):
+    """Stacked results of a multi-round driver run.
+
+    metrics: the round function's metrics as numpy arrays, ``[T, ...]``.
+    evals: ``eval_fn`` outputs at the evaluated rounds as numpy arrays,
+        ``[len(eval_rounds), ...]``, or None when no ``eval_fn`` was given.
+    eval_rounds: 1-based global round indices that were evaluated
+        (multiples of ``eval_every`` plus the final round).
+    data: the :class:`PackedBatches` (its generator advanced past this
+        horizon) to continue training from.
+    """
+
+    metrics: Any
+    evals: Any | None
+    eval_rounds: np.ndarray
+    data: Any | None = None
+
+
+def eval_mask_for_chunk(done: int, n: int, T: int, eval_every: int) -> np.ndarray:
+    """Per-round eval booleans for rounds ``done+1 .. done+n`` of ``T``:
+    True at multiples of ``eval_every`` plus the final round."""
+    return np.array([(done + i + 1) % eval_every == 0 or done + i + 1 == T
+                     for i in range(n)])
+
+
+def _to_host(items: list):
+    """Stack a list of same-structured results (NamedTuple / dict / tensor)
+    along a new leading axis, as numpy arrays."""
+    first = items[0]
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(_to_host([it[i] for it in items])
+                             for i in range(len(first))))
+    if isinstance(first, dict):
+        return {k: _to_host([it[k] for it in items]) for k in first}
+    return torch.stack([torch.as_tensor(it) for it in items]).cpu().numpy()
+
+
+def _concat(parts: list):
+    first = parts[0]
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(_concat([p[i] for p in parts]) for i in range(len(first))))
+    if isinstance(first, dict):
+        return {k: _concat([p[k] for p in parts]) for k in first}
+    return np.concatenate(parts)
+
+
+def run_rounds(
+    round_fn: Callable,
+    state: Tree,
+    data: PackedBatches,
+    T: int,
+    *,
+    chunk: int | None = None,
+    eval_every: int = 1,
+    eval_fn: Callable[[Tree, Tree], Tree] | None = None,
+    shard_ids=None,
+) -> tuple[Tree, PackedBatches, Horizon]:
+    """Run ``T`` global rounds of (batch selection + ``round_fn``).
+
+    ``shard_ids`` (optional, ``[T, E, G, K]``) fixes every round's shard
+    selection; otherwise each round draws ``[E, G, K]`` ids from
+    ``data.generator``. ``eval_fn(prev_state, state)`` runs after rounds
+    ``eval_every, 2 * eval_every, ..., T``. Metrics (and evals) are copied
+    to the host once per ``chunk`` rounds (``None`` or 0: once at the end),
+    so the device runs a chunk without a host synchronization.
+
+    Returns ``(state, data, Horizon)``.
+    """
+    if T < 1 or eval_every < 1:
+        raise ValueError(f"need T >= 1 and eval_every >= 1, got T={T}, "
+                         f"eval_every={eval_every}")
+    if chunk is not None and chunk < 0:
+        raise ValueError(f"chunk must be None or >= 0, got {chunk}")
+    chunk = T if not chunk else min(int(chunk), T)
+    if shard_ids is not None:
+        shard_ids = torch.as_tensor(np.asarray(shard_ids))
+        if shard_ids.shape[0] != T:
+            raise ValueError(f"shard_ids has {shard_ids.shape[0]} rounds, T={T}")
+
+    mets, evs, masks = [], [], []
+    done = 0
+    while done < T:
+        n = min(chunk, T - done)
+        mask = eval_mask_for_chunk(done, n, T, eval_every)
+        chunk_mets, chunk_evs = [], []
+        for i in range(n):
+            sid = (shard_ids[done + i] if shard_ids is not None
+                   else draw_shard_ids(data))
+            prev = state
+            state, metrics = round_fn(state, select_round(data, sid))
+            chunk_mets.append(metrics)
+            if eval_fn is not None and mask[i]:
+                chunk_evs.append(eval_fn(prev, state))
+        mets.append(_to_host(chunk_mets))
+        if chunk_evs:
+            evs.append(_to_host(chunk_evs))
+        masks.append(mask)
+        done += n
+
+    eval_rounds = np.nonzero(np.concatenate(masks))[0] + 1
+    evals = _concat(evs) if eval_fn is not None else None
+    return state, data, Horizon(_concat(mets), evals, eval_rounds, data)

@@ -1,0 +1,95 @@
+"""Tree algebra used by every HFL algorithm (port of ``src/repro/core/tree.py``).
+
+A tree is a nested dict of tensors, or a :class:`~repro_torch.core.packer.
+FlatBuffers` (mapped buffer by buffer). All hierarchical-FL state is
+*stacked*: each leaf carries leading topology axes (``[G, K, ...]`` =
+groups x clients-per-group). Leaves are visited in sorted key order, as
+``jax.tree`` visits dict keys, so reductions over leaves sum in the
+reference's order.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.packer import FlatBuffers, tree_paths
+
+Tree = Any
+
+
+def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """Apply ``fn`` leafwise over trees of one structure."""
+    if isinstance(tree, FlatBuffers):
+        return FlatBuffers(
+            {k: fn(b, *(r.bufs[k] for r in rest)) for k, b in tree.bufs.items()},
+            tree.packer)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Tree) -> list:
+    """Leaves in the reference's order (sorted keys; buffers by dtype key)."""
+    if isinstance(tree, FlatBuffers):
+        return list(tree.bufs.values())
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def tree_add(a: Tree, b: Tree) -> Tree:
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a: Tree, b: Tree) -> Tree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_zeros_like(a: Tree) -> Tree:
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_mean(a: Tree, axis) -> Tree:
+    """Mean over one or more leading axes (group/client aggregation)."""
+    return tree_map(lambda x: torch.mean(x, dim=axis), a)
+
+
+def expand_mask(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Right-pad a leading-axes mask with unit dims so it broadcasts to x."""
+    return mask.reshape(tuple(mask.shape) + (1,) * (x.dim() - mask.dim()))
+
+
+def tree_select(mask: torch.Tensor, a: Tree, b: Tree) -> Tree:
+    """Leafwise where(mask != 0, a, b); mask covers the leading topology
+    axes. The unselected branch never propagates (frozen replicas keep
+    their exact bits)."""
+    return tree_map(lambda ai, bi: torch.where(expand_mask(mask, ai) != 0, ai, bi), a, b)
+
+
+def tree_broadcast_to_axis(a: Tree, axis: int, size: int) -> Tree:
+    """Insert a broadcast leading axis (dissemination after aggregation).
+
+    Returns ``expand`` views, like the reference's ``broadcast_to``; a
+    caller that needs storage (the CUDA kernels take contiguous operands)
+    materializes with ``.contiguous()``.
+    """
+
+    def _b(x):
+        x = x.unsqueeze(axis)
+        shape = list(x.shape)
+        shape[axis] = size
+        return x.expand(shape)
+
+    return tree_map(_b, a)
+
+
+def tree_dot(a: Tree, b: Tree) -> torch.Tensor:
+    """Global inner product <a, b>, summed leaf by leaf in leaf order."""
+    total = None
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        s = torch.sum(x.to(torch.float32) * y.to(torch.float32))
+        total = s if total is None else total + s
+    return total
+
+
+def tree_sq_norm(a: Tree) -> torch.Tensor:
+    return tree_dot(a, a)

@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Every source under ``kernels/csrc/`` is a plain-C-interface shared library
+(no PyTorch headers, so a build takes seconds). It is compiled at first use
+for ``sm_90a`` into ``build/repro_torch/`` at the root of the checkout,
+under a name that carries a hash of the source and flags, so an edited
+source is rebuilt and a stale library is never loaded. Nothing here runs
+at import time: the CPU-only test host has no ``nvcc`` and imports every
+module.
+
+``build_all()`` runs ``nvcc`` on each source in turn (there is one source
+today); ``load(name)`` returns the loaded library (building it if needed).
+A failed build raises -- there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("mtgc_update",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # Every rounding is explicit in the sources; keep nvcc from contracting
+    # any remaining a * b + c into an FMA.
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else ``/usr/local/cuda/bin/nvcc``. Raises when none exists."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (checked $CUDA_HOME/bin, PATH, /usr/local/cuda/bin): "
+        "the port's CUDA kernels cannot be built on this host")
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build_all(names=SOURCES) -> dict:
+    """Compile every named source that has no up-to-date library. Returns
+    ``{"seconds": wall time, "log": {name: nvcc output}}`` (empty log for a
+    library that was already built)."""
+    t0 = time.perf_counter()
+    log = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            log[name] = ""
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        log[name] = proc.stdout
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, out)
+    return {"seconds": time.perf_counter() - t0, "log": log}
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    build_all((name,))
+    lib = ctypes.CDLL(str(library_path(name)))
+    _declare(name, lib)
+    return lib
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    """argtypes/restype of every exported function: pointers and the
+    stream as ``c_void_p`` (a bare Python int would be cut to 32 bits)."""
+    p, i64, f32, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
+    if name == "mtgc_update":
+        lib.mtgc_update_flat_launch.argtypes = [
+            p, p, p, p, p, p, i64, i64, i64, f32, f32, i32, i32, p]
+        lib.mtgc_update_flat_launch.restype = i32
+        lib.mtgc_update_leaf_launch.argtypes = [
+            p, p, p, p, p, i64, f32, f32, i32, i32, p]
+        lib.mtgc_update_leaf_launch.restype = i32

@@ -1,0 +1,129 @@
+"""The port on a CUDA card: the hand-written kernels against their plain
+PyTorch versions (bit-exact in float32 and bfloat16), and a small round of
+the engine on the card against the same round on the CPU.
+
+Every test here needs a card and skips without one. The module imports no
+JAX, so it runs on a GPU host that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch import api, convert  # noqa: E402
+from repro_torch.kernels import mtgc_update as mu  # noqa: E402
+from repro_torch.models import small  # noqa: E402
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("G,K,N,masked", [(2, 2, 300, False), (3, 1, 1, True),
+                                          (1, 4, 128 * 9 + 5, True), (10, 10, 4099, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_kernel_matches_plain(cuda, G, K, N, masked, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(G + K + N)
+    x, g, z = (torch.randn(G, K, N, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    y = torch.randn(G, N, generator=gen, device=cuda).to(dtype)
+    mask = ((torch.rand(G, K, generator=gen, device=cuda) < 0.5).float()
+            if masked else None)
+    before = mu.mtgc_update_flat.launches
+    got = mu.mtgc_update_flat(x, g, z, y, mask, lr=0.07, g_scale=0.5)
+    torch.cuda.synchronize()
+    assert mu.mtgc_update_flat.launches == before + 1
+    assert torch.equal(got, mu.mtgc_update_flat_ref(x, g, z, y, mask, 0.07, 0.5))
+
+
+def test_flat_kernel_mixed_storage(cuda):
+    """float32 params with bfloat16 corrections (the reference's narrow z/y
+    option): the sum still runs in float32."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, g = (torch.randn(2, 3, 777, generator=gen, device=cuda) for _ in range(2))
+    z = torch.randn(2, 3, 777, generator=gen, device=cuda).to(torch.bfloat16)
+    y = torch.randn(2, 777, generator=gen, device=cuda).to(torch.bfloat16)
+    got = mu.mtgc_update_flat(x, g, z, y, lr=0.1)
+    assert torch.equal(got, mu.mtgc_update_flat_ref(x, g, z, y, None, 0.1))
+
+
+@pytest.mark.parametrize("shape", [(5,), (1000,), (33, 129), (10, 10, 5, 5, 3, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_leaf_kernel_matches_plain(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(len(shape))
+    a = [torch.randn(shape, generator=gen, device=cuda).to(dtype) for _ in range(4)]
+    before = mu.mtgc_update.launches
+    got = mu.mtgc_update(*a, lr=0.1)
+    torch.cuda.synchronize()
+    assert mu.mtgc_update.launches == before + 1
+    assert torch.equal(got, mu.mtgc_update_ref(*a, 0.1))
+
+
+def test_flat_kernel_nan_rows(cuda):
+    x, g, z = (torch.randn(2, 3, 300, device=cuda) for _ in range(3))
+    y = torch.randn(2, 300, device=cuda)
+    g[0, 1] = float("nan")
+    z[0, 1] = float("inf")
+    g[1, 2] = float("nan")
+    mask = torch.ones(2, 3, device=cuda)
+    mask[0, 1] = 0.0
+    got = mu.mtgc_update_flat(x, g, z, y, mask, lr=0.07)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0, 1], x[0, 1])
+    assert torch.isnan(got[1, 2]).all()
+
+
+def test_wrapper_rejects_bad_operands(cuda):
+    x = torch.randn(2, 3, 10, device=cuda)
+    y = torch.randn(2, 10, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        mu.mtgc_update_flat(x.transpose(0, 1).contiguous().transpose(0, 1), x, x, y, lr=0.1)
+    with pytest.raises(ValueError, match="shape"):
+        mu.mtgc_update_flat(x, x, x, y[:, :5], lr=0.1)
+    with pytest.raises(TypeError, match="dtype"):
+        mu.mtgc_update(x.double(), x.double(), x.double(), x.double(), lr=0.1)
+    with pytest.raises(ValueError, match="expected cuda"):
+        mu.mtgc_update(x, x.cpu(), x, x, lr=0.1)
+
+
+@pytest.mark.parametrize("layout", ["flat", "tree"])
+def test_fused_round_on_card_matches_cpu(cuda, layout):
+    """One fused mtgc round of a small CNN on the card (CUDA kernels) and on
+    the CPU (their plain versions) from the same params and batches. The
+    convolutions sum in another order on the two devices: rtol 1e-4."""
+    init, apply = small.cnn(10, (8, 8, 1))
+    p0 = init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    b = {"x": torch.from_numpy(rng.normal(size=(2, 2, 2, 3, 4, 8, 8, 1)).astype(np.float32)),
+         "y": torch.from_numpy(rng.integers(0, 10, size=(2, 2, 2, 3, 4)).astype(np.int32))}
+    spec = api.ExperimentSpec(levels=(2, 3), schedule=api.RoundSchedule(2, 2),
+                              fusion="fused", state_layout=layout)
+    outs = []
+    mu.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        eng = api.build(spec, small.make_loss(apply), device=dev)
+        state, metrics = eng.round_fn(eng.init(p0), {k: v.to(dev) for k, v in b.items()})
+        outs.append((convert.to_numpy(state), convert.to_numpy(metrics)))
+    launches = (mu.mtgc_update_flat.launches if layout == "flat" else mu.mtgc_update.launches)
+    assert launches == 2 * 2 * (1 if layout == "flat" else 8)
+    # z and y are difference quotients of the params (z = dx / (H * lr),
+    # y = dx / (H * E * lr)), so their atol is the params' carried through.
+    atol = {"z": 1e-5 / (2 * 0.1), "y": 1e-5 / (2 * 2 * 0.1)}
+    for name in ("params", "z", "y", "dyn"):
+        _close(outs[0][0][name], outs[1][0][name], atol.get(name, 1e-5), name)
+    _close(outs[0][1], outs[1][1], 1e-5, "metrics")
+
+
+def _close(got, want, atol, tag):
+    if isinstance(want, dict):
+        for k in want:
+            _close(got[k], want[k], atol, f"{tag}.{k}")
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol, err_msg=tag)

@@ -1,0 +1,126 @@
+"""The port's ExperimentSpec: the reference's field list, later-slice
+fields rejected by name, and no quiet CPU run on a host without CUDA."""
+import dataclasses
+
+import pytest
+
+pytest.importorskip("torch")
+
+import torch  # noqa: E402
+
+from repro import api as japi  # noqa: E402
+from repro_torch import api as tapi  # noqa: E402
+from repro_torch.core.config import HFLConfig  # noqa: E402
+from repro_torch.core.engine import _build_global_round, hfl_init  # noqa: E402
+from repro_torch.models import small as tsmall  # noqa: E402
+
+
+def test_field_list_equals_reference():
+    assert ([f.name for f in dataclasses.fields(tapi.ExperimentSpec)]
+            == [f.name for f in dataclasses.fields(japi.ExperimentSpec)])
+    assert ([f.name for f in dataclasses.fields(tapi.RoundSchedule)]
+            == [f.name for f in dataclasses.fields(japi.RoundSchedule)])
+    from repro.core.config import HFLConfig as JHFLConfig
+    assert ([(f.name, f.default) for f in dataclasses.fields(HFLConfig)]
+            == [(f.name, f.default) for f in dataclasses.fields(JHFLConfig)])
+
+
+@pytest.mark.parametrize("kwargs,slice_name", [
+    ({"client_participation": 0.5}, "partial-participation"),
+    ({"group_participation": 0.5}, "partial-participation"),
+    ({"faults": object()}, "faults-and-defense"),
+    ({"defense": object()}, "faults-and-defense"),
+    ({"compression": object()}, "compressed-uploads"),
+    ({"staleness": "discount",
+      "schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "async-rounds"),
+    ({"schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "async-rounds"),
+    ({"population": 4}, "virtual-population"),
+    ({"client_state": "stateless"}, "virtual-population"),
+    ({"backend": "multilevel"}, "multilevel-backend"),
+    ({"level_participation": (1.0, 1.0)}, "multilevel-backend"),
+    ({"backend": "sharded"}, "sharded-backend"),
+    ({"correction_dtype": "bfloat16"}, "sharded-backend"),
+    ({"schedule": tapi.RoundSchedule(microbatches=2)}, "sharded-backend"),
+])
+def test_later_slice_fields_raise_naming_the_slice(kwargs, slice_name):
+    spec = tapi.ExperimentSpec(levels=(2, 2), **kwargs)
+    with pytest.raises(ValueError, match=f"the {slice_name} slice of the port"):
+        spec.validate()
+    with pytest.raises(ValueError, match=slice_name):
+        tapi.build(spec, lambda p, b: None, device="cpu")
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"algorithm": "sgd"}, "unknown algorithm"),
+    ({"fusion": "fused", "algorithm": "hfedavg"}, "mtgc only"),
+    ({"state_layout": "dense"}, "unknown state_layout"),
+    ({"correction_init": "random"}, "correction_init"),
+    ({"levels": (2, 2, 2)}, "two-level"),
+    ({"schedule": tapi.RoundSchedule(local_steps=0)}, "local_steps"),
+])
+def test_invalid_specs_raise(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        tapi.ExperimentSpec(**kwargs).validate()
+
+
+def test_round_builder_rejects_later_slice_plans():
+    cfg = HFLConfig()
+    for kw in ({"plan": object()}, {"faults": object()}, {"defense": object()},
+               {"compression": object()}):
+        with pytest.raises(ValueError, match="slice of the port"):
+            _build_global_round(lambda p, b: None, cfg, **kw)
+    with pytest.raises(ValueError, match="partial-participation"):
+        _build_global_round(lambda p, b: None, HFLConfig(client_participation=0.5))
+
+
+def test_hfl_config_round_trip():
+    spec = tapi.ExperimentSpec(levels=(3, 4), algorithm="fedprox", prox_mu=0.1,
+                               state_layout="tree")
+    assert tapi.ExperimentSpec.from_hfl_config(spec.to_hfl_config()) == spec
+
+
+def test_uniform_tuple_schedule_is_accepted():
+    spec = tapi.ExperimentSpec(levels=(2, 2), schedule=tapi.RoundSchedule(group_rounds=(3, 3)))
+    assert spec.validate().to_hfl_config().group_rounds == 3
+
+
+def test_default_device_is_cuda_and_never_a_quiet_cpu_run():
+    """Without ``device=``, build and hfl_init ask for the CUDA card; on a
+    host without one they raise instead of running on the CPU."""
+    init, apply = tsmall.mlp(10, 4, hidden=8)
+    p = init(torch.Generator().manual_seed(0))
+    spec = tapi.ExperimentSpec(levels=(2, 2))
+    if torch.cuda.is_available():
+        assert tapi.build(spec, tsmall.make_loss(apply)).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapi.build(spec, tsmall.make_loss(apply))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hfl_init(p, HFLConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tapi.build(spec, tsmall.make_loss(apply), device="cuda")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        tapi.build(spec, tsmall.make_loss(apply), device="meta")
+    assert tapi.build(spec, tsmall.make_loss(apply), device="cpu").device.type == "cpu"
+
+
+def test_wire_bytes_match_reference_and_compression_waits():
+    """The uncompressed wire model equals the reference's; compressed modes
+    and plans name their slice."""
+    import jax
+    import numpy as np
+
+    from repro.core import compression as jcmp
+    from repro_torch import convert
+    from repro_torch.core import compression as tcmp
+    stacked = {"a": np.zeros((2, 3, 4, 5), np.float32), "b": np.zeros((2, 3, 7), np.float32)}
+    jsizes = jcmp.model_leaf_sizes(jax.tree.map(np.asarray, stacked))
+    tstacked = convert.params_from_numpy(stacked, "cpu")
+    assert tcmp.model_leaf_sizes(tstacked) == jsizes
+    assert tcmp.upload_bytes(jsizes) == jcmp.upload_bytes(jsizes, "none")
+    want = float(jcmp.round_comm_bytes(stacked, None, 2 * 2 * 3, 2))
+    assert tcmp.round_comm_bytes(tstacked, None, 2 * 2 * 3, 2).item() == want
+    with pytest.raises(ValueError, match="compressed-uploads slice"):
+        tcmp.upload_bytes(jsizes, "int8_stochastic")
+    with pytest.raises(ValueError, match="compressed-uploads slice"):
+        tcmp.round_comm_bytes(tstacked, object(), 1, 1)
