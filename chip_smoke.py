@@ -10,8 +10,10 @@ version at the main path's shapes, times it, and then drives the training
 main path at full width -- the paper's CIFAR-10 CNN (McMahan et al.:
 conv5x5x32, pool, conv5x5x64, pool, fc512, fc10; N = 2,156,490 float32
 parameters) over 10 groups x 10 clients at batch 50, on synthetic data of
-CIFAR-10's 32x32x3 shape. Depth is cut: E = 2 group rounds of H = 5 local
-steps, 2 global rounds on the flat path. The learning rate is 0.01: at 0.1
+CIFAR-10's 32x32x3 shape -- uncompressed at full participation, with
+compressed uploads, and under partial participation. Depth is cut: E = 2
+group rounds of H = 5 local steps, 1 or 2 global rounds per path. The
+learning rate is 0.01: at 0.1
 the loss of this CNN on the synthetic images spikes into the thousands and
 then settles at chance (ln 10) in both packages
 (``tests/test_torch_driver.py::test_cifar_cnn_loss_spike_tracks_reference``).
@@ -31,9 +33,32 @@ final line):
  4. tree layout + fused step, one round; ``mtgc_update`` must launch
     E * H * 8 (leaves) times;
  5. fused against unfused, one round from the same state and batches;
- 6. the port on the card against the port on the CPU (the kernels' plain
-    versions) on a small input;
- 7. a JSON line per kernel, then ``{"ok": true, "device": {...}}`` last.
+ 6. the quantize kernels (``int8_roundtrip``, ``topk_mask``) against their
+    plain versions, bit for bit (NaN for NaN), at the client link's
+    [100, 2156490] and the group link's [10, 2156490] in float32, a ragged
+    N in bfloat16, and rows of zeros, +-Inf and NaN; then times, and the
+    time of the top-k threshold (``torch.topk``) the engine takes outside
+    the kernel;
+ 7. compressed main path, flat + fused, int8 on both links with error
+    feedback (the fig7 plan ``mtgc_int8_ef``), 2 rounds through ``fit``:
+    ``int8_roundtrip`` must launch rounds * (E + 1) times, ``comm_bytes``
+    must equal the wire model, the residuals must be finite and not all
+    zero; then one round timed, and peak memory;
+ 8. the compressed round fused against unfused, from one state with the
+    same injected draws, deterministic cuDNN: params and both residuals
+    bit-identical;
+ 9. partial participation (fig7's ``mtgc_topk_ef``: top-k client link,
+    bf16 group link, at client_participation 0.5, fixed, inverse_prob),
+    one round through ``fit``: ``topk_mask`` launches E times,
+    ``mtgc_update_flat`` E * H times with a mask, frozen replicas keep
+    their bits, ``comm_bytes`` counts E * 50 client uploads and the active
+    groups;
+10. tree + fused with int8 on both links, one round: ``int8_roundtrip``
+    launches 8 * E + 8 times (8 CNN leaves);
+11. the port on the card against the port on the CPU (the kernels' plain
+    versions) on a small input: the uncompressed round, and a compressed
+    round under partial participation with injected draws;
+12. a JSON line per kernel, then ``{"ok": true, "device": {...}}`` last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``) for the whole run, so every
@@ -42,6 +67,7 @@ assume. The script needs one card.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -52,6 +78,9 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, float32 outside tensor cores
 FLOPS_PER_ELEMENT = 5          # g*gs, +z, +y, lr*d, x-...
+INT8_FLOPS = 6                 # u/s, +noise, floor, two clip compares, q*s
+TOPK_FLOPS = 2                 # |u|, compare
+TOPK_FRAC = 0.1
 E, H, ROUNDS, GROUPS, CLIENTS, BATCH = 2, 5, 2, 10, 10, 50
 IMAGE = (32, 32, 3)
 LR = 0.01
@@ -96,11 +125,11 @@ def timed(torch, kernel, plain) -> dict:
             "plain_ms_readings": [p1, p2]}
 
 
-def bound_ms(nbytes: int, elements: int) -> tuple[float, str]:
-    """Least time for the work: bytes over HBM rate vs flops over the
-    float32 peak, whichever is larger."""
+def bound_ms(nbytes: int, elements: int, flops: int = FLOPS_PER_ELEMENT) -> tuple[float, str]:
+    """Least time for the work: bytes over HBM rate vs ``flops`` per
+    element over the float32 peak, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = FLOPS_PER_ELEMENT * elements / F32_FLOPS_PER_S * 1e3
+    t_ops = flops * elements / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -203,6 +232,97 @@ def phase_kernels(torch, mu, N, leaf_shapes):
     return errs, flat, leaf
 
 
+def same_bits(torch, got, want) -> bool:
+    """Bit-exact, NaN for NaN: NaN at the same places, every other entry
+    with the same bits (so -0.0 and +0.0 differ)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    nan = torch.isnan(got)
+    if not torch.equal(nan, torch.isnan(want)):
+        return False
+    ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(got[~nan].view(ints), want[~nan].view(ints))
+
+
+def phase_quantize(torch, qz, N):
+    """Phase 6: the quantize kernels bit for bit against their plain
+    versions at the compressed paths' shapes, then times."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    R = GROUPS * CLIENTS
+
+    def operands(rows, n, dtype=torch.float32):
+        u = (torch.randn(rows, n, generator=gen, device=dev) * 1e-2).to(dtype)
+        noise = torch.rand(rows, n, generator=gen, device=dev)
+        amax = u.abs().float().amax(dim=1)
+        scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        k = max(1, math.ceil(TOPK_FRAC * n))
+        thresh = torch.topk(u.abs(), k, dim=1).values[:, -1]
+        return u, noise, scale, thresh
+
+    def check(tag, u, noise, scale, thresh):
+        got = qz.int8_roundtrip(u, scale, noise)
+        want = qz.int8_roundtrip_ref(u, scale, noise)
+        torch.cuda.synchronize()
+        require(same_bits(torch, got, want), f"int8_roundtrip is not bit-exact ({tag})")
+        fin = torch.isfinite(want)
+        errs["int8_roundtrip"] = max(errs["int8_roundtrip"],
+                                     (got[fin].float() - want[fin].float()).abs().max().item()
+                                     if bool(fin.any()) else 0.0)
+        got = qz.topk_mask(u, thresh)
+        want = qz.topk_mask_ref(u, thresh)
+        torch.cuda.synchronize()
+        require(same_bits(torch, got, want), f"topk_mask is not bit-exact ({tag})")
+        errs["topk_mask"] = max(errs["topk_mask"], (got.float() - want.float()).abs().max().item())
+        log(f"quantize {tag}: int8_roundtrip and topk_mask bit-exact")
+
+    errs = {"int8_roundtrip": 0.0, "topk_mask": 0.0}
+    check(f"f32 [{R},{N}] (client link)", *operands(R, N))
+    check(f"f32 [{GROUPS},{N}] (group link)", *operands(GROUPS, N))
+    check("bf16 [7,1001] (ragged N)", *operands(7, 1001, torch.bfloat16))
+    u, noise, scale, thresh = operands(5, 3001)
+    u[0] = 0.0
+    scale[0] = 1.0                       # a zero row's scale, as the engine sets it
+    u[1, ::7] = float("inf")
+    u[1, 3::7] = -float("inf")
+    u[2, ::5] = float("nan")
+    u[3, 5] = -0.0
+    thresh[3] = 0.0                      # keeps -0.0 (|-0| >= 0)
+    check("f32 [5,3001] zero/+-Inf/NaN rows", u, noise, scale, thresh)
+    got = qz.int8_roundtrip(u, scale, noise)
+    require(bool((got[0] == 0).all()) and bool(torch.isnan(got[2, ::5]).all())
+            and bool((got[1, ::7] == 127.0 * scale[1]).all()),
+            "int8_roundtrip special rows: zero row, NaN or Inf clip wrong")
+
+    times = {}
+    for tag, rows in (("client", R), ("group", GROUPS)):
+        u, noise, scale, thresh = operands(rows, N)
+        t = timed(torch, lambda: qz.int8_roundtrip(u, scale, noise),
+                  lambda: qz.int8_roundtrip_ref(u, scale, noise))
+        nbytes = 3 * u.numel() * 4 + rows * 4
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, u.numel(), INT8_FLOPS)
+        t["bytes"] = nbytes
+        times[f"int8_roundtrip/{tag}"] = t
+        t = timed(torch, lambda: qz.topk_mask(u, thresh), lambda: qz.topk_mask_ref(u, thresh))
+        nbytes = 2 * u.numel() * 4 + rows * 4
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, u.numel(), TOPK_FLOPS)
+        t["bytes"] = nbytes
+        times[f"topk_mask/{tag}"] = t
+        k = max(1, math.ceil(TOPK_FRAC * N))
+        times[f"threshold/{tag}"] = {"ms": cuda_ms(torch, lambda: torch.topk(
+            u.abs(), k, dim=1).values[:, -1], iters=5, warmup=1), "k": k}
+        del u, noise, scale, thresh
+    torch.cuda.empty_cache()
+    for name, t in times.items():
+        if "bound_ms" in t:
+            log(f"{name}: kernel {t['ms']:.4f} ms {t['ms_readings']}, plain "
+                f"{t['plain_ms']:.4f} ms {t['plain_ms_readings']}, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} bytes)")
+        else:
+            log(f"{name}: torch.topk(|u|, k={t['k']}) {t['ms']:.4f} ms")
+    return errs, times
+
+
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -291,6 +411,27 @@ def profile_round(torch, run) -> dict:
     return {"wall_us": wall_us, **dev}
 
 
+def log_trace(tag: str, trace: dict, top_n: int = 12) -> None:
+    """Print a ``profile_round`` result: busy share, streams, and the
+    ``top_n`` kernels by their share of the busy time."""
+    if not trace:
+        log(f"{tag}: the trace holds no device time (not measured)")
+        return
+    busy = trace["busy"]
+    summed = sum(n["summed"] for n in trace["by_name"].values())
+    log(f"{tag}: wall {trace['wall_us'] / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms (busy share {busy / trace['wall_us']:.3f}); summed "
+        f"durations {summed / 1e3:.1f} ms in {len(trace['by_name'])} kernels; "
+        f"{trace['dropped']} events with a repeated correlation id dropped")
+    for sid, st in sorted(trace["by_stream"].items()):
+        log(f"  stream {sid}: {st['count']} events, summed {st['summed'] / 1e3:.1f} ms, "
+            f"busy {st['union'] / 1e3:.1f} ms")
+    top = sorted(trace["by_name"].items(), key=lambda kv: -kv[1]["attributed"])[:top_n]
+    for name, n in top:
+        log(f"  {n['attributed'] / 1e3:9.3f} ms {100 * n['attributed'] / busy:5.1f}% "
+            f"of busy (summed {n['summed'] / 1e3:.3f} ms) x{n['count']:<4d} {name[:90]}")
+
+
 def finite_metrics(np, hz) -> None:
     for f in hz.metrics._fields:
         v = np.asarray(getattr(hz.metrics, f))
@@ -311,11 +452,15 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import api, convert
+    from repro_torch.core.compression import upload_bytes
     from repro_torch.core.driver import select_round
+    from repro_torch.core.engine import RoundDraws
     from repro_torch.core.packer import make_packer
+    from repro_torch.core.participation import ParticipationMasks, round_masks
     from repro_torch.data import make_classification, partition, train_test_split
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import mtgc_update as mu
+    from repro_torch.kernels import quantize as qz
     from repro_torch.models import small
 
     torch.backends.cudnn.allow_tf32 = False
@@ -394,23 +539,8 @@ def main() -> int:
         f"one more round {steady_ms:.1f} ms; peak memory {peak_gb:.2f} GB; "
         f"mtgc_update_flat launches {flat_launches}")
     log(f"  loss per step {np.round(hz.metrics.loss.reshape(-1), 4).tolist()}")
-    trace = profile_round(torch, lambda: api.fit(engine, data, 1, state=state))
-    if trace:
-        busy = trace["busy"]
-        summed = sum(n["summed"] for n in trace["by_name"].values())
-        log(f"profiled round: wall {trace['wall_us'] / 1e3:.1f} ms, device busy "
-            f"{busy / 1e3:.1f} ms (busy share {busy / trace['wall_us']:.3f}); summed "
-            f"durations {summed / 1e3:.1f} ms in {len(trace['by_name'])} kernels; "
-            f"{trace['dropped']} events with a repeated correlation id dropped")
-        for sid, st in sorted(trace["by_stream"].items()):
-            log(f"  stream {sid}: {st['count']} events, summed {st['summed'] / 1e3:.1f} ms, "
-                f"busy {st['union'] / 1e3:.1f} ms")
-        top = sorted(trace["by_name"].items(), key=lambda kv: -kv[1]["attributed"])[:12]
-        for name, n in top:
-            log(f"  {n['attributed'] / 1e3:9.3f} ms {100 * n['attributed'] / busy:5.1f}% "
-                f"of busy (summed {n['summed'] / 1e3:.3f} ms) x{n['count']:<4d} {name[:90]}")
-    else:
-        log("profiled round: the trace holds no device time (not measured)")
+    log_trace("profiled round", profile_round(torch, lambda: api.fit(engine, data, 1,
+                                                                      state=state)))
     log(f"  eval rounds {hz.eval_rounds.tolist()} acc {hz.evals['acc'].tolist()}; "
         f"z_norm {hz.metrics.z_norm.tolist()} y_norm {hz.metrics.y_norm.tolist()} "
         f"comm_bytes {hz.metrics.comm_bytes.tolist()}")
@@ -455,9 +585,156 @@ def main() -> int:
     log(f"fused vs unfused (deterministic cuDNN): max |dx| {diff} (max |x| {scale}), "
         f"max |dloss| {loss_diff}")
     require(diff <= 1e-5 * scale, "fused and unfused rounds disagree beyond 1e-5 relative")
-    del s_f, s_u, batches, state, data
+    del s_f, s_u, batches, state, engine, unfused
+    torch.cuda.empty_cache()
 
-    # --- 6. card against CPU on a small input ---------------------------
+    # --- 6. quantize kernels ------------------------------------------
+    q_errs, q_t = phase_quantize(torch, qz, N)
+
+    # --- 7. compressed main path: flat + fused, int8 on both links ------
+    sizes = ((N, "float32"),)
+    int8_spec = dataclasses.replace(
+        spec, compression=api.CompressionPlan("int8_stochastic", "int8_stochastic"))
+    c_engine = api.build(int8_spec, loss_fn)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    c_state, hz_c = api.fit(c_engine, data, ROUNDS, params=p0)
+    torch.cuda.synchronize()
+    c_fit_s = time.perf_counter() - t0
+    int8_launches = qz.int8_roundtrip.launches
+    c_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(int8_launches == ROUNDS * (E + 1),
+            f"int8_roundtrip launched {int8_launches} times, expected {ROUNDS * (E + 1)}")
+    require(mu.mtgc_update_flat.launches == E * H * ROUNDS and qz.topk_mask.launches == 0,
+            "the compressed flat path launched the wrong kernels")
+    finite_metrics(np, hz_c)
+    wire = upload_bytes(sizes, "int8_stochastic") * (E * GROUPS * CLIENTS + GROUPS)
+    comm = np.asarray(hz_c.metrics.comm_bytes, np.float64)
+    require(bool(np.all(np.abs(comm - wire) <= wire * 2.0 ** -22)),
+            f"comm_bytes {comm.tolist()} is not the int8 wire model {wire}")
+    for name in ("efc", "efg"):
+        r = getattr(c_state, name).bufs["float32"]
+        require(bool(torch.isfinite(r).all()) and bool((r != 0).any()),
+                f"the {name} residual is not finite or is all zero")
+    t0 = time.perf_counter()
+    c_state, hz_c1 = api.fit(c_engine, data, 1, state=c_state)
+    torch.cuda.synchronize()
+    c_ms = (time.perf_counter() - t0) * 1e3
+    finite_metrics(np, hz_c1)
+    log_trace("profiled compressed round", profile_round(
+        torch, lambda: api.fit(c_engine, data, 1, state=c_state)), top_n=20)
+    log(f"compressed flat+fused (int8/int8, EF): fit {ROUNDS} rounds in {c_fit_s:.3f} s; one "
+        f"more round {c_ms:.1f} ms; peak memory {c_peak_gb:.2f} GB; int8_roundtrip launches "
+        f"{int8_launches}; comm_bytes {comm.tolist()} (uncompressed "
+        f"{hz.metrics.comm_bytes.tolist()}); loss "
+        f"{np.round(hz_c.metrics.loss.reshape(-1), 4).tolist()}")
+
+    # --- 8. compressed: fused against unfused, same state and draws ------
+    c_unfused = api.build(dataclasses.replace(int8_spec, fusion="none"), loss_fn)
+    batches = select_round(data, sid)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    draws = RoundDraws(
+        client_noise=[[torch.rand((GROUPS * CLIENTS, N), generator=gen, device="cuda")]
+                      for _ in range(E)],
+        group_noise=[torch.rand((GROUPS, N), generator=gen, device="cuda")])
+    torch.backends.cudnn.deterministic = True
+    s_f, m_f = c_engine.round_fn(c_state, batches, draws=draws)
+    s_u, m_u = c_unfused.round_fn(c_state, batches, draws=draws)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    for name in ("params", "z", "y", "efc", "efg"):
+        require(torch.equal(getattr(s_f, name).bufs["float32"],
+                            getattr(s_u, name).bufs["float32"]),
+                f"compressed fused and unfused rounds differ in {name}")
+    require(torch.equal(m_f.loss, m_u.loss), "compressed fused and unfused losses differ")
+    log("compressed fused vs unfused (deterministic cuDNN, injected draws): params, z, y, "
+        "efc, efg bit-identical")
+    del s_f, s_u, batches, draws, c_state, c_engine, c_unfused
+    torch.cuda.empty_cache()
+
+    # --- 9. partial participation, top-k client link, bf16 group link ----
+    part_spec = dataclasses.replace(
+        spec, compression=api.CompressionPlan("topk", "bf16", topk_frac=TOPK_FRAC),
+        client_participation=0.5, participation_mode="fixed",
+        participation_weighting="inverse_prob")
+    p_engine = api.build(part_spec, loss_fn)
+    p_state0 = p_engine.init(p0)
+    mgen = torch.Generator(device="cuda")
+    mgen.set_state(p_state0.rng.get_state())
+    masks = round_masks(mgen, part_spec.to_hfl_config())  # the draw the round makes
+    masked_calls = []
+    flat_launch = ops.mtgc_update_flat
+
+    def spy(x, g, z, y, mask=None, **kw):
+        masked_calls.append(mask is not None)
+        return flat_launch(x, g, z, y, mask, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ops.mtgc_update_flat = spy
+    try:
+        t0 = time.perf_counter()
+        p_state, hz_p = api.fit(p_engine, data, 1, state=p_state0)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ops.mtgc_update_flat = flat_launch
+    topk_launches, flat_in_partial = qz.topk_mask.launches, mu.mtgc_update_flat.launches
+    p_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(topk_launches == E, f"topk_mask launched {topk_launches} times, expected {E}")
+    require(flat_in_partial == E * H and len(masked_calls) == E * H and all(masked_calls),
+            f"mtgc_update_flat launched {flat_in_partial} times ({sum(masked_calls)} with a "
+            f"mask), expected {E * H} masked")
+    require(qz.int8_roundtrip.launches == 0, "the top-k/bf16 path launched int8_roundtrip")
+    finite_metrics(np, hz_p)
+    frozen = masks.client == 0
+    n_active = int(masks.client.sum().item())
+    require(n_active == GROUPS * CLIENTS // 2, f"{n_active} active clients, expected 50")
+    for name in ("params", "z", "efc"):
+        before = getattr(p_state0, name).bufs["float32"][frozen]
+        after = getattr(p_state, name).bufs["float32"][frozen]
+        require(torch.equal(before.view(torch.int32), after.view(torch.int32)),
+                f"a frozen replica's {name} changed")
+    gact = int((masks.client.sum(dim=1) > 0).sum().item())
+    wire = (upload_bytes(sizes, "topk", TOPK_FRAC) * E * n_active
+            + upload_bytes(sizes, "bf16") * gact)
+    comm = float(hz_p.metrics.comm_bytes[0])
+    require(abs(comm - wire) <= wire * 2.0 ** -22,
+            f"partial comm_bytes {comm} is not the wire model {wire}")
+    require(abs(float(hz_p.metrics.participation[0]) - 0.5) < 1e-7, "participation is not 0.5")
+    t0 = time.perf_counter()
+    api.fit(p_engine, data, 1, state=p_state)
+    torch.cuda.synchronize()
+    p2_ms = (time.perf_counter() - t0) * 1e3
+    log(f"partial (C=0.5 fixed, inverse_prob; top-k 0.1 / bf16, EF): one round {p_ms:.1f} ms "
+        f"(first round of this spec), the next {p2_ms:.1f} ms; peak memory {p_peak_gb:.2f} GB; "
+        f"topk_mask launches "
+        f"{topk_launches}; masked mtgc_update_flat launches {sum(masked_calls)}; "
+        f"{int(frozen.sum())} frozen replicas bit-identical; comm_bytes {comm} "
+        f"({E} x {n_active} client uploads + {gact} groups)")
+    del p_state, p_state0, p_engine
+
+    # --- 10. tree + fused, int8 on both links, one round ----------------
+    tc_engine = api.build(dataclasses.replace(int8_spec, state_layout="tree"), loss_fn)
+    tc_state = tc_engine.init(p0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tc_state, hz_tc = api.fit(tc_engine, data, 1, state=tc_state)
+    torch.cuda.synchronize()
+    tc_ms = (time.perf_counter() - t0) * 1e3
+    tree_int8 = qz.int8_roundtrip.launches
+    require(tree_int8 == n_leaves * E + n_leaves,
+            f"tree int8_roundtrip launched {tree_int8} times, expected {n_leaves * (E + 1)}")
+    require(mu.mtgc_update.launches == E * H * n_leaves, "the tree path's leaf launches")
+    finite_metrics(np, hz_tc)
+    log(f"tree+fused int8/int8: one round {tc_ms:.1f} ms (first round of this spec); "
+        f"int8_roundtrip launches {tree_int8}")
+    del tc_state, tc_engine, data
+    torch.cuda.empty_cache()
+
+    # --- 11. card against CPU on a small input ---------------------------
     small_init, small_apply = small.cnn(10, (8, 8, 1))
     ps = small_init(torch.Generator().manual_seed(3))
     rs = np.random.default_rng(3)
@@ -482,7 +759,43 @@ def main() -> int:
     log(f"card vs CPU on cnn(8x8x1), G=2 K=3 E=2 H=2: agree within rtol 1e-4 "
         f"(worst {worst:.2e})")
 
-    # --- 7. results ------------------------------------------------------
+    # A compressed round under partial participation, draws injected, on an
+    # elementwise quadratic model (both devices compute it in one order, so
+    # no one-ulp difference can move an int8 step; the CNN's convolutions
+    # would, see ROADMAP queue 3).
+    def quad_loss(p, bt):
+        r = bt["a"] * p["w"] - bt["b"]
+        return 0.5 * torch.sum(r * r) + 0.5 * torch.sum((bt["c"] * p["v"] - bt["e"]) ** 2)
+
+    pq = {"w": torch.zeros(200), "v": torch.zeros(30)}
+    bq = {k: torch.from_numpy((rs.normal(size=(2, 2, 2, 3, n)) + off).astype(np.float32))
+          for k, n, off in (("a", 200, 1.0), ("b", 200, 0.0), ("c", 30, 1.0), ("e", 30, 0.0))}
+    dq = RoundDraws(
+        masks=ParticipationMasks(torch.ones(2), torch.tensor([[1.0, 0.0, 1.0], [0.0, 1.0, 1.0]])),
+        client_noise=[[torch.from_numpy(rs.random((6, 230)).astype(np.float32))]
+                      for _ in range(2)])
+    for layout in ("flat", "tree"):
+        sp = api.ExperimentSpec(levels=(2, 3), schedule=api.RoundSchedule(2, 2),
+                                fusion="fused", state_layout=layout, client_participation=0.5,
+                                compression=api.CompressionPlan("int8_stochastic", "topk",
+                                                                topk_frac=0.2))
+        outs = []
+        for dev in ("cuda", "cpu"):
+            eng = api.build(sp, quad_loss, device=dev)
+            draws = dq if layout == "flat" else dq._replace(client_noise=[
+                [n[0][:, 200:], n[0][:, :200]] for n in dq.client_noise])  # leaves v, w
+            st, met = eng.round_fn(eng.init(pq), {k: v.to(dev) for k, v in bq.items()},
+                                   draws=draws)
+            outs.append(convert.to_numpy(st))
+        for name in ("params", "z", "y", "efc", "efg"):
+            for key, cpu in outs[1][name].items():
+                gpu = outs[0][name][key]
+                require(np.allclose(gpu, cpu, rtol=1e-5, atol=1e-6),
+                        f"compressed partial {layout}: {name}/{key} differs between card and CPU")
+    log("card vs CPU, compressed (int8 client, top-k group) at C=0.5 with injected draws, "
+        "flat and tree: agree within rtol 1e-5")
+
+    # --- 12. results -----------------------------------------------------
     kernels = [
         {"name": "mtgc_update_flat", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mtgc_update.cu",
@@ -499,6 +812,20 @@ def main() -> int:
          "bound_by": leaf_t["bound_by"], "library_ms": None,
          "shape": f"one local step: {n_leaves} CNN leaves [{GROUPS},{CLIENTS},...] f32"},
     ]
+    for name, launches, replaces in (("int8_roundtrip", int8_launches, 66),
+                                     ("topk_mask", topk_launches, 96)):
+        t, tg = q_t[f"{name}/client"], q_t[f"{name}/group"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantize.cu",
+            "replaces": f"src/repro/kernels/quantize.py:{replaces}",
+            "launches": launches, "max_abs_err": q_errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "shape": f"u [{GROUPS * CLIENTS},{N}] f32 (client link)",
+            "group_link": {"shape": f"u [{GROUPS},{N}] f32", "ms": tg["ms"],
+                           "plain_ms": tg["plain_ms"], "bound_ms": tg["bound_ms"]},
+            "threshold_ms": q_t["threshold/client"]["ms"] if name == "topk_mask" else None})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

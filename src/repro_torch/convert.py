@@ -37,33 +37,39 @@ def params_from_numpy(tree, device=None):
     return tree_map(lambda a: tensor_from_numpy(a, dev), tree)
 
 
-def state_from_numpy(params, z, y, dyn, round=0, *, template=None, rng=None,
-                     device=None) -> HFLState:
+def state_from_numpy(params, z, y, dyn, round=0, *, efc=None, efg=None, template=None,
+                     rng=None, device=None) -> HFLState:
     """An ``HFLState`` from numpy fields.
 
-    Tree layout (``template=None``): each of params / z / y / dyn is a
-    nested dict of stacked arrays. Flat layout: pass the single-model
-    ``template`` params tree (shapes and dtypes are all that is read); each
-    field is then a ``{dtype key: [*lead, N] array}`` dict -- the
-    reference's ``FlatBuffers.bufs`` -- wrapped with the segment table
+    Tree layout (``template=None``): each of params / z / y / dyn (and the
+    error-feedback residuals efc / efg, when given) is a nested dict of
+    stacked arrays. Flat layout: pass the single-model ``template`` params
+    tree (shapes and dtypes are all that is read); each field is then a
+    ``{dtype key: [*lead, N] array}`` dict -- the reference's
+    ``FlatBuffers.bufs`` -- wrapped with the segment table
     ``make_packer(template)``, identical to the reference's.
     """
     dev = resolve_device(device)
     if template is None:
-        fields = [params_from_numpy(f, dev) for f in (params, z, y, dyn)]
+        def field(f):
+            return params_from_numpy(f, dev)
     else:
         packer = make_packer(tree_map(lambda a: torch.empty(
             np.shape(a), dtype=key_dtype(np.asarray(a).dtype.name)), template))
-        fields = [FlatBuffers({k: tensor_from_numpy(v, dev) for k, v in f.items()}, packer)
-                  for f in (params, z, y, dyn)]
-    return HFLState(*fields, rng=rng,
-                    round=torch.as_tensor(np.asarray(round), dtype=torch.int32).to(dev))
+
+        def field(f):
+            return FlatBuffers({k: tensor_from_numpy(v, dev) for k, v in f.items()}, packer)
+    return HFLState(*(field(f) for f in (params, z, y, dyn)), rng=rng,
+                    round=torch.as_tensor(np.array(round), dtype=torch.int32).to(dev),
+                    efc=None if efc is None else field(efc),
+                    efg=None if efg is None else field(efg))
 
 
 def to_numpy(obj: Any):
     """Tensors -> numpy arrays, recursively through dicts, FlatBuffers (to
     their ``bufs`` dict) and NamedTuples (``HFLState``, ``RoundMetrics``: to
-    a dict of fields, leaving out a None or ``torch.Generator`` field).
+    a dict of fields, leaving out a None or ``torch.Generator`` field, so a
+    state carries ``efc``/``efg`` only where it has them).
     bfloat16 tensors come back as float32 arrays."""
     if isinstance(obj, torch.Tensor):
         t = obj.detach().cpu()

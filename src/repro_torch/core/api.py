@@ -3,10 +3,12 @@
 Port of the simulator path of ``src/repro/core/api.py``. The spec keeps
 the reference's full field list, so one set of keyword arguments builds
 both packages' specs; a field whose feature belongs to a later slice of
-the port raises ``ValueError`` naming that slice. :func:`build` turns a
-spec into a :class:`SimulatorEngine` on a device (the CUDA card unless
-``device="cpu"`` is passed) and :func:`fit` drives it through the horizon
-driver (``core.driver``)::
+the port raises ``ValueError`` naming that slice. Partial participation
+(``client_participation``/``group_participation`` < 1) and compressed
+uploads (``compression=CompressionPlan(...)``) run on the simulator.
+:func:`build` turns a spec into a :class:`SimulatorEngine` on a device
+(the CUDA card unless ``device="cpu"`` is passed) and :func:`fit` drives it
+through the horizon driver (``core.driver``)::
 
     from repro_torch import api
     spec = api.ExperimentSpec(
@@ -27,14 +29,13 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core.compression import CompressionPlan
 from repro_torch.core.config import HFLConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.driver import Horizon, PackedBatches, pack_client_shards, run_rounds
 from repro_torch.core.engine import (
     ASYNC_SLICE,
-    COMPRESSION_SLICE,
     FAULTS_SLICE,
-    PARTIAL_SLICE,
     RoundMetrics,
     _build_global_round,
     global_model,
@@ -128,10 +129,11 @@ class ExperimentSpec:
     """Everything that defines one HFL experiment (the reference's fields;
     see ``src/repro/core/api.py`` for each one's meaning).
 
-    This slice runs the simulator backend at full participation under the
-    sync schedule, in either state layout, fused (mtgc) or not. ``faults``,
-    ``defense`` and ``compression`` take the reference's plan objects'
-    place; any value but None needs a later slice.
+    The port runs the simulator backend under the sync schedule, in
+    either state layout, fused (mtgc) or not, at full or partial
+    participation, with or without a ``CompressionPlan``. ``faults`` and
+    ``defense`` take the reference's plan objects' place; any value but
+    None needs a later slice.
     """
 
     levels: tuple[int, ...] = (2, 2)
@@ -189,14 +191,10 @@ class ExperimentSpec:
         for name in ("client_participation", "group_participation"):
             frac = getattr(self, name)
             _require(0.0 < frac <= 1.0, f"{name} must be in (0, 1], got {frac}")
-        if not self.full_participation:
-            raise _needs("client/group participation < 1", PARTIAL_SLICE)
         if self.faults is not None:
             raise _needs("fault injection (faults=)", FAULTS_SLICE)
         if self.defense is not None:
             raise _needs("screened aggregation (defense=)", FAULTS_SLICE)
-        if self.compression is not None:
-            raise _needs("compressed uploads (compression=)", COMPRESSION_SLICE)
         _require(self.client_state in CLIENT_STATES,
                  f"unknown client_state {self.client_state!r} "
                  f"(choose from {CLIENT_STATES})")
@@ -222,11 +220,26 @@ class ExperimentSpec:
         _require(self.participation_weighting in ("none", "inverse_prob"),
                  f"participation_weighting must be 'none' or 'inverse_prob', "
                  f"got {self.participation_weighting!r}")
+
+        # Compressed uploads (the reference's rejections; the multilevel,
+        # async and population combinations raise their slice above).
+        if self.compression is not None:
+            self.compression.validate()
+        if self.compressed:
+            _require(self.correction_init == "zero",
+                     "compressed uploads require correction_init='zero' "
+                     "(the gradient init predates the upload seam)")
+            _require(self.server_lr == 1.0, "compressed uploads require server_lr=1.0")
         return self
 
     @property
     def full_participation(self) -> bool:
         return self.client_participation >= 1.0 and self.group_participation >= 1.0
+
+    @property
+    def compressed(self) -> bool:
+        """True when any upload link carries a non-trivial compressor."""
+        return self.compression is not None and self.compression.enabled
 
     def to_hfl_config(self) -> HFLConfig:
         """The equivalent two-level ``HFLConfig`` (simulator engine)."""
@@ -300,11 +313,26 @@ class SimulatorEngine:
         self.device = device
         self._cfg = spec.to_hfl_config().validate()
         self.metric_fields = RoundMetrics._fields
-        self.round_fn = _build_global_round(loss_fn, self._cfg)
+        self.round_fn = _build_global_round(loss_fn, self._cfg,
+                                            compression=spec.compression)
 
-    def init(self, params: Tree, rng=None):
-        """Broadcast one model into the round state on the engine's device."""
-        return hfl_init(params, self._cfg, rng, device=self.device)
+    def init(self, params: Tree, rng: torch.Generator | None = None):
+        """Broadcast one model into the round state on the engine's device,
+        with the error-feedback residuals the compression plan carries.
+
+        A partial-participation or stochastic-rounding run draws from the
+        state's ``rng``; without one it gets a generator on the engine's
+        device seeded with 0 (the reference's ``PRNGKey(0)``).
+        """
+        spec = self.spec
+        comp = spec.compression if spec.compressed else None
+        if rng is None and (not spec.full_participation
+                            or (comp is not None and comp.stochastic)):
+            rng = torch.Generator(device=self.device).manual_seed(0)
+        return hfl_init(params, self._cfg, rng,
+                        ef_client=comp is not None and comp.ef_client,
+                        ef_group=comp is not None and comp.ef_group,
+                        device=self.device)
 
     def global_model(self, state) -> Tree:
         return global_model(state)
@@ -363,6 +391,7 @@ __all__ = [
     "ALGORITHMS",
     "BACKENDS",
     "CLIENT_STATES",
+    "CompressionPlan",
     "ExperimentSpec",
     "FUSIONS",
     "Horizon",

@@ -1,22 +1,173 @@
-"""Wire-byte accounting of one global round (port of the uncompressed part
-of ``src/repro/core/compression.py``).
+"""Compressed hierarchical uploads (port of ``src/repro/core/compression.py``):
+per-link quantization/sparsification plans, error-feedback residuals, and
+bytes-on-the-wire accounting.
 
-Every engine reports the modeled per-round upload bytes (``comm_bytes``)
-whether or not uploads are compressed. This slice ports the uncompressed
-wire model only; the compressors (bf16, stochastic int8, top-k) and their
-error-feedback residuals belong to the compressed-uploads slice of the
-port, and asking for them raises.
+The two upload links are compression boundaries:
+
+* **client -> group**: each active client uploads its local-phase delta
+  ``x_end - x_start`` once per group round (E times per global round);
+* **group -> global**: each reporting group uploads its aggregate delta
+  ``xbar_g - x_start_g`` once per global round.
+
+:class:`CompressionPlan` configures each link with one of
+``none | bf16 | int8_stochastic | topk``:
+
+* ``bf16`` -- a plain cast to bfloat16 and back (2 bytes/elem; no kernel);
+* ``int8_stochastic`` -- per-row scale ``amax(|u|)/127`` and stochastic
+  rounding to int8 (1 byte/elem + one f32 scale per row), unbiased;
+* ``topk`` -- keep the ``ceil(topk_frac * N)`` largest-magnitude entries
+  per row (8 bytes per kept entry: value + index), biased.
+
+With ``error_feedback=True`` each link carries a residual (``efc``
+``[G, K, ...]`` per client, ``efg`` ``[G, ...]`` per group): the link sends
+``u = delta + residual`` and keeps ``u - Q(u)`` for the next upload.
+
+The round trip of a row runs through the CUDA kernels of
+``kernels/quantize.py`` when the engine's spec is fused (their plain
+versions on CPU tensors), and through the plain versions directly when it
+is not -- the reference's ``dispatch`` (``interpret``/``pallas`` against
+``ref``). The threshold ``topk(|u|, k)`` and the int8 ``amax`` stay library
+calls outside the kernels, as ``jax.lax.top_k`` and ``jnp.max`` are in the
+reference.
+
+Random draws: the reference draws each leaf's noise from
+``fold_in(key, leaf index)``. Here the caller passes the noise tensors
+(one per leaf, ``[rows, n]``), or a ``torch.Generator`` that draws them
+in leaf order.
+
+Bytes on the wire are modeled (the int8 payload is never materialized):
+:func:`upload_bytes` maps one model's leaves and a mode to the size of one
+upload, :func:`round_comm_bytes` multiplies by the realized upload counts.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from repro_torch.core.packer import dtype_key, key_dtype
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import quantize as qz
 
-COMPRESSED_SLICE = "the compressed-uploads slice of the port"
+COMPRESSION_MODES = ("none", "bf16", "int8_stochastic", "topk")
+
+# Wire-format constants for the modeled byte accounting.
+_SCALE_BYTES = 4        # one f32 scale per int8 row
+_TOPK_ENTRY_BYTES = 8   # f32 value + int32 index per kept entry
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionPlan:
+    """Per-link upload compression config (the reference's fields).
+
+    client_mode: compressor on the client -> group upload link.
+    group_mode: compressor on the group -> global upload link.
+    error_feedback: carry per-link residuals (``efc``/``efg`` state
+        fields). Applies to every non-``none`` link.
+    topk_frac: fraction of entries a ``topk`` link keeps per row
+        (``k = ceil(topk_frac * N)``, at least 1).
+    """
+
+    client_mode: str = "none"
+    group_mode: str = "none"
+    error_feedback: bool = True
+    topk_frac: float = 0.01
+
+    @property
+    def enabled(self) -> bool:
+        return self.client_mode != "none" or self.group_mode != "none"
+
+    @property
+    def stochastic(self) -> bool:
+        """True when either link draws rounding noise from the state rng."""
+        return "int8_stochastic" in (self.client_mode, self.group_mode)
+
+    @property
+    def ef_client(self) -> bool:
+        return self.error_feedback and self.client_mode != "none"
+
+    @property
+    def ef_group(self) -> bool:
+        return self.error_feedback and self.group_mode != "none"
+
+    def validate(self) -> "CompressionPlan":
+        for name in ("client_mode", "group_mode"):
+            mode = getattr(self, name)
+            _require(mode in COMPRESSION_MODES,
+                     f"unknown {name} {mode!r} (choose from {COMPRESSION_MODES})")
+        _require(0.0 < self.topk_frac <= 1.0,
+                 f"topk_frac must be in (0, 1], got {self.topk_frac}")
+        return self
+
+
+def _rows(leaf: torch.Tensor, lead_ndim: int) -> tuple[int, int]:
+    rows = math.prod(leaf.shape[:lead_ndim])
+    n = math.prod(leaf.shape[lead_ndim:]) if leaf.dim() > lead_ndim else 1
+    return rows, n
+
+
+def _leaf_roundtrip(leaf, lead_ndim: int, mode: str, frac: float, noise, fused: bool):
+    """Quantize + dequantize one [*lead, ...] leaf, row = one upload."""
+    rows, n = _rows(leaf, lead_ndim)
+    u = leaf.reshape(rows, n)
+    if mode == "bf16":
+        deq = u.to(torch.bfloat16).to(u.dtype)
+    elif mode == "int8_stochastic":
+        amax = torch.amax(torch.abs(u).to(torch.float32), dim=1)
+        scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        noise = noise.reshape(rows, n).to(torch.float32).contiguous()
+        fn = kops.int8_roundtrip if fused else qz.int8_roundtrip_ref
+        deq = fn(u.contiguous(), scale, noise)
+    elif mode == "topk":
+        k = max(1, min(n, math.ceil(frac * n)))
+        thresh = torch.topk(torch.abs(u), k, dim=1).values[:, -1]
+        fn = kops.topk_mask if fused else qz.topk_mask_ref
+        deq = fn(u.contiguous(), thresh)
+    else:
+        raise ValueError(f"unknown compression mode {mode!r}")
+    return deq.reshape(leaf.shape)
+
+
+def draw_noise(delta, lead_ndim: int, generator: torch.Generator) -> list:
+    """One U[0, 1) float32 ``[rows, n]`` tensor per leaf of ``delta``, in
+    leaf order, drawn from ``generator`` (on the leaves' device)."""
+    out = []
+    for leaf in tree_leaves(delta):
+        out.append(torch.rand(_rows(leaf, lead_ndim), generator=generator,
+                              dtype=torch.float32, device=leaf.device))
+    return out
+
+
+def roundtrip(delta, *, mode: str, lead_ndim: int, frac: float = 0.01, noise=None,
+              fused: bool = False):
+    """Quantize + dequantize every leaf of an upload-delta tree.
+
+    ``lead_ndim`` leading axes index independent uploads (2 for the
+    [G, K, ...] client link, 1 for the [G, ...] group link); each upload
+    row gets its own scale/threshold. On the flat layout a row is a whole
+    model; on the tree layout there is one row per leaf. ``noise`` (one
+    ``[rows, n]`` tensor per leaf, in leaf order) is required only for
+    ``int8_stochastic``. ``fused`` picks the CUDA kernels' wrappers over
+    the plain versions.
+    """
+    if mode == "none":
+        return delta
+    if mode == "int8_stochastic" and noise is None:
+        raise ValueError("int8_stochastic needs its noise: one [rows, n] tensor per leaf")
+    leaves = tree_leaves(delta)
+    if noise is not None and len(noise) != len(leaves):
+        raise ValueError(f"{len(noise)} noise tensors for {len(leaves)} leaves")
+    it = iter(noise if noise is not None else [None] * len(leaves))
+    # tree_map visits the leaves in tree_leaves' order, the noise's order.
+    return tree_map(lambda leaf: _leaf_roundtrip(leaf, lead_ndim, mode, frac, next(it), fused),
+                    delta)
 
 
 def model_leaf_sizes(params, lead_ndim: int = 2) -> tuple[tuple[int, str], ...]:
@@ -31,23 +182,41 @@ def model_leaf_sizes(params, lead_ndim: int = 2) -> tuple[tuple[int, str], ...]:
     return tuple(out)
 
 
-def upload_bytes(leaf_sizes, mode: str = "none") -> float:
-    """Modeled wire bytes of ONE upload (one client or one group)."""
-    if mode != "none":
-        raise ValueError(f"compression mode {mode!r} needs {COMPRESSED_SLICE}")
-    return float(sum(n * key_dtype(name).itemsize for n, name in leaf_sizes))
+def upload_bytes(leaf_sizes, mode: str = "none", topk_frac: float = 0.01) -> float:
+    """Modeled wire bytes of ONE upload (one client or one group) under
+    ``mode``, from :func:`model_leaf_sizes` geometry."""
+    total = 0
+    for n, name in leaf_sizes:
+        if mode == "none":
+            total += n * key_dtype(name).itemsize
+        elif mode == "bf16":
+            total += 2 * n
+        elif mode == "int8_stochastic":
+            total += n + _SCALE_BYTES
+        elif mode == "topk":
+            total += _TOPK_ENTRY_BYTES * max(1, min(n, math.ceil(topk_frac * n)))
+        else:
+            raise ValueError(f"unknown compression mode {mode!r}")
+    return float(total)
 
 
 def round_comm_bytes(params, plan, n_client_uploads, n_group_uploads,
                      lead_ndim: int = 2) -> torch.Tensor:
     """Total modeled upload bytes of one global round (f32 scalar on the
-    params' device), uncompressed: ``n_client * bytes(model) + n_group *
-    bytes(model)``, computed in float32 as the reference computes it."""
-    if plan is not None:
-        raise ValueError(f"a CompressionPlan needs {COMPRESSED_SLICE}")
+    params' device), computed in float32 as the reference computes it.
+
+    ``n_client_uploads`` / ``n_group_uploads`` are the realized upload
+    counts across the round (tensors or Python numbers): every active
+    client counts, unsampled clients and empty groups count zero.
+    """
     sizes = model_leaf_sizes(params, lead_ndim)
     device = tree_leaves(params)[0].device
-    b = upload_bytes(sizes)
+    on = plan is not None and plan.enabled
+    cmode = plan.client_mode if on else "none"
+    gmode = plan.group_mode if on else "none"
+    frac = plan.topk_frac if on else 0.01
+    cb = upload_bytes(sizes, cmode, frac)
+    gb = upload_bytes(sizes, gmode, frac)
     nc = torch.as_tensor(n_client_uploads, dtype=torch.float32, device=device)
     ng = torch.as_tensor(n_group_uploads, dtype=torch.float32, device=device)
-    return nc * b + ng * b
+    return nc * cb + ng * gb

@@ -15,13 +15,34 @@ reference's ``lax.scan`` loops are Python loops here (PyTorch runs
 eagerly), and its ``vmap(vmap(value_and_grad))`` is ``torch.func.vmap``
 twice over ``grad_and_value``.
 
-This slice covers full participation under the sync schedule, all six
-algorithms (``mtgc``, ``hfedavg``, ``local_corr``, ``group_corr``,
-``fedprox``, ``feddyn``), ``correction_init`` ``zero`` and ``gradient``,
-``server_lr``, the flat and tree state layouts, and the fused (mtgc only)
-and unfused local steps. Partial participation, faults and defense,
-compression, async rounds, populations and the other backends are later
-slices of the port; asking for them raises ``ValueError`` naming the slice.
+The port covers the sync schedule with all six algorithms (``mtgc``,
+``hfedavg``, ``local_corr``, ``group_corr``, ``fedprox``, ``feddyn``),
+``correction_init`` ``zero`` and ``gradient``, ``server_lr``, the flat and
+tree state layouts, the fused (mtgc only) and unfused local steps, partial
+participation (``uniform``/``fixed`` masks, ``none``/``inverse_prob``
+weighting) and compressed uploads (``core.compression``) with error
+feedback. Faults and defense, async rounds, populations and the other
+backends are later slices of the port; asking for them raises
+``ValueError`` naming the slice.
+
+Partial participation: per-round 0/1 masks (``core.participation``);
+inactive clients keep their params and corrections frozen (``where``
+selects, never arithmetic), every aggregation is a masked mean, and z/y
+update only for participants. The flat fused step hands the client mask
+to the ``mtgc_update_flat`` kernel, which copies frozen rows' bits.
+
+Compressed uploads, at the reference's seams: each client's upload delta
+``x_end - x`` (plus its residual ``efc``) goes through the client link's
+round trip inside every group round, and each group's report delta
+against its round-start model (plus ``efg``) through the group link's. z
+and y update from the pre-wire models, never from the dequantized view;
+a residual advances only for an upload that entered its aggregate.
+
+Random draws (masks first, then the client-link noise of each group round,
+then the group-link noise) come from ``state.rng``, a ``torch.Generator``
+on the state's device, unless the round function is handed them as a
+:class:`RoundDraws` (``round_fn(state, batches, draws=...)``), as the
+parity tests hand it the reference's draws.
 
 Flat state (``cfg.use_flat_state``, default on): params, z and dyn live in
 contiguous ``[G, K, N]`` buffers (one per dtype) and y in ``[G, N]``
@@ -43,30 +64,36 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from repro_torch.core import tree as tu
-from repro_torch.core.compression import round_comm_bytes
+from repro_torch.core.compression import draw_noise, round_comm_bytes, roundtrip
 from repro_torch.core.config import HFLConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.packer import FlatBuffers, as_tree, is_flat, make_packer
+from repro_torch.core.participation import ParticipationMasks, inclusion_prob, round_masks
 from repro_torch.kernels import ops as kops
 
 Tree = Any
 
-PARTIAL_SLICE = "the partial-participation slice of the port"
 FAULTS_SLICE = "the faults-and-defense slice of the port"
-COMPRESSION_SLICE = "the compressed-uploads slice of the port"
 ASYNC_SLICE = "the async-rounds slice of the port"
 
 
 class HFLState(NamedTuple):
     """State carried between global rounds.
 
-    params: [G, K, ...]  per-client models (all equal right after a round).
+    params: [G, K, ...]  per-client models (all equal right after a round
+                         under full participation; frozen replicas keep
+                         stale params under partial participation).
     z:      [G, K, ...]  client->group correction (zeros when unused).
     y:      [G, ...]     group->global correction (zeros when unused).
     dyn:    [G, K, ...]  FedDyn gradient memory (zeros when unused).
-    rng:    a ``torch.Generator`` for the later slices' random draws (full
-            participation draws nothing), or None.
+    rng:    a ``torch.Generator`` on the state's device for the round's
+            random draws (participation masks, stochastic-rounding noise),
+            or None when the round draws nothing. It advances in place.
     round:  global round counter t (int32 scalar tensor on the device).
+    efc:    [G, K, ...]  client-link error-feedback residual, carried only
+            when a ``CompressionPlan`` with error feedback compresses the
+            client uploads (``hfl_init(..., ef_client=True)``); else None.
+    efg:    [G, ...]     group-link residual, likewise (``ef_group=True``).
     """
 
     params: Tree
@@ -75,6 +102,8 @@ class HFLState(NamedTuple):
     dyn: Tree
     rng: Any
     round: torch.Tensor
+    efc: Tree | None = None
+    efg: Tree | None = None
 
 
 class RoundMetrics(NamedTuple):
@@ -83,9 +112,25 @@ class RoundMetrics(NamedTuple):
     group_drift: torch.Tensor   # scalar mean ||xbar_j - xbar||^2 at global agg
     z_norm: torch.Tensor        # scalar mean ||z||^2 after the round
     y_norm: torch.Tensor        # scalar mean ||y||^2 after the round
-    participation: torch.Tensor  # scalar fraction of clients active (1 here)
+    participation: torch.Tensor  # scalar fraction of clients active this round
     screened: torch.Tensor      # scalar count of screened contributions (0 here)
     comm_bytes: torch.Tensor    # scalar modeled upload bytes on the wire
+
+
+class RoundDraws(NamedTuple):
+    """One round's random draws, handed to the round function explicitly
+    (``round_fn(state, batches, draws=RoundDraws(...))``). A field left
+    None is drawn from ``state.rng`` instead.
+
+    masks:        ParticipationMasks (group [G], client [G, K]).
+    client_noise: E lists (one per group round) of one U[0, 1) tensor per
+                  state leaf, ``[G * K, n]`` (any shape of that size).
+    group_noise:  one U[0, 1) tensor per state leaf, ``[G, n]``.
+    """
+
+    masks: ParticipationMasks | None = None
+    client_noise: list | None = None
+    group_noise: list | None = None
 
 
 def _stack_leading(t: torch.Tensor, lead: tuple[int, ...]) -> torch.Tensor:
@@ -93,12 +138,15 @@ def _stack_leading(t: torch.Tensor, lead: tuple[int, ...]) -> torch.Tensor:
     return t.expand(lead + tuple(t.shape)).contiguous()
 
 
-def hfl_init(params0: Tree, cfg: HFLConfig, rng=None, *, device=None) -> HFLState:
+def hfl_init(params0: Tree, cfg: HFLConfig, rng=None, *, ef_client: bool = False,
+             ef_group: bool = False, device=None) -> HFLState:
     """Broadcast a single model to every client and zero the corrections.
 
     ``device=None`` runs on the CUDA card and raises on a host without one;
     pass ``device="cpu"`` for the CPU. With ``cfg.use_flat_state`` the state
-    leaves are FlatBuffers (recover trees with ``as_tree``).
+    leaves are FlatBuffers (recover trees with ``as_tree``). ``ef_client`` /
+    ``ef_group`` carry the zero-initialized error-feedback residuals
+    (``efc`` [G, K, ...] / ``efg`` [G, ...]) of a compression plan.
     """
     dev = resolve_device(device)
     G, K = cfg.num_groups, cfg.clients_per_group
@@ -114,16 +162,21 @@ def hfl_init(params0: Tree, cfg: HFLConfig, rng=None, *, device=None) -> HFLStat
             dyn=packer.zeros((G, K), dev),
             rng=rng,
             round=round0,
+            efc=packer.zeros((G, K), dev) if ef_client else None,
+            efg=packer.zeros((G,), dev) if ef_group else None,
         )
     stacked = tu.tree_map(lambda t: _stack_leading(t, (G, K)), params0)
+    y0 = tu.tree_map(lambda t: torch.zeros((G,) + tuple(t.shape), dtype=t.dtype,
+                                           device=dev), params0)
     return HFLState(
         params=stacked,
         z=tu.tree_zeros_like(stacked),
-        y=tu.tree_map(lambda t: torch.zeros((G,) + tuple(t.shape), dtype=t.dtype,
-                                            device=dev), params0),
+        y=y0,
         dyn=tu.tree_zeros_like(stacked),
         rng=rng,
         round=round0,
+        efc=tu.tree_zeros_like(stacked) if ef_client else None,
+        efg=tu.tree_zeros_like(y0) if ef_group else None,
     )
 
 
@@ -141,6 +194,13 @@ def _contiguous(tree: Tree) -> Tree:
     return tu.tree_map(lambda t: t.contiguous(), tree)
 
 
+def _active_group_drift(xbar_j: Tree, xbar: Tree, gact: torch.Tensor, G: int) -> torch.Tensor:
+    """Mean ||xbar_j - xbar||^2 over the groups with gact != 0."""
+    return tu.tree_masked_sq_norm(
+        tu.tree_sub(xbar_j, tu.tree_broadcast_to_axis(xbar, 0, G)), gact
+    ) / torch.clamp(torch.sum(gact), min=1.0)
+
+
 def _build_global_round(
     loss_fn: Callable[[Tree, Tree], torch.Tensor],
     cfg: HFLConfig,
@@ -148,24 +208,40 @@ def _build_global_round(
     faults=None,
     defense=None,
     compression=None,
-) -> Callable[[HFLState, Tree], tuple[HFLState, RoundMetrics]]:
+) -> Callable[..., tuple[HFLState, RoundMetrics]]:
     """The round builder behind ``repro_torch.api``'s simulator engine.
 
     ``loss_fn(params, batch) -> scalar`` is a single-client loss; batches
     passed to the returned function have leaves ``[E, H, G, K, ...]``. The
-    returned function adapts to the layout of the state it is given.
-    ``plan``, ``faults``, ``defense`` and ``compression`` exist for the
-    reference's signature; anything but None raises (later slices).
+    returned function ``global_round(state, batches, draws=None)`` adapts
+    to the layout of the state it is given. ``compression`` (a
+    ``core.compression.CompressionPlan``) compresses the client and/or
+    group uploads; a disabled plan (or None) runs the uncompressed round
+    and draws nothing. ``plan`` (async schedules), ``faults`` and
+    ``defense`` exist for the reference's signature; anything but None
+    raises (later slices).
     """
     cfg.validate()
     for value, what, where in ((plan, "an async staleness plan", ASYNC_SLICE),
                                (faults, "fault injection", FAULTS_SLICE),
-                               (defense, "screened aggregation", FAULTS_SLICE),
-                               (compression, "compressed uploads", COMPRESSION_SLICE)):
+                               (defense, "screened aggregation", FAULTS_SLICE)):
         if value is not None:
             raise ValueError(f"{what} needs {where}")
-    if not cfg.full_participation:
-        raise ValueError(f"client/group participation < 1 needs {PARTIAL_SLICE}")
+    comp = compression if (compression is not None and compression.enabled) else None
+    if comp is not None:
+        comp.validate()
+        if cfg.correction_init != "zero":
+            raise ValueError(
+                "compressed uploads require correction_init='zero' (the "
+                "gradient init has no compressed analogue)")
+        if cfg.server_lr != 1.0:
+            raise ValueError("compressed uploads require server_lr=1.0")
+    comp_c = comp is not None and comp.client_mode != "none"
+    comp_g = comp is not None and comp.group_mode != "none"
+    ef_c = comp is not None and comp.ef_client
+    ef_g = comp is not None and comp.ef_group
+    c_noise = comp_c and comp.client_mode == "int8_stochastic"
+    g_noise = comp_g and comp.group_mode == "int8_stochastic"
     algo = cfg.algorithm
     if algo not in ("mtgc", "hfedavg", "local_corr", "group_corr", "fedprox", "feddyn"):
         raise ValueError(f"unknown algorithm {algo!r}")
@@ -176,12 +252,57 @@ def _build_global_round(
     G, K, H, E = cfg.num_groups, cfg.clients_per_group, cfg.local_steps, cfg.group_rounds
     lr = cfg.lr
     use_fused = cfg.use_fused_update
+    partial = not cfg.full_participation
+    # Horvitz-Thompson denominators (expected active counts per level);
+    # None = realized-count weighting.
+    ht = partial and cfg.participation_weighting == "inverse_prob"
+    cdenom = (inclusion_prob(cfg.client_participation, K, cfg.participation_mode) * K
+              if ht else None)
+    gdenom = (inclusion_prob(cfg.group_participation, G, cfg.participation_mode) * G
+              if ht else None)
 
     @torch.no_grad()
-    def global_round(state: HFLState, batches: Tree) -> tuple[HFLState, RoundMetrics]:
+    def global_round(state: HFLState, batches: Tree,
+                     draws: RoundDraws | None = None) -> tuple[HFLState, RoundMetrics]:
         x, z, y, dyn = state.params, state.z, state.y, state.dyn
         flat = is_flat(x)
         packer = x.packer if flat else None
+        dev = tu.tree_leaves(x)[0].device
+        draws = draws if draws is not None else RoundDraws()
+
+        def generator(what: str) -> torch.Generator:
+            if state.rng is None:
+                raise ValueError(
+                    f"this round draws {what}: give the state an rng (a "
+                    f"torch.Generator on {dev}) or pass them in draws=")
+            return state.rng
+
+        # Masks first, then the compression noise (drawn where it is used).
+        if partial:
+            if draws.masks is not None:
+                masks = ParticipationMasks(
+                    *(torch.as_tensor(m).to(dev, torch.float32) for m in draws.masks))
+            else:
+                masks = round_masks(generator("participation masks"), cfg)
+            cmask, gmask = masks.client, masks.group
+            n_active = torch.clamp(torch.sum(cmask), min=1.0)
+        else:
+            cmask = gmask = n_active = None
+
+        def client_noise(e: int, u: Tree) -> list:
+            if draws.client_noise is not None:
+                return [torch.as_tensor(t).to(dev) for t in draws.client_noise[e]]
+            return draw_noise(u, 2, generator("stochastic-rounding noise"))
+
+        def group_noise(u: Tree) -> list:
+            if draws.group_noise is not None:
+                return [torch.as_tensor(t).to(dev) for t in draws.group_noise]
+            return draw_noise(u, 1, generator("stochastic-rounding noise"))
+
+        def step_loss_mean(loss):
+            if partial:
+                return torch.sum(torch.where(cmask != 0, loss, 0)) / n_active
+            return torch.mean(loss)
 
         def local_phase_tree(x, z, batches_eh):
             """H local SGD steps (Alg. 1, lines 6-7). batches_eh: [H, G, K, ...]."""
@@ -194,7 +315,7 @@ def _build_global_round(
                 if use_fused:
                     # The kernel takes contiguous operands; autograd may hand
                     # back a strided gradient (the CNN's permuted weights).
-                    x = tu.tree_map(
+                    x_new = tu.tree_map(
                         lambda xi, gi, zi, yi: kops.mtgc_update(
                             xi.contiguous(), gi.contiguous(), zi.contiguous(), yi, lr=lr),
                         x, g, z, y_b)
@@ -211,8 +332,9 @@ def _build_global_round(
                         d = tu.tree_map(
                             lambda di, mi, xi, ai: di - mi + cfg.feddyn_alpha * (xi - ai),
                             d, dyn, x, anchor)
-                    x = tu.tree_map(lambda xi, di: xi - lr * di, x, d)
-                losses.append(torch.mean(loss))
+                    x_new = tu.tree_map(lambda xi, di: xi - lr * di, x, d)
+                x = tu.tree_select(cmask, x_new, x) if partial else x_new
+                losses.append(step_loss_mean(loss))
             return x, torch.stack(losses)
 
         def local_phase_flat(x, z, batches_eh):
@@ -220,17 +342,18 @@ def _build_global_round(
             losses = []
             if use_fused:
                 # One kernel launch per dtype buffer per step over the whole
-                # model: y stays [G, N] (broadcast inside the kernel).
+                # model: y stays [G, N] (broadcast inside the kernel) and the
+                # client mask is applied in the kernel (frozen rows copy x).
                 for h in range(H):
                     loss, g = _client_grads(loss_fn, packer.unflatten(x),
                                             _index(batches_eh, h))
                     gf = packer.flatten(g)
                     x = FlatBuffers(
                         {k: kops.mtgc_update_flat(x.bufs[k], gf.bufs[k], z.bufs[k],
-                                                  y.bufs[k], None, lr=lr)
+                                                  y.bufs[k], cmask, lr=lr)
                          for k in x.bufs},
                         packer)
-                    losses.append(torch.mean(loss))
+                    losses.append(step_loss_mean(loss))
                 return x, torch.stack(losses)
 
             # z, y, anchor and dyn are constant for the whole phase: unpack
@@ -258,102 +381,233 @@ def _build_global_round(
                     d = d + cfg.prox_mu * (xi - ai)
                 if use_dyn:
                     d = d - next(it) + cfg.feddyn_alpha * (xi - ai)
-                return xi - lr * d
+                x_new = xi - lr * d
+                if partial:
+                    return torch.where(tu.expand_mask(cmask, x_new) != 0, x_new, xi)
+                return x_new
 
             x_t = packer.unflatten(x)
             for h in range(H):
                 loss, g = _client_grads(loss_fn, x_t, _index(batches_eh, h))
                 x_t = tu.tree_map(upd, x_t, g, *extra)
-                losses.append(torch.mean(loss))
+                losses.append(step_loss_mean(loss))
             return packer.flatten(x_t), torch.stack(losses)
 
         local_phase = local_phase_flat if flat else local_phase_tree
 
+        def group_round(e, x, z, efc, batches_eh):
+            """One group round: local phase, client upload, group aggregation
+            and z update (Alg. 1, lines 5-9)."""
+            x_end, loss_e = local_phase(x, z, batches_eh)
+            # Upload view: the wire carries the dequantized delta; frozen
+            # clients keep their exact bits (where-selects).
+            x_up = x_end
+            if comp_c:
+                delta = tu.tree_sub(x_end, x)
+                u = tu.tree_add(delta, efc) if ef_c else delta
+                deq = roundtrip(u, mode=comp.client_mode, lead_ndim=2, frac=comp.topk_frac,
+                                noise=client_noise(e, u) if c_noise else None,
+                                fused=use_fused)
+                x_cmp = tu.tree_add(x, deq)
+                x_up = tu.tree_select(cmask, x_cmp, x_end) if partial else x_cmp
+                if ef_c:
+                    # The residual advances only for uploads that entered
+                    # the aggregate: an inactive client keeps its own.
+                    err = tu.tree_sub(u, deq)
+                    efc = tu.tree_select(cmask, err, efc) if partial else err
+            # Group aggregation (line 8): xbar_j = mean over active clients.
+            if partial:
+                xbar = tu.tree_masked_mean(x_up, cmask, axis=1, denom=cdenom)
+            else:
+                xbar = tu.tree_mean(x_up, 1)
+            xbar_b = tu.tree_broadcast_to_axis(xbar, 1, K)
+            diff = tu.tree_sub(x_up, xbar_b)
+            drift = (tu.tree_masked_sq_norm(diff, cmask) / n_active if partial
+                     else tu.tree_sq_norm(diff) / (G * K))
+            # Client-group correction update (line 9), from the client's own
+            # model (pre-wire), never from the dequantized view:
+            #   z_i += (x_{i,H} - xbar_j) / (H * lr)
+            if use_z:
+                z_new = tu.tree_map(lambda zi, xe, xb: zi + (xe - xb) / (H * lr),
+                                    z, x_end, xbar_b)
+                z = tu.tree_select(cmask, z_new, z) if partial else z_new
+            # Dissemination: active clients restart from the group model;
+            # inactive clients stay frozen.
+            x = tu.tree_select(cmask, xbar_b, x_up) if partial else _contiguous(xbar_b)
+            return x, z, efc, loss_e, drift
+
         # --- Round initialization (lines 2-4) ---------------------------
-        if use_z or (use_y and cfg.correction_init == "gradient"):
-            g0 = None
-            if cfg.correction_init == "gradient":
-                # Evaluated with the first local batch xi_{i,0}^{t,0}.
-                _, g0 = _client_grads(loss_fn, as_tree(x), _index(_index(batches, 0), 0))
-                if flat:
-                    g0 = packer.flatten(g0)
+        if cfg.correction_init == "gradient" and (use_z or use_y):
+            # Evaluated with the first local batch xi_{i,0}^{t,0}.
+            _, g0 = _client_grads(loss_fn, as_tree(x), _index(_index(batches, 0), 0))
+            if flat:
+                g0 = packer.flatten(g0)
         if use_z:
             if cfg.correction_init == "zero":
-                # Footnote 2: experiments initialize z = 0 each round.
-                z = tu.tree_zeros_like(z)
-            else:
+                # Footnote 2: experiments initialize z = 0 each round
+                # (participants only -- frozen clients keep their z).
+                z0 = tu.tree_zeros_like(z)
+                z = tu.tree_select(cmask, z0, z) if partial else z0
+            elif partial:
                 # Theoretical init (line 3): z_i = -g_i + mean_group g_i.
+                g0m = tu.tree_broadcast_to_axis(
+                    tu.tree_masked_mean(g0, cmask, axis=1, denom=cdenom), 1, K)
+                z = tu.tree_select(cmask, tu.tree_sub(g0m, g0), z)
+            else:
                 g0m = tu.tree_broadcast_to_axis(tu.tree_mean(g0, 1), 1, K)
                 z = tu.tree_sub(g0m, g0)
         if use_y and cfg.correction_init == "gradient":
-            # y_j = mean g - mean_group g, at the first round only.
+            # y_j = mean g - mean_group g, at the first round only; a group
+            # with no active client keeps its y.
             is_first = state.round == 0
-            gj = tu.tree_mean(g0, 1)                              # [G, ...]
-            gg = tu.tree_mean(gj, 0)                              # [...]
+            if partial:
+                gact0 = (torch.sum(cmask, dim=1) > 0).to(torch.float32)
+                gj = tu.tree_masked_mean(g0, cmask, axis=1, denom=cdenom)  # [G, ...]
+                gg = (tu.tree_masked_mean(gj, gmask, axis=0, denom=gdenom) if ht
+                      else tu.tree_masked_mean(gj, gact0, axis=0))         # [...]
+            else:
+                gj = tu.tree_mean(g0, 1)
+                gg = tu.tree_mean(gj, 0)
             y_init = tu.tree_map(lambda gjj, ggg: ggg - gjj, gj, gg)
+            if partial:
+                y_init = tu.tree_select(gact0, y_init, y)
             y = tu.tree_map(lambda yg, yo: torch.where(is_first, yg, yo), y_init, y)
 
         anchor = x  # group-round-start model (FedProx / FedDyn reference)
+
+        efc = state.efc if ef_c else None
+        if ef_c and efc is None:
+            raise ValueError(
+                "client-link error feedback carries per-client residuals in the "
+                "state: build it with hfl_init(..., ef_client=True) "
+                "(repro_torch.api.build does this for you)")
 
         # --- E group rounds (lines 5-9) ---------------------------------
         # y, dyn and anchor are constant across the group rounds.
         losses, drifts = [], []
         for e in range(E):
-            x_end, loss_e = local_phase(x, z, _index(batches, e))
-            # Group aggregation (line 8): xbar_j = mean over clients.
-            xbar_b = tu.tree_broadcast_to_axis(tu.tree_mean(x_end, 1), 1, K)
-            drifts.append(tu.tree_sq_norm(tu.tree_sub(x_end, xbar_b)) / (G * K))
-            # Client-group correction update (line 9):
-            #   z_i += (x_{i,H} - xbar_j) / (H * lr)
-            if use_z:
-                z = tu.tree_map(lambda zi, xe, xb: zi + (xe - xb) / (H * lr),
-                                z, x_end, xbar_b)
-            # Model dissemination: every client restarts from the group model.
-            x = _contiguous(xbar_b)
+            x, z, efc, loss_e, drift = group_round(e, x, z, efc, _index(batches, e))
             losses.append(loss_e)
+            drifts.append(drift)
 
         # --- Global aggregation (line 10) --------------------------------
-        xbar_j = tu.tree_map(lambda xi: xi[:, 0], x)    # [G, ...] (clients equal)
-        xbar = tu.tree_mean(xbar_j, 0)                  # [...]
-        gdrift = tu.tree_sq_norm(
-            tu.tree_sub(xbar_j, tu.tree_broadcast_to_axis(xbar, 0, G))) / G
+        efg = state.efg if ef_g else None
+        if ef_g and efg is None:
+            raise ValueError(
+                "group-link error feedback carries per-group residuals in the "
+                "state: build it with hfl_init(..., ef_group=True) "
+                "(repro_torch.api.build does this for you)")
 
-        # Group-global correction update (line 11):
+        def compress_group(xbar_j, gref, gact):
+            """Compress each group's report delta against its round-start
+            model (the reference both ends of the link share); groups with
+            gact == 0 keep their recovered mean's exact bits. Returns
+            (xbar_j', u, deq) for the residual."""
+            ug = tu.tree_sub(xbar_j, gref)
+            if ef_g:
+                ug = tu.tree_add(ug, efg)
+            deqg = roundtrip(ug, mode=comp.group_mode, lead_ndim=1, frac=comp.topk_frac,
+                             noise=group_noise(ug) if g_noise else None, fused=use_fused)
+            xbar_c = tu.tree_add(gref, deqg)
+            if gact is not None:
+                xbar_c = tu.tree_select(gact, xbar_c, xbar_j)
+            return xbar_c, ug, deqg
+
+        if partial and comp_g:
+            # tree_group_global_mean's recovery/estimation split, opened up
+            # so the group link compresses between the two stages.
+            xbar_j = tu.tree_masked_mean(x, cmask, axis=1)
+            gact = (torch.sum(cmask, dim=1) > 0).to(torch.float32)
+            gup = torch.sum(gact)  # reports actually sent
+            gref = tu.tree_masked_mean(state.params, cmask, axis=1)
+            xbar_srv = xbar_j  # the group server's own (pre-wire) aggregate
+            xbar_j, ug, deqg = compress_group(xbar_j, gref, gact)
+            if ht:
+                xbar_j0 = tu.tree_map(
+                    lambda v: torch.where(tu.expand_mask(gact, v) != 0, v, 0), xbar_j)
+                xbar = tu.tree_masked_mean(xbar_j0, gmask, axis=0, denom=gdenom)
+            else:
+                xbar = tu.tree_masked_mean(xbar_j, gact, axis=0)
+            gdrift = _active_group_drift(xbar_j, xbar, gact, G)
+        elif partial:
+            # A group with no active client feeds neither y nor the
+            # dissemination of its own replicas (gact gating).
+            xbar_j, xbar, gact = tu.tree_group_global_mean(
+                x, cmask, gmask if ht else None, gdenom)
+            gup = torch.sum(gact)
+            gdrift = _active_group_drift(xbar_j, xbar, gact, G)
+        else:
+            xbar_j = tu.tree_map(lambda xi: xi[:, 0], x)    # [G, ...] (clients equal)
+            gup = G
+            if comp_g:
+                gref = tu.tree_map(lambda xi: xi[:, 0], state.params)
+                xbar_srv = xbar_j
+                xbar_j, ug, deqg = compress_group(xbar_j, gref, None)
+            xbar = tu.tree_mean(xbar_j, 0)                  # [...]
+            gdrift = tu.tree_sq_norm(
+                tu.tree_sub(xbar_j, tu.tree_broadcast_to_axis(xbar, 0, G))) / G
+
+        if ef_g:
+            # Only a report that entered the merge advances its residual.
+            errg = tu.tree_sub(ug, deqg)
+            efg = tu.tree_select(gact, errg, efg) if partial else errg
+
+        # Group-global correction update (line 11), from the group's own
+        # (pre-wire) aggregate:
         #   y_j += (xbar_j^{t,E} - xbar^{t+1}) / (H * E * lr)
         if use_y:
-            y = tu.tree_map(lambda yj, xj, xg: yj + (xj - xg) / (H * E * lr),
-                            y, xbar_j, xbar)
+            y_src = xbar_srv if comp_g else xbar_j
+            y_new = tu.tree_map(lambda yj, xj, xg: yj + (xj - xg) / (H * E * lr),
+                                y, y_src, xbar)
+            y = tu.tree_select(gact, y_new, y) if partial else y_new
 
         # FedDyn gradient-memory update (per client, after its local work).
         if use_dyn:
-            dyn = tu.tree_map(lambda mi, xi, ai: mi - cfg.feddyn_alpha * (xi - ai),
-                              dyn, x, anchor)
+            dyn_new = tu.tree_map(lambda mi, xi, ai: mi - cfg.feddyn_alpha * (xi - ai),
+                                  dyn, x, anchor)
+            dyn = tu.tree_select(cmask, dyn_new, dyn) if partial else dyn_new
 
-        # Dissemination from the (server-lr) global model.
+        # Dissemination from the (server-lr) global model; frozen clients
+        # keep what they have.
         if cfg.server_lr != 1.0:
-            prev = tu.tree_map(lambda xi: xi[0, 0], state.params)
+            if partial:
+                # No stored global model under partial participation: anchor
+                # the server step on the mean over all replicas.
+                prev = tu.tree_mean(state.params, (0, 1))
+            else:
+                prev = tu.tree_map(lambda xi: xi[0, 0], state.params)
             xbar = tu.tree_map(lambda p, xb: p + cfg.server_lr * (xb - p), prev, xbar)
-        x = tu.tree_map(lambda xg: _stack_leading(xg, (G, K)), xbar)
+        if partial:
+            x_glob = tu.tree_map(lambda xg: xg.expand((G, K) + tuple(xg.shape)), xbar)
+            x = tu.tree_select(cmask, x_glob, x)
+        else:
+            x = tu.tree_map(lambda xg: _stack_leading(xg, (G, K)), xbar)
 
-        dev = tu.tree_leaves(x)[0].device
+        # Bytes on the wire: every upload actually sent this round.
+        n_up_c = E * torch.sum(cmask) if partial else E * G * K
         metrics = RoundMetrics(
             loss=torch.stack(losses),
             client_drift=torch.stack(drifts),
             group_drift=gdrift,
             z_norm=tu.tree_sq_norm(z) / (G * K),
             y_norm=tu.tree_sq_norm(y) / G,
-            participation=torch.ones((), dtype=torch.float32, device=dev),
+            participation=(torch.sum(cmask) / (G * K) if partial
+                           else torch.ones((), dtype=torch.float32, device=dev)),
             screened=torch.zeros((), dtype=torch.float32, device=dev),
-            comm_bytes=round_comm_bytes(state.params, None, E * G * K, G),
+            comm_bytes=round_comm_bytes(state.params, comp, n_up_c, gup),
         )
         new_state = HFLState(params=x, z=z, y=y, dyn=dyn, rng=state.rng,
-                             round=state.round + 1)
+                             round=state.round + 1,
+                             efc=efc if ef_c else state.efc,
+                             efg=efg if ef_g else state.efg)
         return new_state, metrics
 
     return global_round
 
 
 def global_model(state: HFLState) -> Tree:
-    """The current global model xbar (every replica holds it between
-    full-participation rounds); flat states are unpacked into the tree."""
+    """The current global model xbar, read from replica [0, 0] (every
+    replica holds it between full-participation rounds; under partial
+    participation a frozen replica may be stale, as in the reference);
+    flat states are unpacked into the tree."""
     return as_tree(tu.tree_map(lambda x: x[0, 0], state.params))

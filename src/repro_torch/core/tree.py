@@ -65,6 +65,65 @@ def tree_select(mask: torch.Tensor, a: Tree, b: Tree) -> Tree:
     return tree_map(lambda ai, bi: torch.where(expand_mask(mask, ai) != 0, ai, bi), a, b)
 
 
+def tree_masked_mean(a: Tree, mask: torch.Tensor, axis: int,
+                     denom: float | None = None) -> Tree:
+    """Mean over ``axis`` counting only entries with mask != 0 (``mask``
+    spans the leading topology axes of every leaf).
+
+    ``denom=None`` (realized-count weighting): the masked sum over the
+    number of active entries; a slice with no active entry returns exact
+    zeros (masked sum 0 over a count clamped to 1). A fixed ``denom``
+    (inverse-probability weighting: the expected active count) divides the
+    masked sum by that constant, the Horvitz-Thompson estimator of the
+    full mean. Masked-out entries go through ``where`` (never a multiply),
+    so non-finite values in frozen replicas cannot reach the aggregate.
+    """
+    if denom is not None:
+        def _ht(x):
+            w = expand_mask(mask, x) != 0
+            return torch.sum(torch.where(w, x, 0), dim=axis) / denom
+
+        return tree_map(_ht, a)
+
+    dn = torch.clamp(torch.sum(mask, dim=axis), min=1)
+
+    def _m(x):
+        w = expand_mask(mask, x) != 0
+        s = torch.sum(torch.where(w, x, 0), dim=axis)
+        return s / expand_mask(dn, s)
+
+    return tree_map(_m, a)
+
+
+def tree_group_global_mean(x: Tree, cmask: torch.Tensor,
+                           gmask: torch.Tensor | None = None,
+                           gdenom: float | None = None):
+    """Global aggregate of disseminated ``[G, K, ...]`` replicas under
+    partial participation (Alg. 1 line 10).
+
+    Axis 1 is recovery: every active replica of group j holds the same
+    disseminated xbar_j, so the realized-count mean reads it back exactly
+    under either weighting. Axis 0 is estimation: with ``gdenom=None`` the
+    realized-count mean over groups with at least one active client; with
+    a fixed ``gdenom`` the Horvitz-Thompson sum over the reachable-group
+    mask ``gmask``, an empty reachable group contributing an exact zero.
+
+    Returns ``(xbar_j [G, ...], xbar [...], gact [G])``.
+    """
+    gact = (torch.sum(cmask, dim=1) > 0).to(torch.float32)
+    xbar_j = tree_masked_mean(x, cmask, axis=1)
+    if gdenom is None:
+        return xbar_j, tree_masked_mean(xbar_j, gact, axis=0), gact
+    xbar_j0 = tree_map(lambda v: torch.where(expand_mask(gact, v) != 0, v, 0), xbar_j)
+    xbar = tree_masked_mean(xbar_j0, gmask, axis=0, denom=gdenom)
+    return xbar_j, xbar, gact
+
+
+def tree_masked_sq_norm(a: Tree, mask: torch.Tensor) -> torch.Tensor:
+    """||a||^2 restricted to entries with mask != 0 on the leading axes."""
+    return tree_sq_norm(tree_map(lambda x: torch.where(expand_mask(mask, x) != 0, x, 0), a))
+
+
 def tree_broadcast_to_axis(a: Tree, axis: int, size: int) -> Tree:
     """Insert a broadcast leading axis (dissemination after aggregation).
 

@@ -8,8 +8,8 @@ source is rebuilt and a stale library is never loaded. Nothing here runs
 at import time: the CPU-only test host has no ``nvcc`` and imports every
 module.
 
-``build_all()`` runs ``nvcc`` on each source in turn (there is one source
-today); ``load(name)`` returns the loaded library (building it if needed).
+``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
+them; ``load(name)`` returns the loaded library (building it if needed).
 A failed build raises -- there is no fallback.
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("mtgc_update",)
+SOURCES = ("mtgc_update", "quantize")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # Every rounding is explicit in the sources; keep nvcc from contracting
@@ -61,11 +61,12 @@ def library_path(name: str) -> Path:
 
 
 def build_all(names=SOURCES) -> dict:
-    """Compile every named source that has no up-to-date library. Returns
+    """Compile every named source that has no up-to-date library, one
+    ``nvcc`` process per source, all started together. Returns
     ``{"seconds": wall time, "log": {name: nvcc output}}`` (empty log for a
-    library that was already built)."""
+    library that was already built). Raises if any build fails."""
     t0 = time.perf_counter()
-    log = {}
+    log, procs = {}, {}
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -74,13 +75,18 @@ def build_all(names=SOURCES) -> dict:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
-        log[name] = proc.stdout
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, out)
+            failed.append(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n"
+                          f"{log[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return {"seconds": time.perf_counter() - t0, "log": log}
 
 
@@ -104,3 +110,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mtgc_update_leaf_launch.argtypes = [
             p, p, p, p, p, i64, f32, f32, i32, i32, p]
         lib.mtgc_update_leaf_launch.restype = i32
+    elif name == "quantize":
+        lib.int8_roundtrip_launch.argtypes = [p, p, p, p, i64, i64, i32, p]
+        lib.int8_roundtrip_launch.restype = i32
+        lib.topk_mask_launch.argtypes = [p, p, p, i64, i64, i32, p]
+        lib.topk_mask_launch.restype = i32

@@ -1,6 +1,6 @@
 """The port on a CUDA card: the hand-written kernels against their plain
-PyTorch versions (bit-exact in float32 and bfloat16), and a small round of
-the engine on the card against the same round on the CPU.
+PyTorch versions (bit-exact in float32 and bfloat16), and small rounds of
+the engine on the card against the same rounds on the CPU.
 
 Every test here needs a card and skips without one. The module imports no
 JAX, so it runs on a GPU host that has only PyTorch:
@@ -14,7 +14,11 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch import api, convert  # noqa: E402
+from repro_torch.core.engine import RoundDraws  # noqa: E402
+from repro_torch.core.participation import ParticipationMasks  # noqa: E402
 from repro_torch.kernels import mtgc_update as mu  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.models import small  # noqa: E402
 
 
@@ -93,6 +97,102 @@ def test_wrapper_rejects_bad_operands(cuda):
         mu.mtgc_update(x, x.cpu(), x, x, lr=0.1)
 
 
+def _same_bits(got, want):
+    """Bit-exact, NaN for NaN: the NaN positions agree, and every other
+    entry has the same bits (so -0.0 and +0.0 differ)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    nan = torch.isnan(got)
+    if not torch.equal(nan, torch.isnan(want)):
+        return False
+    ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(got[~nan].view(ints), want[~nan].view(ints))
+
+
+def _int8_operands(gen, dev, R, N, dtype):
+    u = (torch.randn(R, N, generator=gen, device=dev) * 3.0).to(dtype)
+    noise = torch.rand(R, N, generator=gen, device=dev)
+    amax = u.abs().float().amax(dim=1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    return u, noise, scale
+
+
+@pytest.mark.parametrize("R,N", [(1, 1), (3, 7), (2, 128), (4, 1000), (1, 8195),
+                                 (10, 1024 * 5 + 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_kernel_matches_plain(cuda, R, N, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(R * 10 + N)
+    u, noise, scale = _int8_operands(gen, cuda, R, N, dtype)
+    before = qz.int8_roundtrip.launches
+    got = qz.int8_roundtrip(u, scale, noise)
+    torch.cuda.synchronize()
+    assert qz.int8_roundtrip.launches == before + 1
+    assert _same_bits(got, qz.int8_roundtrip_ref(u, scale, noise))
+
+
+def test_int8_kernel_special_rows(cuda):
+    """A zero row (scale 1), +-Inf (clipped to +-127 * scale) and NaN
+    (stays NaN through the clip) agree with the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    u, noise, scale = _int8_operands(gen, cuda, 4, 3001, torch.float32)
+    u[0] = 0.0
+    scale[0] = 1.0
+    u[1, ::7] = float("inf")
+    u[1, 3::7] = -float("inf")
+    u[2, ::5] = float("nan")
+    scale[3] = float("inf")
+    got = qz.int8_roundtrip(u, scale, noise)
+    want = qz.int8_roundtrip_ref(u, scale, noise)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert bool(torch.isnan(got[2, ::5]).all())
+    assert bool((got[1, ::7] == 127.0 * scale[1]).all())
+
+
+@pytest.mark.parametrize("R,N", [(1, 1), (3, 7), (2, 128), (4, 1000), (10, 1024 * 5 + 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_kernel_matches_plain(cuda, R, N, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(R * 10 + N + 1)
+    # Quarter steps: many entries tie in magnitude, at the threshold too.
+    u = ((torch.randn(R, N, generator=gen, device=cuda) * 4).round() / 4).to(dtype)
+    k = max(1, N // 10)
+    thresh = torch.topk(u.abs(), k, dim=1).values[:, -1]
+    before = qz.topk_mask.launches
+    got = qz.topk_mask(u, thresh)
+    torch.cuda.synchronize()
+    assert qz.topk_mask.launches == before + 1
+    assert _same_bits(got, qz.topk_mask_ref(u, thresh))
+    assert int((got != 0).sum()) >= min(k * R, int((u != 0).sum()))
+
+
+def test_topk_kernel_special_rows(cuda):
+    u = torch.randn(4, 777, device=cuda)
+    u[0] = 0.0
+    u[1, ::4] = float("nan")
+    u[2, ::9] = float("inf")
+    u[3, 5] = -0.0
+    thresh = torch.tensor([0.0, 0.5, 1.0, 0.0], device=cuda)
+    got = qz.topk_mask(u, thresh)
+    want = qz.topk_mask_ref(u, thresh)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    assert not bool(torch.isnan(got).any())
+
+
+def test_quantize_wrappers_reject_bad_operands(cuda):
+    u = torch.randn(3, 10, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        qz.int8_roundtrip(u, torch.ones(3, device=cuda), torch.rand(3, 9, device=cuda))
+    with pytest.raises(TypeError, match="dtype"):
+        qz.int8_roundtrip(u, torch.ones(3, device=cuda, dtype=torch.float64),
+                          torch.rand(3, 10, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        qz.topk_mask(u.t().contiguous().t(), torch.ones(10, device=cuda))
+    with pytest.raises(ValueError, match="expected cuda"):
+        qz.topk_mask(u, torch.ones(3))
+
+
 @pytest.mark.parametrize("layout", ["flat", "tree"])
 def test_fused_round_on_card_matches_cpu(cuda, layout):
     """One fused mtgc round of a small CNN on the card (CUDA kernels) and on
@@ -127,3 +227,48 @@ def _close(got, want, atol, tag):
             _close(got[k], want[k], atol, f"{tag}.{k}")
     else:
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol, err_msg=tag)
+
+
+def _quad_loss(p, b):
+    r = b["a"] * p["w"] - b["b"]
+    return 0.5 * torch.sum(r * r) + 0.5 * torch.sum((b["c"] * p["v"] - b["e"]) ** 2)
+
+
+@pytest.mark.parametrize("layout", ["flat", "tree"])
+@pytest.mark.parametrize("plan", [("int8_stochastic", "int8_stochastic"), ("topk", "bf16")])
+def test_compressed_partial_round_on_card_matches_cpu(cuda, layout, plan):
+    """A compressed round at C = 0.5 with injected masks and noise on the
+    card (int8_roundtrip / topk_mask kernels, masked flat kernel) and on the
+    CPU (their plain versions). The quadratic model computes element-wise,
+    so the devices agree in every operation but the group means' sums."""
+    rng = np.random.default_rng(1)
+    p0 = {"w": torch.zeros(200), "v": torch.zeros(30)}
+    b = {k: torch.from_numpy((rng.normal(size=(2, 2, 2, 3, n)) + off).astype(np.float32))
+         for k, n, off in (("a", 200, 1.0), ("b", 200, 0.0), ("c", 30, 1.0), ("e", 30, 0.0))}
+    leaves = [(0, 230)] if layout == "flat" else [(0, 30), (30, 230)]  # v, w
+    noise = rng.random((3, 6, 230)).astype(np.float32)
+    draws = RoundDraws(
+        masks=ParticipationMasks(torch.ones(2), torch.tensor([[1.0, 0.0, 1.0], [0.0, 1.0, 1.0]])),
+        client_noise=[[torch.from_numpy(noise[e, :, a:z].copy()) for a, z in leaves]
+                      for e in range(2)],
+        group_noise=[torch.from_numpy(noise[2, :2, a:z].copy()) for a, z in leaves])
+    spec = api.ExperimentSpec(levels=(2, 3), schedule=api.RoundSchedule(2, 2), fusion="fused",
+                              state_layout=layout, client_participation=0.5,
+                              compression=api.CompressionPlan(*plan, topk_frac=0.2))
+    outs = []
+    ops.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        eng = api.build(spec, _quad_loss, device=dev)
+        state, metrics = eng.round_fn(eng.init(p0), {k: v.to(dev) for k, v in b.items()},
+                                      draws=draws)
+        outs.append((convert.to_numpy(state), convert.to_numpy(metrics)))
+    n_leaves = len(leaves)
+    if plan[0] == "int8_stochastic":
+        assert qz.int8_roundtrip.launches == (2 + 1) * n_leaves
+    else:
+        assert qz.topk_mask.launches == 2 * n_leaves
+    assert (mu.mtgc_update_flat.launches if layout == "flat" else mu.mtgc_update.launches) == (
+        2 * 2 * n_leaves)
+    for name in ("params", "z", "y", "efc", "efg"):
+        _close(outs[0][0][name], outs[1][0][name], 1e-6, name)
+    _close(outs[0][1], outs[1][1], 1e-6, "metrics")

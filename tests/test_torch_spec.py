@@ -1,5 +1,6 @@
 """The port's ExperimentSpec: the reference's field list, later-slice
-fields rejected by name, and no quiet CPU run on a host without CUDA."""
+fields rejected by name (partial participation and compressed uploads are
+accepted), and no quiet CPU run on a host without CUDA."""
 import dataclasses
 
 import pytest
@@ -26,11 +27,12 @@ def test_field_list_equals_reference():
 
 
 @pytest.mark.parametrize("kwargs,slice_name", [
-    ({"client_participation": 0.5}, "partial-participation"),
-    ({"group_participation": 0.5}, "partial-participation"),
+    ({"client_participation": 0.5, "faults": object()}, "faults-and-defense"),
+    ({"group_participation": 0.5, "defense": object()}, "faults-and-defense"),
     ({"faults": object()}, "faults-and-defense"),
     ({"defense": object()}, "faults-and-defense"),
-    ({"compression": object()}, "compressed-uploads"),
+    ({"compression": tapi.CompressionPlan("int8_stochastic"), "staleness": "discount",
+      "schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "async-rounds"),
     ({"staleness": "discount",
       "schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "async-rounds"),
     ({"schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "async-rounds"),
@@ -55,6 +57,13 @@ def test_later_slice_fields_raise_naming_the_slice(kwargs, slice_name):
     ({"fusion": "fused", "algorithm": "hfedavg"}, "mtgc only"),
     ({"state_layout": "dense"}, "unknown state_layout"),
     ({"correction_init": "random"}, "correction_init"),
+    ({"client_participation": 0.0}, "client_participation"),
+    ({"participation_mode": "poisson", "client_participation": 0.5}, "participation_mode"),
+    ({"compression": tapi.CompressionPlan("int8_stochastic"),
+      "correction_init": "gradient"}, "correction_init='zero'"),
+    ({"compression": tapi.CompressionPlan(group_mode="topk"), "server_lr": 0.5},
+     "server_lr=1.0"),
+    ({"compression": tapi.CompressionPlan(topk_frac=0.0)}, "topk_frac"),
     ({"levels": (2, 2, 2)}, "two-level"),
     ({"schedule": tapi.RoundSchedule(local_steps=0)}, "local_steps"),
 ])
@@ -64,13 +73,30 @@ def test_invalid_specs_raise(kwargs, match):
 
 
 def test_round_builder_rejects_later_slice_plans():
+    """Async plans, faults and defense still name their slice; compression
+    and partial participation build, with the reference's rejections of
+    compression under the gradient init or a server lr."""
     cfg = HFLConfig()
-    for kw in ({"plan": object()}, {"faults": object()}, {"defense": object()},
-               {"compression": object()}):
+    for kw in ({"plan": object()}, {"faults": object()}, {"defense": object()}):
         with pytest.raises(ValueError, match="slice of the port"):
             _build_global_round(lambda p, b: None, cfg, **kw)
-    with pytest.raises(ValueError, match="partial-participation"):
-        _build_global_round(lambda p, b: None, HFLConfig(client_participation=0.5))
+    plan = tapi.CompressionPlan("int8_stochastic", "topk")
+    assert callable(_build_global_round(lambda p, b: None, cfg, compression=plan))
+    assert callable(_build_global_round(lambda p, b: None,
+                                        HFLConfig(client_participation=0.5,
+                                                  group_participation=0.5),
+                                        compression=plan))
+    with pytest.raises(ValueError, match="correction_init='zero'"):
+        _build_global_round(lambda p, b: None, HFLConfig(correction_init="gradient"),
+                            compression=plan)
+    with pytest.raises(ValueError, match="server_lr=1.0"):
+        _build_global_round(lambda p, b: None, HFLConfig(server_lr=0.5), compression=plan)
+    with pytest.raises(ValueError, match="unknown client_mode"):
+        _build_global_round(lambda p, b: None, cfg,
+                            compression=tapi.CompressionPlan("int4"))
+    # A disabled plan is the uncompressed round (nothing to validate).
+    assert callable(_build_global_round(lambda p, b: None, HFLConfig(server_lr=0.5),
+                                        compression=tapi.CompressionPlan()))
 
 
 def test_hfl_config_round_trip():
@@ -105,8 +131,8 @@ def test_default_device_is_cuda_and_never_a_quiet_cpu_run():
 
 
 def test_wire_bytes_match_reference_and_compression_waits():
-    """The uncompressed wire model equals the reference's; compressed modes
-    and plans name their slice."""
+    """The wire model equals the reference's, uncompressed and under every
+    compression mode and plan."""
     import jax
     import numpy as np
 
@@ -120,7 +146,12 @@ def test_wire_bytes_match_reference_and_compression_waits():
     assert tcmp.upload_bytes(jsizes) == jcmp.upload_bytes(jsizes, "none")
     want = float(jcmp.round_comm_bytes(stacked, None, 2 * 2 * 3, 2))
     assert tcmp.round_comm_bytes(tstacked, None, 2 * 2 * 3, 2).item() == want
-    with pytest.raises(ValueError, match="compressed-uploads slice"):
-        tcmp.upload_bytes(jsizes, "int8_stochastic")
-    with pytest.raises(ValueError, match="compressed-uploads slice"):
-        tcmp.round_comm_bytes(tstacked, object(), 1, 1)
+    for mode in ("bf16", "int8_stochastic", "topk"):
+        for frac in (0.01, 0.3, 1.0):
+            assert tcmp.upload_bytes(jsizes, mode, frac) == jcmp.upload_bytes(jsizes, mode, frac)
+    jplan = japi.CompressionPlan("int8_stochastic", "topk", topk_frac=0.2)
+    tplan = tapi.CompressionPlan("int8_stochastic", "topk", topk_frac=0.2)
+    want = float(jcmp.round_comm_bytes(stacked, jplan, 7, 2))
+    assert tcmp.round_comm_bytes(tstacked, tplan, torch.tensor(7.0), 2).item() == want
+    with pytest.raises(ValueError, match="unknown compression mode"):
+        tcmp.upload_bytes(jsizes, "int4")
