@@ -58,7 +58,28 @@ final line):
 11. the port on the card against the port on the CPU (the kernels' plain
     versions) on a small input: the uncompressed round, and a compressed
     round under partial participation with injected draws;
-12. a JSON line per kernel, then ``{"ok": true, "device": {...}}`` last.
+12. the LM kernels (``flash_attention``, ``rwkv6_scan``) against their plain
+    versions on the card: at the serving shapes (q [4, 2048, 40, 128]
+    against a [4, 2080, 8, 128] cache, causal; the scan at B = 4,
+    T = 2048, H = 32, Dh = 64, C = 64 from a nonzero state) in float32 (5e-5
+    abs for attention, rtol/atol 1e-4 for the scan) and in bfloat16 (the
+    tensor-core attention within half a bfloat16 ulp plus 5e-5 of the plain
+    version in float32 on the same inputs), and at small ragged shapes in
+    both dtypes (GQA, MQA, a window that is not tile-aligned,
+    ``q_offset > 0``, S and T not multiples of the tile or chunk); then
+    kernel, plain, bound and, for
+    attention, ``scaled_dot_product_attention`` times;
+13. LM serving at full width through ``repro_torch.launch.serve.generate``:
+    qwen3-14b (40 layers, d 5120, bf16, 14.77 B params) and rwkv6-1.6b (24
+    layers, d 2048), each from random params (seed 0), 4 prompts of 2048
+    tokens, 32 generated tokens: ``flash_attention`` must launch 40 times in
+    the prefill and never in decode, ``rwkv6_scan`` 24 times in the
+    prefill; finite logits; prefill ms, decode ms per step, tokens/s, peak
+    memory;
+14. reduced qwen3-14b and rwkv6-1.6b (float32) from the same params on the
+    card and on the CPU: prefill logits within rtol/atol 1e-4, 8 greedy
+    tokens equal;
+15. a JSON line per kernel, then ``{"ok": true, "device": {...}}`` last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``) for the whole run, so every
@@ -77,6 +98,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, float32 outside tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, bf16 tensor cores, dense
 FLOPS_PER_ELEMENT = 5          # g*gs, +z, +y, lr*d, x-...
 INT8_FLOPS = 6                 # u/s, +noise, floor, two clip compares, q*s
 TOPK_FLOPS = 2                 # |u|, compare
@@ -84,6 +106,7 @@ TOPK_FRAC = 0.1
 E, H, ROUNDS, GROUPS, CLIENTS, BATCH = 2, 5, 2, 10, 10, 50
 IMAGE = (32, 32, 3)
 LR = 0.01
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32      # the serving traffic of phase 13
 
 
 def log(*args):
@@ -113,23 +136,24 @@ def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def timed(torch, kernel, plain) -> dict:
+def timed(torch, kernel, plain, iters=20, plain_iters=20) -> dict:
     """Kernel and plain times in turns (kernel, plain, plain, kernel); each
     is the mean of its two readings, and the spread of the kernel's two is
     kept beside it."""
-    k1 = cuda_ms(torch, kernel)
-    p1 = cuda_ms(torch, plain)
-    p2 = cuda_ms(torch, plain)
-    k2 = cuda_ms(torch, kernel)
+    warm = min(3, iters)
+    k1 = cuda_ms(torch, kernel, iters, warm)
+    p1 = cuda_ms(torch, plain, plain_iters, min(3, plain_iters))
+    p2 = cuda_ms(torch, plain, plain_iters, min(3, plain_iters))
+    k2 = cuda_ms(torch, kernel, iters, warm)
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "ms_readings": [k1, k2],
             "plain_ms_readings": [p1, p2]}
 
 
-def bound_ms(nbytes: int, elements: int, flops: int = FLOPS_PER_ELEMENT) -> tuple[float, str]:
-    """Least time for the work: bytes over HBM rate vs ``flops`` per
-    element over the float32 peak, whichever is larger."""
+def bound_ms(nbytes: int, flops: float, peak: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    """Least time for the work: bytes over HBM rate vs ``flops`` over the
+    ``peak`` rate of their type, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops * elements / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -210,7 +234,7 @@ def phase_kernels(torch, mu, N, leaf_shapes):
     flat = timed(torch, lambda: mu.mtgc_update_flat(x, g, z, y, None, lr=0.1),
                  lambda: mu.mtgc_update_flat_ref(x, g, z, y, None, 0.1))
     nbytes = sum(t.numel() * t.element_size() for t in (x, g, z, y)) + x.numel() * 4
-    flat["bound_ms"], flat["bound_by"] = bound_ms(nbytes, x.numel())
+    flat["bound_ms"], flat["bound_by"] = bound_ms(nbytes, FLOPS_PER_ELEMENT * x.numel())
     flat["bytes"] = nbytes
     del x, g, z, y
     leaves = [[randn(*s) for _ in range(4)] for s in leaf_shapes]
@@ -221,7 +245,8 @@ def phase_kernels(torch, mu, N, leaf_shapes):
     leaf = timed(torch, step(lambda *a: mu.mtgc_update(*a, lr=0.1)),
                  step(lambda *a: mu.mtgc_update_ref(*a, 0.1)))
     nbytes = sum(5 * a[0].numel() * 4 for a in leaves)
-    leaf["bound_ms"], leaf["bound_by"] = bound_ms(nbytes, sum(a[0].numel() for a in leaves))
+    leaf["bound_ms"], leaf["bound_by"] = bound_ms(
+        nbytes, FLOPS_PER_ELEMENT * sum(a[0].numel() for a in leaves))
     leaf["bytes"] = nbytes
     del leaves
     torch.cuda.empty_cache()
@@ -300,12 +325,12 @@ def phase_quantize(torch, qz, N):
         t = timed(torch, lambda: qz.int8_roundtrip(u, scale, noise),
                   lambda: qz.int8_roundtrip_ref(u, scale, noise))
         nbytes = 3 * u.numel() * 4 + rows * 4
-        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, u.numel(), INT8_FLOPS)
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, INT8_FLOPS * u.numel())
         t["bytes"] = nbytes
         times[f"int8_roundtrip/{tag}"] = t
         t = timed(torch, lambda: qz.topk_mask(u, thresh), lambda: qz.topk_mask_ref(u, thresh))
         nbytes = 2 * u.numel() * 4 + rows * 4
-        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, u.numel(), TOPK_FLOPS)
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, TOPK_FLOPS * u.numel())
         t["bytes"] = nbytes
         times[f"topk_mask/{tag}"] = t
         k = max(1, math.ceil(TOPK_FRAC * N))
@@ -438,6 +463,238 @@ def finite_metrics(np, hz) -> None:
         require(np.isfinite(v).all(), f"metric {f} is not finite: {v}")
 
 
+def causal_pairs(T: int, S: int, q_offset: int = 0) -> int:
+    """Live (query, key) pairs of one causal head without a window: query t
+    sees keys 0 .. min(q_offset + t, S - 1)."""
+    return sum(min(q_offset + t + 1, S) for t in range(T))
+
+
+def phase_lm_kernels(torch, fa, rs):
+    """Phase 12: the LM kernels against their plain versions on the card,
+    then times at the serving shapes."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    B, T, H, Kv, Dh = LM_BATCH, LM_PROMPT, 40, 8, 128
+    S = LM_PROMPT + LM_GEN
+    errs = {}
+    # The prefill's call: the prompt's K/V in the first T cache slots, the
+    # LM_GEN slots not yet written are zero.
+    q = randn(B, T, H, Dh)
+    k, v = randn(B, S, Kv, Dh), randn(B, S, Kv, Dh)
+    k[:, T:] = 0.0
+    v[:, T:] = 0.0
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    errs["flash_attention/f32"] = (got - want).abs().max().item()
+    log(f"flash_attention f32 q [{B},{T},{H},{Dh}] kv [{B},{S},{Kv},{Dh}] causal: "
+        f"max_abs_err {errs['flash_attention/f32']}")
+    require(errs["flash_attention/f32"] < 5e-5, "flash_attention differs from its plain version")
+    # bf16, the main path's dtype (the tensor-core kernel), against the
+    # plain version in float32 on the same bf16 inputs: within half a bf16
+    # ulp (the output's own rounding) plus 5e-5.
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    del q, k, v, got, want
+    got = fa.flash_attention(qb, kb, vb).float()
+    want = fa.flash_attention_ref(qb.float(), kb.float(), vb.float())
+    err = (got - want).abs()
+    excess = (err - 2.0 ** -8 * want.abs()).max().item()
+    errs["flash_attention"] = err.max().item()
+    plain16 = fa.flash_attention_ref(qb, kb, vb).float()
+    log(f"flash_attention bf16 at the same shape: max |kernel - plain in f32| "
+        f"{errs['flash_attention']} (beyond half an ulp: {excess}); "
+        f"{int((got != plain16).sum())} of {got.numel()} outputs differ from the bf16 plain "
+        f"version, by at most {(got - plain16).abs().max().item()}")
+    require(excess < 5e-5, "flash_attention bf16 is off by more than half an ulp + 5e-5")
+    del got, want, err, plain16
+    for (b, t, s, h, kv, dh, causal, win, off) in (
+            (2, 128, 128, 4, 2, 64, True, 0, 0),     # GQA
+            (1, 256, 256, 2, 1, 32, True, 64, 0),    # MQA + window
+            (2, 256, 256, 8, 2, 128, True, 100, 0),  # window not tile-aligned
+            (1, 24, 70, 6, 3, 64, True, 0, 30),      # q_offset > 0
+            (2, 33, 81, 4, 4, 128, True, 9, 40),     # window + q_offset + ragged S
+            (1, 100, 170, 5, 5, 32, False, 0, 7)):   # bidirectional, ragged
+        q, k, vv = randn(b, t, h, dh), randn(b, s, kv, dh), randn(b, s, kv, dh)
+        for dtype, half_ulp in ((torch.float32, 0.0), (torch.bfloat16, 2.0 ** -8)):
+            q, k, vv = q.to(dtype).float(), k.to(dtype).float(), vv.to(dtype).float()
+            got = fa.flash_attention(q.to(dtype), k.to(dtype), vv.to(dtype), causal=causal,
+                                     window=win, q_offset=off).float()
+            want = fa.flash_attention_ref(q, k, vv, causal=causal, window=win, q_offset=off,
+                                          block=64)
+            excess = ((got - want).abs() - half_ulp * want.abs()).max().item()
+            require(excess < 5e-5, f"flash_attention {dtype} differs at "
+                    f"{(b, t, s, h, kv, dh, win, off)}")
+            key = "flash_attention/f32" if dtype == torch.float32 else "flash_attention"
+            errs[key] = max(errs[key], (got - want).abs().max().item())
+    log("flash_attention small ragged shapes (GQA, MQA, window 64/100/9, q_offset 30/40/7, "
+        "ragged S), f32 and bf16: within 5e-5 (bf16: plus half an ulp)")
+
+    # RWKV-6 at the serving shape, in the model's [B, T, H, Dh] layout, from
+    # a nonzero state; the decays are the model's -exp(-1 + tanh(.)).
+    Hr, Dr, C = 32, 64, 64
+    r, kk, vv = (randn(LM_BATCH, T, Hr, Dr) for _ in range(3))
+    logw = -torch.exp(-1.0 + torch.tanh(randn(LM_BATCH, T, Hr, Dr)))
+    u = 0.1 * randn(Hr, Dr)
+    s0 = 0.1 * randn(LM_BATCH, Hr, Dr, Dr)
+    for tt in (T, T - 45):          # T - 45: not a chunk multiple, padded in the kernel
+        args = [a[:, :tt].contiguous() for a in (r, kk, vv, logw)] + [u, s0]
+        go, gs = rs.rwkv6_scan_bthd(*args, chunk=C)
+        wo, ws = rs.rwkv6_chunked_ref(*args, chunk=C)
+        torch.cuda.synchronize()
+        require(torch.allclose(go, wo, rtol=1e-4, atol=1e-4) and
+                torch.allclose(gs, ws, rtol=1e-4, atol=1e-4),
+                f"rwkv6_scan differs from its plain version at T={tt}")
+        err = max((go - wo).abs().max().item(), (gs - ws).abs().max().item())
+        errs["rwkv6_scan/f32"] = max(errs.get("rwkv6_scan/f32", 0.0), err)
+        log(f"rwkv6_scan f32 [{LM_BATCH},{tt},{Hr},{Dr}] C={C}, nonzero state: max_abs_err {err} "
+            f"(max |o| {wo.abs().max().item():.3g})")
+    rb, kb_, vb_ = r.bfloat16(), kk.bfloat16(), vv.bfloat16()
+    go, gs = rs.rwkv6_scan_bthd(rb, kb_, vb_, logw, u, s0, chunk=C)
+    wo, ws = rs.rwkv6_chunked_ref(rb, kb_, vb_, logw, u, s0, chunk=C)
+    require(torch.allclose(go, wo, rtol=1e-4, atol=1e-4) and
+            torch.allclose(gs, ws, rtol=1e-4, atol=1e-4), "rwkv6_scan bf16 inputs differ")
+    errs["rwkv6_scan"] = max((go - wo).abs().max().item(), (gs - ws).abs().max().item())
+    log(f"rwkv6_scan with bf16 r/k/v (the model's dtype): within rtol/atol 1e-4, max_abs_err "
+        f"{errs['rwkv6_scan']}")
+    del r, kk, vv, go, gs, wo, ws
+
+    # Times at the serving shapes, in the model's dtypes.
+    flash = timed(torch, lambda: fa.flash_attention(qb, kb, vb),
+                  lambda: fa.flash_attention_ref(qb, kb, vb), iters=10, plain_iters=3)
+    qt, kt, vt = (a.transpose(1, 2) for a in (qb, kb, vb))
+    flash["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=10, warmup=2)
+    lib_err = (F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+               .transpose(1, 2).float() - fa.flash_attention(qb, kb, vb).float()).abs().max().item()
+    pairs = B * H * causal_pairs(T, S)
+    nbytes = 2 * qb.numel() * 2 + 2 * kb.numel() * 2     # q read, o written, k and v read
+    flops = 4 * Dh * pairs
+    flash["bound_ms"], flash["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    flash.update(bytes=nbytes, flops=flops, pairs=pairs, sdpa_max_abs_diff=lib_err)
+    del qb, kb, vb, qt, kt, vt
+    scan = timed(torch, lambda: rs.rwkv6_scan_bthd(rb, kb_, vb_, logw, u, s0, chunk=C),
+                 lambda: rs.rwkv6_chunked_ref(rb, kb_, vb_, logw, u, s0, chunk=C),
+                 iters=10, plain_iters=3)
+    nc = T // C
+    nbytes = 3 * rb.numel() * 2 + logw.numel() * 4 * 2 + 2 * s0.numel() * 4  # r/k/v, logw + o, S
+    flops = LM_BATCH * Hr * nc * (2 * 2 * C * Dr * Dr + 2 * 2 * C * C * Dr)
+    scan["bound_ms"], scan["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    scan.update(bytes=nbytes, flops=flops, library_ms=None,
+                live_exps=LM_BATCH * Hr * nc * (C * (C - 1) // 2) * Dr)
+    del rb, kb_, vb_, logw, u, s0
+    torch.cuda.empty_cache()
+    for name, t in (("flash_attention", flash), ("rwkv6_scan", scan)):
+        log(f"{name}: kernel {t['ms']:.4f} ms {t['ms_readings']}, plain {t['plain_ms']:.4f} ms "
+            f"{t['plain_ms_readings']}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+            f"{t['bytes']} bytes, {t['flops']:.4g} FLOP), library {t['library_ms']}")
+    log(f"  flash_attention: {flash['pairs']} live pairs; SDPA against the kernel: max abs "
+        f"diff {flash['sdpa_max_abs_diff']}; rwkv6_scan: {scan['live_exps']} pairwise exps")
+    return errs, {"flash_attention": flash, "rwkv6_scan": scan}
+
+
+def phase_serve(torch, np, arch, counter):
+    """Phase 13: serve the full-width ``arch`` through ``generate``: warm-up
+    with 2 tokens, then the main path (counts set to 0 just before, read
+    just after), with the launches of the prefill recorded apart."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import build_model
+
+    cfg = get_arch(arch)
+    bundle = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).cuda()
+    in_prefill = []
+
+    def prefill(p, batch, cache):
+        out = bundle.prefill(p, batch, cache)
+        in_prefill.append(counter())
+        return out
+
+    spied = bundle._replace(prefill=prefill)
+    serve.generate(spied, params, toks, 2)                  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve.generate(spied, params, toks, LM_GEN)
+    launches, prefill_launches = counter(), in_prefill[-1]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    logits = res.prefill_logits.float()
+    require(tuple(logits.shape) == (LM_BATCH, cfg.vocab_padded), f"{arch}: logits shape")
+    require(bool(torch.isfinite(logits).all()), f"{arch}: prefill logits are not finite")
+    tok = res.tokens
+    require(tuple(tok.shape) == (LM_BATCH, LM_GEN) and int(tok.min()) >= 0
+            and int(tok.max()) < cfg.vocab_padded, f"{arch}: generated tokens out of range")
+    require(bool(torch.isfinite(res.last_logits.float()).all()),
+            f"{arch}: the last decode step's logits are not finite")
+    # Traces of one prefill and of one decode step after it.
+    cache = bundle.init_cache(LM_BATCH, LM_PROMPT + 1)
+    with torch.no_grad():
+        pre = profile_round(torch, lambda: bundle.prefill(params, {"tokens": toks}, cache))
+        dec = profile_round(torch, lambda: bundle.decode_step(
+            params, {"token": tok[:, :1], "index": LM_PROMPT}, cache))
+    del cache
+    step_ms = res.decode_ms / (LM_GEN - 1)
+    out = {"arch": arch, "params": n_params, "init_s": init_s, "prefill_ms": res.prefill_ms,
+           "decode_ms_per_step": step_ms,
+           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / res.prefill_ms * 1e3,
+           "decode_tokens_per_s": LM_BATCH / step_ms * 1e3,
+           "tokens_per_s": LM_BATCH * LM_GEN / (res.prefill_ms + res.decode_ms) * 1e3,
+           "peak_gb": peak_gb, "launches": launches, "prefill_launches": prefill_launches,
+           "prefill_busy_share": pre["busy"] / pre["wall_us"] if pre else None,
+           "decode_busy_share": dec["busy"] / dec["wall_us"] if dec else None,
+           "sample": tok[0, :8].tolist()}
+    log(f"serve {arch} ({n_params / 1e9:.2f} B params, init {init_s:.1f} s): batch {LM_BATCH} x "
+        f"prompt {LM_PROMPT}, {LM_GEN} generated: prefill {res.prefill_ms:.1f} ms, decode "
+        f"{step_ms:.2f} ms/step, {out['tokens_per_s']:.1f} generated tokens/s end to end, "
+        f"peak memory {peak_gb:.2f} GB; kernel launches {launches} ({prefill_launches} in the "
+        f"prefill); tokens[0] {out['sample']}")
+    log_trace(f"  {arch} prefill (traced)", pre)
+    log_trace(f"  {arch} decode step (traced)", dec)
+    del params, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_card_vs_cpu(torch, np, convert):
+    """Phase 14: reduced float32 models from one set of params on the card
+    (kernels) and on the CPU (plain versions)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import build_model
+
+    worst = 0.0
+    for arch in ("qwen3-14b", "rwkv6-1.6b"):
+        bundle = build_model(get_arch(arch).reduced())
+        params = bundle.init(0, device="cpu")
+        toks = torch.from_numpy(np.random.default_rng(14).integers(
+            0, 256, (2, 37)).astype(np.int32))
+        card = generate(bundle, convert.params_from_numpy(convert.to_numpy(params), "cuda"),
+                        toks.cuda(), 8)
+        cpu = generate(bundle, params, toks, 8)
+        gl, cl = card.prefill_logits.cpu(), cpu.prefill_logits
+        worst = max(worst, (gl - cl).abs().max().item())
+        require(torch.allclose(gl, cl, rtol=1e-4, atol=1e-4),
+                f"reduced {arch}: prefill logits differ between card and CPU")
+        require(torch.equal(card.tokens.cpu(), cpu.tokens),
+                f"reduced {arch}: greedy tokens differ between card and CPU")
+    log(f"card vs CPU, reduced qwen3-14b and rwkv6-1.6b (f32, 37 prompt tokens): prefill logits "
+        f"within rtol/atol 1e-4 (max abs diff {worst:.3g}), 8 greedy tokens equal")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -459,8 +716,10 @@ def main() -> int:
     from repro_torch.core.participation import ParticipationMasks, round_masks
     from repro_torch.data import make_classification, partition, train_test_split
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mtgc_update as mu
     from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.models import small
 
     torch.backends.cudnn.allow_tf32 = False
@@ -736,7 +995,7 @@ def main() -> int:
 
     # --- 11. card against CPU on a small input ---------------------------
     small_init, small_apply = small.cnn(10, (8, 8, 1))
-    ps = small_init(torch.Generator().manual_seed(3))
+    ps = small_init(torch.Generator().manual_seed(3), device="cpu")
     rs = np.random.default_rng(3)
     b = {"x": torch.from_numpy(rs.normal(size=(2, 2, 2, 3, 4, 8, 8, 1)).astype(np.float32)),
          "y": torch.from_numpy(rs.integers(0, 10, size=(2, 2, 2, 3, 4)).astype(np.int32))}
@@ -795,7 +1054,27 @@ def main() -> int:
     log("card vs CPU, compressed (int8 client, top-k group) at C=0.5 with injected draws, "
         "flat and tree: agree within rtol 1e-5")
 
-    # --- 12. results -----------------------------------------------------
+    # --- 12. LM kernels ------------------------------------------------
+    del acc, p0, ds, train, test
+    torch.cuda.empty_cache()
+    lm_errs, lm_t = phase_lm_kernels(torch, fa, rw)
+
+    # --- 13. LM serving at full width -----------------------------------
+    qwen = phase_serve(torch, np, "qwen3-14b", lambda: fa.flash_attention.launches)
+    require(qwen["prefill_launches"] == 40 and qwen["launches"] == 40,
+            f"flash_attention launched {qwen['prefill_launches']} times in the prefill and "
+            f"{qwen['launches']} in all; expected 40 (one per layer) and none in decode")
+    require(rw.rwkv6_scan.launches == 0, "the dense model launched rwkv6_scan")
+    rwkv = phase_serve(torch, np, "rwkv6-1.6b", lambda: rw.rwkv6_scan.launches)
+    require(rwkv["prefill_launches"] == 24 and rwkv["launches"] == 24,
+            f"rwkv6_scan launched {rwkv['prefill_launches']} times in the prefill and "
+            f"{rwkv['launches']} in all; expected 24 (one per layer) and none in decode")
+    require(fa.flash_attention.launches == 0, "the RWKV model launched flash_attention")
+
+    # --- 14. LM: card against CPU, reduced ------------------------------
+    phase_lm_card_vs_cpu(torch, np, convert)
+
+    # --- 15. results -----------------------------------------------------
     kernels = [
         {"name": "mtgc_update_flat", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mtgc_update.cu",
@@ -826,7 +1105,22 @@ def main() -> int:
             "group_link": {"shape": f"u [{GROUPS},{N}] f32", "ms": tg["ms"],
                            "plain_ms": tg["plain_ms"], "bound_ms": tg["bound_ms"]},
             "threshold_ms": q_t["threshold/client"]["ms"] if name == "topk_mask" else None})
+    for name, run, replaces, shape in (
+            ("flash_attention", qwen, "src/repro/kernels/flash_attention.py:87",
+             f"q [{LM_BATCH},{LM_PROMPT},40,128] bf16, k/v [{LM_BATCH},{LM_PROMPT + LM_GEN},8,128],"
+             " causal (one qwen3-14b prefill layer)"),
+            ("rwkv6_scan", rwkv, "src/repro/kernels/rwkv6_scan.py:79",
+             f"r/k/v [{LM_BATCH},{LM_PROMPT},32,64] bf16, logw f32, C=64 (one rwkv6-1.6b "
+             "prefill layer)")):
+        t = lm_t[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": run["launches"], "max_abs_err": lm_errs[name],
+            "max_abs_err_f32": lm_errs[f"{name}/f32"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": shape})
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"serving": [qwen, rwkv]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

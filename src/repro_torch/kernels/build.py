@@ -25,14 +25,21 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("mtgc_update", "quantize")
+SOURCES = ("mtgc_update", "quantize", "flash_attention", "rwkv6_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # Every rounding is explicit in the sources; keep nvcc from contracting
-    # any remaining a * b + c into an FMA.
-    "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# The element-wise kernels are bit-exact against their plain versions: every
+# rounding is explicit in their sources, and nvcc must not contract any
+# remaining a * b + c into an FMA. The attention and scan kernels reorder
+# their sums anyway and write their FMAs out.
+NO_FMAD = ("mtgc_update", "quantize")
+
+
+def nvcc_flags(name: str) -> tuple:
+    """The flags ``csrc/<name>.cu`` is compiled with."""
+    return NVCC_FLAGS + (("-fmad=false",) if name in NO_FMAD else ())
 
 
 def nvcc_path() -> str:
@@ -56,7 +63,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
@@ -74,7 +81,7 @@ def build_all(names=SOURCES) -> dict:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp, out)
     failed = []
@@ -115,3 +122,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.int8_roundtrip_launch.restype = i32
         lib.topk_mask_launch.argtypes = [p, p, p, i64, i64, i32, p]
         lib.topk_mask_launch.restype = i32
+    elif name == "flash_attention":
+        lib.flash_attention_launch.argtypes = [p, p, p, p] + [i32] * 9 + [f32, i32, p]
+        lib.flash_attention_launch.restype = i32
+    elif name == "rwkv6_scan":
+        lib.rwkv6_scan_launch.argtypes = [p] * 8 + [i32] * 5 + [i64] * 4 + [i32, p]
+        lib.rwkv6_scan_launch.restype = i32

@@ -2,7 +2,10 @@
 
 Port of ``src/repro/models/small.py`` (``mlp``, ``deep_mlp``, ``cnn``;
 ``resnet_gn`` and ``lstm`` belong to a later slice). Each factory returns
-``(init(generator, device) -> params, apply(params, x) -> logits)``. Params
+``(init(generator, device=None) -> params, apply(params, x) -> logits)``;
+``init`` puts the params on the CUDA card unless given ``device="cpu"`` (and
+raises on a host without a card); it draws the weights from the caller's
+CPU generator first, so a seed gives the same weights on both devices. Params
 are nested dicts with the reference's leaf names and shapes, so weights
 initialized by the JAX package load unchanged (``repro_torch.convert``).
 The functions are plain tensor code, so the engine can ``torch.func.vmap``
@@ -19,6 +22,8 @@ from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.device import resolve_device
 
 Init = Callable[..., dict]
 Apply = Callable[[dict, torch.Tensor], torch.Tensor]
@@ -48,7 +53,8 @@ def _linear(p, x):
 def mlp(num_classes: int, input_dim: int, hidden: int = 200) -> Tuple[Init, Apply]:
     """2 hidden ReLU layers + linear head (EMNIST-L / Fashion-MNIST)."""
 
-    def init(gen: torch.Generator, device="cpu"):
+    def init(gen: torch.Generator, device=None):
+        device = resolve_device(device)
         return {
             "l1": _dense(gen, input_dim, hidden, device),
             "l2": _dense(gen, hidden, hidden, device),
@@ -69,7 +75,8 @@ def deep_mlp(num_classes: int, input_dim: int, hidden: int = 32,
     """Deep, narrow MLP: ``depth`` hidden layers of ``hidden`` units (the
     leaf-rich stress model for the round engines)."""
 
-    def init(gen: torch.Generator, device="cpu"):
+    def init(gen: torch.Generator, device=None):
+        device = resolve_device(device)
         p = {"in": _dense(gen, input_dim, hidden, device)}
         for i in range(depth):
             p[f"h{i:03d}"] = _dense(gen, hidden, hidden, device)
@@ -97,7 +104,8 @@ def cnn(num_classes: int, image_shape=(8, 8, 1)) -> Tuple[Init, Apply]:
     """McMahan-style CNN: conv5x32 - pool - conv5x64 - pool - fc512 - fc."""
     h, w, c = image_shape
 
-    def init(gen: torch.Generator, device="cpu"):
+    def init(gen: torch.Generator, device=None):
+        device = resolve_device(device)
         flat = (h // 4) * (w // 4) * 64
         return {
             "c1": _conv(gen, 5, 5, c, 32, device),

@@ -1,0 +1,254 @@
+"""The LM stack's decoder, for the families the port serves so far.
+
+Port of ``src/repro/models/transformer.py`` for two families:
+
+  dense -- pre-RMSNorm GQA attention + SwiGLU (qwen3: per-head qk-RMSNorm)
+  ssm   -- RWKV6 time mix + RWKV channel mix (attention-free)
+
+The other families raise ``NotImplementedError`` naming the slice of the
+port that brings them. The params tree is the reference's: the layers'
+leaves are stacked on axis 0, so ``convert.params_from_numpy`` carries the
+JAX package's weights across unchanged. A Python loop over the layer index
+takes the place of the reference's ``lax.scan``.
+
+Every bundle provides:
+  init(seed, device=None)          -> params (on the CUDA card by default)
+  forward(params, batch)           -> logits [B, T, vocab_padded]
+  init_cache(batch, seq, device=None) -> cache
+  prefill(params, batch, cache)    -> (last-position logits [B, V], cache)
+  decode_step(params, batch, cache) -> (logits [B, V], cache)
+``prefill`` and ``decode_step`` update the cache IN PLACE and return it
+(the reference returns a new one). The training loss belongs to the
+LM-training slice.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.core.tree import tree_map
+from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as RWKV
+from repro_torch.models.config import ArchConfig
+
+FAMILIES = ("dense", "ssm")
+_LATER = {
+    "moe": "the moe slice of the port",
+    "hybrid": "the hybrid (models/ssm.py) slice of the port",
+    "audio": "the audio slice of the port",
+    "vlm": "the vlm slice of the port",
+}
+
+
+class ModelBundle(NamedTuple):
+    cfg: ArchConfig
+    init: Callable            # (seed, device=None) -> params
+    forward: Callable         # (params, batch) -> logits
+    init_cache: Callable      # (batch, seq, device=None) -> cache
+    prefill: Callable         # (params, batch, cache) -> (logits, cache)
+    decode_step: Callable     # (params, batch, cache) -> (logits, cache)
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+# ------------------------------------------------------------------ layers
+
+
+def _layer_windows(cfg: ArchConfig) -> np.ndarray:
+    """Per-layer sliding window sizes ([L] int32); 0 = global attention."""
+    Lh = cfg.num_layers
+    if cfg.local_global_ratio > 0:
+        r = cfg.local_global_ratio
+        w = np.full(Lh, cfg.sliding_window or 1024, np.int32)
+        w[r::r + 1] = 0  # every (r+1)-th layer is global
+        return w
+    return np.full(Lh, cfg.sliding_window, np.int32)
+
+
+def _init_decoder_layer(cfg: ArchConfig, gen, device) -> dict:
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    p = {"ln1": L.init_rms(d, dt, device), "ln2": L.init_rms(d, dt, device)}
+    if cfg.arch_type == "ssm":
+        p["rwkv"] = RWKV.init_rwkv6(gen, d, cfg.num_heads, dt, device)
+        p["cmix"] = {
+            "wr": L.init_linear(gen, d, d, dt, device),
+            "wk": L.init_linear(gen, d, cfg.d_ff, dt, device),
+            "wv": L.init_linear(gen, cfg.d_ff, d, dt, device),
+            "mix": torch.full((2, d), 0.5, dtype=dt, device=device),
+        }
+        return p
+    p["attn"] = L.init_attention(
+        gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.d_head, dt, device,
+        qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
+    )
+    p["mlp"] = L.init_swiglu(gen, d, cfg.d_ff, dt, device)
+    return p
+
+
+def _rwkv_cmix(p, x, x_prev):
+    """RWKV channel mixing with token shift. x: [B, T, D]."""
+    xs = torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
+    mr, mk = p["mix"][0], p["mix"][1]
+    xr = x * mr + xs * (1 - mr)
+    xk = x * mk + xs * (1 - mk)
+    r = torch.sigmoid(L.linear(p["wr"], xr))
+    k = torch.square(torch.relu(L.linear(p["wk"], xk)))
+    return r * L.linear(p["wv"], k)
+
+
+def _apply_decoder_layer(cfg: ArchConfig, p: dict, x, *, window, cache=None,
+                         cache_index=None, mode: str = "train"):
+    """One decoder layer. Returns (x, new_cache).
+
+    cache (per-layer slice) keys by family:
+      attention: k, v           [B, S, Kv, Dh]  (written in place)
+      ssm:       state, x_prev, ffn_prev
+    """
+    B, T, D = x.shape
+    new_cache = {}
+
+    if cfg.arch_type == "ssm":
+        h = L.rms_norm(x, p["ln1"])
+        if mode == "decode":
+            o, xp, st = RWKV.rwkv6_step(p["rwkv"], h[:, 0], cache["x_prev"], cache["state"],
+                                        n_heads=cfg.num_heads)
+            o = o[:, None]
+        else:
+            dh = D // cfg.num_heads
+            st0 = (torch.zeros((B, cfg.num_heads, dh, dh), dtype=torch.float32,
+                               device=x.device) if cache is None else cache["state"])
+            xp0 = torch.zeros((B, D), dtype=x.dtype, device=x.device) if cache is None \
+                else cache["x_prev"]
+            o, xp, st = RWKV.rwkv6_chunked(p["rwkv"], h, xp0, st0, n_heads=cfg.num_heads,
+                                           chunk=cfg.rwkv_chunk)
+        new_cache.update(state=st, x_prev=xp)
+        x = x + o
+        h = L.rms_norm(x, p["ln2"])
+        # As in the reference, the channel mix's token shift starts from
+        # zeros outside decode, even when a prefill has a cache.
+        fp = cache["ffn_prev"] if (cache is not None and mode == "decode") \
+            else torch.zeros((B, D), dtype=x.dtype, device=x.device)
+        x = x + _rwkv_cmix(p["cmix"], h, fp)
+        new_cache["ffn_prev"] = h[:, -1]
+        return x, new_cache
+
+    h = L.rms_norm(x, p["ln1"])
+    kv_cache = None
+    if cache is not None and "k" in cache:
+        kv_cache = {"k": cache["k"], "v": cache["v"]}
+    attn_out, kvc = L.attention_block(
+        p["attn"], h,
+        n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, d_head=cfg.d_head,
+        rope_base=cfg.rope_base, window=window,
+        qk_norm=cfg.qk_norm, kv_cache=kv_cache, cache_index=cache_index,
+        attn_impl="blocked" if (T > 1024 or kv_cache is not None) else "naive",
+        block=cfg.attn_block,
+    )
+    if kvc is not None:
+        new_cache.update(kvc)
+    x = x + attn_out
+    h = L.rms_norm(x, p["ln2"])
+    x = x + L.swiglu(p["mlp"], h)
+    return x, new_cache
+
+
+# ------------------------------------------------------------------ model
+
+
+def _stack_init(fn, n: int) -> dict:
+    """``n`` layers from ``fn()``, stacked on axis 0 one layer at a time
+    (the stacked leaves are filled in place; only one layer's fresh params
+    and one leaf's float32 draw are alive besides them)."""
+    first = fn()
+    out = tree_map(lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                                         device=t.device), first)
+    for i in range(n):
+        tree_map(lambda s, t: s[i].copy_(t), out, first if i == 0 else fn())
+    return out
+
+
+def build_model(cfg: ArchConfig) -> ModelBundle:
+    if cfg.arch_type not in FAMILIES:
+        raise NotImplementedError(
+            f"arch_type {cfg.arch_type!r} is not ported yet: it needs "
+            f"{_LATER.get(cfg.arch_type, 'a later slice of the port')}")
+    dt = _dtype(cfg)
+    windows = [int(w) for w in _layer_windows(cfg)]
+
+    def init(seed: int = 0, device=None) -> dict:
+        """Random params from ``seed``, drawn on ``device`` (the CUDA card
+        unless ``device="cpu"``) by a generator there, leaf by leaf in
+        float32 and cast to the param dtype; the layers are drawn one at a
+        time into their stacked leaves."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        p = {
+            "embed": L.init_embedding(gen, cfg.vocab_padded, cfg.d_model, dt, dev),
+            "ln_f": L.init_rms(cfg.d_model, dt, dev),
+            "layers": _stack_init(lambda: _init_decoder_layer(cfg, gen, dev),
+                                  cfg.num_layers),
+        }
+        if not cfg.tie_embeddings:
+            p["unembed"] = L.init_linear(gen, cfg.d_model, cfg.vocab_padded, dt, dev)
+        return p
+
+    def _logits(p, hidden):
+        if cfg.tie_embeddings:
+            return L.unembed(p["embed"], hidden)
+        return L.linear(p["unembed"], hidden)
+
+    def _run_layers(p, x, cache=None, cache_index=None, mode="train"):
+        for i in range(cfg.num_layers):
+            cl = None if cache is None else {k: v[i] for k, v in cache.items()}
+            lp = tree_map(lambda t: t[i], p["layers"])
+            x, nc = _apply_decoder_layer(cfg, lp, x, window=windows[i],
+                                         cache=cl, cache_index=cache_index, mode=mode)
+            if cache is not None:
+                for k, v in nc.items():
+                    if v is not cl[k]:  # k/v were written in place already
+                        cache[k][i].copy_(v)
+        return x
+
+    def forward(p, batch):
+        x = L.embed(p["embed"], batch["tokens"]).to(dt)
+        x = _run_layers(p, x, mode="eval")
+        return _logits(p, L.rms_norm(x, p["ln_f"]))
+
+    def init_cache(batch_size: int, seq: int, device=None) -> dict:
+        dev = resolve_device(device)
+        B, S, Lh = batch_size, seq, cfg.num_layers
+        if cfg.arch_type == "ssm":
+            dh = cfg.d_model // cfg.num_heads
+            return {
+                "state": torch.zeros((Lh, B, cfg.num_heads, dh, dh), dtype=torch.float32,
+                                     device=dev),
+                "x_prev": torch.zeros((Lh, B, cfg.d_model), dtype=dt, device=dev),
+                "ffn_prev": torch.zeros((Lh, B, cfg.d_model), dtype=dt, device=dev),
+            }
+        shape = (Lh, B, S, cfg.num_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    def prefill(p, batch, cache):
+        """Forward the prompt ``batch["tokens"]`` [B, T], writing the cache
+        from position 0; returns the last position's logits."""
+        x = L.embed(p["embed"], batch["tokens"]).to(dt)
+        x = _run_layers(p, x, cache=cache, cache_index=0, mode="prefill")
+        x = L.rms_norm(x[:, -1:], p["ln_f"])
+        return _logits(p, x)[:, 0], cache
+
+    def decode_step(p, batch, cache):
+        """One-token decode. batch: {'token': [B, 1], 'index': position}."""
+        x = L.embed(p["embed"], batch["token"]).to(dt)
+        x = _run_layers(p, x, cache=cache, cache_index=int(batch["index"]), mode="decode")
+        x = L.rms_norm(x, p["ln_f"])
+        return _logits(p, x)[:, 0], cache
+
+    return ModelBundle(cfg=cfg, init=init, forward=forward, init_cache=init_cache,
+                       prefill=prefill, decode_step=decode_step)

@@ -470,7 +470,7 @@ def test_disabled_plan_is_bitexact(layout, participation):
     uncompressed round bit for bit, at full and partial participation."""
     factory, feat = MODELS["mlp"]
     _, apply = factory(tsmall)
-    p0 = factory(tsmall)[0](torch.Generator().manual_seed(0))
+    p0 = factory(tsmall)[0](torch.Generator().manual_seed(0), device="cpu")
     b = {k: torch.from_numpy(v) for k, v in _batches(0, feat).items()}
     outs = []
     for plan in (None, tapi.CompressionPlan()):
@@ -496,7 +496,7 @@ def test_generator_draws_equal_injected_draws():
     same numbers drawn by hand and injected give the same round."""
     factory, feat = MODELS["mlp"]
     _, apply = factory(tsmall)
-    p0 = factory(tsmall)[0](torch.Generator().manual_seed(0))
+    p0 = factory(tsmall)[0](torch.Generator().manual_seed(0), device="cpu")
     b = {k: torch.from_numpy(v) for k, v in _batches(0, feat).items()}
     spec = tapi.ExperimentSpec(
         levels=(G, K), schedule=tapi.RoundSchedule(group_rounds=E, local_steps=H),
@@ -523,7 +523,7 @@ def test_init_carries_residuals_and_seeds_the_generator():
     """efc/efg exist exactly where the plan feeds back errors, start at
     zero with the state's shapes, and a stochastic plan gets a generator."""
     factory, _ = MODELS["mlp"]
-    p0 = factory(tsmall)[0](torch.Generator().manual_seed(0))
+    p0 = factory(tsmall)[0](torch.Generator().manual_seed(0), device="cpu")
     for plan, efc, efg in ((tapi.CompressionPlan("topk", "bf16"), True, True),
                            (tapi.CompressionPlan("int8_stochastic", error_feedback=False),
                             False, False),

@@ -1,6 +1,8 @@
 """The port on a CUDA card: the hand-written kernels against their plain
-PyTorch versions (bit-exact in float32 and bfloat16), and small rounds of
-the engine on the card against the same rounds on the CPU.
+PyTorch versions (the element-wise kernels bit-exact in float32 and
+bfloat16; the attention and RWKV kernels, which reorder sums, within
+float32 rounding), small rounds of the engine on the card against the same
+rounds on the CPU, and reduced LM serving on the card against the CPU.
 
 Every test here needs a card and skips without one. The module imports no
 JAX, so it runs on a GPU host that has only PyTorch:
@@ -18,7 +20,9 @@ from repro_torch.core.engine import RoundDraws  # noqa: E402
 from repro_torch.core.participation import ParticipationMasks  # noqa: E402
 from repro_torch.kernels import mtgc_update as mu  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rs  # noqa: E402
 from repro_torch.models import small  # noqa: E402
 
 
@@ -199,7 +203,7 @@ def test_fused_round_on_card_matches_cpu(cuda, layout):
     the CPU (their plain versions) from the same params and batches. The
     convolutions sum in another order on the two devices: rtol 1e-4."""
     init, apply = small.cnn(10, (8, 8, 1))
-    p0 = init(torch.Generator().manual_seed(0))
+    p0 = init(torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(0)
     b = {"x": torch.from_numpy(rng.normal(size=(2, 2, 2, 3, 4, 8, 8, 1)).astype(np.float32)),
          "y": torch.from_numpy(rng.integers(0, 10, size=(2, 2, 2, 3, 4)).astype(np.int32))}
@@ -272,3 +276,143 @@ def test_compressed_partial_round_on_card_matches_cpu(cuda, layout, plan):
     for name in ("params", "z", "y", "efc", "efg"):
         _close(outs[0][0][name], outs[1][0][name], 1e-6, name)
     _close(outs[0][1], outs[1][1], 1e-6, "metrics")
+
+
+# ---------------------------------------------------------------- LM kernels
+# Tolerances: 5e-5 abs for attention and rtol/atol 1e-4 for the scan in
+# float32 (as tests/test_kernels.py holds the Pallas kernels against their
+# oracles: both reorder sums and exponentials). A bfloat16 attention output
+# is held against the plain version computed in float32 on the same inputs:
+# within half a bfloat16 ulp (its own rounding, 2^-8 relative) plus 5e-5.
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,Kv,Dh,causal,win,off", [
+    (1, 128, 128, 4, 4, 64, True, 0, 0),
+    (2, 300, 333, 8, 2, 128, True, 0, 0),     # the prefill's ragged cache
+    (2, 128, 128, 4, 2, 64, True, 0, 0),      # GQA
+    (1, 256, 256, 2, 1, 32, True, 64, 0),     # MQA + window
+    (1, 128, 256, 4, 4, 64, False, 0, 0),     # bidirectional
+    (2, 256, 256, 8, 2, 128, True, 100, 0),   # window not tile-aligned
+    (1, 37, 37, 4, 2, 32, True, 0, 0),        # ragged T = S
+    (2, 20, 53, 4, 1, 32, True, 0, 0),        # prefill into a longer cache
+    (1, 24, 70, 6, 3, 64, True, 0, 30),       # q_offset > 0
+    (2, 33, 81, 4, 4, 128, True, 9, 40),      # window + q_offset + ragged S
+    (1, 100, 170, 5, 5, 32, False, 0, 7),     # bidirectional with an offset
+])
+def test_flash_kernel_matches_plain(cuda, B, T, S, H, Kv, Dh, causal, win, off, dtype):
+    """float32 runs on the CUDA cores, bfloat16 on the tensor cores."""
+    gen = torch.Generator(device=cuda).manual_seed(T + S + off)
+    q = torch.randn(B, T, H, Dh, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(B, S, Kv, Dh, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(B, S, Kv, Dh, generator=gen, device=cuda).to(dtype)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=win, q_offset=off)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    # The plain version in float32 on the same (bf16-exact) inputs.
+    want = fa.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal, window=win,
+                                  q_offset=off, block=64)
+    assert got.dtype == dtype
+    excess = (got.float() - want).abs()
+    if dtype == torch.bfloat16:
+        excess -= 2.0 ** -8 * want.abs()          # the output's rounding to bf16
+    assert excess.max().item() < 5e-5
+
+
+def test_flash_wrapper_rejects_bad_operands(cuda):
+    q = torch.randn(1, 8, 4, 32, device=cuda)
+    k = torch.randn(1, 8, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(q, k.double(), k.double())
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q[..., :16].contiguous(), k[..., :16].contiguous(),
+                           k[..., :16].contiguous())
+    with pytest.raises(ValueError, match="divide"):
+        fa.flash_attention(q, torch.randn(1, 8, 3, 32, device=cuda),
+                           torch.randn(1, 8, 3, 32, device=cuda))
+    with pytest.raises(ValueError, match="expected cuda"):
+        fa.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="no live key"):
+        fa.flash_attention(q, k, k, window=2, q_offset=20)
+
+
+@pytest.mark.parametrize("B,H,T,Dh,C", [(1, 2, 32, 16, 8), (2, 3, 64, 32, 16),
+                                        (1, 1, 128, 64, 64), (2, 2, 64, 64, 32),
+                                        (2, 3, 45, 64, 16), (1, 2, 7, 32, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernel_matches_plain(cuda, B, H, T, Dh, C, dtype):
+    """The Pallas signature [BH, T, Dh], ragged T included (padded inside
+    the kernel as the model pads)."""
+    gen = torch.Generator(device=cuda).manual_seed(B + H + T + Dh + C)
+    r, k, v = (torch.randn(B * H, T, Dh, generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    logw = -torch.randn(B * H, T, Dh, generator=gen, device=cuda).abs()
+    u = torch.randn(B * H, Dh, generator=gen, device=cuda)
+    s0 = torch.randn(B * H, Dh, Dh, generator=gen, device=cuda)
+    before = rs.rwkv6_scan.launches
+    got_o, got_s = rs.rwkv6_scan(r, k, v, logw, u, s0, chunk=C)
+    torch.cuda.synchronize()
+    assert rs.rwkv6_scan.launches == before + 1
+    want_o, want_s = rs.rwkv6_scan_ref(r, k, v, logw, u, s0, chunk=C)
+    torch.testing.assert_close(got_o, want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-4, atol=1e-4)
+
+
+def test_scan_kernel_model_layout(cuda):
+    """The model's [B, T, H, Dh] layout (bf16 r/k/v, f32 logw, u per head)
+    read in place, at a ragged T."""
+    B, T, H, Dh = 2, 77, 4, 64
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    r, k, v = (torch.randn(B, T, H, Dh, generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    logw = -torch.exp(-1.0 + torch.tanh(torch.randn(B, T, H, Dh, generator=gen, device=cuda)))
+    u = 0.1 * torch.randn(H, Dh, generator=gen, device=cuda)
+    s0 = torch.randn(B, H, Dh, Dh, generator=gen, device=cuda)
+    got_o, got_s = rs.rwkv6_scan_bthd(r, k, v, logw, u, s0, chunk=64)
+    want_o, want_s = rs.rwkv6_chunked_ref(r, k, v, logw, u, s0, chunk=64)
+    torch.testing.assert_close(got_o, want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-4, atol=1e-4)
+
+
+def test_scan_wrapper_rejects_bad_operands(cuda):
+    r = torch.randn(2, 8, 16, device=cuda)
+    u = torch.randn(2, 16, device=cuda)
+    s = torch.randn(2, 16, 16, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        rs.rwkv6_scan(r, r, r, r.bfloat16(), u, s)
+    with pytest.raises(ValueError, match="shape"):
+        rs.rwkv6_scan(r, r[:, :4].contiguous(), r, r, u, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.rwkv6_scan(r, r, r.transpose(0, 1).contiguous().transpose(0, 1), r, u, s)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.randn(1, 4, 80, device=cuda)
+        rs.rwkv6_scan(big, big, big, big, torch.randn(1, 80, device=cuda),
+                      torch.randn(1, 80, 80, device=cuda))
+    with pytest.raises(ValueError, match="expected cuda"):
+        rs.rwkv6_scan(r, r, r, r, u.cpu(), s)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-1.6b"])
+def test_reduced_serve_on_card_matches_cpu(cuda, arch):
+    """Reduced float32 models from the same params: prefill logits on the
+    card (kernels) and on the CPU (plain versions) agree within rtol 1e-4 /
+    atol 1e-4, and 8 greedy tokens are equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import build_model
+
+    bundle = build_model(get_arch(arch).reduced())
+    params = bundle.init(0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 21)).astype(np.int32))
+    ops.reset_launch_counts()
+    card = generate(bundle, convert.params_from_numpy(convert.to_numpy(params), cuda),
+                    toks.to(cuda), 8)
+    cpu = generate(bundle, params, toks, 8)
+    launched = fa.flash_attention.launches if arch == "qwen3-14b" else rs.rwkv6_scan.launches
+    assert launched == 2          # one prefill, two layers
+    torch.testing.assert_close(card.prefill_logits.cpu(), cpu.prefill_logits,
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)

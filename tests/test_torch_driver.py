@@ -157,7 +157,7 @@ def test_chunked_run_equals_unchunked():
                                schedule=tapi.RoundSchedule(group_rounds=E, local_steps=H))
     eng = tapi.build(spec, tsmall.make_loss(apply), device="cpu")
     acc = tsmall.make_accuracy(apply, torch.from_numpy(test.x), torch.from_numpy(test.y))
-    p0 = init(torch.Generator().manual_seed(0))
+    p0 = init(torch.Generator().manual_seed(0), device="cpu")
     outs = []
     for chunk in (None, 2, 1):
         data = eng.pack_arrays({"x": train.x, "y": train.y}, idx, batch_size=4, shards=3,

@@ -160,7 +160,7 @@ def test_fused_equals_unfused_on_cpu():
     factory, feat = MODELS["mlp"]
     _, tapply = factory(tsmall)
     loss = tsmall.make_loss(tapply)
-    p0 = tsmall.mlp(10, 16, hidden=32)[0](torch.Generator().manual_seed(0))
+    p0 = tsmall.mlp(10, 16, hidden=32)[0](torch.Generator().manual_seed(0), device="cpu")
     b = {k: torch.from_numpy(v) for k, v in _batches(0, feat).items()}
     for layout in ("flat", "tree"):
         out = []
@@ -179,7 +179,7 @@ def test_global_model_and_state_layout():
     """hfl_init broadcasts one model to every client; global_model reads it
     back as a tree in both layouts, with the reference's leaf shapes."""
     init, _ = tsmall.cnn(10, (8, 8, 1))
-    p0 = init(torch.Generator().manual_seed(1))
+    p0 = init(torch.Generator().manual_seed(1), device="cpu")
     for layout in ("flat", "tree"):
         spec = tapi.ExperimentSpec(levels=(G, K), state_layout=layout)
         eng = tapi.build(spec, lambda p, b: None, device="cpu")

@@ -36,8 +36,13 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_files_exist():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"api.py", "convert.py", "core/engine.py", "core/driver.py", "core/packer.py",
-            "kernels/mtgc_update.py", "kernels/build.py", "models/small.py"} <= names
-    assert (PORT / "kernels" / "csrc" / "mtgc_update.cu").is_file()
+            "kernels/mtgc_update.py", "kernels/build.py", "models/small.py",
+            "kernels/quantize.py", "kernels/flash_attention.py", "kernels/rwkv6_scan.py",
+            "models/config.py", "configs/__init__.py", "configs/qwen3_14b.py",
+            "configs/rwkv6_1_6b.py", "models/layers.py", "models/rwkv6.py",
+            "models/transformer.py", "launch/serve.py"} <= names
+    for src in ("mtgc_update", "quantize", "flash_attention", "rwkv6_scan"):
+        assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file()
     assert (ROOT / "chip_smoke.py").is_file()
 
 
@@ -49,7 +54,9 @@ def test_no_jax_import(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.convert, "
-            "repro_torch.kernels.ops, repro_torch.data; "
+            "repro_torch.kernels.ops, repro_torch.data, repro_torch.configs, "
+            "repro_torch.configs.qwen3_14b, repro_torch.configs.rwkv6_1_6b, "
+            "repro_torch.models.transformer, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

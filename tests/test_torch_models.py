@@ -93,7 +93,7 @@ def test_port_init_shapes_match_reference():
     leaf names, shapes and dtypes."""
     for name, (factory, _) in MODELS.items():
         jp = factory(jsmall)[0](jax.random.PRNGKey(0))
-        tp = factory(tsmall)[0](torch.Generator().manual_seed(0))
+        tp = factory(tsmall)[0](torch.Generator().manual_seed(0), device="cpu")
         want = [(path, tuple(a.shape), a.dtype.name) for path, a in
                 tree_paths(jax.tree.map(np.asarray, jp))]
         got = [(path, tuple(t.shape), str(t.dtype).removeprefix("torch."))
@@ -103,7 +103,7 @@ def test_port_init_shapes_match_reference():
 
 def test_accuracy():
     _, tapply = tsmall.mlp(3, 4, hidden=8)
-    p = tsmall.mlp(3, 4, hidden=8)[0](torch.Generator().manual_seed(0))
+    p = tsmall.mlp(3, 4, hidden=8)[0](torch.Generator().manual_seed(0), device="cpu")
     x = torch.randn(20, 4, generator=torch.Generator().manual_seed(1))
     pred = torch.argmax(tapply(p, x), -1)
     y = pred.clone()

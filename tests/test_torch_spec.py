@@ -114,7 +114,7 @@ def test_default_device_is_cuda_and_never_a_quiet_cpu_run():
     """Without ``device=``, build and hfl_init ask for the CUDA card; on a
     host without one they raise instead of running on the CPU."""
     init, apply = tsmall.mlp(10, 4, hidden=8)
-    p = init(torch.Generator().manual_seed(0))
+    p = init(torch.Generator().manual_seed(0), device="cpu")
     spec = tapi.ExperimentSpec(levels=(2, 2))
     if torch.cuda.is_available():
         assert tapi.build(spec, tsmall.make_loss(apply)).device.type == "cuda"
@@ -128,6 +128,24 @@ def test_default_device_is_cuda_and_never_a_quiet_cpu_run():
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         tapi.build(spec, tsmall.make_loss(apply), device="meta")
     assert tapi.build(spec, tsmall.make_loss(apply), device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("factory", ["mlp", "deep_mlp", "cnn"])
+def test_small_init_defaults_to_the_card(factory):
+    """A small model's ``init(gen)`` puts the params on the CUDA card and
+    raises on a host without one; ``device="cpu"`` draws the same weights
+    from the same seed."""
+    args = {"mlp": (10, 4), "deep_mlp": (10, 4), "cnn": (10, (8, 8, 1))}[factory]
+    init, _ = getattr(tsmall, factory)(*args)
+    cpu = init(torch.Generator().manual_seed(0), device="cpu")
+    assert all(t.device.type == "cpu" for t in cpu["out"].values())
+    if torch.cuda.is_available():
+        card = init(torch.Generator().manual_seed(0))
+        assert card["out"]["w"].device.type == "cuda"
+        assert torch.equal(card["out"]["w"].cpu(), cpu["out"]["w"])
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init(torch.Generator().manual_seed(0))
 
 
 def test_wire_bytes_match_reference_and_compression_waits():
