@@ -20,7 +20,11 @@ then settles at chance (ln 10) in both packages
 
 Phases (any failure raises, so the script exits non-zero and prints no
 final line):
- 1. device line (``nvidia-smi`` name and power limit) and kernel build;
+ 1. device line (``nvidia-smi`` name and power limit) and kernel build:
+    registers and spills of every kernel (``nvcc -Xptxas -v``), the
+    dynamic shared memory of the LM kernels, and the HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions in the built flash library
+    (``cuobjdump -sass``), both required to be present;
  2. kernels against their plain versions on the card: bit-exact in
     float32 at [10, 10, 2156490] (unmasked and masked) and on every CNN
     leaf shape; bfloat16 within one bfloat16 ulp; a ragged N; NaN rows;
@@ -67,8 +71,12 @@ final line):
     version in float32 on the same inputs), and at small ragged shapes in
     both dtypes (GQA, MQA, a window that is not tile-aligned,
     ``q_offset > 0``, S and T not multiples of the tile or chunk); then
-    kernel, plain, bound and, for
-    attention, ``scaled_dot_product_attention`` times;
+    a strong-decay scan (logw in [-20, -5]) at the serving shape against
+    ``rwkv6_chunk_parallel_ref`` (the kernel's arithmetic in PyTorch; the
+    plain version's chunk-wide sums lose more than the tolerance there);
+    then kernel, plain, bound (and the kernel's share of it) and, for
+    attention, ``scaled_dot_product_attention`` times, and a trace of
+    three calls of each kernel (the scan's three launches apart);
 13. LM serving at full width through ``repro_torch.launch.serve.generate``:
     qwen3-14b (40 layers, d 5120, bf16, 14.77 B params) and rwkv6-1.6b (24
     layers, d 2048), each from random params (seed 0), 4 prompts of 2048
@@ -155,6 +163,64 @@ def bound_ms(nbytes: int, flops: float, peak: float = F32_FLOPS_PER_S) -> tuple[
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_entries(text: str) -> list:
+    """(kernel, registers, spills) for each entry function in ``nvcc -Xptxas
+    -v`` output, the name demangled by ``c++filt`` where the host has it."""
+    out, entry, spills = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            regs = line.split("info    :")[-1].strip()
+            out.append((entry, regs, spills))
+            entry = None
+    names = [e for e, _, _ in out]
+    try:
+        dem = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=30, check=True).stdout.splitlines()
+        if len(dem) == len(names):
+            names = [d.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+                     for d in dem]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [(n, r, s) for n, (_, r, s) in zip(names, out)]
+
+
+def sass_counts(path: Path, build) -> dict:
+    """Counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions in a
+    built library's SASS, from ``cuobjdump -sass`` of the toolkit that built
+    it (else the one Triton ships)."""
+    tools = [Path(build.nvcc_path()).parent / "cuobjdump"]
+    try:
+        import triton
+        tools.append(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t.is_file()), None)
+    require(tool is not None, f"no cuobjdump found (looked at {[str(t) for t in tools]})")
+    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    return {op: sum(1 for line in sass.splitlines() if op in line) for op in ("HGMMA", "UTMALDG")}
+
+
+def log_kernel_resources(build) -> None:
+    """Registers at launch, spills (ptxas) and dynamic shared memory of the
+    two LM kernels as launched on the main path, and the wgmma/TMA
+    instructions in the flash library; both counts must be > 0."""
+    fl, sc = build.load("flash_attention"), build.load("rwkv6_scan")
+    log(f"  flash_fwd_wgmma_kernel<128>: {fl.flash_attention_smem_bytes(128)} B of dynamic "
+        f"shared memory, 384 threads (registers: 24 producer / 240 consumer after setmaxnreg)")
+    for i, name in enumerate(("rwkv6_chunk_state_kernel", "rwkv6_state_scan_kernel",
+                              "rwkv6_chunk_out_kernel")):
+        log(f"  {name}: {sc.rwkv6_scan_smem_bytes(i)} B of dynamic shared memory")
+    counts = sass_counts(build.library_path("flash_attention"), build)
+    log(f"  flash_attention SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
+    require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+            "the built flash_attention library holds no wgmma or no TMA load")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -562,7 +628,21 @@ def phase_lm_kernels(torch, fa, rs):
     errs["rwkv6_scan"] = max((go - wo).abs().max().item(), (gs - ws).abs().max().item())
     log(f"rwkv6_scan with bf16 r/k/v (the model's dtype): within rtol/atol 1e-4, max_abs_err "
         f"{errs['rwkv6_scan']}")
-    del r, kk, vv, go, gs, wo, ws
+    # Strong decays (logw in [-20, -5]): against rwkv6_chunk_parallel_ref, the
+    # kernel's arithmetic in PyTorch (held against the sequential recurrence
+    # on the CPU); the plain version's chunk-wide sums lose more than the
+    # tolerance here, and its distance is printed beside.
+    logw_s = -5.0 - 15.0 * torch.rand(LM_BATCH, T, Hr, Dr, generator=gen, device=dev)
+    go, gs = rs.rwkv6_scan_bthd(rb, kb_, vb_, logw_s, u, s0, chunk=C)
+    wo, ws = rs.rwkv6_chunk_parallel_ref(rb, kb_, vb_, logw_s, u, s0, chunk=C)
+    require(bool(torch.isfinite(go).all()) and torch.allclose(go, wo, rtol=1e-4, atol=1e-4) and
+            torch.allclose(gs, ws, rtol=1e-4, atol=1e-4), "rwkv6_scan differs at strong decays")
+    errs["rwkv6_scan/strong"] = max((go - wo).abs().max().item(), (gs - ws).abs().max().item())
+    po, _ = rs.rwkv6_chunked_ref(rb, kb_, vb_, logw_s, u, s0, chunk=C)
+    log(f"rwkv6_scan at strong decays (logw in [-20, -5]), bf16 r/k/v: within rtol/atol 1e-4 of "
+        f"the chunk-parallel plain form, max_abs_err {errs['rwkv6_scan/strong']}; the plain "
+        f"version is {(po - go).abs().max().item()} from the kernel")
+    del r, kk, vv, go, gs, wo, ws, po, logw_s
 
     # Times at the serving shapes, in the model's dtypes.
     flash = timed(torch, lambda: fa.flash_attention(qb, kb, vb),
@@ -577,6 +657,8 @@ def phase_lm_kernels(torch, fa, rs):
     flops = 4 * Dh * pairs
     flash["bound_ms"], flash["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
     flash.update(bytes=nbytes, flops=flops, pairs=pairs, sdpa_max_abs_diff=lib_err)
+    flash["passes"] = profile_round(torch, lambda: [fa.flash_attention(qb, kb, vb)
+                                                     for _ in range(3)])
     del qb, kb, vb, qt, kt, vt
     scan = timed(torch, lambda: rs.rwkv6_scan_bthd(rb, kb_, vb_, logw, u, s0, chunk=C),
                  lambda: rs.rwkv6_chunked_ref(rb, kb_, vb_, logw, u, s0, chunk=C),
@@ -585,16 +667,23 @@ def phase_lm_kernels(torch, fa, rs):
     nbytes = 3 * rb.numel() * 2 + logw.numel() * 4 * 2 + 2 * s0.numel() * 4  # r/k/v, logw + o, S
     flops = LM_BATCH * Hr * nc * (2 * 2 * C * Dr * Dr + 2 * 2 * C * C * Dr)
     scan["bound_ms"], scan["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
-    scan.update(bytes=nbytes, flops=flops, library_ms=None,
-                live_exps=LM_BATCH * Hr * nc * (C * (C - 1) // 2) * Dr)
+    sub = rs.SUB_CHUNK
+    exps_per_chunk = ((C // sub) * (sub * (sub - 1) // 2) + 4 * C) * Dr   # pairs + rx, kq, ra, A
+    scan.update(bytes=nbytes, flops=flops, library_ms=None, exps=LM_BATCH * Hr * nc * exps_per_chunk,
+                passes=profile_round(torch, lambda: [rs.rwkv6_scan_bthd(rb, kb_, vb_, logw, u, s0,
+                                                                        chunk=C)
+                                                     for _ in range(3)]))
     del rb, kb_, vb_, logw, u, s0
     torch.cuda.empty_cache()
     for name, t in (("flash_attention", flash), ("rwkv6_scan", scan)):
+        t["bound_share"] = t["bound_ms"] / t["ms"]
         log(f"{name}: kernel {t['ms']:.4f} ms {t['ms_readings']}, plain {t['plain_ms']:.4f} ms "
             f"{t['plain_ms_readings']}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
-            f"{t['bytes']} bytes, {t['flops']:.4g} FLOP), library {t['library_ms']}")
+            f"{t['bytes']} bytes, {t['flops']:.4g} FLOP; bound share {t['bound_share']:.3f}), "
+            f"library {t['library_ms']}")
+        log_trace(f"  {name}, three calls (traced)", t.pop("passes"), top_n=4)
     log(f"  flash_attention: {flash['pairs']} live pairs; SDPA against the kernel: max abs "
-        f"diff {flash['sdpa_max_abs_diff']}; rwkv6_scan: {scan['live_exps']} pairwise exps")
+        f"diff {flash['sdpa_max_abs_diff']}; rwkv6_scan: {scan['exps']} exponentials")
     return errs, {"flash_attention": flash, "rwkv6_scan": scan}
 
 
@@ -734,9 +823,11 @@ def main() -> int:
     built = build.build_all()
     log(f"kernel build: {built['seconds']:.2f} s")
     for name, text in built["log"].items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for entry, regs, spills in ptxas_entries(text):
+            log(f"  {name}: {entry}: {regs}; {spills}")
+    log_kernel_resources(build)
+    require("serialized" not in built["log"].get("flash_attention", ""),
+            "ptxas serialised the flash kernel's wgmma (see its build log)")
 
     init, apply = small.cnn(10, IMAGE)
     p0 = init(torch.Generator().manual_seed(0), device="cuda")

@@ -125,6 +125,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "flash_attention":
         lib.flash_attention_launch.argtypes = [p, p, p, p] + [i32] * 9 + [f32, i32, p]
         lib.flash_attention_launch.restype = i32
+        lib.flash_attention_smem_bytes.argtypes = [i32]
+        lib.flash_attention_smem_bytes.restype = i32
     elif name == "rwkv6_scan":
-        lib.rwkv6_scan_launch.argtypes = [p] * 8 + [i32] * 5 + [i64] * 4 + [i32, p]
+        lib.rwkv6_scan_launch.argtypes = [p] * 10 + [i32] * 5 + [i64] * 4 + [i32, p]
         lib.rwkv6_scan_launch.restype = i32
+        lib.rwkv6_scan_smem_bytes.argtypes = [i32]
+        lib.rwkv6_scan_smem_bytes.restype = i32

@@ -11,43 +11,75 @@
 //   Running max m starts at -1e30, running sum l and the accumulator at 0,
 //   all float32; o = acc / max(l, 1e-30).
 // q_offset and window are runtime integers; T and S need not be multiples
-// of the tile (ragged edges are masked here: the prefill attends over the
-// whole cache, S = prompt + generated tokens).
+// of the tile (the prefill attends over the whole cache, S = prompt +
+// generated tokens).
 //
 // Bound: at the serving shape (q [4, 2048, 40, 128] bf16 against a
 // [4, 2080, 8, 128] cache, causal) the launch does 4 Dh FLOP for each of
-// 335.7 M live (query, key) pairs, 1.72e11 FLOP, and moves about 202 MB:
-// on an H100 SXM that is 0.174 ms at the bf16 tensor-core peak against
-// 0.060 ms of HBM traffic, so it is bound by operations: the products
-// belong on the tensor cores. Two kernels share the tiling and the masking:
-//   * bfloat16 (the model's dtype): flash_fwd_mma_kernel, both products as
-//     mma.sync m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16 query
-//     rows; its note below says how it keeps float32 accuracy.
+// 335.7 M live (query, key) pairs, 1.72e11 FLOP, and moves about 202 MB: on
+// an H100 SXM (700 W) that is 0.174 ms at the bf16 tensor-core peak against
+// 0.060 ms of HBM traffic, so it is bound by operations. This kernel does
+// 1.5x those FLOP (P V runs twice, below): 0.26 ms at the peak.
+//
+// Two kernels share the masking and the online softmax:
+//   * bfloat16 (the model's dtype): flash_fwd_wgmma_kernel, for Hopper's
+//     tensor cores. It replaces an mma.sync kernel (1.56 ms at the serving
+//     shape on an H100 SXM at 700 W, 11% of the bound, against 0.32 ms for
+//     PyTorch's SDPA)
+//     whose tensor cores waited on synchronous, single-buffered K/V loads,
+//     at 168 registers a thread (3 blocks an SM), with Ampere's instruction.
 //   * float32 (the tests' and the reduced models' dtype): flash_fwd_kernel,
 //     float32 FMAs on the CUDA cores (bf16 tensor cores would round the
 //     operands), bound by shared-memory bandwidth.
-// wgmma with TMA-fed tiles and warp specialisation is later work.
-// What the design does about the bound:
-//   * One block per (64 queries, head): the Q tile stays on chip while the
-//     block walks the kv tiles of 64 keys; each kv head's K/V tile is read
-//     once per query tile (GQA needs no expanded copy).
-//   * Tiles that are fully masked for the whole query tile (the future
-//     under causality -- at prefill that includes the cache slots not yet
-//     written -- and keys older than the window) are never loaded, as the
-//     Pallas kernel skips them.
-//   * Float32 path: each thread owns 4 query rows x 4 keys of the score
-//     tile and 4 rows x Dh/16 columns of the output; Q and K rows are read
-//     as float4 from a padded layout (row stride Dh + 4 words:
-//     conflict-free), the row max and sum go through warp shuffles, and
-//     only P passes through shared memory on its way to the P V product.
-//   * m, l and the accumulator stay in registers in float32.
-// The arithmetic is the plain version's (kernels/flash_attention.py): a
-// masked key is -1e30 (not -inf), so a row that has seen only masked keys
-// accumulates exp(0) = 1 weights that the first live key's
-// alpha = exp(-1e30 - m) = 0 erases, exactly as in the block scan; a tile
-// the kernel skips would have added 0 or been erased. Sums run in another
-// order than PyTorch's, so the two agree to float32 rounding, not bit for
-// bit.
+// What the bf16 design does about the bound:
+//   * Warp specialisation: a block is one producer warpgroup and two
+//     consumer warpgroups (384 threads) for one (128-query tile, q head).
+//     One producer thread issues every load with TMA and its warpgroup
+//     gives its registers away (setmaxnreg.dec 24); each consumer
+//     warpgroup owns 64 query rows and takes 240 registers a thread.
+//   * TMA: 4-D tensor maps over the model's own [B, T, H, Dh] and
+//     [B, S, Kv, Dh] tensors, so the GQA cache is read unexpanded and the
+//     hardware zero-fills rows past T and S (no padded copies). The Q tile
+//     is loaded once; K/V tiles of kWgBK keys go through a ring of kStages
+//     buffers with full/empty mbarriers, so the loads run ahead of the
+//     products. Tiles are 128-byte swizzled (64-byte at Dh = 32): a row of
+//     64 bf16 per box, a head of 128 loaded as two 64-column panels.
+//   * wgmma: S = Q K^T reads Q and K from shared memory (both K-major),
+//     m64n128k16; P V takes P from registers (the S accumulator's layout is
+//     the A fragment's, as in FlashAttention-3) and V as the MN-major B
+//     operand (transpose bit), m64nDhk16. Masking and the softmax (base 2,
+//     the scale folded into one multiply) stay in registers.
+//   * Overlap, as in FlashAttention-3: each consumer issues Q K^T of tile n
+//     together with P V of tile n - 1 and runs the softmax of tile n while
+//     that P V is on the tensor cores (wgmma.wait_group 1); the two
+//     consumers take turns issuing (named barriers 1 and 2), so one's
+//     softmax overlaps the other's products. ptxas serialises wgmma that
+//     sits on a branch it cannot prove warp-uniform, so the warpgroup index
+//     comes through a shuffle and every tile of the block's range is
+//     computed (no per-warpgroup branch around the products).
+//   * Accuracy: the references compute P in float32. P is split into a
+//     bf16 high part and the bf16 rest, each multiplied by V, so P keeps
+//     about 16 bits; Q K^T needs nothing (products of two bf16 are exact
+//     in f32). The output agrees with the float32 plain version to half a
+//     bf16 ulp plus float32 rounding.
+//   * Order: the grid runs the H / Kv q heads that share a kv head next to
+//     each other (their K/V tiles meet in L2) and the q tiles from the last
+//     (the most causal work) to the first. Tiles with no live key for the
+//     whole block are never loaded; a consumer masks only tiles that hold a
+//     masked key for its rows.
+// Float32 path: each thread owns 4 query rows x 4 keys of the score tile
+// and 4 rows x Dh/16 columns of the output; Q and K rows are read as float4
+// from a padded layout (row stride Dh + 4 words: conflict-free), the row
+// max and sum go through warp shuffles, and only P passes through shared
+// memory on its way to the P V product; 64 queries and 64 keys a tile.
+// Both paths reproduce the plain version's arithmetic
+// (kernels/flash_attention.py): a masked key is -1e30 (not -inf), so a row
+// that has seen only masked keys accumulates exp(0) = 1 weights that the
+// first live key's alpha = exp(-1e30 - m) = 0 erases, exactly as in the
+// block scan; a tile the kernel skips would have added 0 or been erased.
+// Sums run in another order than PyTorch's, so the two agree to float32
+// rounding, not bit for bit.
+#include <cuda.h>  // CUtensorMap and its enums only: cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,18 +95,9 @@ constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 template <int DH>
 constexpr size_t smem_bytes() {
@@ -239,26 +262,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ------------------------------------------------------------------
-// bfloat16 inputs: the two products on the tensor cores (mma.sync
-// m16n8k16, bf16 x bf16 -> f32). 4 warps, 16 query rows each; the Q
-// fragments stay in registers for the whole kv walk, the K and V tiles go
-// through shared memory (rows padded by 8 elements: conflict-free), V is
-// read transposed by ldmatrix. The products of two bf16 are exact in f32,
-// so Q K^T is the plain version's up to summation order. P is split into a
-// bf16 high part and a bf16 low part (P - hi), each multiplied by V, so the
-// P V product keeps about 16 bits of P, not 8: the output agrees with the
-// float32 plain version to float32 rounding, as the CUDA-core path does.
+// bfloat16: the warp-specialised wgmma + TMA kernel.
 
-constexpr int kMmaThreads = 128;
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kWgBQ = 128;            // queries per block: two consumer warpgroups of 64
+constexpr int kWgBK = 128;            // keys per kv tile (faster than 64 at the serving shape)
+constexpr int kWgThreads = 384;       // producer warpgroup + two consumer warpgroups
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -269,174 +280,443 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     int T_len, int S, int H, int KV, int q_offset, int w_eff, int causal,
-                     float scale) {
-  constexpr int LDS = DH + 8;  // shared row stride, elements (16-byte multiple)
-  constexpr int KS = DH / 16;  // k-steps of Q K^T
-  constexpr int NT = DH / 8;   // n-tiles of the output
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBK * LDS];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBK * LDS];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * kBQ;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KV);
-  const int64_t q_stride = (int64_t)H * DH;
-  const int64_t kv_stride = (int64_t)KV * DH;
-  const __nv_bfloat16* qb = q + ((int64_t)b * T_len * H + h) * DH;
-  const __nv_bfloat16* kb = k + ((int64_t)b * S * KV + kvh) * DH;
-  const __nv_bfloat16* vb = v + ((int64_t)b * S * KV + kvh) * DH;
-  __nv_bfloat16* ob = o + ((int64_t)b * T_len * H + h) * DH;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
 
-  // This thread's rows of the warp's 16: r0 and r0 + 8.
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    qf[kk][0] = r0 < T_len ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_stride + c) : 0u;
-    qf[kk][1] = r1 < T_len ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_stride + c) : 0u;
-    qf[kk][2] = r0 < T_len ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_stride + c + 8) : 0u;
-    qf[kk][3] = r1 < T_len ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_stride + c + 8) : 0u;
-  }
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's part of the row sums (quad-reduced at the end)
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
 
-  const int q_first = q_offset + q0;
-  const int q_last = q_offset + min(q0 + kBQ, T_len) - 1;
-  const int k_end = causal ? min(S, q_last + 1) : S;
-  const int lo = q_first - w_eff + 1;
-  const int k_begin = lo > 0 ? (lo / kBK) * kBK : 0;
-  const int qpos[2] = {q_offset + r0, q_offset + r1};
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
 
-  for (int kt = k_begin; kt < k_end; kt += kBK) {
-    __syncthreads();
-    for (int idx = tid; idx < kBK * DH / 8; idx += kMmaThreads) {
-      const int r = idx / (DH / 8), c = (idx % (DH / 8)) * 8;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
-      if (kt + r < S) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + (int64_t)(kt + r) * kv_stride + c);
-        vv4 = *reinterpret_cast<const uint4*>(vb + (int64_t)(kt + r) * kv_stride + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * LDS + c) = kv4;
-      *reinterpret_cast<uint4*>(Vs + r * LDS + c) = vv4;
-    }
-    __syncthreads();
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const __nv_bfloat16* kp = Ks + (n * 8 + g) * LDS + kk * 16 + tig * 2;
-        mma_bf16(s[n], qf[kk], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
+// One 4-D box of `map` at coordinates (c0 innermost .. c3) into shared
+// memory at `dst`, completing `bytes` on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
 
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = e >> 1;
-        const int kpos = kt + n * 8 + tig * 2 + (e & 1);
-        bool live = kpos < S && kpos > qpos[rr] - w_eff;
-        if (causal) live = live && kpos <= qpos[rr];
-        s[n][e] = live ? s[n][e] * scale : kNegInf;
-        mx[rr] = fmaxf(mx[rr], s[n][e]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-      const float m_new = fmaxf(m[rr], mx[rr]);
-      alpha[rr] = expf(m[rr] - m_new);
-      m[rr] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        sum[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * alpha[rr] + sum[rr];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle (1: 128 B, 2: 64 B).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t swizzle) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (swizzle << 62);
+}
 
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      // The A fragment of keys 16j .. 16j + 15 is the score tiles 2j and
-      // 2j + 1 as they lie in the accumulator registers.
-      uint32_t hi[4], lo4[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float x0 = s[2 * j + (i >> 1)][(i & 1) * 2];
-        const float x1 = s[2 * j + (i >> 1)][(i & 1) * 2 + 1];
-        hi[i] = pack_bf16(x0, x1);
-        const float2 hv = unpack_bf16(hi[i]);
-        lo4[i] = pack_bf16(x0 - hv.x, x1 - hv.y);
-      }
-      const uint32_t vrow = static_cast<uint32_t>(
-          __cvta_generic_to_shared(Vs + (j * 16 + (lane & 15)) * LDS));
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b0, b1;
-        asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-                     : "=r"(b0), "=r"(b1)
-                     : "r"(vrow + n * 16));
-        mma_bf16(acc[n], hi, b0, b1);
-        mma_bf16(acc[n], lo4, b0, b1);
-      }
-    }
-  }
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
 
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
-    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
-  }
-  const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int c = n * 8 + tig * 2;
-    if (r0 < T_len)
-      *reinterpret_cast<uint32_t*>(ob + r0 * q_stride + c) =
-          pack_bf16(acc[n][0] / d0, acc[n][1] / d0);
-    if (r1 < T_len)
-      *reinterpret_cast<uint32_t*>(ob + r1 * q_stride + c) =
-          pack_bf16(acc[n][2] / d1, acc[n][3] / d1);
-  }
+template <int ID>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, 256;\n" ::"n"(ID) : "memory");
+}
+template <int ID>
+__device__ __forceinline__ void named_arrive() {
+  asm volatile("bar.arrive %0, 256;\n" ::"n"(ID) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S (+)= A B^T, m64nNk16, A and B K-major in shared memory; d as the
+// accumulator layout: d[4 j + e] is row 16 warp + lane / 4 (+ 8 for e >= 2),
+// column 8 j + 2 (lane % 4) + (e & 1).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// O += A B, m64nNk16, A (bf16 pairs) from registers in the accumulator's
+// row layout, B MN-major in shared memory (transposed).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
+  else wgmma_ss_n128(d, a, b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 32) wgmma_rs_n32(d, a, b);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
 }
 
 template <int DH>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int T_len, int S,
-               int H, int KV, int q_offset, int w_eff, int causal, float scale,
-               cudaStream_t st) {
-  const dim3 grid((unsigned)((T_len + kBQ - 1) / kBQ), (unsigned)(B * H));
-  flash_fwd_mma_kernel<DH><<<grid, kMmaThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), T_len, S, H, KV,
-      q_offset, w_eff, causal, scale);
+struct WgCfg {
+  static constexpr int kPanel = DH >= 64 ? 64 : 32;          // bf16 columns a box row holds
+  static constexpr int kPanels = DH / kPanel;
+  static constexpr int kRowBytes = kPanel * 2;               // = the swizzle width
+  static constexpr uint64_t kSwizzle = kRowBytes == 128 ? 1 : 2;
+  static constexpr int kStages = 3;
+  static constexpr int kQBytes = kWgBQ * DH * 2;
+  static constexpr int kKVBytes = kWgBK * DH * 2;               // one K (or V) stage
+  static constexpr int kPanelQ = kWgBQ * kRowBytes;          // bytes of one Q panel
+  static constexpr int kPanelKV = kWgBK * kRowBytes;
+  static constexpr int kTileBytes = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr size_t kSmem = kTileBytes + 8 * (2 * kStages + 1) + 1024;  // + barriers, alignment
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                       int T_len, int S, int H, int KV, int q_offset, int w_eff, int causal,
+                       float scale_log2) {
+  using Cfg = WgCfg<DH>;
+  constexpr int kStages = Cfg::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  // Swizzled tiles need 1024-byte alignment.
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + Cfg::kQBytes;
+  const uint32_t sV = sK + kStages * Cfg::kKVBytes;
+  const uint32_t bar0 = base + Cfg::kTileBytes;  // full[kStages], empty[kStages], q
+  auto full = [&](int s) { return bar0 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 8 * (kStages + s); };
+  const uint32_t qbar = bar0 + 16 * kStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * kWgBQ;  // the last q tile first
+  const int kvh = h / (H / KV);
+  // The kv tiles that hold a live key for some row of the block.
+  const int q_first = q_offset + q0;
+  const int q_last = q_offset + min(q0 + kWgBQ, T_len) - 1;
+  const int k_end = causal ? min(S, q_last + 1) : S;
+  const int lo = q_first - w_eff + 1;
+  const int k_begin = lo > 0 ? (lo / kWgBK) * kWgBK : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kWgBK - 1) / kWgBK : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * 128);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The warpgroup index through a shuffle, so that ptxas knows every
+  // branch on it (and on what derives from it) is warp-uniform and keeps
+  // the wgmma pipeline (it serialises wgmma on a divergent path).
+  const int wg_idx = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg_idx == 0) {
+    // ---- producer warpgroup: one thread issues every TMA load.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, Cfg::kQBytes);
+      for (int p = 0; p < Cfg::kPanels; ++p)
+        tma_load_4d(sQ + p * Cfg::kPanelQ, &tm_q, qbar, p * Cfg::kPanel, h, q0, b);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kStages;
+        if (n >= kStages) mbar_wait(empty(s), ((n / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * Cfg::kKVBytes);
+        const int kt = k_begin + n * kWgBK;
+        for (int p = 0; p < Cfg::kPanels; ++p) {
+          tma_load_4d(sK + s * Cfg::kKVBytes + p * Cfg::kPanelKV, &tm_k, full(s),
+                      p * Cfg::kPanel, kvh, kt, b);
+          tma_load_4d(sV + s * Cfg::kKVBytes + p * Cfg::kPanelKV, &tm_v, full(s),
+                      p * Cfg::kPanel, kvh, kt, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = wg_idx - 1;
+    const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+    const int g = lane / 4, tig = lane % 4;
+    const int wq0 = q0 + 64 * wg;                       // the warpgroup's first row
+    const int r0 = wq0 + 16 * warp + g;                 // this thread's rows r0, r0 + 8
+    const int qpos[2] = {q_offset + r0, q_offset + r0 + 8};
+    const int wq_first = q_offset + wq0;
+    const int wq_last = q_offset + min(wq0 + 64, T_len) - 1;
+
+    float acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};  // this thread's part of the row sums (quad-reduced at the end)
+
+    mbar_wait(qbar, 0);
+    const uint32_t q_rows = sQ + 64 * wg * Cfg::kRowBytes;
+    constexpr uint32_t kSbo = 8 * Cfg::kRowBytes;       // 8-row core-matrix groups
+
+    // Every tile of the block's range is computed (a tile with no live key
+    // for these rows adds 0 or is erased, as in the block scan), so the
+    // wgmma issue is unconditional: Q K^T of tile n goes out with P V of
+    // tile n - 1, and the softmax of tile n runs while that P V is on the
+    // tensor cores.
+    uint32_t p_hi[kWgBK / 16][4], p_lo[kWgBK / 16][4];
+    float sc[kWgBK / 2];
+    auto issue_qk = [&](int stage) {
+      const uint32_t k_tile = sK + stage * Cfg::kKVBytes;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int p = kk / (Cfg::kPanel / 16), off = (kk % (Cfg::kPanel / 16)) * 32;
+        wgmma_ss<kWgBK>(sc, gmma_desc(q_rows + p * Cfg::kPanelQ + off, 16, kSbo, Cfg::kSwizzle),
+                     gmma_desc(k_tile + p * Cfg::kPanelKV + off, 16, kSbo, Cfg::kSwizzle),
+                     kk > 0);
+      }
+    };
+    auto issue_pv = [&](int stage) {
+      const uint32_t v_tile = sV + stage * Cfg::kKVBytes;
+#pragma unroll
+      for (int j = 0; j < kWgBK / 16; ++j) {
+        const uint64_t dv = gmma_desc(v_tile + 16 * j * Cfg::kRowBytes, Cfg::kPanelKV, kSbo,
+                                      Cfg::kSwizzle);
+        wgmma_rs<DH>(acc, p_hi[j], dv);
+        wgmma_rs<DH>(acc, p_lo[j], dv);
+      }
+    };
+    float alpha[2];
+    // Mask and exponentiate sc in place (base 2), new running max in m.
+    auto softmax = [&](int kt) {
+      const bool all_live = kt + kWgBK <= S && (!causal || kt + kWgBK - 1 <= wq_first) &&
+                            kt > wq_last - w_eff;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kWgBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * scale_log2;
+          if (!all_live) {
+            const int rr = e >> 1;
+            const int kpos = kt + 8 * j + 2 * tig + (e & 1);
+            bool live = kpos < S && kpos > qpos[rr] - w_eff;
+            if (causal) live = live && kpos <= qpos[rr];
+            x = live ? x : kNegInf;
+          }
+          sc[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        const float m_new = fmaxf(m[rr], mx[rr]);
+        alpha[rr] = ex2(m[rr] - m_new);
+        m[rr] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < kWgBK / 2; ++i) {
+        sc[i] = ex2(sc[i] - m[(i >> 1) & 1]);
+        sum[(i >> 1) & 1] += sc[i];
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * alpha[rr] + sum[rr];
+    };
+    // Rescale O by alpha and split P into the bf16 A operand.
+    auto rescale_and_split = [&]() {
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int j = 0; j < kWgBK / 16; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x0 = sc[8 * j + 2 * i], x1 = sc[8 * j + 2 * i + 1];
+          p_hi[j][i] = pack_bf16(x0, x1);
+          const float2 hv = unpack_bf16(p_hi[j][i]);
+          p_lo[j][i] = pack_bf16(x0 - hv.x, x1 - hv.y);
+        }
+    };
+    // The two warpgroups take turns issuing (named barriers 1 and 2,
+    // warpgroup 0 first), so one's softmax overlaps the other's products.
+    auto my_turn = [&]() { if (wg == 0) named_sync<1>(); else named_sync<2>(); };
+    auto their_turn = [&]() { if (wg == 0) named_arrive<2>(); else named_arrive<1>(); };
+    if (wg == 1 && n_tiles > 0) named_arrive<1>();
+    if (n_tiles > 0) {
+      mbar_wait(full(0), 0);
+      my_turn();
+      wgmma_fence();
+      issue_qk(0);
+      wgmma_commit();
+      if (wg == 0 || n_tiles > 1) their_turn();  // warpgroup 1 gives no turn after its last
+      wgmma_wait_all();
+      softmax(k_begin);
+      rescale_and_split();
+    }
+    for (int n = 1; n < n_tiles; ++n) {
+      const int s = n % kStages, prev = (n - 1) % kStages;
+      mbar_wait(full(s), (n / kStages) & 1);
+      my_turn();
+      wgmma_fence();
+      issue_qk(s);
+      wgmma_commit();
+      issue_pv(prev);
+      wgmma_commit();
+      if (wg == 0 || n + 1 < n_tiles) their_turn();
+      wgmma_wait_1();
+      softmax(k_begin + n * kWgBK);
+      wgmma_wait_all();
+      mbar_arrive(empty(prev));
+      rescale_and_split();
+    }
+    if (n_tiles > 0) {
+      const int last = (n_tiles - 1) % kStages;
+      wgmma_fence();
+      issue_pv(last);
+      wgmma_commit();
+      wgmma_wait_all();
+      mbar_arrive(empty(last));
+    }
+
+    // Epilogue: o = acc / max(l, 1e-30), rows past T not written.
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    }
+    const float inv0 = 1.f / fmaxf(l[0], 1e-30f), inv1 = 1.f / fmaxf(l[1], 1e-30f);
+    const int64_t row_stride = (int64_t)H * DH;
+    __nv_bfloat16* ob = o + ((int64_t)b * T_len * H + h) * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const int c = 8 * j + 2 * tig;
+      if (r0 < T_len)
+        *reinterpret_cast<uint32_t*>(ob + r0 * row_stride + c) =
+            pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      if (r0 + 8 < T_len)
+        *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * row_stride + c) =
+            pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, found in the driver at run time (the library
+// links the runtime only).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous bf16 [d3, d2, d1, dh] tensor, boxes of
+// `rows` along d2 (t or s) and `panel` columns, swizzled to the panel's
+// width; out-of-bounds rows read as zero.
+bool make_map(CUtensorMap* map, const void* ptr, int dh, int d1, int d2, int d3, int panel,
+              int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)dh * d1 * 2,
+                                 (cuuint64_t)dh * d1 * d2 * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)panel, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const EncodeTiled fn = encode_tiled();
+  return fn && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  panel == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int T_len, int S,
+                 int H, int KV, int q_offset, int w_eff, int causal, float scale,
+                 cudaStream_t st) {
+  using Cfg = WgCfg<DH>;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, DH, H, T_len, B, Cfg::kPanel, kWgBQ) ||
+      !make_map(&tk, k, DH, KV, S, B, Cfg::kPanel, kWgBK) ||
+      !make_map(&tv, v, DH, KV, S, B, Cfg::kPanel, kWgBK))
+    return -2;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Cfg::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)H, (unsigned)B, (unsigned)((T_len + kWgBQ - 1) / kWgBQ));
+  flash_fwd_wgmma_kernel<DH><<<grid, kWgThreads, Cfg::kSmem, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), T_len, S, H, KV, q_offset, w_eff, causal,
+      scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -460,27 +740,37 @@ extern "C" {
 
 // q: [B, T, H, Dh]; k, v: [B, S, KV, Dh]; o: [B, T, H, Dh]; all contiguous,
 // 16-byte aligned, of one dtype (bf16 != 0: bfloat16, else float32).
-// dh is 32, 64 or 128; H % KV == 0; B * H <= 65535. window <= 0 means
-// global (the effective window is then S + T, as in the plain version).
-// Returns cudaGetLastError() after the launch (0 on success), or -1 for an
-// unsupported head dimension.
+// dh is 32, 64 or 128; H % KV == 0; B, T / 128 <= 65535 (bf16), B * H <= 65535
+// (float32). window <= 0 means global (the effective window is then S + T,
+// as in the plain version). Returns cudaGetLastError() after the launch
+// (0 on success), -1 for an unsupported head dimension, -2 when a tensor
+// map cannot be made.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
                            int T_len, int S, int H, int KV, int dh, int q_offset, int window,
                            int causal, float scale, int bf16, void* stream) {
   if (B <= 0 || T_len <= 0 || H <= 0) return (int)cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int w_eff = window > 0 ? window : S + T_len;
-#define FLASH_CASE(D)                                                                      \
-  if (dh == D)                                                                             \
-    return bf16 ? launch_mma<D>(q, k, v, o, B, T_len, S, H, KV, q_offset, w_eff, causal,   \
-                                scale, st)                                                \
-                : launch<float, D>(q, k, v, o, B, T_len, S, H, KV, q_offset, w_eff, causal, \
+#define FLASH_CASE(D)                                                                         \
+  if (dh == D)                                                                                \
+    return bf16 ? launch_wgmma<D>(q, k, v, o, B, T_len, S, H, KV, q_offset, w_eff, causal,    \
+                                  scale, st)                                                  \
+                : launch<float, D>(q, k, v, o, B, T_len, S, H, KV, q_offset, w_eff, causal,   \
                                    scale, st);
   FLASH_CASE(32)
   FLASH_CASE(64)
   FLASH_CASE(128)
 #undef FLASH_CASE
   return -1;
+}
+
+// Dynamic shared memory of the bf16 kernel for head dim dh, in bytes (-1
+// for a head dim it is not built for).
+int flash_attention_smem_bytes(int dh) {
+  return dh == 32    ? (int)WgCfg<32>::kSmem
+         : dh == 64  ? (int)WgCfg<64>::kSmem
+         : dh == 128 ? (int)WgCfg<128>::kSmem
+                     : -1;
 }
 
 }  // extern "C"

@@ -84,14 +84,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, block=512):
     ``h // (H / Kv)``); float32 or bfloat16, one dtype for all three.
     ``q_offset``: absolute position of q[:, 0]; ``window > 0`` keeps keys
     with ``kpos > qpos - window``. ``block`` is the plain version's kv block
-    (the kernel tiles by 64). Returns [B, T, H, Dh] in q's dtype.
+    (the kernel tiles by 128 keys in bfloat16, 64 in float32). Returns [B, T, H, Dh] in q's dtype.
 
-    On the card, bfloat16 runs on the tensor cores and float32 on the CUDA
-    cores; both agree with the plain version in float32 to float32
-    rounding. The kernel needs Dh in (32, 64, 128), contiguous
-    16-byte-aligned operands, and a live key for every query row (always
-    so for the model's calls; a row with none is rejected rather than
-    averaged as the plain version would)."""
+    On the card, bfloat16 runs on the tensor cores (wgmma fed by TMA) and
+    float32 on the CUDA cores; both agree with the plain version in float32
+    to float32 rounding (bf16: plus the output's own rounding). The kernel
+    needs Dh in (32, 64, 128), contiguous 16-byte-aligned operands whose
+    strides are multiples of 16 bytes (TMA's rule), and a live key for every
+    query row (always so for the model's calls; a row with none is rejected
+    rather than averaged as the plain version would)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, block=block)
@@ -112,6 +113,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, block=512):
         raise ValueError(f"the kv heads ({Kv}) must divide the heads ({H})")
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head dim {Dh} is not one the kernel is built for {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if any(st * t.element_size() % 16 for st in t.stride()[:-1]):
+            raise ValueError(f"{name}'s strides {t.stride()} are not multiples of 16 bytes")
     if B * H > 65535 or max(T, S) >= 2 ** 30:
         raise ValueError(f"B * H = {B * H} and T, S = {T}, {S} exceed the kernel's grid")
     window, q_offset = int(window), int(q_offset)

@@ -6,10 +6,13 @@ head), state S in R^{Dh x Dh}::
     o_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
     S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T
 
-The kernel is hand-written CUDA for Hopper (``csrc/rwkv6_scan.cu``; the note
-at its top says what bounds it and what its design does about that). The
-plain PyTorch version is the chunked form of the model's
-``_rwkv6_chunked.chunk_fn`` (``src/repro/models/rwkv6.py:96-122``).
+The kernel is hand-written CUDA for Hopper (``csrc/rwkv6_scan.cu``: three
+launches, chunk-parallel, with anchored sub-chunk decays; the note at its
+top says what bounds it and what its design does about that). The plain
+PyTorch version is the chunked form of the model's
+``_rwkv6_chunked.chunk_fn`` (``src/repro/models/rwkv6.py:96-122``);
+:func:`rwkv6_chunk_parallel_ref` repeats the kernel's own arithmetic for
+the tests.
 
 Two entry points launch the one kernel and count on one counter,
 ``rwkv6_scan.launches``:
@@ -38,6 +41,7 @@ from repro_torch.kernels.mtgc_update import _check, _raise_on, _stream
 
 MAX_DH = 64
 MAX_CHUNK = 64
+SUB_CHUNK = 16          # the kernel's sub-chunk (csrc/rwkv6_scan.cu kSub)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -81,6 +85,93 @@ def rwkv6_chunked_ref(r, k, v, logw, u, state, *, chunk=64):
     return o, S
 
 
+def rwkv6_chunk_parallel_ref(r, k, v, logw, u, state, *, chunk=64, sub=SUB_CHUNK):
+    """The kernel's arithmetic in plain PyTorch, for the tests: the three
+    passes of ``csrc/rwkv6_scan.cu`` with its anchored sub-chunk factors.
+    Same layout and result as :func:`rwkv6_chunked_ref`.
+
+    Each chunk of C tokens is cut into sub-chunks of ``sub`` tokens (the
+    last may be shorter). Inside sub-chunk q, ``lc`` is the inclusive and
+    ``lx`` the exclusive cumulative sum of logw from the sub-chunk's start
+    (``lx[t] = lc[t - 1]``, 0 at the start) and ``tot[q]`` its total; a
+    chunk-wide sum is a sum of whole ``tot``s. So every exponent is a sum
+    of logw over a run of tokens, never the difference of two long sums,
+    and is <= 0 wherever logw <= 0:
+
+    A: dS_c = (k * exp((suf[q] + tot[q]) - lc))^T v with suf[q] the sum of
+       the later sub-chunks' totals, and the chunk's log-decay sum(tot);
+    B: the short scan S_{c+1} = exp(sum(tot)) * S_c + dS_c from ``state``;
+    C: o = ra S_c + att v + (r . (u * k)) v, with
+       att[t, i] = sum_d r k exp(lx[t] - lc[i]) inside a sub-chunk, and for
+       i in an earlier sub-chunk q (anchored at its last token e)
+       att[t, i] = sum_d rx[t] E[p, q] kq[i], where rx = r exp(lx),
+       kq = k exp(tot[q] - lc) = k exp(cum[e] - cum[i]) and
+       E[p, q] = exp(sum of the totals strictly between q and p);
+       ra = rx exp(sum of the totals before p).
+    The reference's chunk form (and :func:`rwkv6_chunked_ref`) takes
+    ``exp(cum_ex[t] - cum[i])`` from chunk-wide sums, which lose about one
+    float32 ulp of |cum| to cancellation: up to 1e-3 on o at logw <= -5.
+    """
+    B, T, H, Dh = r.shape
+    C = min(chunk, T)
+    pad = (-T) % C
+    if pad:
+        r, k, v, logw = (torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+                         for a in (r, k, v, logw))
+    nc = (T + pad) // C
+
+    def resh(a):  # [B, Tp, H, Dh] -> [B, H, nc, C, Dh] float32
+        return a.reshape(B, nc, C, H, Dh).permute(0, 3, 1, 2, 4).to(torch.float32)
+
+    r_, k_, v_, lw_ = map(resh, (r, k, v, logw))
+    subs = [slice(s, min(s + sub, C)) for s in range(0, C, sub)]
+    lc = torch.cat([torch.cumsum(lw_[..., q, :], dim=3) for q in subs], dim=3)
+    lx = torch.cat([torch.nn.functional.pad(lc[..., q, :][..., :-1, :], (0, 0, 1, 0))
+                    for q in subs], dim=3)
+    tot = [lc[..., q.stop - 1:q.stop, :] for q in subs]                # [B, H, nc, 1, Dh]
+
+    def run(lo, hi):  # tot[lo] + ... + tot[hi - 1], in that order
+        acc = torch.zeros_like(tot[0])
+        for j in range(lo, hi):
+            acc = acc + tot[j]
+        return acc
+
+    ns = len(subs)
+    # Pass A.
+    kd = torch.cat([k_[..., q, :] * torch.exp((run(j + 1, ns) + tot[j]) - lc[..., q, :])
+                    for j, q in enumerate(subs)], dim=3)
+    d_state = torch.einsum("bhcid,bhcie->bhcde", kd, v_)
+    log_decay = run(0, ns)[..., 0, :]                                 # [B, H, nc, Dh]
+    # Pass B.
+    S = state.to(torch.float32)
+    starts = []
+    for c in range(nc):
+        starts.append(S)
+        S = torch.exp(log_decay[:, :, c])[..., None] * S + d_state[:, :, c]
+    starts = torch.stack(starts, dim=2)                               # [B, H, nc, Dh, Dh]
+    # Pass C.
+    u = u.to(torch.float32).expand(B, H, Dh)[:, :, None, None, :]
+    bonus = (r_ * u * k_).sum(-1, keepdim=True)
+    rx = r_ * torch.exp(lx)
+    att = torch.zeros(B, H, nc, C, C, dtype=torch.float32, device=r.device)
+    for j, q in enumerate(subs):
+        n = q.stop - q.start
+        tri = torch.tril(torch.ones((n, n), dtype=torch.bool, device=r.device), -1)
+        w = torch.exp(lx[..., q, None, :] - lc[..., None, q, :])
+        w = torch.where(tri[..., None], w, torch.zeros((), device=r.device))
+        att[..., q, q] = torch.einsum("bhctd,bhcid,bhctid->bhcti", r_[..., q, :], k_[..., q, :], w)
+        kq = k_[..., q, :] * torch.exp(tot[j] - lc[..., q, :])
+        for jp in range(j + 1, ns):
+            p = subs[jp]
+            att[..., p, q] = torch.einsum("bhctd,bhcid->bhcti",
+                                          rx[..., p, :] * torch.exp(run(j + 1, jp)), kq)
+    ra = torch.cat([rx[..., p, :] * torch.exp(run(0, jp)) for jp, p in enumerate(subs)], dim=3)
+    o = (torch.einsum("bhctd,bhcde->bhcte", ra, starts)
+         + torch.einsum("bhcti,bhcie->bhcte", att, v_) + bonus * v_)
+    o = o.permute(0, 2, 3, 1, 4).reshape(B, T + pad, H, Dh)[:, :T]
+    return o, S
+
+
 def rwkv6_scan_ref(r, k, v, logw, u, state, *, chunk=64):
     """Plain version on the Pallas signature: r/k/v/logw [BH, T, Dh]; u
     [BH, Dh]; state [BH, Dh, Dh]. Returns (o [BH, T, Dh] f32, state)."""
@@ -109,10 +200,16 @@ def _launch(r, k, v, logw, u, state, chunk, B, H, T, Dh, u_b_stride):
         raise ValueError(f"chunk {chunk} (T = {T}) is outside the kernel's 1..{MAX_CHUNK}")
     o = torch.empty(r.shape, dtype=torch.float32, device=dev)
     s_out = torch.empty_like(state)
+    nc = -(-T // C)
+    # Scratch of the three passes: each chunk's state (increment, then start)
+    # and its log-decay.
+    states = torch.empty(B * H * nc * Dh * Dh, dtype=torch.float32, device=dev)
+    log_decay = torch.empty(B * H * nc * Dh, dtype=torch.float32, device=dev)
     err = load("rwkv6_scan").rwkv6_scan_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
-        state.data_ptr(), o.data_ptr(), s_out.data_ptr(), B, H, T, Dh, C,
-        T * H * Dh, H * Dh, Dh, u_b_stride, int(r.dtype == torch.bfloat16), _stream(dev))
+        state.data_ptr(), o.data_ptr(), s_out.data_ptr(), states.data_ptr(),
+        log_decay.data_ptr(), B, H, T, Dh, C, T * H * Dh, H * Dh, Dh, u_b_stride,
+        int(r.dtype == torch.bfloat16), _stream(dev))
     _raise_on(err, "rwkv6_scan")
     rwkv6_scan.launches += 1
     return o, s_out

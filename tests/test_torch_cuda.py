@@ -320,6 +320,31 @@ def test_flash_kernel_matches_plain(cuda, B, T, S, H, Kv, Dh, causal, win, off, 
     assert excess.max().item() < 5e-5
 
 
+@pytest.mark.parametrize("B,T,S,H,Kv,Dh,causal,win,off", [
+    (1, 300, 333, 40, 8, 128, True, 0, 0),     # qwen3's 40/8 heads, ragged T and S
+    (2, 200, 457, 40, 8, 128, True, 0, 257),   # two q tiles, q_offset > 0
+    (1, 513, 700, 10, 2, 128, True, 0, 187),   # five q tiles, q_offset > 0
+    (1, 384, 384, 8, 2, 64, True, 200, 0),     # a window crossing 128-key tiles
+    (1, 260, 300, 4, 2, 32, True, 150, 40),    # Dh 32, window + offset
+    (2, 129, 129, 6, 3, 64, False, 0, 0),      # bidirectional, one row past a tile
+])
+def test_flash_wgmma_kernel_matches_plain(cuda, B, T, S, H, Kv, Dh, causal, win, off):
+    """The bf16 wgmma/TMA kernel against the plain version in float32 on
+    the same inputs: half a bf16 ulp + 5e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(T + S + off + Dh)
+    q = torch.randn(B, T, H, Dh, generator=gen, device=cuda).bfloat16()
+    k = torch.randn(B, S, Kv, Dh, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(B, S, Kv, Dh, generator=gen, device=cuda).bfloat16()
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=win, q_offset=off)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal, window=win,
+                                  q_offset=off, block=64)
+    excess = (got.float() - want).abs() - 2.0 ** -8 * want.abs()
+    assert excess.max().item() < 5e-5
+
+
 def test_flash_wrapper_rejects_bad_operands(cuda):
     q = torch.randn(1, 8, 4, 32, device=cuda)
     k = torch.randn(1, 8, 2, 32, device=cuda)
@@ -341,7 +366,8 @@ def test_flash_wrapper_rejects_bad_operands(cuda):
 
 @pytest.mark.parametrize("B,H,T,Dh,C", [(1, 2, 32, 16, 8), (2, 3, 64, 32, 16),
                                         (1, 1, 128, 64, 64), (2, 2, 64, 64, 32),
-                                        (2, 3, 45, 64, 16), (1, 2, 7, 32, 64)])
+                                        (2, 3, 45, 64, 16), (1, 2, 7, 32, 64),
+                                        (2, 3, 45, 20, 16)])   # Dh % 8 != 0: element loads
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_kernel_matches_plain(cuda, B, H, T, Dh, C, dtype):
     """The Pallas signature [BH, T, Dh], ragged T included (padded inside
@@ -373,6 +399,45 @@ def test_scan_kernel_model_layout(cuda):
     s0 = torch.randn(B, H, Dh, Dh, generator=gen, device=cuda)
     got_o, got_s = rs.rwkv6_scan_bthd(r, k, v, logw, u, s0, chunk=64)
     want_o, want_s = rs.rwkv6_chunked_ref(r, k, v, logw, u, s0, chunk=64)
+    torch.testing.assert_close(got_o, want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("T", [64, 64 * 9 + 13])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernel_many_heads(cuda, T, dtype):
+    """B * H = 160 > 132 SMs' worth of (b, h) blocks; T of exactly one
+    chunk and of many chunks with a ragged end; the model's decays, held
+    against the plain version."""
+    B, H, Dh = 4, 40, 64
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    r, k, v = (torch.randn(B, T, H, Dh, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    logw = -torch.exp(-1.0 + torch.tanh(torch.randn(B, T, H, Dh, generator=gen, device=cuda)))
+    u = 0.1 * torch.randn(H, Dh, generator=gen, device=cuda)
+    s0 = 0.1 * torch.randn(B, H, Dh, Dh, generator=gen, device=cuda)
+    got_o, got_s = rs.rwkv6_scan_bthd(r, k, v, logw, u, s0, chunk=64)
+    want_o, want_s = rs.rwkv6_chunked_ref(r, k, v, logw, u, s0, chunk=64)
+    torch.testing.assert_close(got_o, want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("T", [64, 64 * 9 + 13])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernel_strong_decays(cuda, T, dtype):
+    """logw <= -5 (down to -20), B * H = 160: held against
+    ``rwkv6_chunk_parallel_ref``, the kernel's arithmetic in PyTorch, which
+    the CPU tests hold against the sequential oracle at these decays. The
+    plain version's chunk-wide sums lose more than the tolerance here
+    (``test_torch_lm_kernels.py::test_chunk_form_cancellation_at_strong_decays``)."""
+    B, H, Dh = 4, 40, 64
+    gen = torch.Generator(device=cuda).manual_seed(T + 1)
+    r, k, v = (torch.randn(B, T, H, Dh, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    logw = -5.0 - 15.0 * torch.rand(B, T, H, Dh, generator=gen, device=cuda)
+    u = 0.1 * torch.randn(H, Dh, generator=gen, device=cuda)
+    s0 = torch.randn(B, H, Dh, Dh, generator=gen, device=cuda)
+    got_o, got_s = rs.rwkv6_scan_bthd(r, k, v, logw, u, s0, chunk=64)
+    want_o, want_s = rs.rwkv6_chunk_parallel_ref(r, k, v, logw, u, s0, chunk=64)
+    assert torch.isfinite(got_o).all() and torch.isfinite(got_s).all()
     torch.testing.assert_close(got_o, want_o, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got_s, want_s, rtol=1e-4, atol=1e-4)
 

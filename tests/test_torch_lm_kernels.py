@@ -223,6 +223,117 @@ def test_model_rwkv_path_matches_kernel(T):
                                    np.asarray(s_kern), rtol=1e-4, atol=1e-4)
 
 
+# ------------------------------------- the kernel's chunk-parallel arithmetic
+#
+# ``rwkv6_chunk_parallel_ref`` repeats csrc/rwkv6_scan.cu's three passes and
+# anchored sub-chunk decays in PyTorch. Held at rtol/atol 1e-4 (the scan's
+# tolerance) against the sequential oracle for every decay, from the
+# model's -exp(-1 + tanh(.)) to logw down to -20, where exp(-cum) would
+# overflow; and against the Pallas kernel and the plain version for the
+# decays where those two hold the oracle's tolerance themselves.
+
+
+def _decays(rng, kind, shape):
+    x = rng.normal(size=shape)
+    if kind == "model":
+        return -np.exp(-1.0 + np.tanh(x))
+    if kind == "abs":
+        return -np.abs(x)
+    return -20.0 * rng.uniform(size=shape)        # strong: logw in (-20, 0]
+
+
+def _scan_case(T, decay, seed, B=2, H=2, Dh=32):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(B, H, T, Dh)).astype(np.float32) for _ in range(3))
+    logw = _decays(rng, decay, (B, H, T, Dh)).astype(np.float32)
+    u = rng.normal(size=(H, Dh)).astype(np.float32)
+    s0 = rng.normal(size=(B, H, Dh, Dh)).astype(np.float32)
+    return r, k, v, logw, u, s0
+
+
+def _bthd(a):
+    return _t(a.transpose(0, 2, 1, 3).copy())
+
+
+def _parallel(args, C, sub):
+    r, k, v, logw, u, s0 = args
+    o, s = rs.rwkv6_chunk_parallel_ref(_bthd(r), _bthd(k), _bthd(v), _bthd(logw), _t(u), _t(s0),
+                                       chunk=C, sub=sub)
+    return o.numpy().transpose(0, 2, 1, 3), s.numpy()
+
+
+def _pallas_padded(args, C):
+    """The Pallas kernel in interpret mode on inputs padded to a chunk
+    multiple with the model's padding (k = v = r = 0, logw = 0)."""
+    r, k, v, logw, u, s0 = args
+    B, H, T, Dh = r.shape
+    Tp = -(-T // C) * C
+
+    def flat(a):
+        return jnp.asarray(np.pad(a, ((0, 0), (0, 0), (0, Tp - T), (0, 0))).reshape(B * H, Tp, Dh))
+
+    u_b = np.broadcast_to(u[None], (B, H, Dh)).reshape(B * H, Dh)
+    o, s = pallas_scan(flat(r), flat(k), flat(v), flat(logw), jnp.asarray(u_b),
+                       jnp.asarray(s0.reshape(B * H, Dh, Dh)), chunk=C, interpret=True)
+    return np.asarray(o).reshape(B, H, Tp, Dh)[:, :, :T], np.asarray(s).reshape(s0.shape)
+
+
+_PARALLEL_CASES = [(C, sub, decay, 2 * C + 5) for C in (16, 64) for sub in (8, 16)
+                   for decay in ("model", "abs", "strong")]
+_PARALLEL_CASES += [(20, 16, "strong", 45),   # sub-chunks that do not divide the chunk
+                    (20, 8, "model", 45),
+                    (64, 16, "strong", 7)]    # T shorter than a chunk: C = T = 7
+
+
+@pytest.mark.parametrize("C,sub,decay,T", _PARALLEL_CASES)
+def test_scan_chunk_parallel_matches_sequential_ref(C, sub, decay, T):
+    args = _scan_case(T, decay, seed=C * 7 + sub + T)
+    want_o, want_s = ref.rwkv6_scan_ref(*(jnp.asarray(a) for a in args))
+    got_o, got_s = _parallel(args, C, sub)
+    np.testing.assert_allclose(got_o, np.asarray(want_o), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_s, np.asarray(want_s), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("C,sub,decay", [(C, sub, decay) for C in (16, 64) for sub in (8, 16)
+                                         for decay in ("model", "abs")])
+def test_scan_chunk_parallel_matches_pallas_and_plain(C, sub, decay):
+    T = 2 * C + 5
+    args = _scan_case(T, decay, seed=C + sub * 3)
+    got_o, got_s = _parallel(args, C, sub)
+    pal_o, pal_s = _pallas_padded(args, C)
+    np.testing.assert_allclose(got_o, pal_o, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_s, pal_s, rtol=1e-4, atol=1e-4)
+    r, k, v, logw, u, s0 = args
+    plain_o, plain_s = rs.rwkv6_chunked_ref(_bthd(r), _bthd(k), _bthd(v), _bthd(logw), _t(u),
+                                            _t(s0), chunk=C)
+    np.testing.assert_allclose(got_o, plain_o.numpy().transpose(0, 2, 1, 3), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_s, plain_s.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("sub", [8, 16])
+def test_chunk_form_cancellation_at_strong_decays(sub):
+    """Why the strong decays are held against the sequential oracle alone:
+    the reference's chunk form (Pallas kernel, and the plain version that
+    ports it) takes exp(cum_ex[t] - cum[i]) from chunk-wide sums of logw,
+    whose float32 rounding (about one ulp of |cum|, up to 1280 here) reaches
+    the exponent; it is off the oracle by more than the scan's tolerance.
+    The chunk-parallel form sums from each sub-chunk's start and stays
+    within it."""
+    C, T = 64, 133
+    args = _scan_case(T, "strong", seed=11 + sub)
+    want_o = np.asarray(ref.rwkv6_scan_ref(*(jnp.asarray(a) for a in args))[0])
+
+    def excess(got):  # how far beyond rtol/atol 1e-4
+        return float(np.max(np.abs(got - want_o) - 1e-4 * np.abs(want_o)))
+
+    r, k, v, logw, u, s0 = args
+    plain_o = rs.rwkv6_chunked_ref(_bthd(r), _bthd(k), _bthd(v), _bthd(logw), _t(u), _t(s0),
+                                   chunk=C)[0].numpy().transpose(0, 2, 1, 3)
+    assert excess(_parallel(args, C, sub)[0]) < 1e-4
+    assert excess(_pallas_padded(args, C)[0]) > 1e-4
+    assert excess(plain_o) > 1e-4
+
+
 def test_ops_exports_and_resets_the_lm_kernels():
     assert ops.flash_attention is fa.flash_attention
     assert ops.rwkv6_scan is rs.rwkv6_scan and ops.rwkv6_scan_bthd is rs.rwkv6_scan_bthd
