@@ -12,8 +12,9 @@ conv5x5x32, pool, conv5x5x64, pool, fc512, fc10; N = 2,156,490 float32
 parameters) over 10 groups x 10 clients at batch 50, on synthetic data of
 CIFAR-10's 32x32x3 shape -- uncompressed at full participation, with
 compressed uploads, and under partial participation. Depth is cut: E = 2
-group rounds of H = 5 local steps, 1 or 2 global rounds per path. The
-learning rate is 0.01: at 0.1
+group rounds of H = 5 local steps, 1 or 2 global rounds per path. After
+the serving phases it trains glm4-9b at full width (depth 2 of 40) on the
+sharded backend. The CNN's learning rate is 0.01: at 0.1
 the loss of this CNN on the synthetic images spikes into the thousands and
 then settles at chance (ln 10) in both packages
 (``tests/test_torch_driver.py::test_cifar_cnn_loss_spike_tracks_reference``).
@@ -81,13 +82,43 @@ final line):
     qwen3-14b (40 layers, d 5120, bf16, 14.77 B params) and rwkv6-1.6b (24
     layers, d 2048), each from random params (seed 0), 4 prompts of 2048
     tokens, 32 generated tokens: ``flash_attention`` must launch 40 times in
-    the prefill and never in decode, ``rwkv6_scan`` 24 times in the
-    prefill; finite logits; prefill ms, decode ms per step, tokens/s, peak
+    the prefill and never in decode, ``rwkv6_scan`` 72 times in the
+    prefill (three kernels a layer); finite logits; prefill ms, decode ms per step, tokens/s, peak
     memory;
 14. reduced qwen3-14b and rwkv6-1.6b (float32) from the same params on the
     card and on the CPU: prefill logits within rtol/atol 1e-4, 8 greedy
     tokens equal;
-15. a JSON line per kernel, then ``{"ok": true, "device": {...}}`` last.
+15. the attention backward at glm4-9b's training shape (q [1, 2048, 32,
+    128], k/v [1, 2048, 2, 128], causal) in float32 and bfloat16: dq, dk,
+    dv against ``flash_attention_bwd_ref`` within 1e-5 of each gradient's
+    largest entry (bf16: beyond the outputs' own half-ulp rounding), the
+    forward's output within 5e-5 (bf16: plus half an ulp) and its row
+    statistics m and l within 1e-5; the autograd
+    ``FlashAttention`` on the card against the CPU at [1, 300, 8, 64];
+    then kernel, plain, bound and ``scaled_dot_product_attention``'s
+    backward times, and the forward at this shape with the statistics off
+    and on;
+16. LM training, tree + fused (phase (h)): glm4-9b at its published
+    widths with 2 of its 40 layers (bf16, remat, random params from seed
+    0), ``ExperimentSpec(backend="sharded", levels=(2, 2))``, E = H = A = 2,
+    lr 0.05, tokens from ``make_lm_tokens`` (seed 0, 400,000) packed by
+    ``pack_tokens`` at batch 1 x 2048 (every layer takes the flash path):
+    a warm-up round; then ``mtgc_update_flat`` on the trained state itself
+    (bf16, g_scale = 1/A, a random g, in place on a copy of x, with and
+    without a mask that freezes a replica) against ``mtgc_update_flat_ref``
+    bit for bit on column slices of every leaf, one of them past element
+    2^31; then one round with the launch counts required equal to the
+    reckoned ones (flash forward 2 x layers x replicas x microbatches x
+    steps under remat, backward three kernels for each of those passes,
+    ``mtgc_update_flat`` once per leaf per step), finite losses, round ms,
+    training tokens/s, peak memory, and a traced round;
+17. LM training, flat + fused (phase (i)): the same, ``mtgc_update_flat``
+    once per step, its check on the one [2, 2, N] buffer (6.6e9 elements);
+18. a reduced glm4-9b (float32, remat) sharded round at T = 1100 on the
+    card against the CPU (params within rtol 1e-4), and the fused step
+    against the unfused one on the card, bit for bit;
+19. a JSON line of the serving and training runs and one per kernel, then
+    ``{"ok": true, "device": {...}}`` last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``) for the whole run, so every
@@ -115,6 +146,12 @@ E, H, ROUNDS, GROUPS, CLIENTS, BATCH = 2, 5, 2, 10, 10, 50
 IMAGE = (32, 32, 3)
 LR = 0.01
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32      # the serving traffic of phase 13
+# LM training (phases 15-17): glm4-9b at full width, 2 of its 40 layers, the
+# reference trainer's 2 x 2 clients and lr, E = H = A = 2, 1 x 2048 tokens a
+# microbatch (every layer takes the flash path: T > 1024).
+LM_TRAIN_ARCH, LM_TRAIN_LAYERS, LM_TRAIN_LEVELS, LM_TRAIN_LR = "glm4-9b", 2, (2, 2), 0.05
+LM_TRAIN_E, LM_TRAIN_H, LM_TRAIN_A = 2, 2, 2
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_TOKENS = 1, 2048, 400_000
 
 
 def log(*args):
@@ -209,14 +246,18 @@ def sass_counts(path: Path, build) -> dict:
 
 def log_kernel_resources(build) -> None:
     """Registers at launch, spills (ptxas) and dynamic shared memory of the
-    two LM kernels as launched on the main path, and the wgmma/TMA
-    instructions in the flash library; both counts must be > 0."""
+    LM kernels as launched on the main path, and the wgmma/TMA instructions
+    in the flash library; both counts must be > 0."""
     fl, sc = build.load("flash_attention"), build.load("rwkv6_scan")
     log(f"  flash_fwd_wgmma_kernel<128>: {fl.flash_attention_smem_bytes(128)} B of dynamic "
         f"shared memory, 384 threads (registers: 24 producer / 240 consumer after setmaxnreg)")
     for i, name in enumerate(("rwkv6_chunk_state_kernel", "rwkv6_state_scan_kernel",
                               "rwkv6_chunk_out_kernel")):
         log(f"  {name}: {sc.rwkv6_scan_smem_bytes(i)} B of dynamic shared memory")
+    bw = build.load("flash_attention_bwd")
+    log(f"  flash_bwd_dq_kernel<128>: {bw.flash_attention_bwd_smem_bytes(0, 128)} B, "
+        f"flash_bwd_dkdv_kernel<128>: {bw.flash_attention_bwd_smem_bytes(1, 128)} B of dynamic "
+        f"shared memory, 256 threads each")
     counts = sass_counts(build.library_path("flash_attention"), build)
     log(f"  flash_attention SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
     require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
@@ -650,6 +691,9 @@ def phase_lm_kernels(torch, fa, rs):
     qt, kt, vt = (a.transpose(1, 2) for a in (qb, kb, vb))
     flash["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), iters=10, warmup=2)
+    # The row statistics the training path asks for (serving never does).
+    flash["stats_ms"] = cuda_ms(torch, lambda: fa.flash_attention(qb, kb, vb, return_stats=True),
+                                iters=10)
     lib_err = (F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
                .transpose(1, 2).float() - fa.flash_attention(qb, kb, vb).float()).abs().max().item()
     pairs = B * H * causal_pairs(T, S)
@@ -680,7 +724,8 @@ def phase_lm_kernels(torch, fa, rs):
         log(f"{name}: kernel {t['ms']:.4f} ms {t['ms_readings']}, plain {t['plain_ms']:.4f} ms "
             f"{t['plain_ms_readings']}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
             f"{t['bytes']} bytes, {t['flops']:.4g} FLOP; bound share {t['bound_share']:.3f}), "
-            f"library {t['library_ms']}")
+            f"library {t['library_ms']}" + (f", with row statistics {t['stats_ms']:.4f} ms"
+                                             if "stats_ms" in t else ""))
         log_trace(f"  {name}, three calls (traced)", t.pop("passes"), top_n=4)
     log(f"  flash_attention: {flash['pairs']} live pairs; SDPA against the kernel: max abs "
         f"diff {flash['sdpa_max_abs_diff']}; rwkv6_scan: {scan['exps']} exponentials")
@@ -782,6 +827,354 @@ def phase_lm_card_vs_cpu(torch, np, convert):
                 f"reduced {arch}: greedy tokens differ between card and CPU")
     log(f"card vs CPU, reduced qwen3-14b and rwkv6-1.6b (f32, 37 prompt tokens): prefill logits "
         f"within rtol/atol 1e-4 (max abs diff {worst:.3g}), 8 greedy tokens equal")
+
+
+def phase_lm_backward(torch, fa):
+    """Phase 15: the attention backward (and the forward's row statistics)
+    against their plain versions at the training shape, the autograd
+    Function on the card against the plain versions on the CPU at a reduced
+    shape, then the backward's time against its bound, its plain version and
+    the backward of ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    B, T, H, Kv, Dh = LM_TRAIN_BATCH, LM_TRAIN_SEQ, 32, 2, 128   # glm4-9b's attention
+    q32, k32, v32, do32 = randn(B, T, H, Dh), randn(B, T, Kv, Dh), randn(B, T, Kv, Dh), \
+        randn(B, T, H, Dh)
+    errs = {}
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q, k, v, do = (a.to(dt) for a in (q32, k32, v32, do32))
+        o, m, l = fa.flash_attention(q, k, v, return_stats=True)
+        wo, wm, wl = fa.flash_attention_ref(q.float(), k.float(), v.float(), block=64,
+                                            return_stats=True)
+        em = (m - wm).abs().max().item()
+        el = ((l - wl).abs() / wl).max().item()
+        # The statistics to float32 rounding (bf16: the base-2 exponentials
+        # of the tensor-core kernel): |dm| <= 1e-5, |dl| / l <= 1e-5.
+        require(em <= 1e-5 and el <= 1e-5, f"flash_attention {tag} row statistics differ: "
+                f"max |dm| {em}, max |dl|/l {el}")
+        # The output as in phase 12: within 5e-5 of the plain version in
+        # float32 (bf16: plus half an ulp, the output's own rounding).
+        half_ulp = 2.0 ** -8 if dt == torch.bfloat16 else 0.0
+        eo = (o.float() - wo).abs()
+        errs[f"{tag}/o"] = eo.max().item()
+        eo = (eo - half_ulp * wo.abs()).max().item()
+        require(eo < 5e-5, f"flash_attention {tag} output differs from its plain version at "
+                f"the training shape by {eo} beyond {'half an ulp' if half_ulp else 'nothing'}")
+        del wo
+        got = fa.flash_attention_bwd(q, k, v, o, do, m, l)
+        want = fa.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
+                                          do.float(), m, l, block=512)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            scale = w.abs().max().item()
+            excess = (g.float() - w).abs()
+            if dt == torch.bfloat16:
+                excess = excess - 2.0 ** -8 * w.abs()     # the output's rounding to bf16
+            rel = excess.max().item() / scale
+            worst = max(worst, rel)
+            # float32 rounding: within 1e-5 of the gradient's largest entry.
+            require(rel <= 1e-5, f"flash_attention_bwd {tag} {name} differs from its plain "
+                    f"version: {rel} of max |{name}| {scale}")
+            errs[f"{tag}/{name}"] = (g.float() - w).abs().max().item()
+        log(f"flash_attention_bwd {tag} q [{B},{T},{H},{Dh}] k/v [{B},{T},{Kv},{Dh}] causal: "
+            f"max abs err dq {errs[f'{tag}/dq']:.3g} dk {errs[f'{tag}/dk']:.3g} dv "
+            f"{errs[f'{tag}/dv']:.3g} (worst beyond the output rounding: {worst:.3g} of the "
+            f"largest entry); forward max |do| {errs[f'{tag}/o']:.3g}, statistics max |dm| "
+            f"{em:.3g}, max |dl|/l {el:.3g}")
+    errs["flash_attention_bwd"] = max(errs[f"bf16/{n}"] for n in ("dq", "dk", "dv"))
+    errs["flash_attention_bwd/f32"] = max(errs[f"f32/{n}"] for n in ("dq", "dk", "dv"))
+
+    # The Function on the card against the plain versions on the CPU.
+    cpu = [randn(*s).cpu() for s in ((1, 300, 8, 64), (1, 300, 2, 64), (1, 300, 2, 64),
+                                     (1, 300, 8, 64))]
+    outs = {}
+    for d in ("cuda", "cpu"):
+        q, k, v = (a.to(d).requires_grad_() for a in cpu[:3])
+        o = fa.FlashAttention.apply(q, k, v, True, 0, 0, 64)
+        o.backward(cpu[3].to(d))
+        outs[d] = [t.detach().cpu() for t in (o, q.grad, k.grad, v.grad)]
+    fn_err = max((a - b).abs().max().item() for a, b in zip(outs["cuda"], outs["cpu"]))
+    require(fn_err < 5e-5, f"FlashAttention on the card differs from the CPU by {fn_err}")
+    log(f"FlashAttention (autograd) f32 [1,300,8,64] / [1,300,2,64]: card vs CPU o, dq, dk, dv "
+        f"within {fn_err:.3g} (< 5e-5)")
+
+    # Times at the training shape in bf16 (the model's dtype).
+    q, k, v, do = (a.bfloat16() for a in (q32, k32, v32, do32))
+    o, m, l = fa.flash_attention(q, k, v, return_stats=True)
+    bwd = timed(torch, lambda: fa.flash_attention_bwd(q, k, v, o, do, m, l),
+                lambda: fa.flash_attention_bwd_ref(q, k, v, o, do, m, l), iters=10, plain_iters=3)
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v))
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    except TypeError:           # a PyTorch without enable_gqa: the kv heads expanded
+        kt, vt = (a.repeat_interleave(H // Kv, dim=1).detach().requires_grad_()
+                  for a in (kt, vt))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    bwd["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=10, warmup=2)
+    del out
+    pairs = B * H * causal_pairs(T, T)
+    nbytes = (4 * q.numel() + 2 * k.numel()) * 2 + 2 * k.numel() * 2 + 2 * m.numel() * 4
+    flops = 10 * Dh * pairs
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    bwd.update(bytes=nbytes, flops=flops, pairs=pairs)
+    bwd["bound_share"] = bwd["bound_ms"] / bwd["ms"]
+    fwd_off = cuda_ms(torch, lambda: fa.flash_attention(q, k, v), iters=20)
+    fwd_on = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, return_stats=True), iters=20)
+    log(f"flash_attention_bwd bf16: kernel {bwd['ms']:.4f} ms {bwd['ms_readings']}, plain "
+        f"{bwd['plain_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}; "
+        f"{nbytes} bytes, {flops:.4g} FLOP, {pairs} live pairs; bound share "
+        f"{bwd['bound_share']:.3f}), SDPA backward {bwd['library_ms']:.4f} ms; forward at this "
+        f"shape {fwd_off:.4f} ms (statistics on: {fwd_on:.4f} ms)")
+    bwd["passes"] = profile_round(torch, lambda: [fa.flash_attention_bwd(q, k, v, o, do, m, l)
+                                                   for _ in range(3)])
+    log_trace("  flash_attention_bwd, three calls (traced)", bwd.pop("passes"), top_n=4)
+    bwd["fwd_train_ms"], bwd["fwd_train_stats_ms"] = fwd_off, fwd_on
+    del q, k, v, do, o, m, l, qt, kt, vt, q32, k32, v32, do32
+    torch.cuda.empty_cache()
+    return errs, bwd
+
+
+def lm_train_launches(cfg, n_update: int, rounds: int = 1) -> dict:
+    """The kernel launches one LM training round must make: every layer of
+    every replica and microbatch runs the flash forward (twice under remat:
+    the forward and its recompute in the backward pass) and the flash
+    backward once (three kernels); the fused update launches once per leaf
+    (tree) or dtype buffer (flat) per local step."""
+    G, K = LM_TRAIN_LEVELS
+    passes = rounds * LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * G * K * cfg.num_layers
+    return {"flash_attention": passes * (2 if cfg.remat else 1),
+            "flash_attention_bwd": 3 * passes,
+            "mtgc_update_flat": rounds * LM_TRAIN_E * LM_TRAIN_H * n_update,
+            "mtgc_update": 0}
+
+
+def check_update_on_state(torch, mu, state, lr: float, g_scale: float) -> dict:
+    """``mtgc_update_flat`` at the training path's own shapes: on every leaf
+    of the trained bf16 state (x, z, y; the flat layout's one [G, K, N]
+    buffer) with a random g and the path's ``g_scale``, in place on a copy of
+    x as the fused step runs it, with no mask and with one that freezes
+    replica (1, 0). The update is element-wise, so each column slice of the
+    result must equal the plain version on that slice: within one bf16 ulp
+    (phase 2's tolerance), and a frozen replica keeps its exact bits. Slices
+    at both ends of each row and, where the leaf has more elements, one
+    around element 2^31 (the 64-bit offsets)."""
+    from repro_torch.core.tree import tree_leaves
+
+    G, K = LM_TRAIN_LEVELS
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    freeze = torch.ones(G, K, device=dev)
+    freeze[1, 0] = 0.0
+    span = 1 << 16
+    res = {"slices": 0, "past_2_31": 0, "bit_exact": True, "max_abs_err": 0.0}
+    for x, z, y in zip(tree_leaves(state.params), tree_leaves(state.z), tree_leaves(state.y)):
+        x3, z3, y2 = x.view(G, K, -1), z.view(G, K, -1), y.view(G, -1)
+        N = x3.shape[-1]
+        L = min(span, N)
+        starts = {0, N - L}
+        if x3.numel() > 2 ** 31:
+            r, c = divmod(2 ** 31, N)
+            starts.add(max(0, min(c - L // 2, N - L)))
+        g = torch.empty_like(x3)
+        for row in g.view(G * K, N):             # rows below 2^31 elements each
+            row.normal_(generator=gen)
+        for mask in (None, freeze):
+            out = x3.clone()
+            mu.mtgc_update_flat(out, g, z3, y2, mask, lr=lr, g_scale=g_scale, out=out)
+            for a in sorted(starts):
+                sl = slice(a, a + L)
+                want = mu.mtgc_update_flat_ref(x3[:, :, sl], g[:, :, sl], z3[:, :, sl],
+                                               y2[:, sl], mask, lr, g_scale).float()
+                got = out[:, :, sl].float()
+                err = (got - want).abs()
+                require((err - 2.0 ** -8 * want.abs()).max().item() <= 0.0,
+                        f"mtgc_update_flat on the training state {tuple(x3.shape)} differs "
+                        f"from its plain version at columns {a}:{a + L} (mask={mask is not None})")
+                res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
+                res["bit_exact"] &= bool(torch.equal(got, want))
+                res["slices"] += 1
+                res["past_2_31"] += int((G * K - 1) * N + a + L > 2 ** 31)
+            if mask is not None:
+                require(torch.equal(out[1, 0], x3[1, 0]),
+                        f"a frozen replica changed in place on {tuple(x3.shape)}")
+            del out
+        del g
+    require(res["past_2_31"] > 0, "no slice of the update check lay past element 2^31")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool) -> dict:
+    """Phases 16-17: HFL LM training at glm4-9b's full width (depth cut to
+    ``LM_TRAIN_LAYERS``) through ``build``/``pack_tokens``/``fit`` on the
+    sharded backend, fused. ``rounds`` rounds after a warm-up round; the
+    launch counts are set to 0 just before them and read just after."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.lm import make_lm_tokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mtgc_update as mu
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH), num_layers=LM_TRAIN_LAYERS)
+    require(cfg.remat and cfg.param_dtype == "bfloat16", "glm4-9b trains in bf16 with remat")
+    bundle = build_model(cfg)
+    G, K = LM_TRAIN_LEVELS
+    spec = api.ExperimentSpec(
+        levels=(G, K), backend="sharded", algorithm="mtgc", lr=LM_TRAIN_LR, fusion="fused",
+        state_layout=layout, schedule=api.RoundSchedule(
+            group_rounds=LM_TRAIN_E, local_steps=LM_TRAIN_H, microbatches=LM_TRAIN_A))
+    engine = api.build(spec, bundle.loss)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    toks, _ = make_lm_tokens(rng, cfg.vocab_size, LM_TRAIN_TOKENS)
+    data = engine.pack_tokens(toks, batch_size=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                              shards=2, rng=rng, generator=torch.Generator().manual_seed(1))
+    data_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9          # left by earlier phases
+    params = bundle.init(0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state = engine.init(params)
+    del params
+    torch.cuda.synchronize()
+    n_update = len(tree_leaves(state.params))
+    state_gb = sum(t.numel() * t.element_size()
+                   for f in (state.params, state.z, state.y) for t in tree_leaves(f)) / 1e9
+    t0 = time.perf_counter()
+    state, hz0 = api.fit(engine, data, 1, state=state)         # warm-up
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    warm_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    upd = check_update_on_state(torch, mu, state, LM_TRAIN_LR, 1.0 / LM_TRAIN_A)
+    log(f"mtgc_update_flat on the trained {layout} state (bf16, g_scale 1/{LM_TRAIN_A}, in "
+        f"place, with and without a mask): {upd['slices']} column slices within one ulp of "
+        f"the plain version ({upd['past_2_31']} past element 2^31; bit-exact "
+        f"{upd['bit_exact']}; max abs err {upd['max_abs_err']:.3g})")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hz = api.fit(engine, data, rounds, state=state)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    got = {"flash_attention": fa.flash_attention.launches,
+           "flash_attention_bwd": fa.flash_attention_bwd.launches,
+           "mtgc_update_flat": mu.mtgc_update_flat.launches,
+           "mtgc_update": mu.mtgc_update.launches}
+    want = lm_train_launches(cfg, n_update, rounds)
+    require(got == want, f"LM training ({layout}) launched {got}, expected {want}")
+    # Peak over init, the warm-up and the timed rounds (not the check).
+    timed_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = max(warm_peak_gb, timed_peak_gb)
+    finite_metrics(np, hz0)
+    finite_metrics(np, hz)
+    losses = np.concatenate([hz0.metrics.loss.reshape(-1), hz.metrics.loss.reshape(-1)])
+    require(hz.metrics.loss.shape == (rounds, LM_TRAIN_E, LM_TRAIN_H), "loss shape")
+    for t in tree_leaves(state.params):
+        require(bool(torch.isfinite(t).all()), f"LM training ({layout}): params not finite")
+    tokens = G * K * LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    out = {"arch": LM_TRAIN_ARCH, "layers": cfg.num_layers, "layout": layout,
+           "params": n_params, "state_gb": state_gb, "warmup_round_ms": warm_ms,
+           "round_ms": round_ms, "tokens_per_round": tokens,
+           "tokens_per_s": tokens / round_ms * 1e3, "peak_gb": peak_gb, "launches": got,
+           "update_check": upd, "held_gb": held_gb, "warmup_peak_gb": warm_peak_gb,
+           "timed_peak_gb": timed_peak_gb,
+           "losses": [float(x) for x in losses], "data_s": data_s,
+           "grad_norm": float(hz.metrics.grad_norm[-1]), "z_norm": float(hz.metrics.z_norm[-1]),
+           "y_norm": float(hz.metrics.y_norm[-1])}
+    log(f"LM training {LM_TRAIN_ARCH} ({cfg.num_layers} of 40 layers, full width, "
+        f"{n_params / 1e9:.3f} B params, bf16, remat), {layout} + fused, {G}x{K} clients, "
+        f"E={LM_TRAIN_E} H={LM_TRAIN_H} A={LM_TRAIN_A}, {LM_TRAIN_BATCH}x{LM_TRAIN_SEQ} tokens a "
+        f"microbatch: warm-up round {warm_ms:.1f} ms, then {round_ms:.1f} ms a round "
+        f"({out['tokens_per_s']:.0f} training tokens/s, {tokens} a round); state "
+        f"{state_gb:.2f} GB, peak memory {peak_gb:.2f} GB (of which {held_gb:.2f} GB was held "
+        f"before the phase; warm-up {warm_peak_gb:.2f} GB, timed round {timed_peak_gb:.2f} GB); "
+        f"launches {got} (reckoned {want})")
+    log(f"  loss per step {np.round(losses, 4).tolist()}; grad_norm {out['grad_norm']:.4g} "
+        f"z_norm {out['z_norm']:.4g} y_norm {out['y_norm']:.4g}")
+    if trace:
+        tr = profile_round(torch, lambda: api.fit(engine, data, 1, state=state))
+        out["busy_share"] = tr["busy"] / tr["wall_us"] if tr else None
+        log_trace(f"  LM training round ({layout}, traced)", tr, top_n=20)
+        if tr:
+            gemm = sum(n["attributed"] for name, n in tr["by_name"].items()
+                       if name.startswith("nvjet") or "gemm" in name.lower())
+            bwd = sum(n["attributed"] for name, n in tr["by_name"].items()
+                      if "flash_bwd" in name)
+            out["gemm_share"], out["flash_bwd_share"] = gemm / tr["busy"], bwd / tr["busy"]
+            log(f"  cuBLAS products (nvjet/gemm kernels): {gemm / 1e3:.1f} ms, "
+                f"{out['gemm_share']:.3f} of busy; the attention backward's three kernels: "
+                f"{bwd / 1e3:.1f} ms, {out['flash_bwd_share']:.3f} of busy")
+    del state, engine, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train_card_vs_cpu(torch, np, convert):
+    """Phase 18: one sharded round of the reduced glm4-9b (float32, remat,
+    T = 1100 > 1024 so every layer runs the flash kernels forward and
+    backward) on the card against the same round on the CPU (the plain
+    versions), tree + fused; and the fused step against the unfused one on
+    the card."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+
+    bundle = build_model(get_arch(LM_TRAIN_ARCH).reduced(remat=True, attn_block=128))
+    params = bundle.init(0, device="cpu")
+    rs = np.random.default_rng(18)
+    batch = {k: torch.from_numpy(rs.integers(0, 256, (1, 1, 2, 2, 2, 1, 1100)).astype(np.int32))
+             for k in ("tokens", "targets")}
+    outs = {}
+    # Deterministic algorithms: the embedding's backward (an index_put with
+    # accumulation) otherwise adds with atomics in a varying order, and the
+    # fused and unfused steps are compared bit for bit.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for dev, fusion in (("cuda", "fused"), ("cpu", "fused"), ("cuda", "none")):
+        spec = api.ExperimentSpec(levels=(2, 2), backend="sharded", lr=0.05, fusion=fusion,
+                                  state_layout="tree", schedule=api.RoundSchedule(
+                                      group_rounds=1, local_steps=1, microbatches=2))
+        eng = api.build(spec, bundle.loss, device=dev)
+        st, met = eng.round_fn(eng.init(convert.params_from_numpy(convert.to_numpy(params),
+                                                                  dev)),
+                               {k: v.to(dev) for k, v in batch.items()})
+        outs[(dev, fusion)] = (convert.to_numpy(st), met.loss.cpu().numpy())
+    torch.use_deterministic_algorithms(False)
+    worst = 0.0
+    card, cpu = outs[("cuda", "fused")], outs[("cpu", "fused")]
+    require(np.allclose(card[1], cpu[1], rtol=1e-5), f"losses differ: {card[1]} vs {cpu[1]}")
+    for name in ("params", "z", "y"):
+        for (path, g), (_, c) in zip(_leaf_paths(card[0][name]), _leaf_paths(cpu[0][name])):
+            worst = max(worst, float(np.max(np.abs(g - c) / (1e-5 + np.abs(c)))))
+            require(np.allclose(g, c, rtol=1e-4, atol=1e-5 if name == "params" else 1e-4),
+                    f"reduced LM round: {name}{path} differs between card and CPU")
+    unf = outs[("cuda", "none")][0]
+    for name in ("params", "z", "y"):
+        for (path, g), (_, u) in zip(_leaf_paths(card[0][name]), _leaf_paths(unf[name])):
+            require(np.array_equal(g, u), f"fused and unfused LM steps differ in {name}{path}")
+    log(f"card vs CPU, reduced glm4-9b (f32, remat) sharded round, 2x2, A=2, T=1100: losses "
+        f"{card[1].reshape(-1).tolist()}; params within rtol 1e-4 (worst {worst:.2e}); fused "
+        f"and unfused steps on the card bit-identical")
+
+
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += _leaf_paths(tree[k], f"{prefix}/{k}")
+        return out
+    return [(prefix, tree)]
 
 
 def main() -> int:
@@ -1157,15 +1550,26 @@ def main() -> int:
             f"{qwen['launches']} in all; expected 40 (one per layer) and none in decode")
     require(rw.rwkv6_scan.launches == 0, "the dense model launched rwkv6_scan")
     rwkv = phase_serve(torch, np, "rwkv6-1.6b", lambda: rw.rwkv6_scan.launches)
-    require(rwkv["prefill_launches"] == 24 and rwkv["launches"] == 24,
+    require(rwkv["prefill_launches"] == 72 and rwkv["launches"] == 72,
             f"rwkv6_scan launched {rwkv['prefill_launches']} times in the prefill and "
-            f"{rwkv['launches']} in all; expected 24 (one per layer) and none in decode")
+            f"{rwkv['launches']} in all; expected 72 (three kernels a layer) and none in "
+            f"decode")
     require(fa.flash_attention.launches == 0, "the RWKV model launched flash_attention")
 
     # --- 14. LM: card against CPU, reduced ------------------------------
     phase_lm_card_vs_cpu(torch, np, convert)
 
-    # --- 15. results -----------------------------------------------------
+    # --- 15. the attention backward at the training shape ---------------
+    bwd_errs, bwd_t = phase_lm_backward(torch, fa)
+
+    # --- 16. LM training, tree + fused ------------------------------------
+    lm_tree = phase_lm_train(torch, np, "tree", rounds=1, trace=True)
+    # --- 17. LM training, flat + fused ------------------------------------
+    lm_flat = phase_lm_train(torch, np, "flat", rounds=1, trace=False)
+    # --- 18. LM training: card against CPU, reduced -----------------------
+    phase_lm_train_card_vs_cpu(torch, np, convert)
+
+    # --- 19. results -----------------------------------------------------
     kernels = [
         {"name": "mtgc_update_flat", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mtgc_update.cu",
@@ -1210,8 +1614,28 @@ def main() -> int:
             "max_abs_err_f32": lm_errs[f"{name}/f32"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": shape})
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/flash_jnp.py:100",
+        "launches": lm_tree["launches"]["flash_attention_bwd"],
+        "max_abs_err": bwd_errs["flash_attention_bwd"],
+        "max_abs_err_f32": bwd_errs["flash_attention_bwd/f32"],
+        "ms": bwd_t["ms"], "plain_ms": bwd_t["plain_ms"], "bound_ms": bwd_t["bound_ms"],
+        "bound_by": bwd_t["bound_by"], "library_ms": bwd_t["library_ms"],
+        "shape": f"q/o/do [{LM_TRAIN_BATCH},{LM_TRAIN_SEQ},32,128] bf16, k/v "
+                 f"[{LM_TRAIN_BATCH},{LM_TRAIN_SEQ},2,128], causal (one glm4-9b training layer)",
+        "forward_at_this_shape_ms": bwd_t["fwd_train_ms"],
+        "forward_with_statistics_ms": bwd_t["fwd_train_stats_ms"]})
+    by_name = {k["name"]: k for k in kernels}
+    by_name["flash_attention"]["training_launches"] = lm_tree["launches"]["flash_attention"]
+    by_name["flash_attention"]["statistics_on_ms"] = lm_t["flash_attention"]["stats_ms"]
+    by_name["mtgc_update_flat"]["training_launches"] = {
+        "tree": lm_tree["launches"]["mtgc_update_flat"],
+        "flat": lm_flat["launches"]["mtgc_update_flat"]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": [qwen, rwkv]}))
+    print(json.dumps({"training": [lm_tree, lm_flat]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 ``ARCH_IDS``).
 
 The port carries the ``CONFIG`` of the architectures its slices serve,
-number for number. The sharded-backend ``PLAN``/``MeshPlan`` belongs to
-the sharded slice. Every other id raises ``ValueError`` naming the slice
-of the port that brings it.
+number for number. The reference's ``PLAN``/``MeshPlan`` (the multi-card
+mesh of the sharded backend) belongs to the multi-card slice. Every other
+id raises ``ValueError`` naming the slice of the port that brings it.
 """
 from __future__ import annotations
 
@@ -25,14 +25,13 @@ ARCH_IDS = (
     "gemma3-27b",
 )
 
-PORTED = ("qwen3-14b", "rwkv6-1.6b")
+PORTED = ("glm4-9b", "qwen3-14b", "rwkv6-1.6b")
 
 # The slice of the port that brings each architecture still missing.
 _LATER = {
     "internvl2-26b": "the vlm slice of the port",
     "mixtral-8x22b": "the moe slice of the port",
     "whisper-medium": "the audio slice of the port",
-    "glm4-9b": "a later dense-serving slice of the port",
     "qwen2.5-32b": "a later dense-serving slice of the port",
     "hymba-1.5b": "the hybrid (models/ssm.py) slice of the port",
     "granite-moe-1b-a400m": "the moe slice of the port",

@@ -1,11 +1,11 @@
 """Carry weights and round state across from the JAX package via numpy.
 
 Both packages name and shape their params alike and pack flat state with
-the same segment table (``core.packer``), so a model or an ``HFLState``
-crosses as plain numpy arrays: the JAX side hands over ``np.asarray`` of
-each leaf (of each ``FlatBuffers.bufs`` entry for a flat state), this
-module builds the port's tensors, and :func:`to_numpy` goes back. Nothing
-here imports JAX.
+the same segment table (``core.packer``), so a model, an ``HFLState`` or a
+``ShardedHFLState`` crosses as plain numpy arrays: the JAX side hands over
+``np.asarray`` of each leaf (of each ``FlatBuffers.bufs`` entry for a flat
+state), this module builds the port's tensors, and :func:`to_numpy` goes
+back. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.engine import HFLState
 from repro_torch.core.packer import FlatBuffers, key_dtype, make_packer
 from repro_torch.core.tree import tree_map
+from repro_torch.launch.train import ShardedHFLState
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
@@ -37,6 +38,17 @@ def params_from_numpy(tree, device=None):
     return tree_map(lambda a: tensor_from_numpy(a, dev), tree)
 
 
+def _field_builder(template, dev):
+    """A state field from numpy: a nested dict of arrays (``template`` None,
+    tree layout) or a ``{dtype key: array}`` dict wrapped with the segment
+    table of the single-model ``template`` (flat layout)."""
+    if template is None:
+        return lambda f: params_from_numpy(f, dev)
+    packer = make_packer(tree_map(lambda a: torch.empty(
+        np.shape(a), dtype=key_dtype(np.asarray(a).dtype.name)), template))
+    return lambda f: FlatBuffers({k: tensor_from_numpy(v, dev) for k, v in f.items()}, packer)
+
+
 def state_from_numpy(params, z, y, dyn, round=0, *, efc=None, efg=None, template=None,
                      rng=None, device=None) -> HFLState:
     """An ``HFLState`` from numpy fields.
@@ -50,24 +62,29 @@ def state_from_numpy(params, z, y, dyn, round=0, *, efc=None, efg=None, template
     ``make_packer(template)``, identical to the reference's.
     """
     dev = resolve_device(device)
-    if template is None:
-        def field(f):
-            return params_from_numpy(f, dev)
-    else:
-        packer = make_packer(tree_map(lambda a: torch.empty(
-            np.shape(a), dtype=key_dtype(np.asarray(a).dtype.name)), template))
-
-        def field(f):
-            return FlatBuffers({k: tensor_from_numpy(v, dev) for k, v in f.items()}, packer)
+    field = _field_builder(template, dev)
     return HFLState(*(field(f) for f in (params, z, y, dyn)), rng=rng,
                     round=torch.as_tensor(np.array(round), dtype=torch.int32).to(dev),
                     efc=None if efc is None else field(efc),
                     efg=None if efg is None else field(efg))
 
 
+def sharded_state_from_numpy(params, z, y, *, template=None, rng=None,
+                             device=None) -> ShardedHFLState:
+    """A ``ShardedHFLState`` (the sharded backend's state) from numpy fields:
+    params and z stacked ``[G, K, ...]``, y ``[G, ...]``, each a nested dict
+    of arrays (tree layout; z and y may be bfloat16 arrays, the reference's
+    ``correction_dtype``) or, with the single-model ``template`` params tree,
+    a ``{dtype key: array}`` dict wrapped with ``make_packer(template)``
+    (flat layout). ``rng``: the port's generator for partial participation."""
+    field = _field_builder(template, resolve_device(device))
+    return ShardedHFLState(params=field(params), z=field(z), y=field(y), rng=rng)
+
+
 def to_numpy(obj: Any):
     """Tensors -> numpy arrays, recursively through dicts, FlatBuffers (to
-    their ``bufs`` dict) and NamedTuples (``HFLState``, ``RoundMetrics``: to
+    their ``bufs`` dict) and NamedTuples (``HFLState``, ``ShardedHFLState``,
+    ``RoundMetrics``: to
     a dict of fields, leaving out a None or ``torch.Generator`` field, so a
     state carries ``efc``/``efg`` only where it has them).
     bfloat16 tensors come back as float32 arrays."""

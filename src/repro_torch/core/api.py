@@ -20,6 +20,11 @@ through the horizon driver (``core.driver``)::
     state, horizon = api.fit(engine, data, 30, params=model_params,
                              eval_every=5, eval_fn=my_eval_fn)
     model = engine.global_model(state)
+
+The CLI table (:data:`CLI_FLAGS`, :func:`add_spec_args`,
+:func:`spec_from_args`) is the reference's: one argparse flag per spec
+field, so ``launch/train.py`` takes the reference trainer's flags. Flags of
+later-slice fields parse, and the spec they build raises in ``validate``.
 """
 from __future__ import annotations
 
@@ -29,18 +34,27 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core.compression import CompressionPlan
+from repro_torch.core.compression import COMPRESSION_MODES, CompressionPlan
 from repro_torch.core.config import HFLConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.core.driver import Horizon, PackedBatches, pack_client_shards, run_rounds
+from repro_torch.core.driver import (
+    Horizon,
+    PackedBatches,
+    pack_client_shards,
+    pack_lm_shards,
+    run_rounds,
+)
 from repro_torch.core.engine import (
     ASYNC_SLICE,
     FAULTS_SLICE,
+    SHARDED_COMPRESSION_SLICE,
     RoundMetrics,
     _build_global_round,
     global_model,
     hfl_init,
 )
+from repro_torch.core.packer import as_tree
+from repro_torch.core.tree import tree_map
 
 Tree = Any
 
@@ -50,9 +64,16 @@ LAYOUTS = ("tree", "flat")
 FUSIONS = ("none", "fused")
 CLIENT_STATES = ("stateful", "stateless")
 STALENESS_POLICIES = ("sync", "naive", "discount", "delay_compensated")
+FAULT_KINDS = ("nan", "inf", "explode")
+
+# Which algorithms each backend implements (the reference's table).
+BACKEND_ALGORITHMS = {
+    "simulator": ALGORITHMS,
+    "multilevel": ("mtgc",),
+    "sharded": ("mtgc", "hfedavg"),
+}
 
 MULTILEVEL_SLICE = "the multilevel-backend slice of the port"
-SHARDED_SLICE = "the sharded-backend slice of the port"
 POPULATION_SLICE = "the virtual-population slice of the port"
 
 
@@ -73,7 +94,8 @@ class RoundSchedule:
         tuple ``(E_1, ..., E_G)`` is accepted when uniform; a non-uniform
         one (async group rounds) needs the async-rounds slice.
     local_steps: H -- local SGD steps per group round.
-    microbatches: A -- a sharded-backend knob (later slice).
+    microbatches: A -- gradient-accumulation chunks per local step; a
+        sharded-backend knob (None elsewhere).
     periods: M-level aggregation periods -- a multilevel-backend knob
         (later slice).
     """
@@ -115,10 +137,10 @@ class RoundSchedule:
             _require(gr >= 1, f"group_rounds must be >= 1, got {gr}")
         _require(self.local_steps >= 1,
                  f"local_steps must be >= 1, got {self.local_steps}")
+        _require(self.microbatches is None or self.microbatches >= 1,
+                 f"microbatches must be None or >= 1, got {self.microbatches}")
         if not self.is_uniform:
             raise _needs("non-uniform group_rounds (async group rounds)", ASYNC_SLICE)
-        if self.microbatches is not None:
-            raise _needs("schedule.microbatches", SHARDED_SLICE)
         if self.periods is not None:
             raise _needs("schedule.periods", MULTILEVEL_SLICE)
         return self
@@ -131,9 +153,13 @@ class ExperimentSpec:
 
     The port runs the simulator backend under the sync schedule, in
     either state layout, fused (mtgc) or not, at full or partial
-    participation, with or without a ``CompressionPlan``. ``faults`` and
-    ``defense`` take the reference's plan objects' place; any value but
-    None needs a later slice.
+    participation, with or without a ``CompressionPlan``; and the sharded
+    backend (mtgc, hfedavg) likewise without compression, with
+    ``schedule.microbatches`` and ``correction_dtype``. ``fused_mode`` takes
+    None or "auto" (the reference's "pallas"/"interpret" have no
+    counterpart: the kernel runs on a CUDA tensor, its plain version on a
+    CPU tensor). ``faults`` and ``defense`` take the reference's plan
+    objects' place; any value but None needs a later slice.
     """
 
     levels: tuple[int, ...] = (2, 2)
@@ -174,12 +200,10 @@ class ExperimentSpec:
                  f"unknown backend {self.backend!r} (choose from {BACKENDS})")
         if self.backend == "multilevel" or self.level_participation is not None:
             raise _needs("the multilevel backend", MULTILEVEL_SLICE)
-        if (self.backend == "sharded" or self.fused_mode is not None
-                or self.correction_dtype is not None):
-            raise _needs("the sharded backend (fused_mode, correction_dtype)",
-                         SHARDED_SLICE)
+        sharded = self.backend == "sharded"
         _require(len(self.levels) == 2,
-                 f"the simulator is two-level (groups, clients), got {self.levels}")
+                 f"the simulator and sharded backends are two-level (groups, clients), "
+                 f"got {self.levels}")
         _require(all(n >= 1 for n in self.levels),
                  f"every topology dim must be >= 1: {self.levels}")
         _require(self.staleness in STALENESS_POLICIES,
@@ -205,6 +229,31 @@ class ExperimentSpec:
 
         _require(self.algorithm in ALGORITHMS,
                  f"unknown algorithm {self.algorithm!r} (choose from {ALGORITHMS})")
+        _require(self.algorithm in BACKEND_ALGORITHMS[self.backend],
+                 f"algorithm {self.algorithm!r} is not implemented by the {self.backend!r} "
+                 f"backend (supported: {BACKEND_ALGORITHMS[self.backend]})")
+        _require(self.schedule.microbatches is None or sharded,
+                 "schedule.microbatches is a sharded-backend knob")
+        _require(self.fused_mode is None or sharded,
+                 "fused_mode overrides the sharded backend's kernel dispatch")
+        _require(self.fused_mode in (None, "auto"),
+                 f"fused_mode {self.fused_mode!r} has no counterpart in the port: the kernel "
+                 "runs on a CUDA tensor, its plain version on a CPU tensor (None or 'auto')")
+        _require(self.correction_dtype is None
+                 or (sharded and self.state_layout == "tree"),
+                 "correction_dtype (narrow z/y storage) exists only on the sharded "
+                 "backend's tree layout")
+        if sharded:
+            _require(self.correction_init == "zero",
+                     "correction_init='gradient' is a simulator-engine feature")
+            for name in ("prox_mu", "feddyn_alpha"):
+                _require(getattr(self, name) == 0.0,
+                         f"{name} only affects the simulator engine's fedprox/feddyn "
+                         "algorithms")
+            _require(self.server_lr == 1.0, "server_lr is a simulator-engine knob")
+            if self.compressed:
+                raise _needs("compressed uploads on the sharded backend",
+                             SHARDED_COMPRESSION_SLICE)
         _require(self.state_layout in LAYOUTS,
                  f"unknown state_layout {self.state_layout!r} (choose from {LAYOUTS})")
         _require(self.fusion in FUSIONS,
@@ -350,15 +399,99 @@ class SimulatorEngine:
             shards=shards, rng=rng, generator=generator, device=self.device)
 
 
-def build(spec: ExperimentSpec, loss_fn: LossFn, *, device=None) -> SimulatorEngine:
-    """Validate ``spec`` and construct its engine on ``device`` (``None``:
-    the CUDA card; a host without one raises -- pass ``device="cpu"``)."""
+class ShardedEngine:
+    """The production microbatched round (``launch.train``) behind the
+    uniform surface.
+
+    spec: the validated :class:`ExperimentSpec` (``backend="sharded"``).
+    device: where the state, the packed data and the kernels live.
+    round_fn: ``(state, batches, draws=None) -> (state, metrics)`` over
+        batches ``[E, H, A, G, K, ...]``; it updates the state's tensors in
+        place (the reference donates them), so a caller keeps only the
+        state it returns.
+    metric_fields: the names of ``ShardedMetrics``' fields.
+    """
+
+    def __init__(self, spec: ExperimentSpec, loss_fn: LossFn, device: torch.device):
+        from repro_torch.launch import train as _train
+
+        self.spec = spec
+        self.loss_fn = loss_fn
+        self.device = device
+        self.metric_fields = _train.ShardedMetrics._fields
+        self.round_fn = _train._build_sharded_round(
+            loss_fn, E=spec.schedule.max_group_rounds, H=spec.schedule.local_steps,
+            lr=spec.lr, algorithm=spec.algorithm, use_fused_update=spec.fusion == "fused",
+            fused_mode=spec.fused_mode, client_participation=spec.client_participation,
+            group_participation=spec.group_participation,
+            participation_mode=spec.participation_mode,
+            participation_weighting=spec.participation_weighting,
+            compression=spec.compression)
+
+    @property
+    def microbatches(self) -> int:
+        return self.spec.schedule.microbatches or 1
+
+    def init(self, params: Tree, rng: torch.Generator | None = None):
+        """Broadcast one model into the ``[G, K]`` state on the engine's
+        device. A partial-participation run draws its masks from the state's
+        ``rng``; without one it gets a generator on the engine's device
+        seeded with 0 (the reference's ``PRNGKey(0)``)."""
+        from repro_torch.launch.train import sharded_init
+
+        G, K = self.spec.levels
+        if rng is None and not self.spec.full_participation:
+            rng = torch.Generator(device=self.device).manual_seed(0)
+        return sharded_init(params, G, K, use_flat_state=self.spec.state_layout == "flat",
+                            correction_dtype=self.spec.correction_dtype, rng=rng,
+                            device=self.device)
+
+    def global_model(self, state) -> Tree:
+        """The global model, read from replica [0, 0] (flat states unpacked)."""
+        return as_tree(tree_map(lambda x: x[0, 0], state.params))
+
+    def pack_arrays(self, data_arrays: dict[str, np.ndarray], indices: list, *,
+                    batch_size: int, shards: int = 16, rng: np.random.Generator,
+                    generator: torch.Generator | None = None) -> PackedBatches:
+        """Pack a partitioned array dataset for :func:`fit`, A microbatches
+        of ``batch_size`` a local step (uploads once)."""
+        _require(_index_depth(indices) == len(self.spec.levels),
+                 f"index nesting depth {_index_depth(indices)} does not "
+                 f"match levels={self.spec.levels}")
+        return pack_client_shards(
+            data_arrays, indices, group_rounds=self.spec.schedule.max_group_rounds,
+            local_steps=self.spec.schedule.local_steps, batch_size=batch_size,
+            shards=shards, microbatches=self.microbatches, rng=rng, generator=generator,
+            device=self.device)
+
+    def pack_tokens(self, tokens, *, batch_size: int, seq_len: int, shards: int = 8,
+                    rng: np.random.Generator,
+                    generator: torch.Generator | None = None) -> PackedBatches:
+        """Pack an LM token stream (one shared stream, or ``[G][K]``
+        per-client streams) for :func:`fit`: ``seq_len`` windows, A
+        microbatches of ``batch_size`` a local step (uploads once)."""
+        G, K = self.spec.levels
+        return pack_lm_shards(
+            tokens, num_groups=G, clients_per_group=K,
+            group_rounds=self.spec.schedule.max_group_rounds,
+            local_steps=self.spec.schedule.local_steps, batch_size=batch_size,
+            seq_len=seq_len, shards=shards, microbatches=self.microbatches, rng=rng,
+            generator=generator, device=self.device)
+
+
+_ENGINES = {"simulator": SimulatorEngine, "sharded": ShardedEngine}
+
+
+def build(spec: ExperimentSpec, loss_fn: LossFn, *, device=None):
+    """Validate ``spec`` and construct its backend's engine on ``device``
+    (``None``: the CUDA card; a host without one raises -- pass
+    ``device="cpu"``)."""
     spec = spec.validate()
-    return SimulatorEngine(spec, loss_fn, resolve_device(device))
+    return _ENGINES[spec.backend](spec, loss_fn, resolve_device(device))
 
 
 def fit(
-    engine: SimulatorEngine,
+    engine: SimulatorEngine | ShardedEngine,
     data: PackedBatches,
     T: int,
     *,
@@ -387,19 +520,214 @@ def fit(
     return state, horizon
 
 
+# ------------------------------------------------------------------- CLI
+
+
+@dataclasses.dataclass(frozen=True)
+class CliFlag:
+    """One row of the declarative spec<->argparse table (the reference's).
+
+    ``optional`` rows default to None on the parser and are skipped by
+    :func:`spec_from_args` when unset -- for flags that override another
+    row's field only when given (``--group-rounds`` over ``--E``) or whose
+    spec default is None (``--max-staleness``).
+    """
+
+    field: str                     # ExperimentSpec field ("schedule.x" ok)
+    flag: str                      # e.g. "--client-participation"
+    help: str
+    type: Callable = str
+    choices: tuple | None = None
+    nargs: str | None = None
+    optional: bool = False
+
+    @property
+    def dest(self) -> str:
+        return self.flag.lstrip("-").replace("-", "_")
+
+
+def _parse_group_rounds(s: str) -> tuple[int, ...]:
+    """'4,2,1' -> (4, 2, 1) -- the --group-rounds argparse type."""
+    return tuple(int(part) for part in s.split(","))
+
+
+#: The reference's table: every row maps one ExperimentSpec (or
+#: RoundSchedule / plan) field to one argparse flag.
+CLI_FLAGS: tuple[CliFlag, ...] = (
+    CliFlag("levels", "--levels", "topology dims, e.g. --levels 2 2 (G K)",
+            type=int, nargs="+"),
+    CliFlag("schedule.group_rounds", "--E",
+            "group aggregations per global round", type=int),
+    CliFlag("schedule.group_rounds", "--group-rounds",
+            "per-group async round counts, comma-separated (e.g. 4,2,1); "
+            "overrides --E", type=_parse_group_rounds, optional=True),
+    CliFlag("schedule.local_steps", "--H",
+            "local SGD steps per group round", type=int),
+    CliFlag("algorithm", "--algorithm", "HFL algorithm", choices=ALGORITHMS),
+    CliFlag("lr", "--lr", "client learning rate", type=float),
+    CliFlag("backend", "--backend", "round engine implementation", choices=BACKENDS),
+    CliFlag("state_layout", "--state-layout",
+            "state storage: contiguous flat buffers or model pytrees", choices=LAYOUTS),
+    CliFlag("fusion", "--fusion",
+            "route the MTGC local step through the fused CUDA kernel", choices=FUSIONS),
+    CliFlag("client_participation", "--client-participation",
+            "fraction of each group's clients sampled per round", type=float),
+    CliFlag("group_participation", "--group-participation",
+            "fraction of groups reachable per round", type=float),
+    CliFlag("participation_mode", "--participation-mode",
+            "Bernoulli draws or exact counts", choices=("uniform", "fixed")),
+    CliFlag("participation_weighting", "--weighting",
+            "masked-aggregation weighting: realized count or inverse "
+            "inclusion probability (Horvitz-Thompson)",
+            choices=("none", "inverse_prob")),
+    CliFlag("staleness", "--staleness-policy",
+            "stale-report policy for async (non-uniform) group rounds",
+            choices=STALENESS_POLICIES),
+    CliFlag("max_staleness", "--max-staleness",
+            "bound on report staleness; groups beyond it are force-synced",
+            type=int, optional=True),
+    CliFlag("population", "--population",
+            "virtual clients per group, backed by the host-side population "
+            "store; device state stays cohort-shaped", type=int, optional=True),
+    CliFlag("cohort_size", "--cohort-size",
+            "sampled cohort per group -- must equal levels[1], the compiled "
+            "shape (declarative alias; requires --population)", type=int, optional=True),
+    CliFlag("client_state", "--client-state",
+            "stateful persists per-client corrections in the population "
+            "store; stateless zero-inits them every round (no store)",
+            choices=CLIENT_STATES),
+    CliFlag("faults.crash_rate", "--fault-crash",
+            "per-(round, client) crash probability -- a crashed client "
+            "does no local work and uploads nothing", type=float, optional=True),
+    CliFlag("faults.timeout_rate", "--fault-timeout",
+            "per-(round, group) timeout probability -- the group misses "
+            "the global exchange", type=float, optional=True),
+    CliFlag("faults.corrupt_rate", "--fault-corrupt",
+            "per-(round, client) corrupted-upload probability", type=float, optional=True),
+    CliFlag("faults.corrupt_kind", "--fault-kind",
+            "corrupted-upload payload: nan/inf poison or a norm-exploded delta",
+            choices=FAULT_KINDS, optional=True),
+    CliFlag("defense.screen_norm", "--screen-norm",
+            "screen out client deltas whose L2 norm exceeds this", type=float, optional=True),
+    CliFlag("defense.clip_norm", "--clip-norm",
+            "clip surviving client deltas to this L2 norm", type=float, optional=True),
+    CliFlag("defense.screen_nonfinite", "--screen-nonfinite",
+            "screen out non-finite client uploads (1, the plan default; 0 disables)",
+            type=int, optional=True),
+    CliFlag("compression.client_mode", "--compress-client",
+            "client->group upload compressor", choices=COMPRESSION_MODES, optional=True),
+    CliFlag("compression.group_mode", "--compress-group",
+            "group->global upload compressor", choices=COMPRESSION_MODES, optional=True),
+    CliFlag("compression.error_feedback", "--error-feedback",
+            "carry per-link error-feedback residuals (1, the plan default; 0 disables)",
+            type=int, optional=True),
+    CliFlag("compression.topk_frac", "--topk-frac",
+            "fraction of entries a topk link keeps per upload", type=float, optional=True),
+)
+
+#: Constructors for the nested spec fields a CLI row may target with a
+#: dotted ``field`` when the spec's default for it is None. The fault and
+#: defense plans are a later slice of the port: their flags build a plain
+#: dict of the given fields, which ``ExperimentSpec.validate`` rejects.
+_NESTED_FIELDS = {"schedule": RoundSchedule, "compression": CompressionPlan}
+
+
+def _spec_get(spec: ExperimentSpec, field: str):
+    obj = spec
+    for part in field.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def add_spec_args(parser, *, defaults: ExperimentSpec | None = None,
+                  exclude: tuple[str, ...] = ()) -> None:
+    """Generate argparse flags for :class:`ExperimentSpec` from the table.
+
+    ``defaults`` seeds each flag's default (so entry points can ship their
+    own baseline spec); ``exclude`` drops fields an entry point pins
+    (``launch.train`` pins ``backend='sharded'``).
+    """
+    defaults = defaults or ExperimentSpec()
+    for row in CLI_FLAGS:
+        if row.field in exclude or row.flag in exclude:
+            continue
+        if row.optional:
+            default, kwargs = None, dict(help=row.help)
+        else:
+            default = _spec_get(defaults, row.field)
+            kwargs = dict(help=f"{row.help} (default: {default})")
+        if row.choices is not None:
+            kwargs["choices"] = row.choices
+        else:
+            kwargs["type"] = row.type
+        if row.nargs is not None:
+            kwargs["nargs"] = row.nargs
+            kwargs["type"] = row.type
+        parser.add_argument(row.flag, default=default, dest=row.dest, **kwargs)
+
+
+def spec_from_args(args, *, defaults: ExperimentSpec | None = None,
+                   **overrides) -> ExperimentSpec:
+    """Build the :class:`ExperimentSpec` an argparse namespace describes.
+
+    ``overrides`` (field=value, including ``schedule`` shortcuts like
+    ``microbatches=1``) win over CLI values. Dotted rows update the nested
+    dataclass via ``dataclasses.replace``; a nested field whose spec default
+    is None is built from its defaults the first time one of its flags is
+    given (a plain dict of the given fields for the fault and defense
+    plans, which the port does not have yet).
+    """
+    defaults = defaults or ExperimentSpec()
+    spec_kw: dict[str, Any] = {}
+    nested_kw: dict[str, dict[str, Any]] = {}
+    for row in CLI_FLAGS:
+        if not hasattr(args, row.dest):
+            continue
+        value = getattr(args, row.dest)
+        if row.optional and value is None:
+            continue
+        target, _, sub = row.field.partition(".")
+        if sub:
+            nested_kw.setdefault(target, {})[sub] = value
+        else:
+            spec_kw[target] = value
+    for name, value in overrides.items():
+        if name in ("group_rounds", "local_steps", "microbatches", "periods"):
+            nested_kw.setdefault("schedule", {})[name] = value
+        else:
+            spec_kw[name] = value
+    for target, kw in nested_kw.items():
+        base = getattr(defaults, target)
+        if base is None and target not in _NESTED_FIELDS:
+            spec_kw[target] = dict(kw)
+            continue
+        if base is None:
+            base = _NESTED_FIELDS[target]()
+        spec_kw[target] = dataclasses.replace(base, **kw)
+    return dataclasses.replace(defaults, **spec_kw)
+
+
 __all__ = [
     "ALGORITHMS",
     "BACKENDS",
+    "BACKEND_ALGORITHMS",
     "CLIENT_STATES",
+    "CLI_FLAGS",
+    "COMPRESSION_MODES",
+    "CliFlag",
     "CompressionPlan",
     "ExperimentSpec",
+    "FAULT_KINDS",
     "FUSIONS",
     "Horizon",
     "LAYOUTS",
     "PackedBatches",
     "RoundSchedule",
     "STALENESS_POLICIES",
+    "ShardedEngine",
     "SimulatorEngine",
+    "add_spec_args",
     "build",
     "fit",
+    "spec_from_args",
 ]

@@ -2,10 +2,13 @@
 the device, and ``run_rounds`` (port of ``src/repro/core/driver.py``).
 
 * **Packed dataset** (:class:`PackedBatches`): for every client, ``shards``
-  pre-formed blocks of ``H`` step-batches are sampled once on the host and
-  uploaded once -- tensors ``[G, K, S, H, B, ...]``. Each round then picks
-  one block per (group round, client) and gathers its batches on the
-  device (:func:`select_round`); the host never packs batches again.
+  pre-formed blocks of ``H`` step-batches (``H * A`` with ``A``
+  microbatches, the sharded backend's layout) are sampled once on the host
+  and uploaded once -- tensors ``[G, K, S, steps, B, ...]``. Each round
+  then picks one block per (group round, client) and gathers its batches
+  on the device (:func:`select_round`); the host never packs batches
+  again. :func:`pack_client_shards` packs an array dataset,
+  :func:`pack_lm_shards` a token stream.
 * **Shard ids.** The reference draws them with ``jax.random.randint``,
   whose bits PyTorch cannot reproduce. Here :func:`select_round` takes the
   ids as a tensor, and :func:`run_rounds` draws them from the dataset's
@@ -28,22 +31,26 @@ Tree = Any
 class PackedBatches:
     """A once-uploaded, device-resident training dataset for the driver.
 
-    arrays: dict of tensors ``[G, K, S, H, B, ...]`` -- ``S`` pre-sampled
-        blocks per client, each holding ``H`` step-batches.
+    arrays: dict of tensors ``[G, K, S, steps, B, ...]`` -- ``S``
+        pre-sampled blocks per client, each holding ``steps = H * (A or 1)``
+        step-batches.
     generator: the ``torch.Generator`` that draws the shard ids; it
         advances in place, so passing the same object to a later
         ``run_rounds`` continues the stream.
     group_rounds / local_steps: the static layout (E, H) of one round.
+    microbatches: A, the sharded backend's gradient-accumulation chunks per
+        local step, or None (the simulator's layout, no A axis).
     """
 
-    __slots__ = ("arrays", "generator", "group_rounds", "local_steps")
+    __slots__ = ("arrays", "generator", "group_rounds", "local_steps", "microbatches")
 
     def __init__(self, arrays: dict, generator: torch.Generator,
-                 group_rounds: int, local_steps: int):
+                 group_rounds: int, local_steps: int, microbatches: int | None = None):
         self.arrays = arrays
         self.generator = generator
         self.group_rounds = int(group_rounds)
         self.local_steps = int(local_steps)
+        self.microbatches = None if microbatches is None else int(microbatches)
 
     @property
     def _first(self) -> torch.Tensor:
@@ -60,7 +67,7 @@ class PackedBatches:
     def __repr__(self) -> str:
         shapes = [tuple(x.shape) for x in self.arrays.values()]
         return (f"PackedBatches(E={self.group_rounds}, H={self.local_steps}, "
-                f"leaves={shapes})")
+                f"A={self.microbatches}, leaves={shapes})")
 
 
 def draw_shard_ids(data: PackedBatches) -> torch.Tensor:
@@ -73,8 +80,9 @@ def draw_shard_ids(data: PackedBatches) -> torch.Tensor:
 def select_round(data: PackedBatches, sid) -> dict:
     """Gather one global round of batches from the packed shards, on the
     device. ``sid``: ``[E, G, K]`` shard indices. Returns tensors
-    ``[E, H, G, K, B, ...]``."""
-    E = data.group_rounds
+    ``[E, H, G, K, B, ...]``, or ``[E, H, A, G, K, B, ...]`` when the data
+    carries ``A`` microbatches."""
+    E, H, A = data.group_rounds, data.local_steps, data.microbatches
     G, K = data.topology
     P = G * K
     device = data._first.device
@@ -85,9 +93,12 @@ def select_round(data: PackedBatches, sid) -> dict:
     sid = sid.reshape(E, P)
 
     def gather(leaf):
-        sel = leaf.reshape((P,) + tuple(leaf.shape[2:]))[rows, sid]   # [E, P, H, ...]
-        sel = sel.movedim(2, 1)                                        # [E, H, P, ...]
-        return sel.reshape(tuple(sel.shape[:2]) + (G, K) + tuple(sel.shape[3:]))
+        sel = leaf.reshape((P,) + tuple(leaf.shape[2:]))[rows, sid]   # [E, P, steps, ...]
+        sel = sel.movedim(2, 1)                                        # [E, steps, P, ...]
+        sel = sel.reshape(tuple(sel.shape[:2]) + (G, K) + tuple(sel.shape[3:]))
+        if A is None:
+            return sel
+        return sel.reshape((E, H, A) + tuple(sel.shape[2:]))
 
     return {name: gather(leaf) for name, leaf in data.arrays.items()}
 
@@ -100,6 +111,7 @@ def pack_client_shards(
     local_steps: int,
     batch_size: int,
     shards: int = 16,
+    microbatches: int | None = None,
     rng: np.random.Generator,
     generator: torch.Generator | None = None,
     device=None,
@@ -107,21 +119,70 @@ def pack_client_shards(
     """Pack a partitioned array dataset (``data.partition``) for the driver.
 
     For every client (row-major over ``indices[g][k]``), pre-samples
-    ``shards`` blocks of ``local_steps x batch_size`` examples with
-    replacement from its index pool with numpy's ``rng.choice`` -- draw for
-    draw as the reference packs -- and uploads the gathered features once
-    as ``[G, K, S, H, B, ...]`` tensors on ``device``. ``generator``
+    ``shards`` blocks of ``steps x batch_size`` examples (``steps =
+    local_steps * (microbatches or 1)``) with replacement from its index
+    pool with numpy's ``rng.choice`` -- draw for draw as the reference
+    packs -- and uploads the gathered features once as
+    ``[G, K, S, steps, B, ...]`` tensors on ``device``. ``generator``
     (default: a CPU generator seeded with 0) draws the per-round shard ids.
     """
+    steps = local_steps * (microbatches or 1)
     sel = np.stack([
-        np.stack([rng.choice(pool, size=(shards, local_steps, batch_size), replace=True)
+        np.stack([rng.choice(pool, size=(shards, steps, batch_size), replace=True)
                   for pool in group])
-        for group in indices])                                     # [G, K, S, H, B]
+        for group in indices])                                     # [G, K, S, steps, B]
     arrays = {name: torch.from_numpy(np.ascontiguousarray(arr[sel])).to(device)
               for name, arr in data_arrays.items()}
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return PackedBatches(arrays, generator, group_rounds, local_steps)
+    return PackedBatches(arrays, generator, group_rounds, local_steps, microbatches)
+
+
+def pack_lm_shards(
+    tokens: np.ndarray | list,
+    *,
+    num_groups: int,
+    clients_per_group: int,
+    group_rounds: int,
+    local_steps: int,
+    batch_size: int,
+    seq_len: int,
+    shards: int = 8,
+    microbatches: int | None = None,
+    rng: np.random.Generator,
+    generator: torch.Generator | None = None,
+    device=None,
+) -> PackedBatches:
+    """Pack a token stream (``data.lm``) for the driver (port of the
+    reference's ``pack_lm_shards``, draw for draw).
+
+    Samples random ``seq_len`` windows (next-token targets shifted by one,
+    as ``lm_batches`` does) into ``{"tokens", "targets"}`` int32 blocks of
+    shape ``[G, K, S, steps, B, seq_len]``, uploaded once. ``tokens`` is one
+    shared stream (every client samples from it) or a ``[G][K]`` nesting of
+    per-client streams (each client samples from its own).
+    """
+    G, K = num_groups, clients_per_group
+    steps = local_steps * (microbatches or 1)
+
+    def windows(stream, size):
+        stream = np.asarray(stream)
+        starts = rng.integers(0, len(stream) - seq_len - 1, size=size)
+        win = starts[..., None] + np.arange(seq_len)
+        return stream[win].astype(np.int32), stream[win + 1].astype(np.int32)
+
+    if isinstance(tokens, np.ndarray):
+        toks, targs = windows(tokens, (G, K, shards, steps, batch_size))
+    else:
+        per_client = [[windows(tokens[g][k], (shards, steps, batch_size))
+                       for k in range(K)] for g in range(G)]
+        toks = np.stack([[per_client[g][k][0] for k in range(K)] for g in range(G)])
+        targs = np.stack([[per_client[g][k][1] for k in range(K)] for g in range(G)])
+    arrays = {"tokens": torch.from_numpy(toks).to(device),
+              "targets": torch.from_numpy(targs).to(device)}
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return PackedBatches(arrays, generator, group_rounds, local_steps, microbatches)
 
 
 class Horizon(NamedTuple):

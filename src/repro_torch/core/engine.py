@@ -75,6 +75,7 @@ Tree = Any
 
 FAULTS_SLICE = "the faults-and-defense slice of the port"
 ASYNC_SLICE = "the async-rounds slice of the port"
+SHARDED_COMPRESSION_SLICE = "the sharded-compression slice of the port"
 
 
 class HFLState(NamedTuple):

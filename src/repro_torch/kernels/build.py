@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("mtgc_update", "quantize", "flash_attention", "rwkv6_scan")
+SOURCES = ("mtgc_update", "quantize", "flash_attention", "flash_attention_bwd", "rwkv6_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -123,10 +123,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.topk_mask_launch.argtypes = [p, p, p, i64, i64, i32, p]
         lib.topk_mask_launch.restype = i32
     elif name == "flash_attention":
-        lib.flash_attention_launch.argtypes = [p, p, p, p] + [i32] * 9 + [f32, i32, p]
+        lib.flash_attention_launch.argtypes = [p] * 6 + [i32] * 9 + [f32, i32, p]
         lib.flash_attention_launch.restype = i32
         lib.flash_attention_smem_bytes.argtypes = [i32]
         lib.flash_attention_smem_bytes.restype = i32
+    elif name == "flash_attention_bwd":
+        lib.flash_attention_bwd_launch.argtypes = [p] * 13 + [i32] * 9 + [f32, i32, p]
+        lib.flash_attention_bwd_launch.restype = i32
+        lib.flash_attention_bwd_smem_bytes.argtypes = [i32, i32]
+        lib.flash_attention_bwd_smem_bytes.restype = i32
     elif name == "rwkv6_scan":
         lib.rwkv6_scan_launch.argtypes = [p] * 10 + [i32] * 5 + [i64] * 4 + [i32, p]
         lib.rwkv6_scan_launch.restype = i32

@@ -12,7 +12,10 @@
 //   all float32; o = acc / max(l, 1e-30).
 // q_offset and window are runtime integers; T and S need not be multiples
 // of the tile (the prefill attends over the whole cache, S = prompt +
-// generated tokens).
+// generated tokens). For training, both kernels also write each query row's
+// final m and l (float32 [B, H, T], _fwd's units) in their epilogue, which
+// the backward (flash_attention_bwd.cu) reads; serving passes null pointers
+// and they write nothing more.
 //
 // Bound: at the serving shape (q [4, 2048, 40, 128] bf16 against a
 // [4, 2080, 8, 128] cache, causal) the launch does 4 Dh FLOP for each of
@@ -108,8 +111,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int T_len, int S, int H, int KV, int q_offset,
-                 int w_eff, int causal, float scale) {
+                 T* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+                 int T_len, int S, int H, int KV, int q_offset, int w_eff, int causal,
+                 float scale) {
   constexpr int LDQ = DH + 4;
   constexpr int DJ = DH / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
@@ -258,6 +262,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       ob[(int64_t)t * q_stride + cs + 16 * j] = from_f32<T>(acc[i][j] / denom);
+    if (m_out != nullptr && cs == 0) {  // the row statistics [B, H, T], for the backward
+      m_out[(int64_t)bh * T_len + t] = m[i];
+      l_out[(int64_t)bh * T_len + t] = l[i];
+    }
   }
 }
 
@@ -270,6 +278,7 @@ constexpr int kWgThreads = 384;       // producer warpgroup + two consumer warpg
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -434,8 +443,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                       int T_len, int S, int H, int KV, int q_offset, int w_eff, int causal,
-                       float scale_log2) {
+                       float* __restrict__ m_out, float* __restrict__ l_out, int T_len, int S,
+                       int H, int KV, int q_offset, int w_eff, int causal, float scale_log2) {
   using Cfg = WgCfg<DH>;
   constexpr int kStages = Cfg::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -656,6 +665,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * row_stride + c) =
             pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
     }
+    // The row statistics in the plain version's units (m of the scaled
+    // logits, not of their base-2 form), [B, H, T], for the backward.
+    if (m_out != nullptr && tig == 0) {
+      const int64_t srow = ((int64_t)b * H + h) * T_len;
+      if (r0 < T_len) {
+        m_out[srow + r0] = m[0] * kLn2;
+        l_out[srow + r0] = l[0];
+      }
+      if (r0 + 8 < T_len) {
+        m_out[srow + r0 + 8] = m[1] * kLn2;
+        l_out[srow + r0 + 8] = l[1];
+      }
+    }
   }
 }
 
@@ -700,9 +722,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int dh, int d1, int d2, int d3,
 }
 
 template <int DH>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int T_len, int S,
-                 int H, int KV, int q_offset, int w_eff, int causal, float scale,
-                 cudaStream_t st) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* m, float* l, int B,
+                 int T_len, int S, int H, int KV, int q_offset, int w_eff, int causal,
+                 float scale, cudaStream_t st) {
   using Cfg = WgCfg<DH>;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, DH, H, T_len, B, Cfg::kPanel, kWgBQ) ||
@@ -715,14 +737,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)H, (unsigned)B, (unsigned)((T_len + kWgBQ - 1) / kWgBQ));
   flash_fwd_wgmma_kernel<DH><<<grid, kWgThreads, Cfg::kSmem, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), T_len, S, H, KV, q_offset, w_eff, causal,
-      scale * kLog2e);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), m, l, T_len, S, H, KV, q_offset, w_eff,
+      causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int T_len, int S,
-           int H, int KV, int q_offset, int w_eff, int causal, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* o, float* m, float* l, int B,
+           int T_len, int S, int H, int KV, int q_offset, int w_eff, int causal, float scale,
+           cudaStream_t st) {
   const size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -730,7 +753,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int T_le
   const dim3 grid((unsigned)((T_len + kBQ - 1) / kBQ), (unsigned)(B * H));
   flash_fwd_kernel<T, DH><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), T_len, S, H, KV, q_offset, w_eff, causal, scale);
+      static_cast<T*>(o), m, l, T_len, S, H, KV, q_offset, w_eff, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -740,23 +763,25 @@ extern "C" {
 
 // q: [B, T, H, Dh]; k, v: [B, S, KV, Dh]; o: [B, T, H, Dh]; all contiguous,
 // 16-byte aligned, of one dtype (bf16 != 0: bfloat16, else float32).
+// m, l: float32 [B, H, T] outputs of each query row's running max and sum
+// (as flash_jnp._fwd returns them), or both null when not wanted.
 // dh is 32, 64 or 128; H % KV == 0; B, T / 128 <= 65535 (bf16), B * H <= 65535
 // (float32). window <= 0 means global (the effective window is then S + T,
 // as in the plain version). Returns cudaGetLastError() after the launch
 // (0 on success), -1 for an unsupported head dimension, -2 when a tensor
 // map cannot be made.
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
-                           int T_len, int S, int H, int KV, int dh, int q_offset, int window,
-                           int causal, float scale, int bf16, void* stream) {
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* m,
+                           void* l, int B, int T_len, int S, int H, int KV, int dh, int q_offset,
+                           int window, int causal, float scale, int bf16, void* stream) {
   if (B <= 0 || T_len <= 0 || H <= 0) return (int)cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int w_eff = window > 0 ? window : S + T_len;
 #define FLASH_CASE(D)                                                                         \
   if (dh == D)                                                                                \
-    return bf16 ? launch_wgmma<D>(q, k, v, o, B, T_len, S, H, KV, q_offset, w_eff, causal,    \
-                                  scale, st)                                                  \
-                : launch<float, D>(q, k, v, o, B, T_len, S, H, KV, q_offset, w_eff, causal,   \
-                                   scale, st);
+    return bf16 ? launch_wgmma<D>(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l),  \
+                                  B, T_len, S, H, KV, q_offset, w_eff, causal, scale, st)     \
+                : launch<float, D>(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l), \
+                                   B, T_len, S, H, KV, q_offset, w_eff, causal, scale, st);
   FLASH_CASE(32)
   FLASH_CASE(64)
   FLASH_CASE(128)

@@ -21,6 +21,10 @@
 //     N = 2,156,490), so rows are not 16-byte aligned and vector loads are
 //     avoided; several independent loads per thread keep bytes in flight.
 //   * Offsets are 64-bit: G*K*N exceeds 2^31 at realistic sizes.
+//   * The flat kernel may run in place (out == x): each thread loads its
+//     elements of x before it stores the same elements of out, and no
+//     thread touches another's, so x and out are not declared __restrict__.
+//     In place, a frozen row is left as it is (no copy at all).
 //
 // Arithmetic matches the plain PyTorch version (kernels/mtgc_update.py) bit
 // for bit in float32: every operation is rounded on its own (__fmul_rn,
@@ -58,12 +62,13 @@ __device__ __forceinline__ TX update(TX x, TX g, TC z, TC y, float lr, float g_s
 }
 
 // x, g, z, out: [rows, n]; y: [rows / K, n]; mask: [rows] float32 or null.
-// grid.x tiles the row (kTile elements per block), grid.y strides over rows.
+// out may be x itself. grid.x tiles the row (kTile elements per block),
+// grid.y strides over rows.
 template <typename TX, typename TC>
 __global__ void __launch_bounds__(kThreads)
-flat_kernel(const TX* __restrict__ x, const TX* __restrict__ g,
+flat_kernel(const TX* x, const TX* __restrict__ g,
             const TC* __restrict__ z, const TC* __restrict__ y,
-            const float* __restrict__ mask, TX* __restrict__ out,
+            const float* __restrict__ mask, TX* out,
             int64_t rows, int64_t K, int64_t n, float lr, float g_scale) {
   const int64_t col0 = (int64_t)blockIdx.x * kTile + threadIdx.x;
   for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
@@ -71,6 +76,7 @@ flat_kernel(const TX* __restrict__ x, const TX* __restrict__ g,
     const int64_t ybase = (row / K) * n;
     const bool active = mask == nullptr || mask[row] != 0.0f;
     if (!active) {
+      if (out == x) continue;
 #pragma unroll
       for (int i = 0; i < kItems; ++i) {
         const int64_t c = col0 + (int64_t)i * kThreads;
@@ -154,6 +160,7 @@ void launch_leaf(const void* x, const void* g, const void* z, const void* y, voi
 extern "C" {
 
 // x_bf16: x/g/out are bfloat16 (else float32); c_bf16: z/y are bfloat16.
+// out is x (in place) or a buffer that overlaps none of the operands.
 // Returns cudaGetLastError() after the launch (0 on success).
 int mtgc_update_flat_launch(const void* x, const void* g, const void* z, const void* y,
                             const void* mask, void* out, int64_t rows, int64_t K,

@@ -78,16 +78,28 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def mtgc_update_flat(x, g, z, y, mask=None, *, lr: float, g_scale: float = 1.0):
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
+def mtgc_update_flat(x, g, z, y, mask=None, *, lr: float, g_scale: float = 1.0, out=None):
     """Whole-model fused update over flat buffers (replaces the Pallas
     ``mtgc_update_flat``, src/repro/kernels/mtgc_update.py:94).
 
     x, g, z: [G, K, N]; y: [G, N], read as row ``i // K`` for replica i and
     never copied per client; mask: optional [G, K] 0/1 participation gate --
-    frozen replicas keep their exact bits. Returns a new [G, K, N] buffer.
+    frozen replicas keep their exact bits. Returns the updated [G, K, N]
+    buffer: ``out`` when given (``out=x`` updates x in place, as the
+    reference's donated state does), else a new one.
     """
+    if out is not None:
+        _check("out", out, x.device, (x.dtype,), x.shape)
+        if out.data_ptr() != x.data_ptr() and any(_overlaps(out, t) for t in (x, g, z, y)):
+            raise ValueError("out must be x itself or overlap none of the operands")
     if x.device.type == "cpu":
-        return mtgc_update_flat_ref(x, g, z, y, mask, lr, g_scale)
+        res = mtgc_update_flat_ref(x, g, z, y, mask, lr, g_scale)
+        return res if out is None else out.copy_(res)
     if x.device.type != "cuda":
         raise ValueError(f"mtgc_update_flat runs on cpu or cuda, got {x.device}")
     if x.dim() != 3:
@@ -100,7 +112,8 @@ def mtgc_update_flat(x, g, z, y, mask=None, *, lr: float, g_scale: float = 1.0):
     _check_types(x, g, z, y)
     if mask is not None:
         _check("mask", mask, x.device, (torch.float32,), (G, K))
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
     if out.numel() == 0:
         return out
     lib = load("mtgc_update")

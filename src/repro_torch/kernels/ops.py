@@ -4,7 +4,8 @@ The reference's ``ops`` resolves a ``mode`` per backend. Here the wrappers
 in ``kernels/mtgc_update.py``, ``kernels/quantize.py``,
 ``kernels/flash_attention.py`` and ``kernels/rwkv6_scan.py`` choose by the
 tensors' device alone: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel.
+launches the kernel. ``FlashAttention`` is the differentiable attention
+(forward and backward kernels) that the model's training path calls.
 """
 from __future__ import annotations
 
@@ -12,13 +13,18 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mtgc_update as _mu
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import rwkv6_scan as _rw
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_bwd,
+)
 from repro_torch.kernels.mtgc_update import mtgc_update, mtgc_update_flat
 from repro_torch.kernels.quantize import int8_roundtrip, topk_mask
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bthd
 
-__all__ = ["flash_attention", "int8_roundtrip", "mtgc_update", "mtgc_update_flat",
-           "reset_launch_counts", "rwkv6_scan", "rwkv6_scan_bthd", "topk_mask"]
+__all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd", "int8_roundtrip",
+           "mtgc_update", "mtgc_update_flat", "reset_launch_counts", "rwkv6_scan",
+           "rwkv6_scan_bthd", "topk_mask"]
 
 
 def reset_launch_counts() -> None:

@@ -14,8 +14,9 @@ PyTorch version is the chunked form of the model's
 :func:`rwkv6_chunk_parallel_ref` repeats the kernel's own arithmetic for
 the tests.
 
-Two entry points launch the one kernel and count on one counter,
-``rwkv6_scan.launches``:
+Two entry points launch the one kernel and count its launches on one
+counter, ``rwkv6_scan.launches`` (three a call: the chunk states, the scan
+over chunks, the outputs):
 
 * :func:`rwkv6_scan` -- the Pallas signature: r/k/v/logw ``[BH, T, Dh]``,
   u ``[BH, Dh]``, state ``[BH, Dh, Dh]``;
@@ -211,7 +212,7 @@ def _launch(r, k, v, logw, u, state, chunk, B, H, T, Dh, u_b_stride):
         log_decay.data_ptr(), B, H, T, Dh, C, T * H * Dh, H * Dh, Dh, u_b_stride,
         int(r.dtype == torch.bfloat16), _stream(dev))
     _raise_on(err, "rwkv6_scan")
-    rwkv6_scan.launches += 1
+    rwkv6_scan.launches += 3       # chunk states, the scan over chunks, outputs
     return o, s_out
 
 

@@ -13,14 +13,21 @@ the apply functions are plain tensor code. Conventions:
   :func:`gqa_decode_attention`, and everything else to the flash kernel
   (``attn_impl="blocked"``, ``kernels/flash_attention.py``; the model's
   jnp twin ``flash_jnp`` on the reference's side) or to
-  :func:`naive_attention`, as the reference routes it.
+  :func:`naive_attention`, as the reference routes it. With grad enabled
+  the blocked path is the differentiable ``FlashAttention`` (forward and
+  backward kernels, the counterpart of ``flash_jnp``'s custom VJP).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import NEG_INF, _expand_kv, flash_attention
+from repro_torch.kernels.flash_attention import (
+    NEG_INF,
+    FlashAttention,
+    _expand_kv,
+    flash_attention,
+)
 
 # ---------------------------------------------------------------- basics
 
@@ -187,6 +194,9 @@ def attention_block(
 
     if T == 1 and kv_cache is not None:
         o = gqa_decode_attention(q, k, v, window=window, q_offset=q_offset)
+    elif attn_impl == "blocked" and torch.is_grad_enabled():
+        # Training: the backward kernel reads the forward's row statistics.
+        o = FlashAttention.apply(q, k, v, True, window, q_offset, block)
     elif attn_impl == "blocked":
         # GQA kv heads stay unexpanded: the kernel reads kv head h // (H/Kv).
         o = flash_attention(q.contiguous(), k, v, causal=True, window=window,

@@ -13,20 +13,27 @@ takes the place of the reference's ``lax.scan``.
 
 Every bundle provides:
   init(seed, device=None)          -> params (on the CUDA card by default)
+  loss(params, batch)              -> scalar mean next-token cross-entropy
   forward(params, batch)           -> logits [B, T, vocab_padded]
   init_cache(batch, seq, device=None) -> cache
   prefill(params, batch, cache)    -> (last-position logits [B, V], cache)
   decode_step(params, batch, cache) -> (logits [B, V], cache)
 ``prefill`` and ``decode_step`` update the cache IN PLACE and return it
-(the reference returns a new one). The training loss belongs to the
-LM-training slice.
+(the reference returns a new one). ``loss`` is the training path (dense
+family; the ssm family's needs a backward of ``rwkv6_scan``, a later
+slice): with ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
+(non-reentrant), as the reference wraps its scanned layer in
+``jax.checkpoint``, and the cross-entropy goes through
+:func:`chunked_xent`.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import tree_map
@@ -35,6 +42,7 @@ from repro_torch.models import rwkv6 as RWKV
 from repro_torch.models.config import ArchConfig
 
 FAMILIES = ("dense", "ssm")
+SSM_TRAINING_SLICE = "the ssm-training slice of the port (a backward for rwkv6_scan)"
 _LATER = {
     "moe": "the moe slice of the port",
     "hybrid": "the hybrid (models/ssm.py) slice of the port",
@@ -46,6 +54,7 @@ _LATER = {
 class ModelBundle(NamedTuple):
     cfg: ArchConfig
     init: Callable            # (seed, device=None) -> params
+    loss: Callable            # (params, batch) -> scalar (train path)
     forward: Callable         # (params, batch) -> logits
     init_cache: Callable      # (batch, seq, device=None) -> cache
     prefill: Callable         # (params, batch, cache) -> (logits, cache)
@@ -173,6 +182,25 @@ def _stack_init(fn, n: int) -> dict:
     return out
 
 
+def chunked_xent(logits_fn, hidden, targets, chunk=512):
+    """Mean cross-entropy over the sequence in chunks of positions, so the
+    float32 logits of only one chunk are formed at a time (the reference's
+    rule: chunks of gcd(T, chunk) positions, or all T when that is under
+    64). hidden: [B, T, D]; targets: [B, T] int. Returns a float32 scalar."""
+    B, T, D = hidden.shape
+    c = math.gcd(T, chunk)
+    if c < 64:
+        c = T
+    nc = T // c
+    h = hidden.reshape(B, nc, c, D).transpose(0, 1)
+    t = targets.reshape(B, nc, c).transpose(0, 1).long()
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(nc):
+        lp = torch.log_softmax(logits_fn(h[i]).to(torch.float32), dim=-1)
+        tot = tot - torch.gather(lp, -1, t[i][..., None]).sum()
+    return tot / (B * T)
+
+
 def build_model(cfg: ArchConfig) -> ModelBundle:
     if cfg.arch_type not in FAMILIES:
         raise NotImplementedError(
@@ -204,9 +232,20 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         return L.linear(p["unembed"], hidden)
 
     def _run_layers(p, x, cache=None, cache_index=None, mode="train"):
+        remat = cfg.remat and mode == "train"
+        # One unbind of the stacked leaves: its backward stacks the layers'
+        # gradients once (indexing layer by layer would build a zero-filled
+        # stacked gradient per layer and sum them).
+        per_layer = tree_map(lambda t: t.unbind(0), p["layers"])
         for i in range(cfg.num_layers):
             cl = None if cache is None else {k: v[i] for k, v in cache.items()}
-            lp = tree_map(lambda t: t[i], p["layers"])
+            lp = tree_map(lambda t: t[i], per_layer)
+            if remat:
+                # Only the layer's input is kept; its activations are
+                # recomputed in the backward pass (jax.checkpoint's role).
+                x = checkpoint(lambda h, lp=lp, w=windows[i]: _apply_decoder_layer(
+                    cfg, lp, h, window=w, mode=mode)[0], x, use_reentrant=False)
+                continue
             x, nc = _apply_decoder_layer(cfg, lp, x, window=windows[i],
                                          cache=cl, cache_index=cache_index, mode=mode)
             if cache is not None:
@@ -219,6 +258,16 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         x = L.embed(p["embed"], batch["tokens"]).to(dt)
         x = _run_layers(p, x, mode="eval")
         return _logits(p, L.rms_norm(x, p["ln_f"]))
+
+    def loss(p, batch):
+        """Mean next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["targets"]`` ([B, T] each), float32."""
+        if cfg.arch_type == "ssm":
+            raise NotImplementedError(f"training the ssm family needs {SSM_TRAINING_SLICE}")
+        x = L.embed(p["embed"], batch["tokens"]).to(dt)
+        x = _run_layers(p, x, mode="train")
+        x = L.rms_norm(x, p["ln_f"])
+        return chunked_xent(lambda h: _logits(p, h), x, batch["targets"])
 
     def init_cache(batch_size: int, seq: int, device=None) -> dict:
         dev = resolve_device(device)
@@ -250,5 +299,5 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         x = L.rms_norm(x, p["ln_f"])
         return _logits(p, x)[:, 0], cache
 
-    return ModelBundle(cfg=cfg, init=init, forward=forward, init_cache=init_cache,
+    return ModelBundle(cfg=cfg, init=init, loss=loss, forward=forward, init_cache=init_cache,
                        prefill=prefill, decode_step=decode_step)

@@ -51,6 +51,22 @@ def test_flat_kernel_matches_plain(cuda, G, K, N, masked, dtype):
     assert torch.equal(got, mu.mtgc_update_flat_ref(x, g, z, y, mask, 0.07, 0.5))
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_kernel_in_place(cuda, masked, dtype):
+    """``out=x``, the sharded trainer's fused step: the kernel writes the
+    update over x and gives the out-of-place result bit for bit; frozen
+    replicas keep their bits."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x, g, z = (torch.randn(3, 2, 5003, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    y = torch.randn(3, 5003, generator=gen, device=cuda).to(dtype)
+    mask = torch.tensor([[1.0, 0.0], [1.0, 1.0], [0.0, 1.0]], device=cuda) if masked else None
+    want = mu.mtgc_update_flat_ref(x, g, z, y, mask, 0.07, 0.5)
+    assert mu.mtgc_update_flat(x, g, z, y, mask, lr=0.07, g_scale=0.5, out=x) is x
+    torch.cuda.synchronize()
+    assert torch.equal(x, want)
+
+
 def test_flat_kernel_mixed_storage(cuda):
     """float32 params with bfloat16 corrections (the reference's narrow z/y
     option): the sum still runs in float32."""
@@ -381,7 +397,7 @@ def test_scan_kernel_matches_plain(cuda, B, H, T, Dh, C, dtype):
     before = rs.rwkv6_scan.launches
     got_o, got_s = rs.rwkv6_scan(r, k, v, logw, u, s0, chunk=C)
     torch.cuda.synchronize()
-    assert rs.rwkv6_scan.launches == before + 1
+    assert rs.rwkv6_scan.launches == before + 3        # three kernels a call
     want_o, want_s = rs.rwkv6_scan_ref(r, k, v, logw, u, s0, chunk=C)
     torch.testing.assert_close(got_o, want_o, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got_s, want_s, rtol=1e-4, atol=1e-4)
@@ -477,7 +493,197 @@ def test_reduced_serve_on_card_matches_cpu(cuda, arch):
                     toks.to(cuda), 8)
     cpu = generate(bundle, params, toks, 8)
     launched = fa.flash_attention.launches if arch == "qwen3-14b" else rs.rwkv6_scan.launches
-    assert launched == 2          # one prefill, two layers
+    # one prefill, two layers; rwkv6_scan is three kernels a call
+    assert launched == (2 if arch == "qwen3-14b" else 6)
     torch.testing.assert_close(card.prefill_logits.cpu(), cpu.prefill_logits,
                                rtol=1e-4, atol=1e-4)
     assert torch.equal(card.tokens.cpu(), cpu.tokens)
+
+
+# ------------------------------------------------ attention backward (training)
+# The backward kernel computes in float32 on the CUDA cores whatever the
+# input dtype, so against the plain version in float32 on the same inputs it
+# agrees to float32 rounding (1e-5 of the gradient's largest entry), plus
+# half a bf16 ulp (2^-8 relative, the outputs' own rounding) in bfloat16.
+# The forward's row statistics agree to 1e-5 (the bf16 kernel's m is in
+# base-2 units and converted; its exponentials are ex2.approx).
+
+BWD_CASES = [
+    (1, 256, 256, 32, 2, 128, True, 0, 0),     # glm4-9b's 16:1 GQA
+    (2, 300, 333, 10, 2, 64, True, 0, 0),      # 5:1 GQA, ragged T and S
+    (1, 130, 130, 4, 4, 32, True, 0, 0),       # ragged T = S, Dh 32
+    (1, 256, 256, 8, 2, 64, True, 100, 0),     # a window not tile-aligned
+    (2, 33, 81, 4, 4, 128, True, 9, 40),       # window + q_offset + ragged S
+    (1, 100, 170, 5, 5, 32, False, 0, 7),      # bidirectional with an offset
+]
+
+
+def _attn_inputs(cuda, B, T, S, H, Kv, Dh, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, T, H, Dh, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(B, S, Kv, Dh, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(B, S, Kv, Dh, generator=gen, device=cuda).to(dtype)
+    do = torch.randn(B, T, H, Dh, generator=gen, device=cuda).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,Kv,Dh,causal,win,off", BWD_CASES)
+def test_flash_statistics_match_plain(cuda, B, T, S, H, Kv, Dh, causal, win, off, dtype):
+    q, k, v, _ = _attn_inputs(cuda, B, T, S, H, Kv, Dh, dtype, T + S + Dh)
+    kw = dict(causal=causal, window=win, q_offset=off)
+    o, m, l = fa.flash_attention(q, k, v, return_stats=True, **kw)
+    o2 = fa.flash_attention(q, k, v, **kw)
+    _, wm, wl = fa.flash_attention_ref(q.float(), k.float(), v.float(), block=64,
+                                       return_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)                      # the statistics change nothing else
+    assert m.shape == l.shape == (B, H, T) and m.dtype == l.dtype == torch.float32
+    assert (m - wm).abs().max().item() <= 1e-5
+    assert ((l - wl).abs() / wl).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,Kv,Dh,causal,win,off", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, B, T, S, H, Kv, Dh, causal, win, off, dtype):
+    q, k, v, do = _attn_inputs(cuda, B, T, S, H, Kv, Dh, dtype, T + S + off)
+    kw = dict(causal=causal, window=win, q_offset=off)
+    o, m, l = fa.flash_attention(q, k, v, return_stats=True, **kw)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, do, m, l, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 3     # three kernels a call
+    want = fa.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(),
+                                      m, l, block=64, **kw)
+    for g, w, ref in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == ref.shape
+        excess = (g.float() - w).abs()
+        if dtype == torch.bfloat16:
+            excess -= 2.0 ** -8 * w.abs()
+        assert excess.max().item() <= 1e-5 * w.abs().max().item()
+
+
+def test_flash_function_on_card_matches_cpu(cuda):
+    """The autograd Function: forward and backward kernels on the card
+    against the plain versions on the CPU, float32."""
+    gen = torch.Generator().manual_seed(3)
+    cpu = [torch.randn(s, generator=gen) for s in ((2, 150, 6, 64), (2, 150, 2, 64),
+                                                   (2, 150, 2, 64), (2, 150, 6, 64))]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v = (a.to(dev).requires_grad_() for a in cpu[:3])
+        o = fa.FlashAttention.apply(q, k, v, True, 40, 0, 64)
+        o.backward(cpu[3].to(dev))
+        outs[dev.type] = [t.detach().cpu() for t in (o, q.grad, k.grad, v.grad)]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert (a - b).abs().max().item() < 5e-5
+
+
+def test_flash_bwd_wrapper_rejects_bad_operands(cuda):
+    q, k, v, do = _attn_inputs(cuda, 1, 8, 8, 4, 2, 32, torch.float32, 0)
+    o, m, l = fa.flash_attention(q, k, v, return_stats=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bwd(q, k, v, o, do.transpose(1, 2).contiguous().transpose(1, 2), m, l)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention_bwd(q, k, v, o, do, m.double(), l)
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_attention_bwd(q, k, v, o, do, m[:, :, :4].contiguous(), l)
+    with pytest.raises(ValueError, match="no live key"):
+        fa.flash_attention_bwd(q, k, v, o, do, m, l, window=2, q_offset=20)
+
+
+@pytest.mark.parametrize("layout,cdt", [("tree", None), ("flat", None), ("tree", "bfloat16")])
+def test_fused_sharded_step_bitexact_against_unfused(cuda, layout, cdt):
+    """The sharded round's fused step (``mtgc_update_flat`` with g_scale =
+    1/A, one launch per leaf or buffer) against the unfused tree step on the
+    card, from the same params and batches: params, z and y bit for bit (an
+    element-wise loss, so both compute the same gradients). The unfused
+    step's order of operations is the kernel's, (g/A + z) + y in float32
+    (bf16 corrections widened); the unfused flat step folds z + y first, as
+    the reference does, and is held at rtol 1e-5 on the CPU instead."""
+    from repro_torch.core.packer import as_tree
+    from repro_torch.kernels import mtgc_update as mu
+
+    def loss(p, b):
+        return 0.5 * torch.sum((b["a"] * p["w"] - b["b"]) ** 2) + torch.sum(b["a"] * p["v"])
+
+    gen = torch.Generator().manual_seed(9)
+    b = {k: torch.randn((2, 2, 2, 2, 3, 50), generator=gen).to(cuda) for k in ("a", "b")}
+    states = {}
+    for fusion, lay in (("fused", layout), ("none", "tree")):
+        spec = api.ExperimentSpec(levels=(2, 3), backend="sharded", lr=0.05, fusion=fusion,
+                                  state_layout=lay, correction_dtype=cdt,
+                                  schedule=api.RoundSchedule(group_rounds=2, local_steps=2,
+                                                             microbatches=2))
+        eng = api.build(spec, loss, device=cuda)
+        st = eng.init({"w": torch.linspace(-1, 1, 50), "v": torch.ones(50)})
+        before = mu.mtgc_update_flat.launches
+        for _ in range(2):
+            st, _ = eng.round_fn(st, b)
+        n_launch = 2 if lay == "tree" else 1        # leaves w, v; or one float32 buffer
+        assert mu.mtgc_update_flat.launches - before == (
+            2 * 2 * 2 * n_launch if fusion == "fused" else 0)
+        states[fusion] = {name: convert.to_numpy(as_tree(getattr(st, name)))
+                          for name in ("params", "z", "y")}
+    for name in ("params", "z", "y"):
+        for leaf in states["none"][name]:
+            np.testing.assert_array_equal(states["fused"][name][leaf],
+                                          states["none"][name][leaf], err_msg=f"{name}/{leaf}")
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_piecewise_mean_on_card(cuda, monkeypatch, dim):
+    """The sharded round's piecewise group/global mean on the card equals
+    ``torch.mean`` bit for bit (bf16, many pieces, a strided input for the
+    global mean)."""
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(train, "_CHUNK", 256)
+    gen = torch.Generator(device=cuda).manual_seed(dim)
+    x = torch.randn((2, 3, 33, 65), generator=gen, device=cuda).to(torch.bfloat16)
+    src = x if dim == 1 else x[:, 0]
+    assert torch.equal(train._mean(src, dim), torch.mean(src, dim=dim))
+
+
+def test_reduced_lm_sharded_round_on_card_matches_cpu(cuda):
+    """Reduced glm4-9b (float32, remat) through one sharded round (2 x 2,
+    A = 2, T = 1100: the flash kernels forward and backward) on the card
+    against the CPU: losses within rtol 1e-5, params within rtol 1e-4 /
+    atol 1e-5 and z/y within rtol 1e-4 / atol 1e-4 (their quotient; ROADMAP
+    queue 3 item 2). The flash kernels launch on every layer of every
+    replica and microbatch (twice forward under remat)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+
+    bundle = build_model(get_arch("glm4-9b").reduced(remat=True, attn_block=128))
+    params = bundle.init(0, device="cpu")
+    rs_ = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rs_.integers(0, 256, (1, 1, 2, 2, 2, 1, 1100)).astype(np.int32))
+             for k in ("tokens", "targets")}
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        spec = api.ExperimentSpec(levels=(2, 2), backend="sharded", lr=0.05, fusion="fused",
+                                  state_layout="tree", schedule=api.RoundSchedule(
+                                      group_rounds=1, local_steps=1, microbatches=2))
+        eng = api.build(spec, bundle.loss, device=dev)
+        ops.reset_launch_counts()
+        st, met = eng.round_fn(eng.init(convert.params_from_numpy(convert.to_numpy(params), dev)),
+                               {k: v.to(dev) for k, v in batch.items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert fa.flash_attention.launches == 2 * 2 * 4 * 2
+            assert fa.flash_attention_bwd.launches == 3 * 2 * 4 * 2
+        outs[dev.type] = (convert.to_numpy(st), met.loss.cpu().numpy())
+    np.testing.assert_allclose(outs["cuda"][1], outs["cpu"][1], rtol=1e-5)
+    for name, atol in (("params", 1e-5), ("z", 1e-4), ("y", 1e-4)):
+        card, cpu = _leaves(outs["cuda"][0][name]), _leaves(outs["cpu"][0][name])
+        assert [p for p, _ in card] == [p for p, _ in cpu]
+        for (path, g), (_, c) in zip(card, cpu):
+            np.testing.assert_allclose(g, c, rtol=1e-4, atol=atol, err_msg=f"{name}{path}")
+
+
+def _leaves(tree, prefix=""):
+    """(path, array) of a nested dict of arrays, keys in sorted order."""
+    if isinstance(tree, dict):
+        return [pa for k in sorted(tree) for pa in _leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]

@@ -142,6 +142,38 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     assert mu.mtgc_update_flat.launches == 0 and mu.mtgc_update.launches == 0
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_flat_out_argument_updates_in_place(masked):
+    """``out=x`` writes the update into x itself (the sharded trainer's
+    fused step) and gives what the out-of-place call returns; a separate
+    ``out`` leaves x alone."""
+    rng = np.random.default_rng(3)
+    x, g, z = (torch.from_numpy(rng.normal(size=(2, 3, 40)).astype(np.float32))
+               for _ in range(3))
+    y = torch.from_numpy(rng.normal(size=(2, 40)).astype(np.float32))
+    mask = torch.tensor([[1.0, 0.0, 1.0], [0.0, 1.0, 1.0]]) if masked else None
+    want = mu.mtgc_update_flat(x, g, z, y, mask, lr=0.1, g_scale=0.5)
+    x0 = x.clone()
+    out = torch.empty_like(x)
+    assert mu.mtgc_update_flat(x, g, z, y, mask, lr=0.1, g_scale=0.5, out=out) is out
+    assert torch.equal(out, want) and torch.equal(x, x0)
+    assert mu.mtgc_update_flat(x, g, z, y, mask, lr=0.1, g_scale=0.5, out=x) is x
+    assert torch.equal(x, want)
+
+
+def test_flat_out_argument_rejects_overlap_and_bad_shape():
+    x, g, z = (torch.zeros(2, 2, 8) for _ in range(3))
+    y = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="overlap"):
+        mu.mtgc_update_flat(x, g, z, y, lr=0.1, out=g)
+    buf = torch.zeros(2 * 2 * 8 + 4)
+    with pytest.raises(ValueError, match="overlap"):
+        mu.mtgc_update_flat(buf[:32].view(2, 2, 8), g, z, y, lr=0.1,
+                            out=buf[4:].view(2, 2, 8))
+    with pytest.raises(ValueError, match="shape"):
+        mu.mtgc_update_flat(x, g, z, y, lr=0.1, out=torch.zeros(2, 2, 9))
+
+
 def test_other_devices_raise():
     """Neither wrapper falls back to the plain version off the CPU."""
     x = torch.empty((2, 3, 4), device="meta")

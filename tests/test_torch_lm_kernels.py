@@ -30,6 +30,17 @@ from repro_torch.kernels import rwkv6_scan as rs  # noqa: E402
 from repro_torch.models import rwkv6 as trwkv  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """One intra-op thread: the suite runs files in parallel workers, and
+    PyTorch's default of one thread per core would crowd out the other
+    workers' (timing-sensitive) tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, np.float32))
 

@@ -39,8 +39,19 @@ from repro_torch.models import rwkv6 as TR  # noqa: E402
 from repro_torch.models.config import ArchConfig  # noqa: E402
 from repro_torch.models.transformer import build_model as tbuild  # noqa: E402
 
-ARCHS = ("qwen3-14b", "rwkv6-1.6b")
+ARCHS = ("glm4-9b", "qwen3-14b", "rwkv6-1.6b")
 RTOL, ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """One intra-op thread: the suite runs files in parallel workers, and
+    PyTorch's default of one thread per core would crowd out the other
+    workers' (timing-sensitive) tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -18,6 +18,17 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.transformer import build_model  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """One intra-op thread: the suite runs files in parallel workers, and
+    PyTorch's default of one thread per core would crowd out the other
+    workers' (timing-sensitive) tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_greedy(bundle, params, toks, gen):
     B, T = toks.shape
     cache = bundle.init_cache(B, T + gen)

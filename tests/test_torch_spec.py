@@ -40,9 +40,11 @@ def test_field_list_equals_reference():
     ({"client_state": "stateless"}, "virtual-population"),
     ({"backend": "multilevel"}, "multilevel-backend"),
     ({"level_participation": (1.0, 1.0)}, "multilevel-backend"),
-    ({"backend": "sharded"}, "sharded-backend"),
-    ({"correction_dtype": "bfloat16"}, "sharded-backend"),
-    ({"schedule": tapi.RoundSchedule(microbatches=2)}, "sharded-backend"),
+    ({"backend": "sharded", "compression": tapi.CompressionPlan("int8_stochastic")},
+     "sharded-compression"),
+    ({"backend": "sharded", "faults": object()}, "faults-and-defense"),
+    ({"backend": "sharded", "staleness": "discount",
+      "schedule": tapi.RoundSchedule(group_rounds=(2, 1), microbatches=2)}, "async-rounds"),
 ])
 def test_later_slice_fields_raise_naming_the_slice(kwargs, slice_name):
     spec = tapi.ExperimentSpec(levels=(2, 2), **kwargs)
