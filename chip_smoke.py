@@ -22,9 +22,10 @@ then settles at chance (ln 10) in both packages
 Phases (any failure raises, so the script exits non-zero and prints no
 final line):
  1. device line (``nvidia-smi`` name and power limit) and kernel build:
-    registers and spills of every kernel (``nvcc -Xptxas -v``), the
-    dynamic shared memory of the LM kernels, and the HGMMA (wgmma) and
-    UTMALDG (TMA load) instructions in the built flash library
+    registers and spills of every kernel (``nvcc -Xptxas -v``; the
+    backward's wgmma kernels must not spill), the dynamic shared memory of
+    the LM kernels, and the HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions in the built forward and backward flash libraries
     (``cuobjdump -sass``), both required to be present;
  2. kernels against their plain versions on the card: bit-exact in
     float32 at [10, 10, 2156490] (unmasked and masked) and on every CNN
@@ -93,11 +94,12 @@ final line):
     dv against ``flash_attention_bwd_ref`` within 1e-5 of each gradient's
     largest entry (bf16: beyond the outputs' own half-ulp rounding), the
     forward's output within 5e-5 (bf16: plus half an ulp) and its row
-    statistics m and l within 1e-5; the autograd
-    ``FlashAttention`` on the card against the CPU at [1, 300, 8, 64];
-    then kernel, plain, bound and ``scaled_dot_product_attention``'s
-    backward times, and the forward at this shape with the statistics off
-    and on;
+    statistics m and l within 1e-5; a second backward call bit-identical
+    to the first; the autograd ``FlashAttention`` on the card against the
+    CPU at [1, 300, 8, 64]; then kernel, plain, bound and
+    ``scaled_dot_product_attention``'s backward times, a trace of three
+    calls with each launch's time, and the forward at this shape with the
+    statistics off and on;
 16. LM training, tree + fused (phase (h)): glm4-9b at its published
     widths with 2 of its 40 layers (bf16, remat, random params from seed
     0), ``ExperimentSpec(backend="sharded", levels=(2, 2))``, E = H = A = 2,
@@ -130,6 +132,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -244,10 +247,12 @@ def sass_counts(path: Path, build) -> dict:
     return {op: sum(1 for line in sass.splitlines() if op in line) for op in ("HGMMA", "UTMALDG")}
 
 
-def log_kernel_resources(build) -> None:
+def log_kernel_resources(build, logs: dict) -> None:
     """Registers at launch, spills (ptxas) and dynamic shared memory of the
     LM kernels as launched on the main path, and the wgmma/TMA instructions
-    in the flash library; both counts must be > 0."""
+    in the two flash libraries; both counts must be > 0, and the backward's
+    wgmma kernels must not spill (``logs``: the build's ptxas output, empty
+    for a library that was already built)."""
     fl, sc = build.load("flash_attention"), build.load("rwkv6_scan")
     log(f"  flash_fwd_wgmma_kernel<128>: {fl.flash_attention_smem_bytes(128)} B of dynamic "
         f"shared memory, 384 threads (registers: 24 producer / 240 consumer after setmaxnreg)")
@@ -255,13 +260,29 @@ def log_kernel_resources(build) -> None:
                               "rwkv6_chunk_out_kernel")):
         log(f"  {name}: {sc.rwkv6_scan_smem_bytes(i)} B of dynamic shared memory")
     bw = build.load("flash_attention_bwd")
-    log(f"  flash_bwd_dq_kernel<128>: {bw.flash_attention_bwd_smem_bytes(0, 128)} B, "
-        f"flash_bwd_dkdv_kernel<128>: {bw.flash_attention_bwd_smem_bytes(1, 128)} B of dynamic "
-        f"shared memory, 256 threads each")
-    counts = sass_counts(build.library_path("flash_attention"), build)
-    log(f"  flash_attention SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
-    require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
-            "the built flash_attention library holds no wgmma or no TMA load")
+    log(f"  flash_bwd_dq_wgmma_kernel<128>, flash_bwd_dkdv_wgmma_kernel<128> (bf16): "
+        f"{bw.flash_attention_bwd_smem_bytes(2, 128)} B of dynamic shared memory each, 384 "
+        f"threads (registers: 24 producer / 240 consumer after setmaxnreg); "
+        f"flash_bwd_dq_kernel<float,128>: {bw.flash_attention_bwd_smem_bytes(0, 128)} B, "
+        f"flash_bwd_dkdv_kernel<float,128>: {bw.flash_attention_bwd_smem_bytes(1, 128)} B, 256 "
+        f"threads each (float32)")
+    wg = [(e, r, sp) for e, r, sp in ptxas_entries(logs.get("flash_attention_bwd", ""))
+          if "wgmma" in e]
+    for entry, regs, spills in wg:
+        log(f"  {entry}: {regs}; {spills}")
+        require("0 bytes spill stores" in spills and "0 bytes spill loads" in spills,
+                f"{entry} spills registers: {spills}")
+    if not wg:
+        log("  flash_attention_bwd was built before this run: its ptxas report is not here")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        counts = sass_counts(build.library_path(name), build)
+        log(f"  {name} SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
+        require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+                f"the built {name} library holds no wgmma or no TMA load")
+        require("serialized" not in logs.get(name, "") and
+                "setmaxnreg ignored" not in logs.get(name, ""),
+                f"ptxas serialised the wgmma of {name} or ignored its setmaxnreg (see its "
+                f"build log)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -868,9 +889,14 @@ def phase_lm_backward(torch, fa):
                 f"the training shape by {eo} beyond {'half an ulp' if half_ulp else 'nothing'}")
         del wo
         got = fa.flash_attention_bwd(q, k, v, o, do, m, l)
+        again = fa.flash_attention_bwd(q, k, v, o, do, m, l)
         want = fa.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
                                           do.float(), m, l, block=512)
         torch.cuda.synchronize()
+        # No atomics: a second call on the same inputs gives the same bits.
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"flash_attention_bwd {tag}: two calls on the same inputs differ")
+        del again
         worst = 0.0
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             scale = w.abs().max().item()
@@ -934,9 +960,25 @@ def phase_lm_backward(torch, fa):
         f"{nbytes} bytes, {flops:.4g} FLOP, {pairs} live pairs; bound share "
         f"{bwd['bound_share']:.3f}), SDPA backward {bwd['library_ms']:.4f} ms; forward at this "
         f"shape {fwd_off:.4f} ms (statistics on: {fwd_on:.4f} ms)")
-    bwd["passes"] = profile_round(torch, lambda: [fa.flash_attention_bwd(q, k, v, o, do, m, l)
-                                                   for _ in range(3)])
-    log_trace("  flash_attention_bwd, three calls (traced)", bwd.pop("passes"), top_n=4)
+    trace = profile_round(torch, lambda: [fa.flash_attention_bwd(q, k, v, o, do, m, l)
+                                          for _ in range(3)])
+    log_trace("  flash_attention_bwd, three calls (traced)", trace, top_n=4)
+    # Each launch's device time a call, from the trace (summed over its three calls).
+    bwd["pass_ms"] = {re.search(r"flash_bwd_\w+", name).group(0): n["summed"] / 3e3
+                      for name, n in (trace or {}).get("by_name", {}).items()
+                      if "flash_bwd" in name}
+    bwd["busy_ms"] = trace["busy"] / 3e3 if trace else None
+    # The host's share: wall time to enqueue a call (wrapper, tensor maps,
+    # launches) with the card idle, no synchronisation inside.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fa.flash_attention_bwd(q, k, v, o, do, m, l)
+    bwd["enqueue_ms"] = (time.perf_counter() - t0) * 1e2
+    torch.cuda.synchronize()
+    log(f"  flash_attention_bwd bf16, ms a call by launch (traced): "
+        f"{bwd['pass_ms'] or 'not measured'}; device busy {bwd['busy_ms']} ms a call; the "
+        f"host enqueues a call in {bwd['enqueue_ms']:.4f} ms")
     bwd["fwd_train_ms"], bwd["fwd_train_stats_ms"] = fwd_off, fwd_on
     del q, k, v, do, o, m, l, qt, kt, vt, q32, k32, v32, do32
     torch.cuda.empty_cache()
@@ -1218,9 +1260,7 @@ def main() -> int:
     for name, text in built["log"].items():
         for entry, regs, spills in ptxas_entries(text):
             log(f"  {name}: {entry}: {regs}; {spills}")
-    log_kernel_resources(build)
-    require("serialized" not in built["log"].get("flash_attention", ""),
-            "ptxas serialised the flash kernel's wgmma (see its build log)")
+    log_kernel_resources(build, built["log"])
 
     init, apply = small.cnn(10, IMAGE)
     p0 = init(torch.Generator().manual_seed(0), device="cuda")
@@ -1623,6 +1663,7 @@ def main() -> int:
         "max_abs_err_f32": bwd_errs["flash_attention_bwd/f32"],
         "ms": bwd_t["ms"], "plain_ms": bwd_t["plain_ms"], "bound_ms": bwd_t["bound_ms"],
         "bound_by": bwd_t["bound_by"], "library_ms": bwd_t["library_ms"],
+        "bound_share": bwd_t["bound_share"], "pass_ms": bwd_t["pass_ms"],
         "shape": f"q/o/do [{LM_TRAIN_BATCH},{LM_TRAIN_SEQ},32,128] bf16, k/v "
                  f"[{LM_TRAIN_BATCH},{LM_TRAIN_SEQ},2,128], causal (one glm4-9b training layer)",
         "forward_at_this_shape_ms": bwd_t["fwd_train_ms"],

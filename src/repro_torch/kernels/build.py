@@ -3,10 +3,10 @@
 Every source under ``kernels/csrc/`` is a plain-C-interface shared library
 (no PyTorch headers, so a build takes seconds). It is compiled at first use
 for ``sm_90a`` into ``build/repro_torch/`` at the root of the checkout,
-under a name that carries a hash of the source and flags, so an edited
-source is rebuilt and a stale library is never loaded. Nothing here runs
-at import time: the CPU-only test host has no ``nvcc`` and imports every
-module.
+under a name that carries a hash of the source, the ``csrc/*.cuh`` headers
+it includes and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded. Nothing here runs at import time: the
+CPU-only test host has no ``nvcc`` and imports every module.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
 them; ``load(name)`` returns the loaded library (building it if needed).
@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -60,11 +61,30 @@ def nvcc_path() -> str:
         "the port's CUDA kernels cannot be built on this host")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
+def source_files(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly
+    or through another header, in the order they are first reached."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives: its tag hashes
+    the source, its headers and the flags."""
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.read_bytes())
+    h.update(" ".join(nvcc_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=SOURCES) -> dict:
@@ -132,6 +152,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flash_attention_bwd_launch.restype = i32
         lib.flash_attention_bwd_smem_bytes.argtypes = [i32, i32]
         lib.flash_attention_bwd_smem_bytes.restype = i32
+        lib.flash_attention_bwd_dvec_floats.argtypes = [i32, i32]
+        lib.flash_attention_bwd_dvec_floats.restype = i32
     elif name == "rwkv6_scan":
         lib.rwkv6_scan_launch.argtypes = [p] * 10 + [i32] * 5 + [i64] * 4 + [i32, p]
         lib.rwkv6_scan_launch.restype = i32

@@ -14,7 +14,8 @@ scan, so on the CPU the port computes what the JAX model computes.
 The backward (:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``)
 ports the reference's hand-scheduled custom VJP, ``flash_jnp._vjp_bwd``: P
 is rebuilt per kv block from q, k and the forward's row statistics m and l,
-then dV, dP, dS, dQ and dK, in float32. :class:`FlashAttention` ties the two
+then dV, dP, dS, dQ and dK, in float32 (bf16 on the tensor cores, float32
+on the CUDA cores). :class:`FlashAttention` ties the two
 into a ``torch.autograd.Function`` (the counterpart of
 ``flash_jnp.flash_attention_vjp``); the model's training path calls it.
 
@@ -224,14 +225,17 @@ def flash_attention_bwd(q, k, v, o, do, m, l, *, causal=True, window=0, q_offset
     (``flash_attention(..., return_stats=True)``). Returns ``(dq, dk, dv)``
     in the inputs' dtype; dk and dv sum the shares of the H / Kv q heads of
     each kv head. ``block`` is read by the plain version only (its kv
-    block); the kernel tiles by 64 whatever it is.
+    block); the kernel's tiles are fixed.
 
-    On the card the kernel computes in float32 on the CUDA cores (three
-    launches: dq and D, per-q-head dk/dv shares, their sum; float32 scratch
-    of 2 x [B, S, H, Dh] that this wrapper allocates), so it agrees with the
-    plain version to float32 rounding whatever the input dtype (bf16: plus
-    the outputs' own rounding). Operand rules: the forward's (contiguous,
-    16-byte aligned, Dh in (32, 64, 128)); m and l contiguous float32."""
+    On the card it is three launches: dq (and each row's D), per-q-head
+    dk/dv shares in float32 scratch of 2 x [B, S, H, Dh] that this wrapper
+    allocates, their sum. bfloat16 runs on the tensor cores (wgmma fed by
+    TMA; P and dS split into bf16 high and low parts), float32 on the CUDA
+    cores; both agree with the plain version in float32 to float32
+    rounding (bf16: plus the outputs' own rounding), and two calls on the
+    same inputs give the same bits. Operand rules: the forward's
+    (contiguous, 16-byte aligned, Dh in (32, 64, 128)); m and l contiguous
+    float32."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, m, l, causal=causal, window=window,
                                        q_offset=q_offset, block=block)
@@ -245,8 +249,9 @@ def flash_attention_bwd(q, k, v, o, do, m, l, *, causal=True, window=0, q_offset
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if B * H >= 2 ** 31 or max(T, S) > 64 * 65535:
-        raise ValueError(f"B * H = {B * H} and T, S = {T}, {S} exceed the kernel's grid")
+    bf16 = q.dtype == torch.bfloat16
+    if B * H >= 2 ** 31 or max(T, S) > 64 * 65535 or (bf16 and B > 65535):
+        raise ValueError(f"B, H = {B}, {H} and T, S = {T}, {S} exceed the kernel's grid")
     w_eff = window if window > 0 else S + T
     if q_offset < 0 or q_offset + T - w_eff > S - 1:
         raise ValueError(f"some query row has no live key (S={S}, T={T}, q_offset={q_offset}, "
@@ -254,14 +259,17 @@ def flash_attention_bwd(q, k, v, o, do, m, l, *, causal=True, window=0, q_offset
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dvec = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lib = load("flash_attention_bwd")
+    # Each row's D (bf16: with its log-sum-exp, padded to the kernel's tile).
+    dvec = torch.empty((B, H, lib.flash_attention_bwd_dvec_floats(T, int(bf16))),
+                       dtype=torch.float32, device=q.device)
     dk_part = torch.empty((B, S, H, Dh), dtype=torch.float32, device=q.device)
     dv_part = torch.empty_like(dk_part)
-    err = load("flash_attention_bwd").flash_attention_bwd_launch(
+    err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(),
         l.data_ptr(), dvec.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, T, S, H, Kv, Dh, int(q_offset), int(window),
-        int(bool(causal)), Dh ** -0.5, int(q.dtype == torch.bfloat16), _stream(q.device))
+        int(bool(causal)), Dh ** -0.5, int(bf16), _stream(q.device))
     _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 3      # dq and D, the dk/dv shares, their sum
     return dq, dk, dv

@@ -501,10 +501,11 @@ def test_reduced_serve_on_card_matches_cpu(cuda, arch):
 
 
 # ------------------------------------------------ attention backward (training)
-# The backward kernel computes in float32 on the CUDA cores whatever the
-# input dtype, so against the plain version in float32 on the same inputs it
-# agrees to float32 rounding (1e-5 of the gradient's largest entry), plus
-# half a bf16 ulp (2^-8 relative, the outputs' own rounding) in bfloat16.
+# The backward kernel runs float32 on the CUDA cores and bfloat16 on the
+# tensor cores, where P and dS go in as bf16 high and low parts (about 16
+# bits). Against the plain version in float32 on the same inputs both agree
+# to float32 rounding (1e-5 of the gradient's largest entry), plus half a
+# bf16 ulp (2^-8 relative, the outputs' own rounding) in bfloat16.
 # The forward's row statistics agree to 1e-5 (the bf16 kernel's m is in
 # base-2 units and converted; its exponentials are ex2.approx).
 
@@ -561,6 +562,20 @@ def test_flash_bwd_kernel_matches_plain(cuda, B, T, S, H, Kv, Dh, causal, win, o
         if dtype == torch.bfloat16:
             excess -= 2.0 ** -8 * w.abs()
         assert excess.max().item() <= 1e-5 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("B,T,S,H,Kv,Dh,causal,win,off", BWD_CASES)
+def test_flash_bwd_bf16_is_deterministic(cuda, B, T, S, H, Kv, Dh, causal, win, off):
+    """No atomics: two bf16 backward calls on the same inputs give the same
+    bits in dq, dk and dv."""
+    q, k, v, do = _attn_inputs(cuda, B, T, S, H, Kv, Dh, torch.bfloat16, T + S + Dh + 1)
+    kw = dict(causal=causal, window=win, q_offset=off)
+    o, m, l = fa.flash_attention(q, k, v, return_stats=True, **kw)
+    first = fa.flash_attention_bwd(q, k, v, o, do, m, l, **kw)
+    second = fa.flash_attention_bwd(q, k, v, o, do, m, l, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_function_on_card_matches_cpu(cuda):

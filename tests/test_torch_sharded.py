@@ -186,7 +186,68 @@ def test_flat_sharded_round_matches_tree(algorithm):
     np.testing.assert_allclose(m_f.loss.numpy(), m_t.loss.numpy(), rtol=1e-5)
 
 
-def test_correction_dtype_is_stored_narrow_and_rejected_for_flat():
+def _bf16_ulps(a, b):
+    """|a - b| in bf16 ulps, for float32 arrays of bf16 values (their bf16
+    bit patterns in sign-magnitude order)."""
+    def ordered(x):
+        bits = np.ascontiguousarray(x, np.float32).view(np.int32) >> 16
+        return np.where(bits < 0, -(bits & 0x7FFF), bits)
+    return np.abs(ordered(a) - ordered(b))
+
+
+def _to_bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _record_bf16_gap(record_property, tag, got, want):
+    """Record, as test properties, the largest difference of two bf16
+    arrays in bf16 ulps and the count of entries that differ; return the
+    largest."""
+    ulps = _bf16_ulps(got, want)
+    record_property(f"{tag}_max_bf16_ulps", int(ulps.max()))
+    record_property(f"{tag}_entries_differ", int((ulps > 0).sum()))
+    return int(ulps.max())
+
+
+def _check_bf16_correction_cause(record_property, js0, b, G, K, H, lr, tag):
+    """Why bf16 z and y are held at one bf16 ulp, from the reference's
+    state ``js0`` (bf16 corrections): one group round (E = 1) on both
+    sides, and the same round from the same state with z and y widened
+    (exactly) to float32. A round updates z and y once each, after the same
+    local steps, so the float32 round's z and y are each side's value just
+    before its bf16 rounding. Each side stores its own float32 value rounded
+    to bf16, and the two float32 values agree to the float32 parity bound
+    (ROADMAP queue 3 item 2: a few float32 ulps, carried through the
+    quotients 1/(H lr) and 1/(H E lr)). So the stored values can differ only
+    where those float32 values lie on either side of a bf16 rounding
+    midpoint, by one bf16 ulp: the port's update is the reference's."""
+    host = lambda t: jax.tree.map(np.asarray, t)                    # noqa: E731
+    widen = lambda t: jax.tree.map(lambda a: a.astype(np.float32), t)  # noqa: E731
+    b1 = {k: v[:1] for k, v in b.items()}
+    vals = {}
+    for cdt in ("bfloat16", None):
+        jspec, tspec = _specs((G, K), 1, H, lr, state_layout="tree", correction_dtype=cdt)
+        jeng, teng = japi.build(jspec, jquad), tapi.build(tspec, tquad, device="cpu")
+        z, y = host(js0.z), host(js0.y)
+        if cdt is None:
+            z, y = widen(z), widen(y)
+        js, _ = jeng.round_fn(js0._replace(z=jax.tree.map(jnp.asarray, z),
+                                           y=jax.tree.map(jnp.asarray, y)),
+                              jax.tree.map(jnp.asarray, b1))
+        ts, _ = teng.round_fn(
+            convert.sharded_state_from_numpy(host(js0.params), z, y, device="cpu"), _tb(b1))
+        for name in ("z", "y"):
+            vals[(cdt, name)] = (_field(getattr(ts, name))["w"].astype(np.float32),
+                                 np.asarray(getattr(js, name)["w"], np.float32))
+    for name, atol in (("z", ATOL / (H * lr)), ("y", ATOL / (H * lr))):
+        (pb, rb), (pf, rf) = vals[("bfloat16", name)], vals[(None, name)]
+        assert np.array_equal(_to_bf16(pf), pb) and np.array_equal(_to_bf16(rf), rb), name
+        np.testing.assert_allclose(pf, rf, rtol=RTOL, atol=atol, err_msg=name)
+        record_property(f"{tag}_{name}_float32_entries_differ", int((pf != rf).sum()))
+        assert _record_bf16_gap(record_property, f"{tag}_{name}", pb, rb) <= 1, name
+
+
+def test_correction_dtype_is_stored_narrow_and_rejected_for_flat(record_property):
     """bf16 z/y storage survives the round (update math in f32), matches the
     reference's bf16 round, and the flat layout rejects it."""
     G, K, E, H, lr = 2, 2, 1, 2, 0.05
@@ -199,14 +260,19 @@ def test_correction_dtype_is_stored_narrow_and_rejected_for_flat():
     assert np.isfinite(m.loss.numpy()).all()
     jspec, _ = _specs((G, K), E, H, lr, state_layout="tree", correction_dtype="bfloat16")
     jeng = japi.build(jspec, jquad)
-    js, _ = jeng.round_fn(jeng.init({"w": jnp.zeros(D)}), jax.tree.map(jnp.asarray, b))
-    # One bf16 ulp (2^-8 relative) of the stored corrections.
+    js0 = jeng.init({"w": jnp.zeros(D)})
+    js, _ = jeng.round_fn(js0, jax.tree.map(jnp.asarray, b))
+    # One bf16 ulp (2^-8 relative) of the stored corrections: each side
+    # rounds its own float32 value, and those differ by float32 rounding
+    # (_check_bf16_correction_cause shows it on this round).
     for name in ("z", "y"):
-        np.testing.assert_allclose(_field(getattr(st, name))["w"],
-                                   np.asarray(getattr(js, name)["w"], np.float32),
-                                   rtol=2.0 ** -8, atol=1e-6, err_msg=name)
+        got = _field(getattr(st, name))["w"].astype(np.float32)
+        want = np.asarray(getattr(js, name)["w"], np.float32)
+        np.testing.assert_allclose(got, want, rtol=2.0 ** -8, atol=1e-6, err_msg=name)
+        assert _record_bf16_gap(record_property, name, got, want) <= 1, name
     np.testing.assert_allclose(st.params["w"].numpy(), np.asarray(js.params["w"]),
                                rtol=RTOL, atol=ATOL)
+    _check_bf16_correction_cause(record_property, js0, b, G, K, H, lr, "cause")
     with pytest.raises(ValueError, match="tree layout"):
         sharded_init({"w": torch.zeros(D)}, G, K, use_flat_state=True,
                      correction_dtype=torch.bfloat16, device="cpu")
@@ -290,7 +356,7 @@ def test_sharded_matches_simulator_at_one_microbatch():
 
 
 @pytest.mark.parametrize("layout,cdt", [("tree", "bfloat16"), ("flat", None)])
-def test_rounds_continue_from_a_reference_state(layout, cdt):
+def test_rounds_continue_from_a_reference_state(record_property, layout, cdt):
     """``convert.sharded_state_from_numpy`` starts the port from the
     reference's state after one of its rounds (narrow corrections cross bit
     for bit); the next round agrees."""
@@ -312,15 +378,20 @@ def test_rounds_continue_from_a_reference_state(layout, cdt):
         assert ts.z["w"].dtype == torch.bfloat16
         np.testing.assert_array_equal(ts.z["w"].float().numpy(),
                                       np.asarray(js.z["w"], np.float32))
+    js1 = js
     js, _ = jeng.round_fn(js, jb)
     ts, _ = teng.round_fn(ts, _tb(b))
     if cdt is None:
         _assert_states(ts, js, H, E, lr)
     else:
-        for name in ("z", "y"):     # one bf16 ulp of the stored corrections
-            np.testing.assert_allclose(_field(getattr(ts, name))["w"],
-                                       np.asarray(getattr(js, name)["w"], np.float32),
-                                       rtol=2.0 ** -8, atol=1e-6, err_msg=name)
+        # One bf16 ulp of the stored corrections, for the reason that
+        # _check_bf16_correction_cause shows from the reference's state.
+        for name in ("z", "y"):
+            got = _field(getattr(ts, name))["w"].astype(np.float32)
+            want = np.asarray(getattr(js, name)["w"], np.float32)
+            np.testing.assert_allclose(got, want, rtol=2.0 ** -8, atol=1e-6, err_msg=name)
+            assert _record_bf16_gap(record_property, name, got, want) <= 1, name
+        _check_bf16_correction_cause(record_property, js1, b, G, K, H, lr, "cause")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
