@@ -14,7 +14,8 @@ CIFAR-10's 32x32x3 shape -- uncompressed at full participation, with
 compressed uploads, and under partial participation. Depth is cut: E = 2
 group rounds of H = 5 local steps, 1 or 2 global rounds per path. After
 the serving phases it trains glm4-9b at full width (depth 2 of 40) on the
-sharded backend. The CNN's learning rate is 0.01: at 0.1
+sharded backend, plain, with compressed uploads and under partial
+participation. The CNN's learning rate is 0.01: at 0.1
 the loss of this CNN on the synthetic images spikes into the thousands and
 then settles at chance (ln 10) in both packages
 (``tests/test_torch_driver.py::test_cifar_cnn_loss_spike_tracks_reference``).
@@ -116,11 +117,28 @@ final line):
     training tokens/s, peak memory, and a traced round;
 17. LM training, flat + fused (phase (i)): the same, ``mtgc_update_flat``
     once per step, its check on the one [2, 2, N] buffer (6.6e9 elements);
-18. a reduced glm4-9b (float32, remat) sharded round at T = 1100 on the
+18-20. the same training with compressed uploads and partial
+    participation (a warm-up round, a timed one and a traced one each):
+    (j) flat, client link ``int8_stochastic`` with error feedback; (k) flat,
+    client participation 0.5 (fixed masks, inverse_prob), uncompressed; (l)
+    tree, participation 0.5 (fixed, realized-count weighting), group link
+    top-k 0.01 with error feedback. The quantize kernels' launches are
+    required equal to the reckoned ones (one per [K, piece] block of each
+    group's client uploads a group round, one per [G, piece] block of the
+    group reports a round; pieces of 2^26 columns), beside the flash and
+    update counts; the warm-up round's own upload blocks (recorded column
+    slices, many past element 2^31 of the flat state) held bit for bit
+    against the plain versions (``int8_roundtrip`` and ``topk_mask``); the
+    piecewise top-k threshold against ``torch.topk`` on a report row slice
+    of 2^27 elements, both timed; ``comm_bytes`` equal to the wire model;
+    the residuals finite and not all zero; under a mask, the frozen
+    replicas' params and z with their bits; and (k)'s peak within 0.5 GB of
+    (i)'s;
+21. a reduced glm4-9b (float32, remat) sharded round at T = 1100 on the
     card against the CPU (params within rtol 1e-4), and the fused step
     against the unfused one on the card, bit for bit;
-19. a JSON line of the serving and training runs and one per kernel, then
-    ``{"ok": true, "device": {...}}`` last.
+22. a JSON line of the serving and training runs, one per phase of 18-20
+    and one per kernel, then ``{"ok": true, "device": {...}}`` last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``) for the whole run, so every
@@ -155,6 +173,10 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32      # the serving traffic of phase 13
 LM_TRAIN_ARCH, LM_TRAIN_LAYERS, LM_TRAIN_LEVELS, LM_TRAIN_LR = "glm4-9b", 2, (2, 2), 0.05
 LM_TRAIN_E, LM_TRAIN_H, LM_TRAIN_A = 2, 2, 2
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_TOKENS = 1, 2048, 400_000
+# Phases 19-21 ((j)-(l)): the same training, with compressed uploads and
+# partial participation (client_participation 0.5, fixed masks); top-k keeps
+# 1% of a row. Recorded column slices of an upload block are 2^16 wide.
+LM_TRAIN_PARTIAL, LM_TRAIN_TOPK_FRAC, UPLOAD_SPAN = 0.5, 0.01, 1 << 16
 
 
 def log(*args):
@@ -1055,18 +1077,161 @@ def check_update_on_state(torch, mu, state, lr: float, g_scale: float) -> dict:
     return res
 
 
-def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool) -> dict:
-    """Phases 16-17: HFL LM training at glm4-9b's full width (depth cut to
-    ``LM_TRAIN_LAYERS``) through ``build``/``pack_tokens``/``fit`` on the
-    sharded backend, fused. ``rounds`` rounds after a warm-up round; the
-    launch counts are set to 0 just before them and read just after."""
+class UploadRecorder:
+    """Stands in for ``ops.int8_roundtrip`` and ``ops.topk_mask`` during one
+    round: each call goes to the real wrapper (which launches the kernel and
+    counts it), and the recorder keeps, of the first ``keep`` calls, the
+    row parameter and the first and last ``UPLOAD_SPAN`` columns of the
+    block's operands and result; with ``rows`` set, also the whole of row 0
+    of the first two full-width blocks (``row0``)."""
+
+    def __init__(self, ops, keep: int, rows: bool = False):
+        self.ops, self.keep, self.rows = ops, keep, rows
+        self.real = (ops.int8_roundtrip, ops.topk_mask)
+        self.calls, self.row0 = [], []
+
+    def _record(self, name, u, param, noise, out):
+        if len(self.calls) < self.keep:
+            L = min(UPLOAD_SPAN, u.shape[1])
+            cols = sorted({0, u.shape[1] - L})
+            self.calls.append({"name": name, "width": u.shape[1], "param": param.clone(),
+                               "slices": [(a, u[:, a:a + L].clone(),
+                                           None if noise is None else noise[:, a:a + L].clone(),
+                                           out[:, a:a + L].clone()) for a in cols]})
+        if self.rows and len(self.row0) < 2 and u.shape[1] == self.full:
+            self.row0.append(u[0].clone())
+
+    def __enter__(self):
+        from repro_torch.core import compression as cmp
+
+        self.full = cmp._CHUNK
+        int8, topk = self.real
+
+        def int8_spy(u, scale, noise):
+            out = int8(u, scale, noise)
+            self._record("int8_roundtrip", u, scale, noise, out)
+            return out
+
+        def topk_spy(u, thresh):
+            out = topk(u, thresh)
+            self._record("topk_mask", u, thresh, None, out)
+            return out
+
+        self.ops.int8_roundtrip, self.ops.topk_mask = int8_spy, topk_spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.int8_roundtrip, self.ops.topk_mask = self.real
+
+
+def check_uploads(torch, qz, rec: UploadRecorder, offsets) -> dict:
+    """The quantize kernels on the training path's own uploads: every
+    recorded column slice of a block the round launched a kernel on, held
+    bit for bit (NaN for NaN) against the kernel's plain version with the
+    block's own scale/threshold and noise. Each slice of an int8 block also
+    goes through ``topk_mask`` against its plain version, with the slice
+    row's k-th magnitude (k = 1% of the slice) as the threshold. Calls on
+    the card made here are comparisons, not the path's. ``offsets[c]`` is
+    the element offset of call c's block (its row 0, column 0) in the
+    state's buffer, and its row stride there; a slice counts as past 2^31
+    where its last element lies past element 2^31 of the buffer."""
+    res = {"slices": 0, "past_2_31": 0, "bit_exact": True, "int8": 0, "topk": 0}
+    for c, call in enumerate(rec.calls):
+        base, stride = offsets[c]
+        for a, u, noise, out in call["slices"]:
+            R, L = u.shape
+            if call["name"] == "int8_roundtrip":
+                want = qz.int8_roundtrip_ref(u, call["param"], noise)
+                res["int8"] += 1
+                k = max(1, math.ceil(LM_TRAIN_TOPK_FRAC * L))
+                th = torch.topk(u.abs(), k, dim=1).values[:, -1]
+                res["bit_exact"] &= same_bits(torch, qz.topk_mask(u, th), qz.topk_mask_ref(u, th))
+                res["topk"] += 1
+            else:
+                want = qz.topk_mask_ref(u, call["param"])
+                res["topk"] += 1
+            res["bit_exact"] &= same_bits(torch, out, want)
+            res["slices"] += 1
+            res["past_2_31"] += int(base + (R - 1) * stride + a + L > 2 ** 31)
+    require(res["bit_exact"], "a quantize kernel disagrees with its plain version on the "
+                              "training path's uploads")
+    return res
+
+
+def check_threshold(torch, row: torch.Tensor) -> dict:
+    """The piecewise top-k threshold (``row_params``, pieces of ``_CHUNK``)
+    against ``torch.topk`` over the whole row slice, bit for bit, and both
+    timed with CUDA events."""
+    from repro_torch.core import compression as cmp
+
+    n = row.numel()
+    k = max(1, math.ceil(LM_TRAIN_TOPK_FRAC * n))
+    u = row[None]
+
+    def piecewise():
+        return cmp.row_params("topk", (u[:, sl] for sl in cmp.row_pieces(n)), n,
+                              LM_TRAIN_TOPK_FRAC)
+
+    def whole():
+        return torch.topk(u.abs(), k, dim=1).values[:, -1]
+
+    got, want = piecewise(), whole()
+    require(same_bits(torch, got, want), f"the piecewise threshold {got.item()} is not "
+                                         f"torch.topk's {want.item()} on a row of {n}")
+    return {"elements": n, "k": k, "pieces": len(cmp.row_pieces(n)),
+            "threshold": float(got.item()), "ms": cuda_ms(torch, piecewise, iters=5, warmup=1),
+            "topk_ms": cuda_ms(torch, whole, iters=5, warmup=1)}
+
+
+def finite_and_nonzero(torch, t) -> tuple[bool, bool]:
+    """Whether every element of ``t`` is finite, and whether any is nonzero,
+    read in pieces of 2^26 elements: ``torch.isfinite`` of a whole
+    full-width buffer forms temporaries twice its size."""
+    flat, finite, nonzero = t.view(-1), True, False
+    for s in range(0, flat.numel(), 1 << 26):
+        piece = flat[s:s + (1 << 26)]
+        finite &= bool(torch.isfinite(piece).all())
+        nonzero |= bool((piece != 0).any())
+    return finite, nonzero
+
+
+def replica_fingerprints(torch, fields, replicas) -> list:
+    """Of each listed [G, K, ...] replica of each leaf of ``fields``: the
+    int64 sum of its bit patterns and its first and last ``UPLOAD_SPAN``
+    elements (a frozen replica must keep all three)."""
+    from repro_torch.core.tree import tree_leaves
+
+    G, K = LM_TRAIN_LEVELS
+    out = []
+    for tree in fields:
+        for t in tree_leaves(tree):
+            t3 = t.view(G, K, -1)
+            for g, k in replicas:
+                r = t3[g, k]
+                bits = r.view({2: torch.int16, 4: torch.int32}[r.element_size()])
+                out.append((int(bits.sum(dtype=torch.int64)), r[:UPLOAD_SPAN].clone(),
+                            r[-UPLOAD_SPAN:].clone()))
+    return out
+
+
+def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = "",
+                   spec_kw: dict | None = None) -> dict:
+    """Phases 16-17 and 19-21: HFL LM training at glm4-9b's full width (depth
+    cut to ``LM_TRAIN_LAYERS``) through ``build``/``pack_tokens``/``fit`` on
+    the sharded backend, fused, with the spec fields ``spec_kw`` (compressed
+    uploads, partial participation). ``rounds`` rounds after a warm-up
+    round; the launch counts are set to 0 just before them and read just
+    after."""
     from repro_torch import api
     from repro_torch.configs import get_arch
+    from repro_torch.core import compression as cmp
+    from repro_torch.core.participation import sample_hfl_masks
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data.lm import make_lm_tokens
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mtgc_update as mu
     from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qz
     from repro_torch.models.transformer import build_model
 
     cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH), num_layers=LM_TRAIN_LAYERS)
@@ -1076,7 +1241,9 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool) -> dict:
     spec = api.ExperimentSpec(
         levels=(G, K), backend="sharded", algorithm="mtgc", lr=LM_TRAIN_LR, fusion="fused",
         state_layout=layout, schedule=api.RoundSchedule(
-            group_rounds=LM_TRAIN_E, local_steps=LM_TRAIN_H, microbatches=LM_TRAIN_A))
+            group_rounds=LM_TRAIN_E, local_steps=LM_TRAIN_H, microbatches=LM_TRAIN_A),
+        **(spec_kw or {}))
+    plan = spec.compression if spec.compressed else None
     engine = api.build(spec, bundle.loss)
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
@@ -1093,50 +1260,133 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool) -> dict:
     torch.cuda.synchronize()
     n_update = len(tree_leaves(state.params))
     state_gb = sum(t.numel() * t.element_size()
-                   for f in (state.params, state.z, state.y) for t in tree_leaves(f)) / 1e9
+                   for f in (state.params, state.z, state.y, state.efc, state.efg)
+                   if f is not None for t in tree_leaves(f)) / 1e9
+    leaves = tree_leaves(state.params)
+    # Uploads a round launches a quantize kernel on: each group round's
+    # client link on [K, piece] blocks of each group, and the group link
+    # once on [G, piece] blocks (pieces of cmp._CHUNK columns of each row).
+    blocks = sum(len(cmp.row_pieces(t[0, 0].numel())) for t in leaves)
+    quant = {"int8_roundtrip": 0, "topk_mask": 0}
+    if plan is not None:
+        for mode, n in ((plan.client_mode, LM_TRAIN_E * G * blocks), (plan.group_mode, blocks)):
+            name = {"int8_stochastic": "int8_roundtrip", "topk": "topk_mask"}.get(mode)
+            if name:
+                quant[name] += n
     t0 = time.perf_counter()
-    state, hz0 = api.fit(engine, data, 1, state=state)         # warm-up
-    torch.cuda.synchronize()
+    with UploadRecorder(ops, keep=G * blocks if plan is not None else 0,
+                        rows=plan is not None and plan.group_mode == "topk") as rec:
+        state, hz0 = api.fit(engine, data, 1, state=state)         # warm-up
+        torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
     warm_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    upd = check_update_on_state(torch, mu, state, LM_TRAIN_LR, 1.0 / LM_TRAIN_A)
-    log(f"mtgc_update_flat on the trained {layout} state (bf16, g_scale 1/{LM_TRAIN_A}, in "
-        f"place, with and without a mask): {upd['slices']} column slices within one ulp of "
-        f"the plain version ({upd['past_2_31']} past element 2^31; bit-exact "
-        f"{upd['bit_exact']}; max abs err {upd['max_abs_err']:.3g})")
+    upd = uploads = threshold = None
+    if spec_kw is None:
+        upd = check_update_on_state(torch, mu, state, LM_TRAIN_LR, 1.0 / LM_TRAIN_A)
+        log(f"mtgc_update_flat on the trained {layout} state (bf16, g_scale 1/{LM_TRAIN_A}, "
+            f"in place, with and without a mask): {upd['slices']} column slices within one "
+            f"ulp of the plain version ({upd['past_2_31']} past element 2^31; bit-exact "
+            f"{upd['bit_exact']}; max abs err {upd['max_abs_err']:.3g})")
+    if plan is not None:
+        # Offsets of the recorded blocks in their state buffer: the client
+        # link's run group by group over the [G, K, n] buffer, the group
+        # link's leaf by leaf over [G, n] leaves.
+        offsets = []
+        for t in leaves:
+            n = t[0, 0].numel()
+            for g in (range(G) if plan.client_mode != "none" else [None]):
+                for sl in cmp.row_pieces(n):
+                    offsets.append((sl.start, n) if g is None else (g * K * n + sl.start, n))
+        uploads = check_uploads(torch, qz, rec, offsets)
+        require(uploads["past_2_31"] > 0 or plan.client_mode == "none",
+                f"({tag}) no checked slice of the client uploads lay past element 2^31")
+        log(f"({tag}) quantize kernels on the warm-up round's own uploads: {uploads['slices']} "
+            f"column slices of {len(rec.calls)} blocks bit-exact against the plain versions "
+            f"({uploads['int8']} int8_roundtrip, {uploads['topk']} topk_mask; "
+            f"{uploads['past_2_31']} past element 2^31 of the state)")
+        if rec.row0:
+            threshold = check_threshold(torch, torch.cat(rec.row0))
+            log(f"({tag}) top-k threshold on a report row slice of {threshold['elements']} "
+                f"elements (k = {threshold['k']}, {threshold['pieces']} pieces): equal to "
+                f"torch.topk's ({threshold['threshold']:.6g}); piecewise {threshold['ms']:.3f} "
+                f"ms, one torch.topk {threshold['topk_ms']:.3f} ms")
+        del rec
+    frozen, prints = [], None
+    if not spec.full_participation:
+        # The masks the timed round draws first from the state's generator.
+        mgen = torch.Generator(device=state.rng.device)
+        mgen.set_state(state.rng.get_state())
+        masks = sample_hfl_masks(mgen, G, K, spec.client_participation,
+                                 spec.group_participation, spec.participation_mode)
+        frozen = [tuple(i) for i in (masks.client == 0).nonzero().tolist()]
+        prints = replica_fingerprints(torch, (state.params, state.z), frozen)
+        require(len(frozen) == G * K // 2, f"{len(frozen)} frozen replicas, expected {G * K // 2}")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     state, hz = api.fit(engine, data, rounds, state=state)
     torch.cuda.synchronize()
     round_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    # Peak over init, the warm-up and the timed rounds (not the checks).
+    timed_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     got = {"flash_attention": fa.flash_attention.launches,
            "flash_attention_bwd": fa.flash_attention_bwd.launches,
            "mtgc_update_flat": mu.mtgc_update_flat.launches,
-           "mtgc_update": mu.mtgc_update.launches}
-    want = lm_train_launches(cfg, n_update, rounds)
-    require(got == want, f"LM training ({layout}) launched {got}, expected {want}")
-    # Peak over init, the warm-up and the timed rounds (not the check).
-    timed_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+           "mtgc_update": mu.mtgc_update.launches,
+           "int8_roundtrip": qz.int8_roundtrip.launches, "topk_mask": qz.topk_mask.launches}
+    want = dict(lm_train_launches(cfg, n_update, rounds),
+                **{k: v * rounds for k, v in quant.items()})
+    require(got == want, f"LM training ({tag or layout}) launched {got}, expected {want}")
+    if prints is not None:
+        require(all(a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+                    for a, b in zip(prints, replica_fingerprints(
+                        torch, (state.params, state.z), frozen))),
+                f"({tag}) a frozen replica's params or z changed")
+    sizes = cmp.model_leaf_sizes(state.params)
+    active = [(g, k) for g in range(G) for k in range(K) if (g, k) not in frozen]
+    wire = (LM_TRAIN_E * len(active) * cmp.upload_bytes(
+                sizes, plan.client_mode if plan else "none", LM_TRAIN_TOPK_FRAC)
+            + len({g for g, _ in active}) * cmp.upload_bytes(
+                sizes, plan.group_mode if plan else "none", LM_TRAIN_TOPK_FRAC))
+    comm = float(np.asarray(hz.metrics.comm_bytes)[-1])
+    require(abs(comm - wire) <= wire * 2.0 ** -22,
+            f"({tag}) comm_bytes {comm} is not the wire model {wire}")
+    residuals = {}
+    for name, flag in (("efc", "ef_client"), ("efg", "ef_group")):
+        r = getattr(state, name)
+        require((r is not None) == bool(plan is not None and getattr(plan, flag)),
+                f"({tag}) the state's {name} does not match the plan")
+        if r is not None:
+            rl = tree_leaves(r)
+            fz = [finite_and_nonzero(torch, t) for t in rl]
+            require(all(f for f, _ in fz) and any(z for _, z in fz),
+                    f"({tag}) the {name} residual is not finite or is all zero")
+            residuals[name] = float(sum(torch.linalg.vector_norm(t, dtype=torch.float32) ** 2
+                                        for t in rl))
     peak_gb = max(warm_peak_gb, timed_peak_gb)
     finite_metrics(np, hz0)
     finite_metrics(np, hz)
     losses = np.concatenate([hz0.metrics.loss.reshape(-1), hz.metrics.loss.reshape(-1)])
     require(hz.metrics.loss.shape == (rounds, LM_TRAIN_E, LM_TRAIN_H), "loss shape")
     for t in tree_leaves(state.params):
-        require(bool(torch.isfinite(t).all()), f"LM training ({layout}): params not finite")
+        require(finite_and_nonzero(torch, t)[0], f"LM training ({tag}): params not finite")
     tokens = G * K * LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * LM_TRAIN_BATCH * LM_TRAIN_SEQ
-    out = {"arch": LM_TRAIN_ARCH, "layers": cfg.num_layers, "layout": layout,
+    out = {"phase": tag, "arch": LM_TRAIN_ARCH, "layers": cfg.num_layers, "layout": layout,
+           "spec": {k: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
+                    for k, v in (spec_kw or {}).items()},
            "params": n_params, "state_gb": state_gb, "warmup_round_ms": warm_ms,
            "round_ms": round_ms, "tokens_per_round": tokens,
            "tokens_per_s": tokens / round_ms * 1e3, "peak_gb": peak_gb, "launches": got,
-           "update_check": upd, "held_gb": held_gb, "warmup_peak_gb": warm_peak_gb,
+           "update_check": upd, "upload_check": uploads, "threshold": threshold,
+           "comm_bytes": comm, "residual_sq_norms": residuals, "frozen_replicas": frozen,
+           "held_gb": held_gb, "warmup_peak_gb": warm_peak_gb,
            "timed_peak_gb": timed_peak_gb,
            "losses": [float(x) for x in losses], "data_s": data_s,
            "grad_norm": float(hz.metrics.grad_norm[-1]), "z_norm": float(hz.metrics.z_norm[-1]),
            "y_norm": float(hz.metrics.y_norm[-1])}
-    log(f"LM training {LM_TRAIN_ARCH} ({cfg.num_layers} of 40 layers, full width, "
+    log(f"({tag}) LM training {LM_TRAIN_ARCH} ({cfg.num_layers} of 40 layers, full width, "
         f"{n_params / 1e9:.3f} B params, bf16, remat), {layout} + fused, {G}x{K} clients, "
+        f"{json.dumps(out['spec'])}, "
         f"E={LM_TRAIN_E} H={LM_TRAIN_H} A={LM_TRAIN_A}, {LM_TRAIN_BATCH}x{LM_TRAIN_SEQ} tokens a "
         f"microbatch: warm-up round {warm_ms:.1f} ms, then {round_ms:.1f} ms a round "
         f"({out['tokens_per_s']:.0f} training tokens/s, {tokens} a round); state "
@@ -1144,20 +1394,30 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool) -> dict:
         f"before the phase; warm-up {warm_peak_gb:.2f} GB, timed round {timed_peak_gb:.2f} GB); "
         f"launches {got} (reckoned {want})")
     log(f"  loss per step {np.round(losses, 4).tolist()}; grad_norm {out['grad_norm']:.4g} "
-        f"z_norm {out['z_norm']:.4g} y_norm {out['y_norm']:.4g}")
+        f"z_norm {out['z_norm']:.4g} y_norm {out['y_norm']:.4g}; comm_bytes {comm} (wire "
+        f"model {wire}); residuals {residuals}; frozen replicas {frozen} kept their bits")
     if trace:
         tr = profile_round(torch, lambda: api.fit(engine, data, 1, state=state))
         out["busy_share"] = tr["busy"] / tr["wall_us"] if tr else None
-        log_trace(f"  LM training round ({layout}, traced)", tr, top_n=20)
+        log_trace(f"  ({tag}) LM training round ({layout}, traced)", tr, top_n=20)
         if tr:
-            gemm = sum(n["attributed"] for name, n in tr["by_name"].items()
-                       if name.startswith("nvjet") or "gemm" in name.lower())
-            bwd = sum(n["attributed"] for name, n in tr["by_name"].items()
-                      if "flash_bwd" in name)
-            out["gemm_share"], out["flash_bwd_share"] = gemm / tr["busy"], bwd / tr["busy"]
-            log(f"  cuBLAS products (nvjet/gemm kernels): {gemm / 1e3:.1f} ms, "
+            def busy_ms(match) -> float:
+                return sum(n["attributed"] for name, n in tr["by_name"].items()
+                           if match(name)) / 1e3
+
+            gemm = busy_ms(lambda name: name.startswith("nvjet") or "gemm" in name.lower())
+            bwd = busy_ms(lambda name: "flash_bwd" in name)
+            quant = busy_ms(lambda name: "int8_kernel" in name or "topk_kernel" in name)
+            topk = busy_ms(lambda name: "topk_kernel" not in name and any(
+                w in name for w in ("TopK", "topk", "radix", "Sort", "sort", "KthValue")))
+            busy = tr["busy"] / 1e3
+            out["gemm_share"], out["flash_bwd_share"] = gemm / busy, bwd / busy
+            out["quantize_share"], out["threshold_share"] = quant / busy, topk / busy
+            log(f"  cuBLAS products (nvjet/gemm kernels): {gemm:.1f} ms, "
                 f"{out['gemm_share']:.3f} of busy; the attention backward's three kernels: "
-                f"{bwd / 1e3:.1f} ms, {out['flash_bwd_share']:.3f} of busy")
+                f"{bwd:.1f} ms, {out['flash_bwd_share']:.3f} of busy; the quantize kernels: "
+                f"{quant:.1f} ms, {out['quantize_share']:.3f}; torch.topk's (threshold): "
+                f"{topk:.1f} ms, {out['threshold_share']:.3f}")
     del state, engine, data
     torch.cuda.empty_cache()
     return out
@@ -1603,13 +1863,25 @@ def main() -> int:
     bwd_errs, bwd_t = phase_lm_backward(torch, fa)
 
     # --- 16. LM training, tree + fused ------------------------------------
-    lm_tree = phase_lm_train(torch, np, "tree", rounds=1, trace=True)
+    lm_tree = phase_lm_train(torch, np, "tree", rounds=1, trace=True, tag="h")
     # --- 17. LM training, flat + fused ------------------------------------
-    lm_flat = phase_lm_train(torch, np, "flat", rounds=1, trace=False)
-    # --- 18. LM training: card against CPU, reduced -----------------------
+    lm_flat = phase_lm_train(torch, np, "flat", rounds=1, trace=False, tag="i")
+    # --- 18-20. LM training: compressed uploads, partial participation ---
+    part = dict(client_participation=LM_TRAIN_PARTIAL, participation_mode="fixed")
+    lm_j = phase_lm_train(torch, np, "flat", rounds=1, trace=True, tag="j", spec_kw=dict(
+        compression=api.CompressionPlan("int8_stochastic", "none")))
+    lm_k = phase_lm_train(torch, np, "flat", rounds=1, trace=True, tag="k", spec_kw=dict(
+        part, participation_weighting="inverse_prob"))
+    lm_l = phase_lm_train(torch, np, "tree", rounds=1, trace=True, tag="l", spec_kw=dict(
+        part, participation_weighting="none",
+        compression=api.CompressionPlan("none", "topk", topk_frac=LM_TRAIN_TOPK_FRAC)))
+    require(abs(lm_k["peak_gb"] - lm_flat["peak_gb"]) <= 0.5,
+            f"(k)'s peak {lm_k['peak_gb']:.2f} GB is not within 0.5 GB of (i)'s "
+            f"{lm_flat['peak_gb']:.2f} GB")
+    # --- 21. LM training: card against CPU, reduced -----------------------
     phase_lm_train_card_vs_cpu(torch, np, convert)
 
-    # --- 19. results -----------------------------------------------------
+    # --- 22. results -----------------------------------------------------
     kernels = [
         {"name": "mtgc_update_flat", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mtgc_update.cu",
@@ -1673,10 +1945,16 @@ def main() -> int:
     by_name["flash_attention"]["statistics_on_ms"] = lm_t["flash_attention"]["stats_ms"]
     by_name["mtgc_update_flat"]["training_launches"] = {
         "tree": lm_tree["launches"]["mtgc_update_flat"],
-        "flat": lm_flat["launches"]["mtgc_update_flat"]}
+        "flat": lm_flat["launches"]["mtgc_update_flat"],
+        **{r["phase"]: r["launches"]["mtgc_update_flat"] for r in (lm_j, lm_k, lm_l)}}
+    by_name["int8_roundtrip"]["training_launches"] = {"j": lm_j["launches"]["int8_roundtrip"]}
+    by_name["topk_mask"]["training_launches"] = {"l": lm_l["launches"]["topk_mask"]}
+    by_name["topk_mask"]["training_threshold"] = lm_l["threshold"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": [qwen, rwkv]}))
     print(json.dumps({"training": [lm_tree, lm_flat]}))
+    for run in (lm_j, lm_k, lm_l):
+        print(json.dumps({f"training_{run['phase']}": run}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -47,7 +47,6 @@ from repro_torch.core.driver import (
 from repro_torch.core.engine import (
     ASYNC_SLICE,
     FAULTS_SLICE,
-    SHARDED_COMPRESSION_SLICE,
     RoundMetrics,
     _build_global_round,
     global_model,
@@ -154,8 +153,8 @@ class ExperimentSpec:
     The port runs the simulator backend under the sync schedule, in
     either state layout, fused (mtgc) or not, at full or partial
     participation, with or without a ``CompressionPlan``; and the sharded
-    backend (mtgc, hfedavg) likewise without compression, with
-    ``schedule.microbatches`` and ``correction_dtype``. ``fused_mode`` takes
+    backend (mtgc, hfedavg) likewise, with ``schedule.microbatches`` and
+    ``correction_dtype``. ``fused_mode`` takes
     None or "auto" (the reference's "pallas"/"interpret" have no
     counterpart: the kernel runs on a CUDA tensor, its plain version on a
     CPU tensor). ``faults`` and ``defense`` take the reference's plan
@@ -251,9 +250,6 @@ class ExperimentSpec:
                          f"{name} only affects the simulator engine's fedprox/feddyn "
                          "algorithms")
             _require(self.server_lr == 1.0, "server_lr is a simulator-engine knob")
-            if self.compressed:
-                raise _needs("compressed uploads on the sharded backend",
-                             SHARDED_COMPRESSION_SLICE)
         _require(self.state_layout in LAYOUTS,
                  f"unknown state_layout {self.state_layout!r} (choose from {LAYOUTS})")
         _require(self.fusion in FUSIONS,
@@ -434,16 +430,22 @@ class ShardedEngine:
 
     def init(self, params: Tree, rng: torch.Generator | None = None):
         """Broadcast one model into the ``[G, K]`` state on the engine's
-        device. A partial-participation run draws its masks from the state's
-        ``rng``; without one it gets a generator on the engine's device
-        seeded with 0 (the reference's ``PRNGKey(0)``)."""
+        device, with the error-feedback residuals the compression plan
+        carries. A partial-participation or stochastic-rounding run draws
+        from the state's ``rng``; without one it gets a generator on the
+        engine's device seeded with 0 (the reference's ``PRNGKey(0)``)."""
         from repro_torch.launch.train import sharded_init
 
-        G, K = self.spec.levels
-        if rng is None and not self.spec.full_participation:
+        spec = self.spec
+        G, K = spec.levels
+        comp = spec.compression if spec.compressed else None
+        if rng is None and (not spec.full_participation
+                            or (comp is not None and comp.stochastic)):
             rng = torch.Generator(device=self.device).manual_seed(0)
-        return sharded_init(params, G, K, use_flat_state=self.spec.state_layout == "flat",
-                            correction_dtype=self.spec.correction_dtype, rng=rng,
+        return sharded_init(params, G, K, use_flat_state=spec.state_layout == "flat",
+                            correction_dtype=spec.correction_dtype, rng=rng,
+                            ef_client=comp is not None and comp.ef_client,
+                            ef_group=comp is not None and comp.ef_group,
                             device=self.device)
 
     def global_model(self, state) -> Tree:

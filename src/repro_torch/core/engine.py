@@ -64,7 +64,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from repro_torch.core import tree as tu
-from repro_torch.core.compression import draw_noise, round_comm_bytes, roundtrip
+from repro_torch.core.compression import round_comm_bytes, roundtrip
 from repro_torch.core.config import HFLConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.packer import FlatBuffers, as_tree, is_flat, make_packer
@@ -75,7 +75,6 @@ Tree = Any
 
 FAULTS_SLICE = "the faults-and-defense slice of the port"
 ASYNC_SLICE = "the async-rounds slice of the port"
-SHARDED_COMPRESSION_SLICE = "the sharded-compression slice of the port"
 
 
 class HFLState(NamedTuple):
@@ -290,15 +289,11 @@ def _build_global_round(
         else:
             cmask = gmask = n_active = None
 
-        def client_noise(e: int, u: Tree) -> list:
-            if draws.client_noise is not None:
-                return [torch.as_tensor(t).to(dev) for t in draws.client_noise[e]]
-            return draw_noise(u, 2, generator("stochastic-rounding noise"))
-
-        def group_noise(u: Tree) -> list:
-            if draws.group_noise is not None:
-                return [torch.as_tensor(t).to(dev) for t in draws.group_noise]
-            return draw_noise(u, 1, generator("stochastic-rounding noise"))
+        def noise_kw(injected) -> dict:
+            """roundtrip's noise: the injected tensors, else state.rng."""
+            if injected is not None:
+                return {"noise": [torch.as_tensor(t).to(dev) for t in injected]}
+            return {"generator": generator("stochastic-rounding noise")}
 
         def step_loss_mean(loss):
             if partial:
@@ -407,8 +402,9 @@ def _build_global_round(
                 delta = tu.tree_sub(x_end, x)
                 u = tu.tree_add(delta, efc) if ef_c else delta
                 deq = roundtrip(u, mode=comp.client_mode, lead_ndim=2, frac=comp.topk_frac,
-                                noise=client_noise(e, u) if c_noise else None,
-                                fused=use_fused)
+                                fused=use_fused,
+                                **(noise_kw(None if draws.client_noise is None
+                                            else draws.client_noise[e]) if c_noise else {}))
                 x_cmp = tu.tree_add(x, deq)
                 x_up = tu.tree_select(cmask, x_cmp, x_end) if partial else x_cmp
                 if ef_c:
@@ -508,7 +504,8 @@ def _build_global_round(
             if ef_g:
                 ug = tu.tree_add(ug, efg)
             deqg = roundtrip(ug, mode=comp.group_mode, lead_ndim=1, frac=comp.topk_frac,
-                             noise=group_noise(ug) if g_noise else None, fused=use_fused)
+                             fused=use_fused,
+                             **(noise_kw(draws.group_noise) if g_noise else {}))
             xbar_c = tu.tree_add(gref, deqg)
             if gact is not None:
                 xbar_c = tu.tree_select(gact, xbar_c, xbar_j)

@@ -18,7 +18,15 @@ round --
 * partial participation as on the simulator engine: masks drawn from
   ``state.rng`` (a ``torch.Generator``) or handed in as
   ``draws=RoundDraws(masks=...)``, frozen replicas, masked aggregation
-  under either weighting, gated z/y updates.
+  under either weighting, gated z/y updates;
+* compressed uploads (``compression=CompressionPlan(...)``) at the
+  reference's seams: each client's delta against its phase-start model
+  (plus its residual ``efc``) goes through the client link's round trip
+  every group round, each group's report against its round-start model
+  (plus ``efg``) through the group link's, z and y update from the
+  pre-wire models, and a residual advances only for an upload that entered
+  its mean; the stochastic-rounding noise comes from ``state.rng`` (after
+  the masks) or ``draws=RoundDraws(client_noise=, group_noise=)``.
 
 The reference vmaps ``value_and_grad`` over ``[G, K]``; here the per-client
 gradients are a Python loop over the replicas, each ``torch.autograd.grad``
@@ -27,16 +35,21 @@ accumulator in the reference's order (``(0 + g_1) + g_2 ...``). That loop
 composes with ``torch.utils.checkpoint`` in the model and holds one
 replica's activations at a time. This is the single-card form of the
 backend; the reference's mesh (``sharding/``, ``launch/mesh.py``) is a later
-slice, as are compressed uploads, faults and defense, async schedules and
-virtual populations on this backend (each raises ``ValueError`` naming its
-slice).
+slice, as are faults and defense, async schedules and virtual populations
+on this backend (each raises ``ValueError`` naming its slice).
 
 Memory: the round updates the state's tensors IN PLACE and returns them in
 the new state, as the reference's driver donates the state to each round:
-the caller must not reuse the state it passed in. The aggregations, the z/y
-updates and the norms run leaf by leaf, and replica by replica in chunks of
-at most ``_CHUNK`` elements, so no float32 copy of a whole ``[G, K, ...]``
-leaf (9.9 GB for glm4-9b's embedding at 2 x 2) is formed.
+the caller must not reuse the state it passed in. The uploads, the
+aggregations, the z/y updates and the residuals run leaf by leaf and piece
+by piece, over column pieces of at most ``_CHUNK`` elements of each row
+(``[K, piece]`` of one group, ``[G, K, piece]`` at the global step): no
+temporary as large as a leaf is formed, masked or not (a flat glm4-9b
+``[2, 2, N]`` buffer is 13.2 GB). A frozen replica is never written. What
+the round holds beyond the state: the phase-start model under client-link
+compression (``[G, ...]`` when each group's replicas hold one model, else a
+``[G, K, ...]`` copy) and the group link's round-start reference
+(``[G, ...]``).
 
 CLI (a reduced model on the CPU)::
 
@@ -50,38 +63,42 @@ import itertools
 import math
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import compression as cmp
 from repro_torch.core import tree as tu
-from repro_torch.core.compression import round_comm_bytes
+from repro_torch.core.compression import _CHUNK, round_comm_bytes
 from repro_torch.core.device import resolve_device
-from repro_torch.core.engine import (ASYNC_SLICE, FAULTS_SLICE, SHARDED_COMPRESSION_SLICE,
-                                     RoundDraws)
+from repro_torch.core.engine import ASYNC_SLICE, FAULTS_SLICE, RoundDraws
 from repro_torch.core.packer import is_flat, make_packer
 from repro_torch.core.participation import ParticipationMasks, inclusion_prob, sample_hfl_masks
 from repro_torch.kernels import ops as kops
 
 Tree = Any
 
-# Elements per piece of the float32 work on a leaf (256 MB of float32).
-_CHUNK = 1 << 26
-
 
 class ShardedHFLState(NamedTuple):
     """State carried between production rounds: the reference's sync
-    fields (its async, fault and error-feedback fields come with those
-    slices).
+    fields and its error-feedback residuals (its async and fault fields
+    come with those slices).
 
     params: [G, K, ...] per-client replicas (tree, or flat [G, K, N]).
     z:      [G, K, ...] client->group corrections (``correction_dtype``).
     y:      [G, ...]    group->global corrections.
-    rng:    ``torch.Generator`` for the participation masks (None = full).
+    rng:    ``torch.Generator`` for the participation masks and the
+            stochastic-rounding noise (None: the round draws nothing).
+    efc:    [G, K, ...] client-link error-feedback residuals, in the params'
+            dtype (``sharded_init(..., ef_client=True)``); else None.
+    efg:    [G, ...]    group-link residuals, likewise (``ef_group=True``).
     """
 
     params: Tree
     z: Tree
     y: Tree
     rng: Any = None
+    efc: Tree | None = None
+    efg: Tree | None = None
 
 
 class ShardedMetrics(NamedTuple):
@@ -102,13 +119,17 @@ def _torch_dtype(dtype) -> torch.dtype | None:
 
 def sharded_init(params0: Tree, G: int, K: int, *, use_flat_state: bool = False,
                  correction_dtype=None, rng: torch.Generator | None = None,
+                 ef_client: bool = False, ef_group: bool = False,
                  device=None) -> ShardedHFLState:
     """Stacked per-client state on ``device`` (the CUDA card unless
     ``device="cpu"``). ``correction_dtype`` (a torch dtype or its name, e.g.
     ``"bfloat16"``) stores z and y narrower than the params; the flat layout
     packs params and corrections into one buffer per dtype, so it rejects
-    it. ``rng`` draws the per-round participation masks (rounds at full
-    participation ignore it)."""
+    it. ``rng`` draws the per-round participation masks and the
+    stochastic-rounding noise (rounds that draw neither ignore it).
+    ``ef_client`` / ``ef_group`` carry the per-link error-feedback residuals
+    compressed uploads accumulate, zero and always in the params' dtype (they
+    store upload-delta error, not corrections)."""
     dev = resolve_device(device)
     cdt = _torch_dtype(correction_dtype)
     params0 = tu.tree_map(lambda t: torch.as_tensor(t).to(dev), params0)
@@ -123,14 +144,19 @@ def sharded_init(params0: Tree, G: int, K: int, *, use_flat_state: bool = False,
         packer = make_packer(params0)
         flat0 = packer.flatten(params0)
         return ShardedHFLState(params=tu.tree_map(lambda b: stack(b, (G, K)), flat0),
-                               z=packer.zeros((G, K), dev), y=packer.zeros((G,), dev), rng=rng)
+                               z=packer.zeros((G, K), dev), y=packer.zeros((G,), dev), rng=rng,
+                               efc=packer.zeros((G, K), dev) if ef_client else None,
+                               efg=packer.zeros((G,), dev) if ef_group else None)
+
+    def zeros(lead, dtype=None):
+        return tu.tree_map(lambda t: torch.zeros(lead + tuple(t.shape), dtype=dtype or t.dtype,
+                                                 device=dev), params0)
+
     return ShardedHFLState(
         params=tu.tree_map(lambda t: stack(t, (G, K)), params0),
-        z=tu.tree_map(lambda t: torch.zeros((G, K) + tuple(t.shape), dtype=cdt or t.dtype,
-                                            device=dev), params0),
-        y=tu.tree_map(lambda t: torch.zeros((G,) + tuple(t.shape), dtype=cdt or t.dtype,
-                                            device=dev), params0),
-        rng=rng)
+        z=zeros((G, K), cdt), y=zeros((G,), cdt), rng=rng,
+        efc=zeros((G, K)) if ef_client else None,
+        efg=zeros((G,)) if ef_group else None)
 
 
 def make_sharded_round(loss_fn: Callable, *, E: int, H: int, lr: float,
@@ -162,14 +188,10 @@ def make_sharded_round(loss_fn: Callable, *, E: int, H: int, lr: float,
     return build(spec, loss_fn, device=device).round_fn
 
 
-def _pieces(t: torch.Tensor, lead: int):
-    """``t``'s ``lead``-axis slices, each cut into pieces of at most
-    ``_CHUNK`` elements: yields (index tuple, slice of the slice's flat
-    view)."""
-    n = math.prod(t.shape[lead:])
-    for idx in itertools.product(*(range(s) for s in t.shape[:lead])):
-        for s in range(0, n, _CHUNK):
-            yield idx, slice(s, min(s + _CHUNK, n))
+def _cols(n: int) -> list[slice]:
+    """The contiguous pieces of a row of ``n`` elements, at most ``_CHUNK``
+    each, in order."""
+    return [slice(s, min(s + _CHUNK, n)) for s in range(0, n, _CHUNK)]
 
 
 def _mean(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -206,24 +228,28 @@ def _sq_norm(tree: Tree) -> torch.Tensor:
     return total
 
 
-def _correction_update(c: torch.Tensor, src: torch.Tensor, ref: torch.Tensor, denom: float,
-                       active, lead: int) -> None:
-    """c[j] <- (c[j] + (src[j] - ref[j]) / denom) in float32, stored in c's
-    dtype, IN PLACE, for every replica j of c's ``lead`` leading axes with
-    ``active[j]`` (None: all). ``ref`` is the aggregate the replicas are
-    held against: ``[G, ...]`` read as ``ref[g]`` for z (lead 2), ``[...]``
-    for y (lead 1)."""
-    for idx, sl in _pieces(c, lead):
-        if active is not None and not active[idx]:
-            continue
-        cv = c[idx].reshape(-1)[sl]
-        r = (ref[idx[0]] if lead == 2 else ref).reshape(-1)[sl]
-        # In place on one float32 temporary: a narrower operand is widened
-        # exactly inside each op, so every rounding is the expression's
-        # (c + (src - ref) / denom), and the last copy rounds into c's dtype.
-        d = src[idx].reshape(-1)[sl].to(torch.float32, copy=True)
-        d.sub_(r).div_(denom).add_(cv)
-        cv.copy_(d)
+def _put(dst: torch.Tensor, src: torch.Tensor, rows) -> None:
+    """dst[r] <- src[r] for the rows r with ``rows[r]`` (a host bool array;
+    None: all), in dst's dtype; the other rows keep their exact bits (the
+    bits ``dst.copy_(where(rows, src, dst))`` leaves, without the copy)."""
+    if rows is None:
+        dst.copy_(src)
+        return
+    for r in np.flatnonzero(rows).tolist():
+        dst[r].copy_(src[r])
+
+
+def _correction_step(c: torch.Tensor, src: torch.Tensor, ref: torch.Tensor,
+                     denom: float) -> None:
+    """c <- c + (src - ref) / denom in float32, stored in c's dtype, IN PLACE,
+    on one piece of one replica (z: ``ref`` is its group's aggregate; y: the
+    global one)."""
+    # In place on one float32 temporary: a narrower operand is widened
+    # exactly inside each op, so every rounding is the expression's
+    # (c + (src - ref) / denom), and the last copy rounds into c's dtype.
+    d = src.to(torch.float32, copy=True)
+    d.sub_(ref).div_(denom).add_(c)
+    c.copy_(d)
 
 
 def _build_sharded_round(
@@ -243,11 +269,18 @@ def _build_sharded_round(
     """The production-round builder behind ``repro_torch.api``'s sharded
     engine (the reference's signature). Returns ``round_fn(state, batches,
     draws=None)``; batches have leaves ``[E, H, A, G, K, ...]``, and
-    ``draws=RoundDraws(masks=...)`` fixes a partial-participation round's
-    masks. ``fused_mode`` takes None or "auto" (the kernel on a CUDA tensor,
-    its plain version on a CPU tensor); the reference's "pallas" and
-    "interpret" have no counterpart here. ``plan``, ``faults``, ``defense``
-    and an enabled ``compression`` raise, naming their slice."""
+    ``draws=RoundDraws(masks=, client_noise=, group_noise=)`` fixes a
+    round's participation masks and stochastic-rounding noise (a field left
+    None is drawn from ``state.rng``: the masks, then each group round's
+    client noise, then the group noise). ``fused_mode`` takes None or
+    "auto" (the kernel on a CUDA tensor, its plain version on a CPU
+    tensor); the reference's "pallas" and "interpret" have no counterpart
+    here. ``compression`` (a ``CompressionPlan``) compresses the upload
+    deltas of both links as the reference does, its round trips through
+    the quantize kernels when ``use_fused_update`` holds and their plain
+    versions otherwise, with the residuals ``sharded_init(...,
+    ef_client=, ef_group=)`` carries. ``plan``, ``faults`` and ``defense``
+    raise, naming their slice."""
     use_corr = algorithm == "mtgc"
     if algorithm not in ("mtgc", "hfedavg"):
         raise ValueError(f"unknown sharded algorithm {algorithm!r} (choose 'mtgc' or 'hfedavg')")
@@ -269,9 +302,15 @@ def _build_sharded_round(
                                (defense, "screened aggregation", FAULTS_SLICE)):
         if value is not None and getattr(value, "enabled", True):
             raise ValueError(f"{what} on the sharded backend needs {where}")
-    if compression is not None and compression.enabled:
-        raise ValueError(f"compressed uploads on the sharded backend need "
-                         f"{SHARDED_COMPRESSION_SLICE}")
+    comp = compression if (compression is not None and compression.enabled) else None
+    if comp is not None:
+        comp.validate()
+    cmode = comp.client_mode if comp is not None else "none"
+    gmode = comp.group_mode if comp is not None else "none"
+    comp_c, comp_g = cmode != "none", gmode != "none"
+    ef_c = comp is not None and comp.ef_client
+    ef_g = comp is not None and comp.ef_group
+    frac = comp.topk_frac if comp is not None else 0.01
     partial = client_participation < 1.0 or group_participation < 1.0
     ht = partial and participation_weighting == "inverse_prob"
 
@@ -295,6 +334,11 @@ def _build_sharded_round(
                         if gr is not None:
                             acc[g, k].add_(gr)
                     lsum[g, k] += loss.detach().to(torch.float32)
+        # A reference cycle made inside loss_fn (the lazy imports of its first
+        # call in a process capture the calling frames) can keep this frame
+        # and round_fn's alive after the round, until the next collection:
+        # they hold no gradient memory when they return.
+        del acc_leaves, acc_tree, acc, gr, grads
         return lsum, 1.0 / A
 
     @torch.no_grad()
@@ -305,9 +349,10 @@ def _build_sharded_round(
         packer = x.packer if flat else None
         G, K = tu.tree_leaves(x)[0].shape[:2]
         dev = tu.tree_leaves(x)[0].device
+        draws = draws if draws is not None else RoundDraws()
 
         if partial:
-            if draws is not None and draws.masks is not None:
+            if draws.masks is not None:
                 masks = ParticipationMasks(
                     *(torch.as_tensor(m).to(dev, torch.float32) for m in draws.masks))
             else:
@@ -322,21 +367,71 @@ def _build_sharded_round(
             gdenom = inclusion_prob(group_participation, G, participation_mode) * G if ht else None
             n_active = torch.clamp(torch.sum(cmask), min=1.0)
             active = cmask.cpu().numpy() != 0          # host copy: which replicas to touch
+            gact = (torch.sum(cmask, dim=1) > 0).to(torch.float32)
+            gact_host = active.any(axis=1)             # groups with an active client
         else:
-            cmask = cdenom = gdenom = n_active = active = None
+            cmask = gmask = cdenom = gdenom = n_active = active = gact = gact_host = None
+
+        def rand(shape) -> torch.Tensor:
+            """U[0, 1) stochastic-rounding noise from ``state.rng``."""
+            if state.rng is None:
+                raise ValueError("stochastic compression draws rounding noise from the "
+                                 "state: build it with sharded_init(..., rng=torch.Generator("
+                                 "...)) or pass it in draws=")
+            return torch.rand(shape, generator=state.rng, dtype=torch.float32, device=dev)
+
+        def injected(t, rows: int, sl: slice) -> torch.Tensor:
+            """Columns ``sl`` of an injected noise tensor of ``rows`` rows."""
+            return torch.as_tensor(t).to(dev).reshape(rows, -1)[:, sl]
+
+        def select_(dst: torch.Tensor, new: torch.Tensor) -> None:
+            """dst <- new on the active replicas of a [G, K, ...] leaf (all at
+            full participation)."""
+            _put(dst.view(G * K, -1), new.reshape(G * K, -1),
+                None if active is None else active.reshape(-1))
+
+        efc = efg = None
+        for on, field, flag in ((ef_c, "efc", "ef_client"), (ef_g, "efg", "ef_group")):
+            if on and getattr(state, field) is None:
+                raise ValueError(
+                    f"error feedback carries the {field} residuals in the state: build it "
+                    f"with sharded_init(..., {flag}=True) (repro_torch.api.build does this "
+                    f"for you)")
+        if ef_c:
+            efc = [t.view(G, K, -1) for t in tu.tree_leaves(state.efc)]
+        if ef_g:
+            efg = [t.view(G, -1) for t in tu.tree_leaves(state.efg)]
+
+        # The group link's reference, which both of its ends hold: each
+        # group's round-start model (full participation), or the mean of its
+        # participating replicas' round-start models, kept as their sum in
+        # the params' dtype and divided by their count where it is read.
+        gref = gref_dn = None
+        if comp_g:
+            gref = []
+            for xi in tu.tree_leaves(x):
+                x3 = xi.view(G, K, -1)
+                if cmask is None:
+                    gref.append(x3[:, 0].clone(memory_format=torch.contiguous_format))
+                    continue
+                gs = torch.empty_like(x3[:, 0], memory_format=torch.contiguous_format)
+                for sl in _cols(x3.shape[-1]):
+                    xp = x3[:, :, sl]
+                    gs[:, sl] = torch.sum(torch.where(tu.expand_mask(cmask, xp) != 0, xp, 0),
+                                          dim=1)
+                gref.append(gs)
+            if cmask is not None:
+                gref_dn = torch.clamp(torch.sum(cmask, dim=1), min=1)
+
+        def gref_piece(i: int, sl: slice) -> torch.Tensor:
+            gs = gref[i][:, sl]
+            return gs if gref_dn is None else gs / tu.expand_mask(gref_dn, gs)
 
         def step_loss_mean(lsum, inv_a):
             lpc = lsum * inv_a
             if cmask is not None:
                 return torch.sum(torch.where(cmask != 0, lpc, 0)) / n_active
             return torch.mean(lpc)
-
-        def select_(dst: torch.Tensor, new: torch.Tensor) -> None:
-            """dst <- new on the active replicas (all at full participation)."""
-            if cmask is None:
-                dst.copy_(new)
-            else:
-                dst.copy_(torch.where(tu.expand_mask(cmask, new) != 0, new, dst))
 
         if use_corr:
             # Alg. 1 line 3 (footnote 2's zero init): z restarts every global
@@ -347,13 +442,168 @@ def _build_sharded_round(
                 else:
                     zl.masked_fill_(tu.expand_mask(cmask, zl) != 0, 0)
 
+        def aggregate_group(e: int, i: int, xi: torch.Tensor, zi: torch.Tensor, xs) -> None:
+            """One leaf's client uploads (through the client link), group mean
+            (line 8), z update (line 9) and dissemination, group by group and
+            piece by piece: the temporaries are [K, piece]."""
+            x3, z3 = xi.view(G, K, -1), zi.view(G, K, -1)
+            n = x3.shape[-1]
+            cols = _cols(n)
+            for g in range(G):
+                act = None if active is None else active[g]
+
+                def upload(sl):
+                    """The K uploads u = (x_end - x_start) + efc of one piece,
+                    and the phase-start model x_start."""
+                    start = xs[i][g, sl] if xs[i].dim() == 2 else xs[i][g, :, sl]
+                    u = x3[g, :, sl] - start
+                    if ef_c:
+                        u = u + efc[i][g, :, sl]
+                    return u, start
+
+                if comp_c:
+                    param = cmp.row_params(cmode, (upload(sl)[0] for sl in cols), n, frac)
+                for sl in cols:
+                    x_end = x3[g, :, sl]
+                    wire = x_end
+                    if comp_c:
+                        # The wire carries the dequantized delta; the residual
+                        # advances only for an upload that entered the mean.
+                        u, start = upload(sl)
+                        noise = None
+                        if cmode == "int8_stochastic":
+                            noise = (rand((K, sl.stop - sl.start)) if draws.client_noise is None
+                                     else injected(draws.client_noise[e][i], G * K,
+                                                   sl)[g * K:(g + 1) * K])
+                        deq = cmp.roundtrip_block(u, cmode, param, noise, use_fused_update)
+                        wire = start + deq
+                        if ef_c:
+                            _put(efc[i][g, :, sl], u - deq, act)
+                        del u, deq, noise
+                    if cmask is None:
+                        xbar = _mean(wire, 0)
+                    else:
+                        xbar = tu.tree_masked_mean(wire[None], cmask[g:g + 1], axis=1,
+                                                   denom=cdenom)[0]
+                    del wire
+                    if use_corr:
+                        # z_i += (x_{i,H} - xbar_j) / (H * lr), from the
+                        # client's own (pre-wire) model.
+                        for k in range(K):
+                            if act is None or act[k]:
+                                _correction_step(z3[g, k, sl], x_end[k], xbar, H * lr)
+                    _put(x_end, xbar.expand(x_end.shape), act)
+                    if comp_c and e < E - 1:
+                        # The next phase starts from what was disseminated.
+                        if xs[i].dim() == 2:
+                            xs[i][g, sl].copy_(xbar)
+                        else:
+                            xs[i][g, :, sl].copy_(x_end)
+
+        def aggregate_global(i: int, xi: torch.Tensor, yi: torch.Tensor) -> None:
+            """One leaf's group reports (through the group link), global mean
+            (line 10), y update (line 11) and dissemination, piece by piece:
+            the temporaries are [G, K, piece] at most."""
+            x3, y2 = xi.view(G, K, -1), yi.view(G, -1)
+            n = x3.shape[-1]
+            cols = _cols(n)
+
+            def own(sl):
+                """The groups' own (pre-wire) aggregates [G, piece]: the
+                recovery mean under a mask (every active replica of a group
+                holds its xbar_j), else replica 0 (clients equal)."""
+                if cmask is None:
+                    return x3[:, 0, sl]
+                return tu.tree_masked_mean(x3[:, :, sl], cmask, axis=1)
+
+            def report(sl, xbar_j):
+                """The G report deltas ug = (xbar_j - gref) + efg of one piece,
+                and the reference gref."""
+                ref = gref_piece(i, sl)
+                ug = xbar_j - ref
+                if ef_g:
+                    ug = ug + efg[i][:, sl]
+                return ug, ref
+
+            if comp_g:
+                param = cmp.row_params(gmode, (report(sl, own(sl))[0] for sl in cols), n, frac)
+            for sl in cols:
+                xbar_j = own(sl)
+                wire = xbar_j
+                if comp_g:
+                    ug, ref = report(sl, xbar_j)
+                    noise = None
+                    if gmode == "int8_stochastic":
+                        noise = (rand((G, sl.stop - sl.start)) if draws.group_noise is None
+                                 else injected(draws.group_noise[i], G, sl))
+                    deq = cmp.roundtrip_block(ug, gmode, param, noise, use_fused_update)
+                    wire = ref + deq
+                    if gact is not None:
+                        wire = torch.where(tu.expand_mask(gact, wire) != 0, wire, xbar_j)
+                    if ef_g:
+                        _put(efg[i][:, sl], ug - deq, gact_host)
+                    del ug, ref, deq, noise
+                if cmask is None:
+                    xbar = _mean(wire, 0)
+                elif gdenom is None:
+                    xbar = tu.tree_masked_mean(wire, gact, axis=0)
+                else:
+                    xbar = tu.tree_masked_mean(
+                        torch.where(tu.expand_mask(gact, wire) != 0, wire, 0), gmask, axis=0,
+                        denom=gdenom)
+                del wire
+                if use_corr:
+                    # y_j += (xbar_j - xbar) / (H * E * lr), from the group's
+                    # own (pre-wire) aggregate; only groups with an active
+                    # client.
+                    for g in range(G):
+                        if gact_host is None or gact_host[g]:
+                            _correction_step(y2[g, sl], xbar_j[g], xbar, H * E * lr)
+                del xbar_j
+                _put(x3[:, :, sl].view(G * K, -1), xbar.expand(G * K, xbar.shape[-1]),
+                    None if active is None else active.reshape(-1))
+
+        def local_update(acc, acc_tree, corr_t, inv_a) -> None:
+            """The local step (Alg. 1 line 7) from the summed gradient."""
+            if use_fused_update:
+                # g / A + z + y and the step in one kernel launch per leaf
+                # (tree) or per dtype buffer (flat); y stays [G, ...] and
+                # the mask gates frozen replicas inside the kernel.
+                for xi, gi, zi, yi in zip(tu.tree_leaves(x), tu.tree_leaves(acc),
+                                          tu.tree_leaves(z), tu.tree_leaves(y)):
+                    xg = xi.view(G, K, -1)
+                    kops.mtgc_update_flat(xg, gi.view(G, K, -1), zi.view(G, K, -1),
+                                          yi.view(G, -1), cmask, lr=lr, g_scale=inv_a, out=xg)
+            elif use_corr and flat:
+                for xi, gi, ci in zip(tu.tree_leaves(x_tree), tu.tree_leaves(acc_tree),
+                                      tu.tree_leaves(corr_t)):
+                    select_(xi, xi - lr * (gi * inv_a + ci))
+            elif use_corr:
+                for xi, gi, zi, yi in zip(tu.tree_leaves(x), tu.tree_leaves(acc),
+                                          tu.tree_leaves(z), tu.tree_leaves(y)):
+                    select_(xi, xi - lr * (gi * inv_a + zi.to(gi.dtype)
+                                           + yi[:, None].to(gi.dtype)))
+            else:
+                for xi, gi in zip(tu.tree_leaves(x_tree), tu.tree_leaves(acc_tree)):
+                    select_(xi, xi - lr * gi * inv_a)
+
         # The [G, K] gradient accumulator (the reference's scan carry).
         acc = tu.tree_zeros_like(x)
         x_tree = packer.unflatten(x) if flat else x
         acc_tree = packer.unflatten(acc) if flat else acc
 
-        losses, last_g = [], None
+        losses, last_g, xs = [], None, None
         for e in range(E):
+            if comp_c and e == 0:
+                # The phase-start model the upload deltas are taken against:
+                # [G, ...] when every replica of each group holds one model
+                # (and, at full participation, after each dissemination),
+                # else a copy of the [G, K, ...] replicas.
+                shared = cmask is None and all(
+                    torch.equal(t[:, k], t[:, 0]) for t in tu.tree_leaves(x)
+                    for k in range(1, K))
+                xs = [(t.view(G, K, -1)[:, 0] if shared else t.view(G, K, -1)).clone(
+                    memory_format=torch.contiguous_format) for t in tu.tree_leaves(x)]
             loss_e = []
             # Flat, unfused: z + y folded into one correction for the phase.
             corr_t = None
@@ -362,65 +612,25 @@ def _build_sharded_round(
             for h in range(H):
                 batch_h = tu.tree_map(lambda b: b[e, h], batches)
                 lsum, inv_a = client_grads(x_tree, acc_tree, batch_h, G, K)
-                if use_fused_update:
-                    # g / A + z + y and the step in one kernel launch per leaf
-                    # (tree) or per dtype buffer (flat); y stays [G, ...] and
-                    # the mask gates frozen replicas inside the kernel.
-                    pairs = (zip(tu.tree_leaves(x), tu.tree_leaves(acc), tu.tree_leaves(z),
-                                 tu.tree_leaves(y)))
-                    for xi, gi, zi, yi in pairs:
-                        xg = xi.view(G, K, -1)
-                        kops.mtgc_update_flat(xg, gi.view(G, K, -1), zi.view(G, K, -1),
-                                              yi.view(G, -1), cmask, lr=lr, g_scale=inv_a,
-                                              out=xg)
-                elif use_corr and flat:
-                    for xi, gi, ci in zip(tu.tree_leaves(x_tree), tu.tree_leaves(acc_tree),
-                                          tu.tree_leaves(corr_t)):
-                        select_(xi, xi - lr * (gi * inv_a + ci))
-                elif use_corr:
-                    for xi, gi, zi, yi in zip(tu.tree_leaves(x), tu.tree_leaves(acc),
-                                              tu.tree_leaves(z), tu.tree_leaves(y)):
-                        select_(xi, xi - lr * (gi * inv_a + zi.to(gi.dtype)
-                                               + yi[:, None].to(gi.dtype)))
-                else:
-                    for xi, gi in zip(tu.tree_leaves(x_tree), tu.tree_leaves(acc_tree)):
-                        select_(xi, xi - lr * gi * inv_a)
+                local_update(acc, acc_tree, corr_t, inv_a)
                 loss_e.append(step_loss_mean(lsum, inv_a))
                 if e == E - 1 and h == H - 1:
-                    gsq = (_sq_norm(acc) if cmask is None else
-                           _sq_norm(tu.tree_map(lambda t: torch.where(
-                               tu.expand_mask(cmask, t) != 0, t, 0), acc)))
-                    last_g = gsq * inv_a * inv_a
+                    if cmask is not None:
+                        # The last step's gradient is read only here: zero the
+                        # frozen replicas' in place (the bits a where-copy
+                        # would hold) rather than copying the accumulator.
+                        for t in tu.tree_leaves(acc):
+                            t.masked_fill_(tu.expand_mask(cmask, t) == 0, 0)
+                        del t
+                    last_g = _sq_norm(acc) * inv_a * inv_a
             losses.append(torch.stack(loss_e))
+            for i, (xi, zi) in enumerate(zip(tu.tree_leaves(x), tu.tree_leaves(z))):
+                aggregate_group(e, i, xi, zi, xs)
+        del acc, acc_tree, corr_t, xs
 
-            # Group aggregation (line 8), z update (line 9) and dissemination,
-            # leaf by leaf: xbar_j = mean over (active) clients.
-            for xi, zi in zip(tu.tree_leaves(x), tu.tree_leaves(z)):
-                xbar = (tu.tree_masked_mean(xi, cmask, axis=1, denom=cdenom)
-                        if cmask is not None else _mean(xi, 1))
-                if use_corr:
-                    # z_i += (x_{i,H} - xbar_j) / (H * lr), in float32.
-                    _correction_update(zi, xi, xbar, H * lr, active, lead=2)
-                select_(xi, xbar[:, None].expand(xi.shape))
-                del xbar
-        del acc, acc_tree, corr_t
-
-        # Global aggregation (line 10), y update (line 11), dissemination.
-        gact = None
-        for xi, yi in zip(tu.tree_leaves(x), tu.tree_leaves(y)):
-            if partial:
-                xbar_j, xbar, gact = tu.tree_group_global_mean(
-                    xi, cmask, gmask if ht else None, gdenom)
-            else:
-                xbar_j = xi[:, 0]                        # clients equal
-                xbar = _mean(xbar_j, 0)
-            if use_corr:
-                # y_j += (xbar_j - xbar) / (H * E * lr), in float32; only
-                # groups with an active client.
-                gmask_host = None if gact is None else gact.cpu().numpy() != 0
-                _correction_update(yi, xbar_j, xbar, H * E * lr, gmask_host, lead=1)
-            select_(xi, xbar.expand(xi.shape))
-            del xbar_j, xbar
+        for i, (xi, yi) in enumerate(zip(tu.tree_leaves(x), tu.tree_leaves(y))):
+            aggregate_global(i, xi, yi)
+        del gref
 
         n_up_c = E * torch.sum(cmask) if partial else E * G * K
         gup = torch.sum(gact) if partial else G
@@ -432,7 +642,7 @@ def _build_sharded_round(
             participation=(torch.sum(cmask) / (G * K) if partial
                            else torch.ones((), dtype=torch.float32, device=dev)),
             screened=torch.zeros((), dtype=torch.float32, device=dev),
-            comm_bytes=round_comm_bytes(x, None, n_up_c, gup),
+            comm_bytes=round_comm_bytes(x, comp, n_up_c, gup),
         )
         return state._replace(params=x, z=z, y=y), metrics
 
@@ -442,9 +652,10 @@ def _build_sharded_round(
 # --------------------------------------------------------------------- CLI
 
 
-def main(argv=None) -> None:
+def main(argv=None):
     """The reference CLI (``python -m repro.launch.train``) on the port:
-    the same flags, plus ``--device`` (the CUDA card by default)."""
+    the same flags, plus ``--device`` (the CUDA card by default). Returns
+    the final state and the ``Horizon`` of the run."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -506,6 +717,7 @@ def main(argv=None) -> None:
         print(f"round {t}: loss {float(hz.metrics.loss[t].mean()):.4f} "
               f"z^2 {float(hz.metrics.z_norm[t]):.3e} "
               f"y^2 {float(hz.metrics.y_norm[t]):.3e}")
+    return state, hz
 
 
 if __name__ == "__main__":

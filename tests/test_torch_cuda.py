@@ -702,3 +702,121 @@ def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         return [pa for k in sorted(tree) for pa in _leaves(tree[k], f"{prefix}/{k}")]
     return [(prefix, tree)]
+
+
+def _quad_problem(rs_, G, K, E, H, n=(200, 30)):
+    """Two-leaf element-wise quadratic loss and [E, H, 1, G, K, n] batches:
+    both devices compute it in one order, so a one-ulp difference cannot
+    move an int8 step or a top-k entry."""
+    def loss(p, bt):
+        r = bt["a"] * p["w"] - bt["b"]
+        return 0.5 * torch.sum(r * r) + 0.5 * torch.sum((bt["c"] * p["v"] - bt["e"]) ** 2)
+
+    b = {k: torch.from_numpy((rs_.normal(size=(E, H, 1, G, K, m)) + off).astype(np.float32))
+         for k, m, off in (("a", n[0], 1.0), ("b", n[0], 0.0), ("c", n[1], 1.0),
+                           ("e", n[1], 0.0))}
+    return loss, {"w": torch.zeros(n[0]), "v": torch.zeros(n[1])}, b
+
+
+SHARDED_PLANS = {"int8-none": ("int8_stochastic", "none"), "none-topk": ("none", "topk"),
+                 "int8-int8": ("int8_stochastic", "int8_stochastic")}
+
+
+@pytest.mark.parametrize("participation", [1.0, 0.5])
+@pytest.mark.parametrize("plan", sorted(SHARDED_PLANS))
+@pytest.mark.parametrize("layout", ["flat", "tree"])
+def test_compressed_sharded_round_on_card_matches_cpu(cuda, layout, plan, participation):
+    """A compressed sharded round (fused: the quantize kernels on the card,
+    their plain versions on the CPU), masks and noise injected: params, z,
+    y and both residuals within rtol 1e-5 / atol 1e-6 of the CPU's, and the
+    kernels launched once per block (pieces of the whole row here)."""
+    G, K, E, H = 2, 3, 2, 2
+    rs_ = np.random.default_rng(5)
+    loss, p0, b = _quad_problem(rs_, G, K, E, H)
+    rows = {"flat": [230], "tree": [30, 200]}[layout]          # leaves v, w
+    masks = (ParticipationMasks(torch.ones(G), torch.tensor([[1.0, 0.0, 1.0], [0.0, 1.0, 1.0]]))
+             if participation < 1 else None)
+    draws = RoundDraws(
+        masks=masks,
+        client_noise=[[torch.from_numpy(rs_.random((G * K, m)).astype(np.float32)) for m in rows]
+                      for _ in range(E)],
+        group_noise=[torch.from_numpy(rs_.random((G, m)).astype(np.float32)) for m in rows])
+    cm, gm = SHARDED_PLANS[plan]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        spec = api.ExperimentSpec(levels=(G, K), backend="sharded", state_layout=layout,
+                                  fusion="fused", client_participation=participation,
+                                  schedule=api.RoundSchedule(E, H),
+                                  compression=api.CompressionPlan(cm, gm, topk_frac=0.2))
+        eng = api.build(spec, loss, device=dev)
+        ops.reset_launch_counts()
+        st, _ = eng.round_fn(eng.init(p0), {k: v.to(dev) for k, v in b.items()}, draws=draws)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            n = len(rows)
+            want = {"int8_roundtrip": E * G * n * (cm == "int8_stochastic")
+                    + n * (gm == "int8_stochastic"), "topk_mask": n * (gm == "topk")}
+            assert {k: getattr(qz, k).launches for k in want} == want
+        outs[dev.type] = convert.to_numpy(st)
+    for name in ("params", "z", "y", "efc", "efg"):
+        assert (name in outs["cuda"]) == (name in outs["cpu"]), name
+        for key, cpu in outs["cpu"].get(name, {}).items():
+            np.testing.assert_allclose(outs["cuda"][name][key], cpu, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{name}/{key}")
+
+
+@pytest.mark.parametrize("layout", ["flat", "tree"])
+def test_piecewise_sharded_round_on_card(cuda, monkeypatch, layout):
+    """On the card, the sharded round with every row cut into pieces of 16
+    elements gives the bits of the round with one piece a row (a mask with
+    a frozen replica and an empty group, int8 on the client link, top-k on
+    the group link, noise injected)."""
+    from repro_torch.launch import train
+
+    G, K, E, H = 2, 3, 2, 2
+    rs_ = np.random.default_rng(6)
+    loss, p0, b = _quad_problem(rs_, G, K, E, H)
+    rows = {"flat": [230], "tree": [30, 200]}[layout]
+    draws = RoundDraws(
+        masks=ParticipationMasks(torch.ones(G), torch.tensor([[1.0, 0.0, 1.0], [0.0, 0.0, 0.0]])),
+        client_noise=[[torch.from_numpy(rs_.random((G * K, m)).astype(np.float32)) for m in rows]
+                      for _ in range(E)])
+    spec = api.ExperimentSpec(levels=(G, K), backend="sharded", state_layout=layout,
+                              fusion="fused", client_participation=0.5,
+                              schedule=api.RoundSchedule(E, H),
+                              compression=api.CompressionPlan("int8_stochastic", "topk",
+                                                              topk_frac=0.2))
+    outs = []
+    for chunk in (1 << 26, 16):
+        monkeypatch.setattr(train, "_CHUNK", chunk)
+        eng = api.build(spec, loss, device=cuda)
+        st, _ = eng.round_fn(eng.init(p0), {k: v.to(cuda) for k, v in b.items()}, draws=draws)
+        outs.append(convert.to_numpy(st))
+    for name in ("params", "z", "y", "efc", "efg"):
+        for key, want in outs[0][name].items():
+            np.testing.assert_array_equal(outs[1][name][key], want, err_msg=f"{name}/{key}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_piecewise_threshold_on_card(cuda, monkeypatch, dtype):
+    """The piecewise top-k threshold on the card equals ``torch.topk``'s on
+    the whole row, bit for bit: ties, +-Inf, NaN and zero rows, k from 1
+    past a piece to the whole row."""
+    from repro_torch.core import compression as cmp
+
+    monkeypatch.setattr(cmp, "_CHUNK", 64)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    u = torch.randn((5, 1000), generator=gen, device=cuda)
+    u[0] = torch.round(u[0] * 2) / 2
+    u[1, ::9] = float("inf")
+    u[1, 1::9] = -float("inf")
+    u[2, ::3] = float("nan")
+    u[3] = 0.0
+    u = u.to(dtype)
+    for frac in (0.001, 0.01, 0.1, 0.5, 1.0):
+        k = max(1, min(1000, int(np.ceil(frac * 1000))))
+        want = torch.topk(u.abs(), k, dim=1).values[:, -1]
+        got = cmp.row_params("topk", (u[:, sl] for sl in cmp.row_pieces(1000)), 1000, frac)
+        assert torch.equal(torch.isnan(got), torch.isnan(want)), frac
+        ok = ~torch.isnan(want)
+        assert torch.equal(got[ok], want[ok]), frac

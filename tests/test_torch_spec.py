@@ -40,8 +40,8 @@ def test_field_list_equals_reference():
     ({"client_state": "stateless"}, "virtual-population"),
     ({"backend": "multilevel"}, "multilevel-backend"),
     ({"level_participation": (1.0, 1.0)}, "multilevel-backend"),
-    ({"backend": "sharded", "compression": tapi.CompressionPlan("int8_stochastic")},
-     "sharded-compression"),
+    ({"backend": "sharded", "compression": tapi.CompressionPlan("int8_stochastic"),
+      "population": 4}, "virtual-population"),
     ({"backend": "sharded", "faults": object()}, "faults-and-defense"),
     ({"backend": "sharded", "staleness": "discount",
       "schedule": tapi.RoundSchedule(group_rounds=(2, 1), microbatches=2)}, "async-rounds"),
@@ -68,10 +68,43 @@ def test_later_slice_fields_raise_naming_the_slice(kwargs, slice_name):
     ({"compression": tapi.CompressionPlan(topk_frac=0.0)}, "topk_frac"),
     ({"levels": (2, 2, 2)}, "two-level"),
     ({"schedule": tapi.RoundSchedule(local_steps=0)}, "local_steps"),
+    # The reference's rejections of a compressed spec, on the sharded backend.
+    ({"backend": "sharded", "compression": tapi.CompressionPlan("int8_stochastic"),
+      "correction_init": "gradient"}, "correction_init"),
+    ({"backend": "sharded", "compression": tapi.CompressionPlan(group_mode="topk"),
+      "server_lr": 0.5}, "server_lr"),
+    ({"backend": "sharded", "compression": tapi.CompressionPlan(client_mode="fp4")},
+     "unknown client_mode"),
+    ({"backend": "sharded", "compression": tapi.CompressionPlan(topk_frac=0.0)},
+     "topk_frac"),
+    ({"backend": "sharded", "levels": (2, 2, 2),
+      "compression": tapi.CompressionPlan("int8_stochastic")}, "two-level"),
 ])
 def test_invalid_specs_raise(kwargs, match):
     with pytest.raises(ValueError, match=match):
         tapi.ExperimentSpec(**kwargs).validate()
+
+
+@pytest.mark.parametrize("layout", ["flat", "tree"])
+@pytest.mark.parametrize("modes", [("bf16", "none"), ("int8_stochastic", "none"),
+                                   ("topk", "none"), ("none", "bf16"),
+                                   ("none", "int8_stochastic"), ("none", "topk")])
+def test_sharded_compression_validates_and_builds(modes, layout):
+    """A compressed sharded spec validates, builds, carries the residuals
+    its plan feeds back (and a generator for a stochastic plan), and runs a
+    round on the CPU for every mode on either link."""
+    plan = tapi.CompressionPlan(*modes, topk_frac=0.2)
+    spec = tapi.ExperimentSpec(levels=(2, 2), backend="sharded", state_layout=layout,
+                               schedule=tapi.RoundSchedule(1, 1), compression=plan)
+    assert spec.validate() is spec
+    eng = tapi.build(spec, lambda p, b: 0.5 * torch.sum((b["a"] * p["w"] - 1.0) ** 2),
+                     device="cpu")
+    state = eng.init({"w": torch.zeros(6)})
+    assert (state.efc is not None, state.efg is not None) == (plan.ef_client, plan.ef_group)
+    assert (state.rng is not None) == plan.stochastic
+    batch = {"a": torch.arange(24, dtype=torch.float32).reshape(1, 1, 1, 2, 2, 6) / 10 + 1}
+    state, m = eng.round_fn(state, batch)
+    assert torch.isfinite(m.loss).all() and m.comm_bytes.item() > 0
 
 
 def test_round_builder_rejects_later_slice_plans():
