@@ -11,11 +11,12 @@ main path at full width -- the paper's CIFAR-10 CNN (McMahan et al.:
 conv5x5x32, pool, conv5x5x64, pool, fc512, fc10; N = 2,156,490 float32
 parameters) over 10 groups x 10 clients at batch 50, on synthetic data of
 CIFAR-10's 32x32x3 shape -- uncompressed at full participation, with
-compressed uploads, and under partial participation. Depth is cut: E = 2
+compressed uploads, under partial participation and under faults. Depth
+is cut: E = 2
 group rounds of H = 5 local steps, 1 or 2 global rounds per path. After
 the serving phases it trains glm4-9b at full width (depth 2 of 40) on the
-sharded backend, plain, with compressed uploads and under partial
-participation. The CNN's learning rate is 0.01: at 0.1
+sharded backend, plain, with compressed uploads, under partial
+participation and under faults. The CNN's learning rate is 0.01: at 0.1
 the loss of this CNN on the synthetic images spikes into the thousands and
 then settles at chance (ln 10) in both packages
 (``tests/test_torch_driver.py::test_cifar_cnn_loss_spike_tracks_reference``).
@@ -62,6 +63,21 @@ final line):
     groups;
 10. tree + fused with int8 on both links, one round: ``int8_roundtrip``
     launches 8 * E + 8 times (8 CNN leaves);
+10b. phase (m), HFL under faults on the simulator engine, the CNN path of
+    phase 3: one fixed fault realization (crash 0.05, timeout 0.1, corrupt
+    0.2 over 4 rounds, drawn on the host from ``FAULT_SEED`` and injected
+    through ``RoundDraws``), ``fit`` in chunks of 2: undefended NaN uploads
+    (the state must turn non-finite), defended by the non-finite screen and
+    guarded (finite, ``screened`` equal to E times the corrupted uploads),
+    the same unguarded (timed), and int8 on both links with error feedback
+    under exploded uploads, the norm screen and the clip; ``mtgc_update_flat``
+    held against its plain version on every tenth call's own operands (NaN
+    positions, not payload bits; frozen rows keep x's bits) and every
+    crashed replica's params and z held to their bits across its round;
+    then a forced rollback (every upload NaN, undefended: the guard raises
+    after 2 retries and every retry starts from the snapshot's bits) and
+    the guard's zero-fault overhead (guarded against unguarded rounds, in
+    turns);
 11. the port on the card against the port on the CPU (the kernels' plain
     versions) on a small input: the uncompressed round, and a compressed
     round under partial participation with injected draws;
@@ -133,12 +149,24 @@ final line):
     of 2^27 elements, both timed; ``comm_bytes`` equal to the wire model;
     the residuals finite and not all zero; under a mask, the frozen
     replicas' params and z with their bits; and (k)'s peak within 0.5 GB of
-    (i)'s;
+    (i)'s; on (l) each ``topk_mask`` launch of the warm-up round is timed
+    again on its own block by CUDA events, against its per-block bound;
+20b. phase (n), LM training under faults: the flat + fused training of
+    (i) with the defense (non-finite screen, norm screen, clip) and the
+    guard, one ``fit`` call a round with injected masks: a guarded warm-up
+    round without faults (it allocates the guard's page-locked host
+    buffers), then round 1 (client (1, 1) crashes, (0, 0) uploads an
+    exploded delta) and round 2 (group 1 times out, (0, 1) uploads NaN):
+    ``screened`` equal to the injected count, the crashed replica's params
+    and z and the timed-out group's y kept to their bits, the launch counts
+    of (i), a finite state (read in 2^26 pieces), round ms with and without
+    the guard's snapshot, each round's peak memory, and a traced round;
 21. a reduced glm4-9b (float32, remat) sharded round at T = 1100 on the
     card against the CPU (params within rtol 1e-4), and the fused step
     against the unfused one on the card, bit for bit;
 22. a JSON line of the serving and training runs, one per phase of 18-20
-    and one per kernel, then ``{"ok": true, "device": {...}}`` last.
+    and (n), one of (m), and one per kernel, then ``{"ok": true, "device":
+    {...}}`` last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``) for the whole run, so every
@@ -1083,12 +1111,14 @@ class UploadRecorder:
     counts it), and the recorder keeps, of the first ``keep`` calls, the
     row parameter and the first and last ``UPLOAD_SPAN`` columns of the
     block's operands and result; with ``rows`` set, also the whole of row 0
-    of the first two full-width blocks (``row0``)."""
+    of the first two full-width blocks (``row0``), and a host copy of every
+    ``topk_mask`` block's operands (``topk_blocks``) for timing each launch
+    again."""
 
     def __init__(self, ops, keep: int, rows: bool = False):
         self.ops, self.keep, self.rows = ops, keep, rows
         self.real = (ops.int8_roundtrip, ops.topk_mask)
-        self.calls, self.row0 = [], []
+        self.calls, self.row0, self.topk_blocks = [], [], []
 
     def _record(self, name, u, param, noise, out):
         if len(self.calls) < self.keep:
@@ -1115,6 +1145,8 @@ class UploadRecorder:
         def topk_spy(u, thresh):
             out = topk(u, thresh)
             self._record("topk_mask", u, thresh, None, out)
+            if self.rows:
+                self.topk_blocks.append((u.cpu(), thresh.cpu()))
             return out
 
         self.ops.int8_roundtrip, self.ops.topk_mask = int8_spy, topk_spy
@@ -1156,6 +1188,25 @@ def check_uploads(torch, qz, rec: UploadRecorder, offsets) -> dict:
     require(res["bit_exact"], "a quantize kernel disagrees with its plain version on the "
                               "training path's uploads")
     return res
+
+
+def time_topk_blocks(torch, qz, blocks) -> dict:
+    """Each recorded ``topk_mask`` launch of a round timed again on its own
+    block (back on the card) by CUDA events: one warm-up launch, then the
+    mean of 5; its bound counts the block read once and the result written
+    once (and two operations an element). Launches made here time the
+    kernel; they are not the path's."""
+    per, ms, bound = [], 0.0, 0.0
+    for u_host, th_host in blocks:
+        u, th = u_host.cuda(), th_host.cuda()
+        t = cuda_ms(torch, lambda: qz.topk_mask(u, th), iters=5, warmup=1)
+        b, by = bound_ms(2 * u.numel() * u.element_size() + th.numel() * th.element_size(),
+                         TOPK_FLOPS * u.numel())
+        per.append({"shape": list(u.shape), "ms": t, "bound_ms": b})
+        ms, bound = ms + t, bound + b
+        del u, th
+    return {"launches": len(blocks), "ms": ms, "bound_ms": bound,
+            "share": bound / ms if ms else None, "blocks": per}
 
 
 def check_threshold(torch, row: torch.Tensor) -> dict:
@@ -1280,7 +1331,7 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
         torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
     warm_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    upd = uploads = threshold = None
+    upd = uploads = threshold = topk_timing = None
     if spec_kw is None:
         upd = check_update_on_state(torch, mu, state, LM_TRAIN_LR, 1.0 / LM_TRAIN_A)
         log(f"mtgc_update_flat on the trained {layout} state (bf16, g_scale 1/{LM_TRAIN_A}, "
@@ -1304,6 +1355,12 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
             f"column slices of {len(rec.calls)} blocks bit-exact against the plain versions "
             f"({uploads['int8']} int8_roundtrip, {uploads['topk']} topk_mask; "
             f"{uploads['past_2_31']} past element 2^31 of the state)")
+        if rec.topk_blocks:
+            topk_timing = time_topk_blocks(torch, qz, rec.topk_blocks)
+            log(f"({tag}) topk_mask's {topk_timing['launches']} launches of the warm-up round, "
+                f"each timed again on its own block by CUDA events: {topk_timing['ms']:.4f} ms "
+                f"in all against a {topk_timing['bound_ms']:.4f} ms bound (share "
+                f"{topk_timing['share']:.3f})")
         if rec.row0:
             threshold = check_threshold(torch, torch.cat(rec.row0))
             log(f"({tag}) top-k threshold on a report row slice of {threshold['elements']} "
@@ -1378,6 +1435,7 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
            "round_ms": round_ms, "tokens_per_round": tokens,
            "tokens_per_s": tokens / round_ms * 1e3, "peak_gb": peak_gb, "launches": got,
            "update_check": upd, "upload_check": uploads, "threshold": threshold,
+           "topk_timing": topk_timing,
            "comm_bytes": comm, "residual_sq_norms": residuals, "frozen_replicas": frozen,
            "held_gb": held_gb, "warmup_peak_gb": warm_peak_gb,
            "timed_peak_gb": timed_peak_gb,
@@ -1477,6 +1535,377 @@ def _leaf_paths(tree, prefix=""):
             out += _leaf_paths(tree[k], f"{prefix}/{k}")
         return out
     return [(prefix, tree)]
+
+
+# Phase (m): HFL under faults on the simulator engine (the CNN at full
+# width), and phase (n): LM training under faults on the sharded backend.
+FAULT_RATES = dict(crash_rate=0.05, timeout_rate=0.1, corrupt_rate=0.2)
+FAULT_ROUNDS, FAULT_CHUNK, FAULT_SEED = 4, 2, 1
+M_SCREEN_NORM, M_CLIP_NORM = 50.0, 5.0       # (m)'s third run: explode, screen and clip
+N_SCREEN_NORM, N_CLIP_NORM = 100.0, 100.0    # (n)'s defense
+
+
+class UpdateChecker:
+    """Stands in for ``ops.mtgc_update_flat`` during a run: every call goes
+    to the real wrapper (which launches the kernel and counts it), and every
+    ``every``-th call's result is held against ``mtgc_update_flat_ref`` on
+    the same operands -- NaN positions, not NaN payload bits, and every
+    other element bit for bit -- and its frozen rows against x's bits."""
+
+    def __init__(self, ops, mu, every: int):
+        self.ops, self.mu, self.every = ops, mu, every
+        self.real, self.calls, self.checked, self.nan_inputs = ops.mtgc_update_flat, 0, 0, 0
+
+    def __enter__(self):
+        def spy(x, g, z, y, mask=None, **kw):
+            out = self.real(x, g, z, y, mask, **kw)
+            if self.calls % self.every == 0:
+                import torch
+
+                want = self.mu.mtgc_update_flat_ref(x, g, z, y, mask, kw["lr"],
+                                                    kw.get("g_scale", 1.0))
+                require(same_bits(torch, out, want),
+                        "mtgc_update_flat disagrees with its plain version on a faulty "
+                        "round's own operands")
+                if mask is not None:
+                    frozen = mask == 0
+                    require(same_bits(torch, out[frozen], x[frozen]),
+                            "a frozen replica changed in mtgc_update_flat")
+                self.nan_inputs += int(any(bool(torch.isnan(t).any()) for t in (x, g, z, y)))
+                self.checked += 1
+            self.calls += 1
+            return out
+
+        self.ops.mtgc_update_flat = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.mtgc_update_flat = self.real
+
+
+def phase_faults_hfl(torch, np, api, spec, data, p0, loss_fn) -> dict:
+    """Phase (m): the CNN at full width on the simulator engine under one
+    fixed fault realization (crash 0.05, timeout 0.1, corrupt 0.2, injected
+    through ``RoundDraws``), ``FAULT_ROUNDS`` rounds in chunks of
+    ``FAULT_CHUNK`` through ``fit``: undefended NaN corruption (the state
+    turns non-finite), defended by the non-finite screen and guarded
+    (finite, ``screened`` = every corrupted upload), the same defended and
+    unguarded (timed), and int8 on both links with error feedback under
+    exploded uploads, the norm screen and the clip. Then one forced rollback
+    (always NaN, undefended: the guard raises after ``max_retries``, every
+    retry starting from the snapshot's bits) and the guard's zero-fault
+    overhead (guarded against unguarded rounds, in turns). The masked
+    ``mtgc_update_flat`` is held against its plain version on the rounds'
+    own operands, and every crashed replica keeps its bits."""
+    from repro_torch.core import driver as drv
+    from repro_torch.core.engine import RoundDraws
+    from repro_torch.core.faults import DefensePlan, FaultPlan, fault_masks
+    from repro_torch.kernels import mtgc_update as mu
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qz
+
+    G, K = spec.levels
+    # The fixed realization: masks drawn on the host from a seeded generator.
+    gen = torch.Generator().manual_seed(FAULT_SEED)
+    real = [fault_masks(gen, FaultPlan(**FAULT_RATES), G, K) for _ in range(FAULT_ROUNDS)]
+    crash = sum(int(m.crash.sum()) for m in real)
+    timeouts = sum(int(m.timeout.sum()) for m in real)
+    bad = [int((m.corrupt * (1 - m.crash)).sum()) for m in real]
+    require(crash > 0 and timeouts > 0 and sum(bad) > 0,
+            f"the fault realization has {crash} crashes, {timeouts} timeouts, {bad} corruptions")
+    draws = [RoundDraws(faults=m) for m in real]
+    sids = torch.randint(0, data.num_shards, (FAULT_ROUNDS, E, G, K),
+                         generator=torch.Generator().manual_seed(11))
+    out = {"realization": {"crashes": crash, "timeouts": timeouts,
+                           "corrupted_uploads_per_round": bad}, "runs": {}}
+    launches = {"mtgc_update_flat": 0, "int8_roundtrip": 0}
+
+    def crash_check(rf):
+        """The round function, holding each crashed replica's params and z
+        to their bits across the round."""
+        def run(state, batches, draws=None):
+            rows = (draws.faults.crash != 0).nonzero().tolist()
+            before = [(state.params.bufs["float32"][g, k].clone(),
+                       state.z.bufs["float32"][g, k].clone()) for g, k in rows]
+            new, met = rf(state, batches, draws=draws)
+            for (g, k), (x0, z0) in zip(rows, before):
+                require(same_bits(torch, new.params.bufs["float32"][g, k], x0)
+                        and same_bits(torch, new.z.bufs["float32"][g, k], z0),
+                        f"crashed replica ({g}, {k}) changed")
+            out["crashed_replicas_checked"] = out.get("crashed_replicas_checked", 0) + len(rows)
+            return new, met
+        return run
+
+    def drive(tag, eng, guard=None, want_int8=0):
+        eng.round_fn = crash_check(eng.round_fn)
+        ops.reset_launch_counts()
+        with UpdateChecker(ops, mu, E * H) as chk:
+            t0 = time.perf_counter()
+            st, hz = api.fit(eng, data, FAULT_ROUNDS, params=p0, chunk=FAULT_CHUNK,
+                             shard_ids=sids, draws=draws, guard=guard)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / FAULT_ROUNDS
+        rounds = FAULT_ROUNDS + (hz.guard.retries * FAULT_CHUNK if hz.guard else 0)
+        got = {"mtgc_update_flat": mu.mtgc_update_flat.launches,
+               "int8_roundtrip": qz.int8_roundtrip.launches}
+        require(got == {"mtgc_update_flat": E * H * rounds,
+                        "int8_roundtrip": want_int8 * rounds},
+                f"({tag}) launched {got} over {rounds} rounds")
+        for k, v in got.items():
+            launches[k] += v
+        fields = {f: getattr(st, f).bufs["float32"] for f in ("params", "z", "y")}
+        finite = {f: bool(torch.isfinite(t).all()) for f, t in fields.items()}
+        run = {"round_ms": ms, "screened": hz.metrics.screened.tolist(),
+               "loss": np.round(hz.metrics.loss.reshape(FAULT_ROUNDS, -1).mean(1), 5).tolist(),
+               "finite": finite, "launches": got, "kernel_checks": chk.checked,
+               "kernel_checks_with_nan_operands": chk.nan_inputs,
+               "guard": None if hz.guard is None else hz.guard._asdict()}
+        out["runs"][tag] = run
+        log(f"(m) {tag}: {ms:.1f} ms a round over {FAULT_ROUNDS} rounds (chunk {FAULT_CHUNK}); "
+            f"screened {run['screened']}; mean loss a round {run['loss']}; finite {finite}; "
+            f"launches {got}; mtgc_update_flat held against its plain version on "
+            f"{chk.checked} calls ({chk.nan_inputs} with NaN operands); guard {run['guard']}")
+        return st, hz
+
+    nan_plan = FaultPlan(**FAULT_RATES, corrupt_kind="nan")
+    st, _ = drive("undefended nan", api.build(dataclasses.replace(spec, faults=nan_plan), loss_fn))
+    require(not out["runs"]["undefended nan"]["finite"]["params"]
+            and not out["runs"]["undefended nan"]["finite"]["y"],
+            "undefended NaN corruption left the state finite")
+    require(out["runs"]["undefended nan"]["kernel_checks_with_nan_operands"] > 0,
+            "the kernel never saw a NaN operand in the undefended run")
+    defended = dataclasses.replace(spec, faults=nan_plan, defense=DefensePlan())
+    st, hz = drive("defended nan, guarded", api.build(defended, loss_fn), guard=True)
+    run = out["runs"]["defended nan, guarded"]
+    require(all(run["finite"].values()), "the defended run is not finite")
+    require(sum(run["screened"]) == E * sum(bad),
+            f"screened {run['screened']}, expected {E} x {bad}")
+    st, hz = drive("defended nan, unguarded", api.build(defended, loss_fn))
+    require(all(out["runs"]["defended nan, unguarded"]["finite"].values()),
+            "the defended unguarded run is not finite")
+    int8 = dataclasses.replace(
+        spec, compression=api.CompressionPlan("int8_stochastic", "int8_stochastic"),
+        faults=FaultPlan(**FAULT_RATES, corrupt_kind="explode"),
+        defense=DefensePlan(screen_norm=M_SCREEN_NORM, clip_norm=M_CLIP_NORM))
+    st, hz = drive("int8/int8 EF, explode, screen and clip", api.build(int8, loss_fn),
+                   want_int8=E + 1)
+    run = out["runs"]["int8/int8 EF, explode, screen and clip"]
+    require(all(run["finite"].values()), "the compressed defended run is not finite")
+    require(sum(run["screened"]) >= E * sum(bad),
+            f"screened {run['screened']}: not every exploded upload ({E} x {bad})")
+    for name in ("efc", "efg"):
+        r = getattr(st, name).bufs["float32"]
+        require(bool(torch.isfinite(r).all()), f"the {name} residual is not finite")
+    del st, hz
+
+    # One forced rollback: undefended, every upload NaN. Each attempt's first
+    # round must start from the snapshot's bits.
+    eng = api.build(dataclasses.replace(spec, faults=FaultPlan(corrupt_rate=0.999,
+                                                               corrupt_kind="nan")), loss_fn)
+    st0 = eng.init(p0)
+    snap = [t.cpu() for t in drv._state_tensors(st0)]
+    all_bad = [RoundDraws(faults=m._replace(corrupt=torch.ones(G, K), crash=torch.zeros(G, K),
+                                            timeout=torch.zeros(G)))
+               for m in real[:FAULT_CHUNK]]
+    calls, starts = [0], []
+
+    def spy(state, batches, draws=None):
+        if calls[0] % FAULT_CHUNK == 0:
+            starts.append(all(same_bits(torch, t, s.cuda()) for t, s in
+                              zip(drv._state_tensors(state), snap)))
+        calls[0] += 1
+        return eng.round_fn(state, batches, draws=draws)
+
+    max_retries = 2
+    try:
+        drv.run_rounds(spy, st0, data, FAULT_CHUNK, chunk=FAULT_CHUNK, shard_ids=sids[:FAULT_CHUNK],
+                       draws=all_bad, guard=drv.GuardSpec(max_retries=max_retries,
+                                                          round_fn_for_retry=lambda a: spy))
+        raise AssertionError("the guard did not raise")
+    except RuntimeError as err:
+        require("exhausted" in str(err), f"the guard raised {err}")
+    require(calls[0] == (max_retries + 1) * FAULT_CHUNK and all(starts),
+            f"forced rollback: {calls[0]} rounds run, attempt starts equal to the snapshot "
+            f"{starts}")
+    out["forced_rollback"] = {"attempts": len(starts), "restored_bit_exact": starts[1:]}
+    log(f"(m) forced rollback (undefended, every upload NaN): the guard raised after "
+        f"{max_retries} retries; each of {len(starts)} attempts started from the snapshot's "
+        f"bits")
+    del st0, snap, eng
+
+    # The guard's zero-fault overhead, in turns.
+    plain = api.build(spec, loss_fn)
+    times = {"unguarded": [], "guarded": []}
+    for tag in ("unguarded", "guarded", "guarded", "unguarded"):
+        t0 = time.perf_counter()
+        st, hz = api.fit(plain, data, FAULT_ROUNDS, params=p0, chunk=FAULT_CHUNK, shard_ids=sids,
+                         guard=tag == "guarded")
+        torch.cuda.synchronize()
+        times[tag].append((time.perf_counter() - t0) * 1e3 / FAULT_ROUNDS)
+        if hz.guard is not None:
+            require(hz.guard.rollbacks == 0, "the zero-fault guarded run rolled back")
+            out["guard_snapshot"] = hz.guard._asdict()
+    u, g = (sum(times[k]) / 2 for k in ("unguarded", "guarded"))
+    out["guard_overhead"] = {"unguarded_ms": times["unguarded"], "guarded_ms": times["guarded"],
+                             "overhead": g / u - 1.0}
+    log(f"(m) the guard's zero-fault overhead: unguarded {times['unguarded']} ms a round, "
+        f"guarded {times['guarded']} ms ({100 * (g / u - 1):.1f}%); a snapshot "
+        f"{out['guard_snapshot']['snapshot_bytes'] / 1e9:.2f} GB, "
+        f"{out['guard_snapshot']['snapshot_s']:.3f} s for {FAULT_ROUNDS // FAULT_CHUNK} chunks")
+    out["launches"] = launches
+    return out
+
+
+def phase_lm_train_faults(torch, np) -> dict:
+    """Phase (n): glm4-9b at its published widths (2 of 40 layers), 2 x 2,
+    flat + fused, uncompressed, on the sharded backend through ``fit`` with
+    the defense (non-finite screen, norm screen, clip) and the guard: a
+    warm-up round with no faults, then two rounds with injected masks --
+    round 1: client (1, 1) crashes and (0, 0) uploads an exploded delta;
+    round 2: group 1 times out and (0, 1) uploads NaN. ``screened`` must be
+    the injected count, the crashed replica's params and z and the timed-out
+    group's y must keep their bits, the state must be finite; round ms,
+    tokens/s, peak memory and the guard's snapshot seconds and bytes."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine import RoundDraws
+    from repro_torch.core.faults import DefensePlan, FaultMasks, FaultPlan
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.lm import make_lm_tokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mtgc_update as mu
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.models.transformer import build_model
+
+    meminfo = {line.split(":")[0]: int(line.split()[1]) * 1024
+               for line in Path("/proc/meminfo").read_text().splitlines()
+               if line.split(":")[0] in ("MemTotal", "MemAvailable")}
+    log(f"(n) host memory: MemTotal {meminfo['MemTotal'] / 1e9:.1f} GB, MemAvailable "
+        f"{meminfo['MemAvailable'] / 1e9:.1f} GB")
+    cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH), num_layers=LM_TRAIN_LAYERS)
+    bundle = build_model(cfg)
+    G, K = LM_TRAIN_LEVELS
+    defense = DefensePlan(screen_nonfinite=True, screen_norm=N_SCREEN_NORM,
+                          clip_norm=N_CLIP_NORM)
+
+    def engine(kind):
+        return api.build(api.ExperimentSpec(
+            levels=(G, K), backend="sharded", algorithm="mtgc", lr=LM_TRAIN_LR, fusion="fused",
+            state_layout="flat", schedule=api.RoundSchedule(
+                group_rounds=LM_TRAIN_E, local_steps=LM_TRAIN_H, microbatches=LM_TRAIN_A),
+            faults=FaultPlan(crash_rate=0.05, timeout_rate=0.05, corrupt_rate=0.05,
+                             corrupt_kind=kind), defense=defense), bundle.loss)
+
+    explode, nan = engine("explode"), engine("nan")
+    rng = np.random.default_rng(0)
+    toks, _ = make_lm_tokens(rng, cfg.vocab_size, LM_TRAIN_TOKENS)
+    data = explode.pack_tokens(toks, batch_size=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, shards=2,
+                               rng=rng, generator=torch.Generator().manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    params = bundle.init(0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state = explode.init(params)
+    del params
+    n_update = len(tree_leaves(state.params))
+
+    def masks(crash=(), timeout=(), corrupt=()):
+        fm = FaultMasks(torch.zeros(G, K), torch.zeros(G), torch.zeros(G, K))
+        for g, k in crash:
+            fm.crash[g, k] = 1.0
+        for g in timeout:
+            fm.timeout[g] = 1.0
+        for g, k in corrupt:
+            fm.corrupt[g, k] = 1.0
+        return RoundDraws(faults=fm)
+
+    # A warm-up round with no faults, guarded: it also allocates the guard's
+    # page-locked host buffers, which PyTorch caches for the later rounds.
+    t0 = time.perf_counter()
+    state, hz0 = api.fit(explode, data, 1, state=state, draws=[masks()], guard=True)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    require(float(hz0.metrics.screened[0]) == 0.0, "the warm-up round screened an upload")
+    log(f"(n) warm-up round (no faults, guarded): {warm_ms:.1f} ms, of which "
+        f"{hz0.guard.alloc_s:.3f} s allocating {hz0.guard.snapshot_bytes / 1e9:.2f} GB of "
+        f"page-locked host memory and {hz0.guard.snapshot_s:.3f} s copying the state into it")
+    (x,), (z,), (y,) = (tree_leaves(getattr(state, f)) for f in ("params", "z", "y"))
+    x, z, y = x.view(G, K, -1), z.view(G, K, -1), y.view(G, -1)
+
+    def fingerprint(t):
+        bits = t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+        return (int(bits.sum(dtype=torch.int64)), t[:UPLOAD_SPAN].clone(),
+                t[-UPLOAD_SPAN:].clone())
+
+    def same(a, b):
+        return a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+    rounds = []
+    want = dict(lm_train_launches(cfg, n_update, 1), int8_roundtrip=0, topk_mask=0)
+    for r, (eng, draw, kept) in enumerate((
+            (explode, masks(crash=[(1, 1)], corrupt=[(0, 0)]),
+             {"x[1,1]": lambda: x[1, 1], "z[1,1]": lambda: z[1, 1]}),
+            (nan, masks(timeout=[1], corrupt=[(0, 1)]), {"y[1]": lambda: y[1]}))):
+        before = {k: fingerprint(f()) for k, f in kept.items()}
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hz = api.fit(eng, data, 1, state=state, draws=[draw], guard=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        round_peak = torch.cuda.max_memory_allocated() / 1e9
+        got = {"flash_attention": fa.flash_attention.launches,
+               "flash_attention_bwd": fa.flash_attention_bwd.launches,
+               "mtgc_update_flat": mu.mtgc_update_flat.launches,
+               "mtgc_update": mu.mtgc_update.launches,
+               "int8_roundtrip": qz.int8_roundtrip.launches, "topk_mask": qz.topk_mask.launches}
+        require(got == want, f"(n) round {r + 1} launched {got}, expected {want}")
+        screened = float(hz.metrics.screened[0])
+        require(screened == LM_TRAIN_E, f"(n) round {r + 1} screened {screened}, expected "
+                                        f"{LM_TRAIN_E} (one upload in each group round)")
+        for k, f in kept.items():
+            require(same(before[k], fingerprint(f())), f"(n) round {r + 1}: {k} changed")
+        require(hz.guard.rollbacks == 0, f"(n) round {r + 1} rolled back")
+        finite_metrics(np, hz)
+        rounds.append({"round_ms": ms, "round_ms_less_snapshot": ms - 1e3 * hz.guard.snapshot_s,
+                       "peak_gb": round_peak,
+                       "screened": screened, "launches": got, "guard": hz.guard._asdict(),
+                       "loss": hz.metrics.loss.reshape(-1).tolist(),
+                       "kept_bits": sorted(kept)})
+        log(f"(n) round {r + 1}: {ms:.1f} ms ({ms - 1e3 * hz.guard.snapshot_s:.1f} ms less the "
+            f"guard's snapshot of {hz.guard.snapshot_bytes / 1e9:.2f} GB in "
+            f"{hz.guard.snapshot_s:.3f} s); peak {round_peak:.2f} GB; screened {screened}; "
+            f"{sorted(kept)} kept their bits; launches {got}")
+    peak_gb = max(r["peak_gb"] for r in rounds)
+    for name in ("params", "z", "y"):
+        for t in tree_leaves(getattr(state, name)):
+            require(finite_and_nonzero(torch, t)[0], f"(n): {name} is not finite")
+    # A traced round with round 2's faults (a timeout, a NaN upload), guarded.
+    tr = profile_round(torch, lambda: api.fit(nan, data, 1, state=state, draws=[
+        masks(timeout=[1], corrupt=[(0, 1)])], guard=True))
+    log_trace("  (n) LM training round under faults (flat, defended, guarded, traced)", tr,
+              top_n=25)
+    tokens = G * K * LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    ms = sum(r["round_ms"] for r in rounds) / len(rounds)
+    ms_less = sum(r["round_ms_less_snapshot"] for r in rounds) / len(rounds)
+    out = {"phase": "n", "arch": LM_TRAIN_ARCH, "layers": cfg.num_layers, "layout": "flat",
+           "params": n_params, "defense": dataclasses.asdict(defense), "warmup_round_ms": warm_ms,
+           "rounds": rounds, "round_ms": ms, "round_ms_less_snapshot": ms_less,
+           "tokens_per_round": tokens, "tokens_per_s": tokens / ms * 1e3,
+           "tokens_per_s_less_snapshot": tokens / ms_less * 1e3, "peak_gb": peak_gb,
+           "held_gb": held_gb, "host_memory": meminfo,
+           "warmup_guard": hz0.guard._asdict(),
+           "busy_share": tr["busy"] / tr["wall_us"] if tr else None,
+           "launches": {k: sum(r["launches"][k] for r in rounds) for k in want}}
+    log(f"(n) LM training under faults, {LM_TRAIN_ARCH} ({cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f} B params), flat + fused, defended and guarded: {ms:.1f} ms a "
+        f"round ({ms_less:.1f} ms less the snapshot; {out['tokens_per_s']:.0f} training "
+        f"tokens/s); peak memory {peak_gb:.2f} GB over the two faulty rounds (of which "
+        f"{held_gb:.2f} GB was held before the phase)")
+    del state, explode, nan, data, x, z, y
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1774,7 +2203,11 @@ def main() -> int:
     finite_metrics(np, hz_tc)
     log(f"tree+fused int8/int8: one round {tc_ms:.1f} ms (first round of this spec); "
         f"int8_roundtrip launches {tree_int8}")
-    del tc_state, tc_engine, data
+    del tc_state, tc_engine
+
+    # --- 10b. (m) HFL under faults on the simulator engine ---------------
+    hfl_m = phase_faults_hfl(torch, np, api, spec, data, p0, loss_fn)
+    del data
     torch.cuda.empty_cache()
 
     # --- 11. card against CPU on a small input ---------------------------
@@ -1878,6 +2311,12 @@ def main() -> int:
     require(abs(lm_k["peak_gb"] - lm_flat["peak_gb"]) <= 0.5,
             f"(k)'s peak {lm_k['peak_gb']:.2f} GB is not within 0.5 GB of (i)'s "
             f"{lm_flat['peak_gb']:.2f} GB")
+    # --- 20b. (n) LM training under faults on the sharded backend --------
+    lm_n = phase_lm_train_faults(torch, np)
+    log(f"(n) against the same run's (i) {lm_flat['round_ms']:.1f} ms / "
+        f"{lm_flat['peak_gb']:.2f} GB and (k) {lm_k['round_ms']:.1f} ms / "
+        f"{lm_k['peak_gb']:.2f} GB: {lm_n['round_ms_less_snapshot']:.1f} ms less the snapshot, "
+        f"{lm_n['peak_gb']:.2f} GB")
     # --- 21. LM training: card against CPU, reduced -----------------------
     phase_lm_train_card_vs_cpu(torch, np, convert)
 
@@ -1950,11 +2389,22 @@ def main() -> int:
     by_name["int8_roundtrip"]["training_launches"] = {"j": lm_j["launches"]["int8_roundtrip"]}
     by_name["topk_mask"]["training_launches"] = {"l": lm_l["launches"]["topk_mask"]}
     by_name["topk_mask"]["training_threshold"] = lm_l["threshold"]
+    by_name["topk_mask"]["training_event_timed"] = {
+        k: v for k, v in lm_l["topk_timing"].items() if k != "blocks"}
+    by_name["flash_attention"]["training_launches"] = {
+        "h": lm_tree["launches"]["flash_attention"]}
+    for name, k in by_name.items():
+        # Phase (m) and (n)'s launches: the sum over (m)'s runs; (n)'s two
+        # faulty rounds.
+        k.setdefault("training_launches", {})
+        k["training_launches"]["m"] = hfl_m["launches"].get(name, 0)
+        k["training_launches"]["n"] = lm_n["launches"].get(name, 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": [qwen, rwkv]}))
     print(json.dumps({"training": [lm_tree, lm_flat]}))
-    for run in (lm_j, lm_k, lm_l):
+    for run in (lm_j, lm_k, lm_l, lm_n):
         print(json.dumps({f"training_{run['phase']}": run}))
+    print(json.dumps({"faults_m": hfl_m}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

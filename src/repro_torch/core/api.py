@@ -4,11 +4,14 @@ Port of the simulator path of ``src/repro/core/api.py``. The spec keeps
 the reference's full field list, so one set of keyword arguments builds
 both packages' specs; a field whose feature belongs to a later slice of
 the port raises ``ValueError`` naming that slice. Partial participation
-(``client_participation``/``group_participation`` < 1) and compressed
-uploads (``compression=CompressionPlan(...)``) run on the simulator.
+(``client_participation``/``group_participation`` < 1), compressed
+uploads (``compression=CompressionPlan(...)``) and fault injection with
+screened aggregation (``faults=FaultPlan(...)``, ``defense=DefensePlan(...)``)
+run on both engines.
 :func:`build` turns a spec into a :class:`SimulatorEngine` on a device
 (the CUDA card unless ``device="cpu"`` is passed) and :func:`fit` drives it
-through the horizon driver (``core.driver``)::
+through the horizon driver (``core.driver``), guarded against divergence
+with ``fit(..., guard=True)``::
 
     from repro_torch import api
     spec = api.ExperimentSpec(
@@ -37,7 +40,9 @@ import torch
 from repro_torch.core.compression import COMPRESSION_MODES, CompressionPlan
 from repro_torch.core.config import HFLConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.core.faults import FAULT_KINDS, DefensePlan, FaultPlan
 from repro_torch.core.driver import (
+    GuardSpec,
     Horizon,
     PackedBatches,
     pack_client_shards,
@@ -46,7 +51,6 @@ from repro_torch.core.driver import (
 )
 from repro_torch.core.engine import (
     ASYNC_SLICE,
-    FAULTS_SLICE,
     RoundMetrics,
     _build_global_round,
     global_model,
@@ -63,7 +67,6 @@ LAYOUTS = ("tree", "flat")
 FUSIONS = ("none", "fused")
 CLIENT_STATES = ("stateful", "stateless")
 STALENESS_POLICIES = ("sync", "naive", "discount", "delay_compensated")
-FAULT_KINDS = ("nan", "inf", "explode")
 
 # Which algorithms each backend implements (the reference's table).
 BACKEND_ALGORITHMS = {
@@ -152,13 +155,12 @@ class ExperimentSpec:
 
     The port runs the simulator backend under the sync schedule, in
     either state layout, fused (mtgc) or not, at full or partial
-    participation, with or without a ``CompressionPlan``; and the sharded
-    backend (mtgc, hfedavg) likewise, with ``schedule.microbatches`` and
-    ``correction_dtype``. ``fused_mode`` takes
-    None or "auto" (the reference's "pallas"/"interpret" have no
-    counterpart: the kernel runs on a CUDA tensor, its plain version on a
-    CPU tensor). ``faults`` and ``defense`` take the reference's plan
-    objects' place; any value but None needs a later slice.
+    participation, with or without a ``CompressionPlan``, a ``FaultPlan``
+    and a ``DefensePlan``; and the sharded backend (mtgc, hfedavg)
+    likewise, with ``schedule.microbatches`` and ``correction_dtype``.
+    ``fused_mode`` takes None or "auto" (the reference's
+    "pallas"/"interpret" have no counterpart: the kernel runs on a CUDA
+    tensor, its plain version on a CPU tensor).
     """
 
     levels: tuple[int, ...] = (2, 2)
@@ -184,8 +186,8 @@ class ExperimentSpec:
     population: int | None = None
     cohort_size: int | None = None
     client_state: str = "stateful"
-    faults: Any | None = None
-    defense: Any | None = None
+    faults: FaultPlan | None = None
+    defense: DefensePlan | None = None
     compression: Any | None = None
 
     def __post_init__(self):
@@ -214,10 +216,6 @@ class ExperimentSpec:
         for name in ("client_participation", "group_participation"):
             frac = getattr(self, name)
             _require(0.0 < frac <= 1.0, f"{name} must be in (0, 1], got {frac}")
-        if self.faults is not None:
-            raise _needs("fault injection (faults=)", FAULTS_SLICE)
-        if self.defense is not None:
-            raise _needs("screened aggregation (defense=)", FAULTS_SLICE)
         _require(self.client_state in CLIENT_STATES,
                  f"unknown client_state {self.client_state!r} "
                  f"(choose from {CLIENT_STATES})")
@@ -266,6 +264,19 @@ class ExperimentSpec:
                  f"participation_weighting must be 'none' or 'inverse_prob', "
                  f"got {self.participation_weighting!r}")
 
+        # Fault tolerance (the reference's rejections; the multilevel and
+        # population combinations raise their slice above).
+        if self.faults is not None:
+            self.faults.validate()
+        if self.defense is not None:
+            self.defense.validate()
+        if self.fault_mode or self.defended:
+            _require(self.correction_init == "zero",
+                     "fault injection / screened aggregation require correction_init='zero' "
+                     "(the gradient init has no crash-consistent analogue)")
+            _require(self.server_lr == 1.0,
+                     "fault injection / screened aggregation require server_lr=1.0")
+
         # Compressed uploads (the reference's rejections; the multilevel,
         # async and population combinations raise their slice above).
         if self.compression is not None:
@@ -280,6 +291,16 @@ class ExperimentSpec:
     @property
     def full_participation(self) -> bool:
         return self.client_participation >= 1.0 and self.group_participation >= 1.0
+
+    @property
+    def fault_mode(self) -> bool:
+        """True when the spec injects any faults."""
+        return self.faults is not None and self.faults.enabled
+
+    @property
+    def defended(self) -> bool:
+        """True when screened aggregation is active."""
+        return self.defense is not None and self.defense.enabled
 
     @property
     def compressed(self) -> bool:
@@ -342,7 +363,40 @@ def _index_depth(indices) -> int:
     return depth
 
 
-class SimulatorEngine:
+class _EngineBase:
+    """What both engines share: the guarded horizon's retry rounds."""
+
+    def retry_round_fn(self, retry: int):
+        """The round function for guarded-horizon retry ``retry`` (>= 1).
+
+        With a norm screen in the spec, each retry rebuilds the round with
+        ``screen_norm * retry_widen ** retry``, so a chunk that diverged
+        because a corrupted but finite delta slipped under the threshold
+        meets a tighter screen on replay; otherwise the original round is
+        retried (the reseeded generators alone change the draws). Rebuilt
+        rounds are cached per retry level."""
+        spec = self.spec
+        if retry <= 0 or spec.defense is None or spec.defense.screen_norm is None:
+            return self.round_fn
+        cache = self.__dict__.setdefault("_retry_round_fns", {})
+        if retry not in cache:
+            widened = dataclasses.replace(
+                spec.defense,
+                screen_norm=spec.defense.screen_norm * spec.defense.retry_widen ** retry)
+            cache[retry] = build(dataclasses.replace(spec, defense=widened), self.loss_fn,
+                                 device=self.device).round_fn
+        return cache[retry]
+
+    def _needs_rng(self) -> bool:
+        """Whether the round draws from the state's generator: participation
+        masks, fault masks or stochastic-rounding noise."""
+        spec = self.spec
+        comp = spec.compression if spec.compressed else None
+        return (not spec.full_participation or spec.fault_mode
+                or (comp is not None and comp.stochastic))
+
+
+class SimulatorEngine(_EngineBase):
     """The paper engine (``core.engine``) behind the uniform surface.
 
     spec: the validated :class:`ExperimentSpec`.
@@ -358,21 +412,21 @@ class SimulatorEngine:
         self.device = device
         self._cfg = spec.to_hfl_config().validate()
         self.metric_fields = RoundMetrics._fields
-        self.round_fn = _build_global_round(loss_fn, self._cfg,
+        self.round_fn = _build_global_round(loss_fn, self._cfg, faults=spec.faults,
+                                            defense=spec.defense,
                                             compression=spec.compression)
 
     def init(self, params: Tree, rng: torch.Generator | None = None):
         """Broadcast one model into the round state on the engine's device,
         with the error-feedback residuals the compression plan carries.
 
-        A partial-participation or stochastic-rounding run draws from the
-        state's ``rng``; without one it gets a generator on the engine's
-        device seeded with 0 (the reference's ``PRNGKey(0)``).
+        A partial-participation, fault-injecting or stochastic-rounding run
+        draws from the state's ``rng``; without one it gets a generator on
+        the engine's device seeded with 0 (the reference's ``PRNGKey(0)``).
         """
         spec = self.spec
         comp = spec.compression if spec.compressed else None
-        if rng is None and (not spec.full_participation
-                            or (comp is not None and comp.stochastic)):
+        if rng is None and self._needs_rng():
             rng = torch.Generator(device=self.device).manual_seed(0)
         return hfl_init(params, self._cfg, rng,
                         ef_client=comp is not None and comp.ef_client,
@@ -395,7 +449,7 @@ class SimulatorEngine:
             shards=shards, rng=rng, generator=generator, device=self.device)
 
 
-class ShardedEngine:
+class ShardedEngine(_EngineBase):
     """The production microbatched round (``launch.train``) behind the
     uniform surface.
 
@@ -422,7 +476,7 @@ class ShardedEngine:
             group_participation=spec.group_participation,
             participation_mode=spec.participation_mode,
             participation_weighting=spec.participation_weighting,
-            compression=spec.compression)
+            faults=spec.faults, defense=spec.defense, compression=spec.compression)
 
     @property
     def microbatches(self) -> int:
@@ -431,16 +485,16 @@ class ShardedEngine:
     def init(self, params: Tree, rng: torch.Generator | None = None):
         """Broadcast one model into the ``[G, K]`` state on the engine's
         device, with the error-feedback residuals the compression plan
-        carries. A partial-participation or stochastic-rounding run draws
-        from the state's ``rng``; without one it gets a generator on the
-        engine's device seeded with 0 (the reference's ``PRNGKey(0)``)."""
+        carries. A partial-participation, fault-injecting or
+        stochastic-rounding run draws from the state's ``rng``; without one
+        it gets a generator on the engine's device seeded with 0 (the
+        reference's ``PRNGKey(0)``)."""
         from repro_torch.launch.train import sharded_init
 
         spec = self.spec
         G, K = spec.levels
         comp = spec.compression if spec.compressed else None
-        if rng is None and (not spec.full_participation
-                            or (comp is not None and comp.stochastic)):
+        if rng is None and self._needs_rng():
             rng = torch.Generator(device=self.device).manual_seed(0)
         return sharded_init(params, G, K, use_flat_state=spec.state_layout == "flat",
                             correction_dtype=spec.correction_dtype, rng=rng,
@@ -504,21 +558,34 @@ def fit(
     eval_every: int = 1,
     eval_fn: Callable[[Tree, Tree], Tree] | None = None,
     shard_ids=None,
+    draws=None,
+    guard: GuardSpec | bool | None = None,
 ) -> tuple[Tree, Horizon]:
     """Train ``T`` global rounds through the horizon driver.
 
     Pass either a ready ``state`` (to continue a run, with the previous
     ``horizon.data``) or the initial model ``params``. ``shard_ids``
     (``[T, E, G, K]``) fixes the per-round shard selection; otherwise it is
-    drawn from ``data.generator``. Returns ``(state, horizon)``.
+    drawn from ``data.generator``. ``draws`` (T ``RoundDraws``, or None
+    entries) fixes rounds' random draws. ``guard`` (a ``GuardSpec``, or
+    True for the defaults) makes the horizon self-heal: each chunk is
+    snapshotted, checked for divergence, and rolled back and retried with
+    reseeded generators (``core.driver.GuardSpec``); unless the spec says
+    otherwise, retries run ``engine.retry_round_fn``, whose norm screen
+    tightens by ``retry_widen`` each attempt, and ``horizon.guard`` reports
+    the rollbacks and retries taken. Returns ``(state, horizon)``.
     """
     if state is None:
         _require(params is not None,
                  "fit() needs either state=... or params=... to start from")
         state = engine.init(params, rng)
+    if guard is True:
+        guard = GuardSpec()
+    if guard and guard.round_fn_for_retry is None:
+        guard = guard._replace(round_fn_for_retry=engine.retry_round_fn)
     state, _, horizon = run_rounds(
         engine.round_fn, state, data, T, chunk=chunk, eval_every=eval_every,
-        eval_fn=eval_fn, shard_ids=shard_ids)
+        eval_fn=eval_fn, shard_ids=shard_ids, draws=draws, guard=guard or None)
     return state, horizon
 
 
@@ -628,10 +695,9 @@ CLI_FLAGS: tuple[CliFlag, ...] = (
 )
 
 #: Constructors for the nested spec fields a CLI row may target with a
-#: dotted ``field`` when the spec's default for it is None. The fault and
-#: defense plans are a later slice of the port: their flags build a plain
-#: dict of the given fields, which ``ExperimentSpec.validate`` rejects.
-_NESTED_FIELDS = {"schedule": RoundSchedule, "compression": CompressionPlan}
+#: dotted ``field`` when the spec's default for it is None.
+_NESTED_FIELDS = {"schedule": RoundSchedule, "faults": FaultPlan, "defense": DefensePlan,
+                  "compression": CompressionPlan}
 
 
 def _spec_get(spec: ExperimentSpec, field: str):
@@ -676,8 +742,7 @@ def spec_from_args(args, *, defaults: ExperimentSpec | None = None,
     ``microbatches=1``) win over CLI values. Dotted rows update the nested
     dataclass via ``dataclasses.replace``; a nested field whose spec default
     is None is built from its defaults the first time one of its flags is
-    given (a plain dict of the given fields for the fault and defense
-    plans, which the port does not have yet).
+    given, so ``--fault-crash 0.05`` alone yields a full ``FaultPlan``.
     """
     defaults = defaults or ExperimentSpec()
     spec_kw: dict[str, Any] = {}
@@ -700,9 +765,6 @@ def spec_from_args(args, *, defaults: ExperimentSpec | None = None,
             spec_kw[name] = value
     for target, kw in nested_kw.items():
         base = getattr(defaults, target)
-        if base is None and target not in _NESTED_FIELDS:
-            spec_kw[target] = dict(kw)
-            continue
         if base is None:
             base = _NESTED_FIELDS[target]()
         spec_kw[target] = dataclasses.replace(base, **kw)
@@ -718,9 +780,12 @@ __all__ = [
     "COMPRESSION_MODES",
     "CliFlag",
     "CompressionPlan",
+    "DefensePlan",
     "ExperimentSpec",
     "FAULT_KINDS",
     "FUSIONS",
+    "FaultPlan",
+    "GuardSpec",
     "Horizon",
     "LAYOUTS",
     "PackedBatches",

@@ -17,13 +17,23 @@ the device, and ``run_rounds`` (port of ``src/repro/core/driver.py``).
 * **Horizon** (:func:`run_rounds`): ``T`` rounds in a Python loop. Metrics
   come back to the host once per ``chunk`` rounds; the eval function runs
   at multiples of ``eval_every`` and at the final round.
+* **Guarded horizon** (``run_rounds(..., guard=GuardSpec())``): each chunk
+  is snapshotted to host memory before it runs, checked for divergence
+  after, and rolled back and retried on divergence. The reference folds
+  the retry into its JAX keys; here a retry reseeds the state's and the
+  data's generators from (their snapshot, salt), so it draws another
+  realization, deterministically.
 """
 from __future__ import annotations
 
+import hashlib
+import time
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.faults import all_finite
 
 Tree = Any
 
@@ -195,12 +205,139 @@ class Horizon(NamedTuple):
         (multiples of ``eval_every`` plus the final round).
     data: the :class:`PackedBatches` (its generator advanced past this
         horizon) to continue training from.
+    guard: a :class:`GuardReport` when the run was guarded, else None.
     """
 
     metrics: Any
     evals: Any | None
     eval_rounds: np.ndarray
     data: Any | None = None
+    guard: Any | None = None
+
+
+class GuardSpec(NamedTuple):
+    """Self-healing horizon policy for ``run_rounds(..., guard=...)`` (the
+    reference's fields).
+
+    Before each chunk the driver copies the state (and the generators'
+    states) to host memory; after the chunk it checks for divergence and,
+    on divergence, restores the snapshot and retries the chunk with
+    reseeded generators, up to ``max_retries`` times, then raises
+    ``RuntimeError``. Divergence is:
+
+    * a non-finite value in the chunk's ``metrics.loss``, or
+    * (``check_state``) a non-finite value in the state's ``z``/``y``/
+      ``dyn`` fields (every leaf when it has none of them). ``params`` is
+      not checked: under faults a frozen replica may carry non-finite bits
+      until its next download heals it, without entering an aggregate; or
+    * the chunk's final-round mean loss above ``loss_spike`` times the last
+      accepted chunk's (the first chunk has no reference).
+
+    ``round_fn_for_retry(attempt)`` (attempt >= 1) gives the round function
+    of a retry (``repro_torch.api.fit`` wires the engine's
+    ``retry_round_fn`` here); None retries the original.
+    """
+
+    max_retries: int = 2
+    loss_spike: float = 10.0
+    check_state: bool = True
+    round_fn_for_retry: Callable[[int], Callable] | None = None
+
+
+class GuardReport(NamedTuple):
+    """What the guarded horizon did: chunks rolled back at least once, retry
+    attempts in all, and the cost of its snapshots -- seconds spent copying
+    the state to the host (every chunk's copy), bytes a snapshot holds, and
+    seconds spent allocating its host buffers (once a run; page-locked
+    memory for a card's state, which PyTorch caches for later runs)."""
+
+    rollbacks: int
+    retries: int
+    snapshot_s: float = 0.0
+    snapshot_bytes: int = 0
+    alloc_s: float = 0.0
+
+
+_GUARD_FIELDS = ("z", "y", "dyn", "glob")
+
+
+def _tensor_leaves(tree) -> list:
+    from repro_torch.core.tree import tree_leaves
+
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _state_tensors(state) -> list:
+    """Every tensor of a round state, field by field (generators aside)."""
+    fields = state if isinstance(state, tuple) else (state,)
+    out = []
+    for f in fields:
+        if f is not None and not isinstance(f, torch.Generator):
+            out += _tensor_leaves(f)
+    return out
+
+
+def _guard_leaves(state) -> list:
+    """The leaves the guard's state check covers (see GuardSpec)."""
+    picked = [getattr(state, f) for f in _GUARD_FIELDS if getattr(state, f, None) is not None]
+    return _tensor_leaves(picked) if picked else _state_tensors(state)
+
+
+def _finite_chunk(state, losses: np.ndarray, check_state: bool) -> bool:
+    if not np.isfinite(losses).all():
+        return False
+    if check_state:
+        flags = [all_finite(t) for t in _guard_leaves(state) if t.is_floating_point()]
+        if flags and not bool(torch.stack([f.cpu() for f in flags]).all()):
+            return False
+    return True
+
+
+def _reseed(gen: torch.Generator, snap: torch.Tensor, salt: int) -> None:
+    """Seed ``gen`` from a snapshot of a generator's state and ``salt``."""
+    h = hashlib.blake2b(snap.numpy().tobytes() + salt.to_bytes(8, "little"), digest_size=8)
+    gen.manual_seed(int.from_bytes(h.digest(), "little") >> 1)
+
+
+class _HostSnapshot:
+    """The guard's copy of a state in host memory, in buffers kept from one
+    chunk to the next (page-locked for a card's tensors)."""
+
+    def __init__(self):
+        self.bufs, self.seconds, self.nbytes, self.alloc_s = None, 0.0, 0, 0.0
+
+    def take(self, state, data: PackedBatches) -> None:
+        ts = _state_tensors(state)
+        if self.bufs is None or [(b.shape, b.dtype) for b in self.bufs] != [
+                (t.shape, t.dtype) for t in ts]:
+            t0 = time.perf_counter()
+            self.bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda) for t in ts]
+            self.alloc_s += time.perf_counter() - t0
+            self.nbytes = sum(b.numel() * b.element_size() for b in self.bufs)
+        t0 = time.perf_counter()
+        for b, t in zip(self.bufs, ts):
+            b.copy_(t, non_blocking=t.is_cuda)
+        if any(t.is_cuda for t in ts):
+            torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        rng = getattr(state, "rng", None)
+        self.rng = rng.get_state() if isinstance(rng, torch.Generator) else None
+        self.data_rng = data.generator.get_state()
+
+    def restore(self, state, data: PackedBatches, salt: int):
+        """Copy the snapshot into ``state``'s tensors (the same structure as
+        the snapshotted state's: the state a diverged chunk returned) and
+        reseed the state's and the data's generators from their snapshots
+        and ``salt``. Returns ``state``."""
+        ts = _state_tensors(state)
+        if [(t.shape, t.dtype) for t in ts] != [(b.shape, b.dtype) for b in self.bufs]:
+            raise ValueError("the state a chunk returned does not match its snapshot")
+        for t, b in zip(ts, self.bufs):
+            t.copy_(b)
+        if self.rng is not None:
+            _reseed(state.rng, self.rng, salt)
+        _reseed(data.generator, self.data_rng, salt)
+        return state
 
 
 def eval_mask_for_chunk(done: int, n: int, T: int, eval_every: int) -> np.ndarray:
@@ -241,15 +378,27 @@ def run_rounds(
     eval_every: int = 1,
     eval_fn: Callable[[Tree, Tree], Tree] | None = None,
     shard_ids=None,
+    draws=None,
+    guard: GuardSpec | None = None,
 ) -> tuple[Tree, PackedBatches, Horizon]:
     """Run ``T`` global rounds of (batch selection + ``round_fn``).
 
     ``shard_ids`` (optional, ``[T, E, G, K]``) fixes every round's shard
     selection; otherwise each round draws ``[E, G, K]`` ids from
-    ``data.generator``. ``eval_fn(prev_state, state)`` runs after rounds
-    ``eval_every, 2 * eval_every, ..., T``. Metrics (and evals) are copied
-    to the host once per ``chunk`` rounds (``None`` or 0: once at the end),
-    so the device runs a chunk without a host synchronization.
+    ``data.generator``. ``draws`` (optional, T entries, each a
+    ``RoundDraws`` or None) fixes rounds' random draws
+    (``round_fn(state, batches, draws=...)``); a retry replays them as
+    given. ``eval_fn(prev_state, state)`` runs after rounds ``eval_every,
+    2 * eval_every, ..., T``. Metrics (and evals) are copied to the host
+    once per ``chunk`` rounds (``None`` or 0: once at the end), so the
+    device runs a chunk without a host synchronization.
+
+    With ``guard`` (a :class:`GuardSpec`) each chunk is snapshotted,
+    checked and, on divergence, rolled back and retried (see GuardSpec);
+    the Horizon then carries a :class:`GuardReport`. A retry reseeds the
+    generators from their snapshots and the salt ``done * (max_retries +
+    1) + attempt`` (``done``: rounds before the chunk), as the reference
+    folds that salt into its keys.
 
     Returns ``(state, data, Horizon)``.
     """
@@ -263,27 +412,69 @@ def run_rounds(
         shard_ids = torch.as_tensor(np.asarray(shard_ids))
         if shard_ids.shape[0] != T:
             raise ValueError(f"shard_ids has {shard_ids.shape[0]} rounds, T={T}")
+    if draws is not None and len(draws) != T:
+        raise ValueError(f"draws has {len(draws)} rounds, T={T}")
 
-    mets, evs, masks = [], [], []
-    done = 0
-    while done < T:
-        n = min(chunk, T - done)
-        mask = eval_mask_for_chunk(done, n, T, eval_every)
+    def run_chunk(rf, state, done: int, mask: np.ndarray):
         chunk_mets, chunk_evs = [], []
-        for i in range(n):
+        for i in range(len(mask)):
             sid = (shard_ids[done + i] if shard_ids is not None
                    else draw_shard_ids(data))
+            d = draws[done + i] if draws is not None else None
             prev = state
-            state, metrics = round_fn(state, select_round(data, sid))
+            batches = select_round(data, sid)
+            state, metrics = (rf(state, batches) if d is None
+                              else rf(state, batches, draws=d))
             chunk_mets.append(metrics)
             if eval_fn is not None and mask[i]:
                 chunk_evs.append(eval_fn(prev, state))
-        mets.append(_to_host(chunk_mets))
-        if chunk_evs:
-            evs.append(_to_host(chunk_evs))
+        return state, _to_host(chunk_mets), _to_host(chunk_evs) if chunk_evs else None
+
+    mets, evs, masks = [], [], []
+    done, loss_ref, rollbacks, retries = 0, None, 0, 0
+    snap = _HostSnapshot() if guard is not None else None
+    while done < T:
+        n = min(chunk, T - done)
+        mask = eval_mask_for_chunk(done, n, T, eval_every)
+        if guard is None:
+            state, chunk_mets, chunk_evs = run_chunk(round_fn, state, done, mask)
+        else:
+            snap.take(state, data)
+            attempt = 0
+            while True:
+                rf = round_fn
+                if attempt > 0:
+                    state = snap.restore(state, data, done * (guard.max_retries + 1) + attempt)
+                    if guard.round_fn_for_retry is not None:
+                        rf = guard.round_fn_for_retry(attempt)
+                state, chunk_mets, chunk_evs = run_chunk(rf, state, done, mask)
+                losses = getattr(chunk_mets, "loss", None)
+                if losses is None:
+                    raise ValueError("a guarded run_rounds needs a `loss` field in the round "
+                                     "metrics to detect divergence")
+                ok = _finite_chunk(state, losses, guard.check_state)
+                final = float(np.mean(losses[-1])) if ok else np.inf
+                if ok and loss_ref is not None and loss_ref > 0.0:
+                    ok = final <= guard.loss_spike * loss_ref
+                if ok:
+                    loss_ref = final
+                    rollbacks += int(attempt > 0)
+                    retries += attempt
+                    break
+                if attempt >= guard.max_retries:
+                    raise RuntimeError(
+                        f"guarded horizon diverged at rounds {done + 1}..{done + n} and "
+                        f"exhausted {guard.max_retries} retries (last final-round loss "
+                        f"{final}, reference {loss_ref})")
+                attempt += 1
+        mets.append(chunk_mets)
+        if chunk_evs is not None:
+            evs.append(chunk_evs)
         masks.append(mask)
         done += n
 
     eval_rounds = np.nonzero(np.concatenate(masks))[0] + 1
     evals = _concat(evs) if eval_fn is not None else None
-    return state, data, Horizon(_concat(mets), evals, eval_rounds, data)
+    report = (GuardReport(rollbacks, retries, snap.seconds, snap.nbytes, snap.alloc_s)
+              if guard is not None else None)
+    return state, data, Horizon(_concat(mets), evals, eval_rounds, data, report)

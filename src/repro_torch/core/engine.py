@@ -20,10 +20,11 @@ The port covers the sync schedule with all six algorithms (``mtgc``,
 ``correction_init`` ``zero`` and ``gradient``, ``server_lr``, the flat and
 tree state layouts, the fused (mtgc only) and unfused local steps, partial
 participation (``uniform``/``fixed`` masks, ``none``/``inverse_prob``
-weighting) and compressed uploads (``core.compression``) with error
-feedback. Faults and defense, async rounds, populations and the other
-backends are later slices of the port; asking for them raises
-``ValueError`` naming the slice.
+weighting), compressed uploads (``core.compression``) with error
+feedback, and fault injection with screened aggregation
+(``core.faults``). Async rounds, populations and the other backends are
+later slices of the port; asking for them raises ``ValueError`` naming the
+slice.
 
 Partial participation: per-round 0/1 masks (``core.participation``);
 inactive clients keep their params and corrections frozen (``where``
@@ -38,8 +39,16 @@ against its round-start model (plus ``efg``) through the group link's. z
 and y update from the pre-wire models, never from the dequantized view;
 a residual advances only for an upload that entered its aggregate.
 
-Random draws (masks first, then the client-link noise of each group round,
-then the group-link noise) come from ``state.rng``, a ``torch.Generator``
+Faults and defense, at the same seam: crashes fold into the activity
+mask, a timed-out group misses the global exchange, corruption rewrites
+the upload view after the compression round trip (compress -> corrupt ->
+screen), and the defense's screen gates every mean and every z/y update
+(``core.faults``). Under either plan the masked machinery runs even at
+full participation.
+
+Random draws (masks first, then the fault masks, then the client-link
+noise of each group round, then the group-link noise) come from
+``state.rng``, a ``torch.Generator``
 on the state's device, unless the round function is handed them as a
 :class:`RoundDraws` (``round_fn(state, batches, draws=...)``), as the
 parity tests hand it the reference's draws.
@@ -67,13 +76,19 @@ from repro_torch.core import tree as tu
 from repro_torch.core.compression import round_comm_bytes, roundtrip
 from repro_torch.core.config import HFLConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.core.faults import (
+    FaultMasks,
+    all_finite_mask,
+    corrupt_uploads,
+    fault_masks,
+    screen_and_clip,
+)
 from repro_torch.core.packer import FlatBuffers, as_tree, is_flat, make_packer
 from repro_torch.core.participation import ParticipationMasks, inclusion_prob, round_masks
 from repro_torch.kernels import ops as kops
 
 Tree = Any
 
-FAULTS_SLICE = "the faults-and-defense slice of the port"
 ASYNC_SLICE = "the async-rounds slice of the port"
 
 
@@ -113,7 +128,7 @@ class RoundMetrics(NamedTuple):
     z_norm: torch.Tensor        # scalar mean ||z||^2 after the round
     y_norm: torch.Tensor        # scalar mean ||y||^2 after the round
     participation: torch.Tensor  # scalar fraction of clients active this round
-    screened: torch.Tensor      # scalar count of screened contributions (0 here)
+    screened: torch.Tensor      # scalar count of screened contributions
     comm_bytes: torch.Tensor    # scalar modeled upload bytes on the wire
 
 
@@ -126,11 +141,14 @@ class RoundDraws(NamedTuple):
     client_noise: E lists (one per group round) of one U[0, 1) tensor per
                   state leaf, ``[G * K, n]`` (any shape of that size).
     group_noise:  one U[0, 1) tensor per state leaf, ``[G, n]``.
+    faults:       FaultMasks (crash [G, K], timeout [G], corrupt [G, K]),
+                  read only when the round has an enabled ``FaultPlan``.
     """
 
     masks: ParticipationMasks | None = None
     client_noise: list | None = None
     group_noise: list | None = None
+    faults: FaultMasks | None = None
 
 
 def _stack_leading(t: torch.Tensor, lead: tuple[int, ...]) -> torch.Tensor:
@@ -216,17 +234,34 @@ def _build_global_round(
     returned function ``global_round(state, batches, draws=None)`` adapts
     to the layout of the state it is given. ``compression`` (a
     ``core.compression.CompressionPlan``) compresses the client and/or
-    group uploads; a disabled plan (or None) runs the uncompressed round
-    and draws nothing. ``plan`` (async schedules), ``faults`` and
-    ``defense`` exist for the reference's signature; anything but None
-    raises (later slices).
+    group uploads; ``faults`` (a ``core.faults.FaultPlan``) injects
+    per-round crashes, timeouts and corrupted uploads; ``defense`` (a
+    ``core.faults.DefensePlan``) screens and clips uploads before any
+    aggregate or correction update sees them. A disabled plan (or None)
+    runs the round without it and draws nothing. ``plan`` (async
+    schedules) exists for the reference's signature; anything but None
+    raises (a later slice).
     """
     cfg.validate()
-    for value, what, where in ((plan, "an async staleness plan", ASYNC_SLICE),
-                               (faults, "fault injection", FAULTS_SLICE),
-                               (defense, "screened aggregation", FAULTS_SLICE)):
-        if value is not None:
-            raise ValueError(f"{what} needs {where}")
+    if plan is not None:
+        raise ValueError(f"an async staleness plan needs {ASYNC_SLICE}")
+    faults = faults if (faults is not None and faults.enabled) else None
+    defense = defense if (defense is not None and defense.enabled) else None
+    fault_mode, defended = faults is not None, defense is not None
+    if fault_mode:
+        faults.validate()
+    if defended:
+        defense.validate()
+    f_crash = fault_mode and faults.crash_rate > 0
+    f_timeout = fault_mode and faults.timeout_rate > 0
+    f_corrupt = fault_mode and faults.corrupt_rate > 0
+    if fault_mode or defended:
+        if cfg.correction_init != "zero":
+            raise ValueError(
+                "fault injection / screened aggregation require correction_init='zero' "
+                "(the gradient init has no screened analogue)")
+        if cfg.server_lr != 1.0:
+            raise ValueError("fault injection / screened aggregation require server_lr=1.0")
     comp = compression if (compression is not None and compression.enabled) else None
     if comp is not None:
         comp.validate()
@@ -277,7 +312,8 @@ def _build_global_round(
                     f"torch.Generator on {dev}) or pass them in draws=")
             return state.rng
 
-        # Masks first, then the compression noise (drawn where it is used).
+        # Masks first, then the fault masks, then the compression noise
+        # (drawn where it is used).
         if partial:
             if draws.masks is not None:
                 masks = ParticipationMasks(
@@ -285,9 +321,24 @@ def _build_global_round(
             else:
                 masks = round_masks(generator("participation masks"), cfg)
             cmask, gmask = masks.client, masks.group
-            n_active = torch.clamp(torch.sum(cmask), min=1.0)
         else:
-            cmask = gmask = n_active = None
+            cmask = gmask = None
+        if fault_mode:
+            fm = (draws.faults if draws.faults is not None
+                  else fault_masks(generator("fault masks"), faults, G, K))
+            fm = FaultMasks(*(torch.as_tensor(m).to(dev, torch.float32) for m in fm))
+            if f_crash:
+                # A crashed client is frozen exactly like an unsampled one.
+                alive = 1.0 - fm.crash
+                cmask = alive if cmask is None else cmask * alive
+            if f_timeout:
+                tm_keep = 1.0 - fm.timeout                     # [G]
+        if (fault_mode or defended) and cmask is None:
+            # The screens and faults compose with a mask even at full
+            # participation.
+            cmask = torch.ones((G, K), dtype=torch.float32, device=dev)
+        masked = cmask is not None
+        n_active = torch.clamp(torch.sum(cmask), min=1.0) if masked else None
 
         def noise_kw(injected) -> dict:
             """roundtrip's noise: the injected tensors, else state.rng."""
@@ -296,7 +347,14 @@ def _build_global_round(
             return {"generator": generator("stochastic-rounding noise")}
 
         def step_loss_mean(loss):
-            if partial:
+            if defended:
+                # A corrupted client that has not healed yet (downloaded a
+                # clean model) has a non-finite loss while its upload is
+                # screened: the metric screens it the same way.
+                w = cmask * torch.isfinite(loss).to(torch.float32)
+                return (torch.sum(torch.where(w != 0, loss, 0))
+                        / torch.clamp(torch.sum(w), min=1.0))
+            if masked:
                 return torch.sum(torch.where(cmask != 0, loss, 0)) / n_active
             return torch.mean(loss)
 
@@ -329,7 +387,7 @@ def _build_global_round(
                             lambda di, mi, xi, ai: di - mi + cfg.feddyn_alpha * (xi - ai),
                             d, dyn, x, anchor)
                     x_new = tu.tree_map(lambda xi, di: xi - lr * di, x, d)
-                x = tu.tree_select(cmask, x_new, x) if partial else x_new
+                x = tu.tree_select(cmask, x_new, x) if masked else x_new
                 losses.append(step_loss_mean(loss))
             return x, torch.stack(losses)
 
@@ -378,7 +436,7 @@ def _build_global_round(
                 if use_dyn:
                     d = d - next(it) + cfg.feddyn_alpha * (xi - ai)
                 x_new = xi - lr * d
-                if partial:
+                if masked:
                     return torch.where(tu.expand_mask(cmask, x_new) != 0, x_new, xi)
                 return x_new
 
@@ -395,8 +453,10 @@ def _build_global_round(
             """One group round: local phase, client upload, group aggregation
             and z update (Alg. 1, lines 5-9)."""
             x_end, loss_e = local_phase(x, z, batches_eh)
-            # Upload view: the wire carries the dequantized delta; frozen
-            # clients keep their exact bits (where-selects).
+            # Upload view: compression first (the wire carries the
+            # dequantized delta), then corruption rewrites and the defense
+            # screens what the group server would reconstruct; frozen and
+            # clean clients keep their exact bits (where-selects).
             x_up = x_end
             if comp_c:
                 delta = tu.tree_sub(x_end, x)
@@ -406,32 +466,60 @@ def _build_global_round(
                                 **(noise_kw(None if draws.client_noise is None
                                             else draws.client_noise[e]) if c_noise else {}))
                 x_cmp = tu.tree_add(x, deq)
-                x_up = tu.tree_select(cmask, x_cmp, x_end) if partial else x_cmp
-                if ef_c:
-                    # The residual advances only for uploads that entered
-                    # the aggregate: an inactive client keeps its own.
-                    err = tu.tree_sub(u, deq)
-                    efc = tu.tree_select(cmask, err, efc) if partial else err
-            # Group aggregation (line 8): xbar_j = mean over active clients.
-            if partial:
-                xbar = tu.tree_masked_mean(x_up, cmask, axis=1, denom=cdenom)
+                x_up = tu.tree_select(cmask, x_cmp, x_end) if masked else x_cmp
+            if f_corrupt:
+                x_up = corrupt_uploads(x, x_up, fm.corrupt * cmask, faults)
+            if defended:
+                x_up, ok = screen_and_clip(x, x_up, defense)
+                smask = cmask * ok
+                scr = torch.sum(cmask) - torch.sum(smask)
+                n_srv = torch.clamp(torch.sum(smask), min=1.0)
+            else:
+                smask, scr, n_srv = cmask, None, n_active
+            # z is the client's own state: it updates from the client's model
+            # (the corrupted and clipped upload uncompressed; the corrupted
+            # pre-wire model under compression), never from the residual the
+            # wire re-applies.
+            x_loc = x_up
+            if comp_c:
+                x_loc = x_end
+                if f_corrupt:
+                    x_loc = corrupt_uploads(x, x_loc, fm.corrupt * cmask, faults)
+            if ef_c:
+                # The residual advances only for an upload that entered the
+                # aggregate: an inactive or screened client keeps its own.
+                err = tu.tree_sub(u, deq)
+                efc = tu.tree_select(smask, err, efc) if masked else err
+            # Group aggregation (line 8): xbar_j = mean over the active,
+            # surviving clients.
+            if masked:
+                xbar = tu.tree_masked_mean(x_up, smask, axis=1, denom=cdenom)
             else:
                 xbar = tu.tree_mean(x_up, 1)
             xbar_b = tu.tree_broadcast_to_axis(xbar, 1, K)
             diff = tu.tree_sub(x_up, xbar_b)
-            drift = (tu.tree_masked_sq_norm(diff, cmask) / n_active if partial
+            drift = (tu.tree_masked_sq_norm(diff, smask) / n_srv if masked
                      else tu.tree_sq_norm(diff) / (G * K))
-            # Client-group correction update (line 9), from the client's own
-            # model (pre-wire), never from the dequantized view:
+            # Client-group correction update (line 9), gated on the screen:
             #   z_i += (x_{i,H} - xbar_j) / (H * lr)
             if use_z:
                 z_new = tu.tree_map(lambda zi, xe, xb: zi + (xe - xb) / (H * lr),
-                                    z, x_end, xbar_b)
-                z = tu.tree_select(cmask, z_new, z) if partial else z_new
+                                    z, x_loc, xbar_b)
+                z = tu.tree_select(smask, z_new, z) if masked else z_new
             # Dissemination: active clients restart from the group model;
-            # inactive clients stay frozen.
-            x = tu.tree_select(cmask, xbar_b, x_up) if partial else _contiguous(xbar_b)
-            return x, z, efc, loss_e, drift
+            # inactive clients stay frozen. Under the defense a screened but
+            # active client downloads too (that heals it), unless its whole
+            # group was screened: then the group's active clients revert to
+            # their group-round start model, so no screened upload survives
+            # in a replica.
+            if not masked:
+                x = _contiguous(xbar_b)
+            elif defended:
+                has_srv = (torch.sum(smask, dim=1) > 0).to(torch.float32)
+                x = tu.tree_select(cmask * has_srv[:, None], xbar_b, x)
+            else:
+                x = tu.tree_select(cmask, xbar_b, x_up)
+            return x, z, efc, loss_e, drift, scr
 
         # --- Round initialization (lines 2-4) ---------------------------
         if cfg.correction_init == "gradient" and (use_z or use_y):
@@ -444,7 +532,7 @@ def _build_global_round(
                 # Footnote 2: experiments initialize z = 0 each round
                 # (participants only -- frozen clients keep their z).
                 z0 = tu.tree_zeros_like(z)
-                z = tu.tree_select(cmask, z0, z) if partial else z0
+                z = tu.tree_select(cmask, z0, z) if masked else z0
             elif partial:
                 # Theoretical init (line 3): z_i = -g_i + mean_group g_i.
                 g0m = tu.tree_broadcast_to_axis(
@@ -481,11 +569,14 @@ def _build_global_round(
 
         # --- E group rounds (lines 5-9) ---------------------------------
         # y, dyn and anchor are constant across the group rounds.
-        losses, drifts = [], []
+        losses, drifts, scrs = [], [], []
         for e in range(E):
-            x, z, efc, loss_e, drift = group_round(e, x, z, efc, _index(batches, e))
+            x, z, efc, loss_e, drift, scr = group_round(e, x, z, efc, _index(batches, e))
             losses.append(loss_e)
             drifts.append(drift)
+            scrs.append(scr)
+        screened = (torch.sum(torch.stack(scrs)) if defended
+                    else torch.zeros((), dtype=torch.float32, device=dev))
 
         # --- Global aggregation (line 10) --------------------------------
         efg = state.efg if ef_g else None
@@ -511,15 +602,28 @@ def _build_global_round(
                 xbar_c = tu.tree_select(gact, xbar_c, xbar_j)
             return xbar_c, ug, deqg
 
-        if partial and comp_g:
+        if masked and (fault_mode or defended or comp_g):
             # tree_group_global_mean's recovery/estimation split, opened up
-            # so the group link compresses between the two stages.
+            # so timeouts, the group link and the group-level finite screen
+            # compose into the estimation mask between the two stages.
             xbar_j = tu.tree_masked_mean(x, cmask, axis=1)
             gact = (torch.sum(cmask, dim=1) > 0).to(torch.float32)
-            gup = torch.sum(gact)  # reports actually sent
-            gref = tu.tree_masked_mean(state.params, cmask, axis=1)
-            xbar_srv = xbar_j  # the group server's own (pre-wire) aggregate
-            xbar_j, ug, deqg = compress_group(xbar_j, gref, gact)
+            if f_timeout:
+                # A timed-out group misses the global exchange: no upload,
+                # no y update, no download.
+                gact = gact * tm_keep
+            gup = torch.sum(gact)  # reports actually sent (before the screen)
+            if comp_g:
+                gref = tu.tree_masked_mean(state.params, cmask, axis=1)
+                xbar_srv = xbar_j  # the group server's own (pre-wire) aggregate
+                xbar_j, ug, deqg = compress_group(xbar_j, gref, gact)
+            if defended and defense.screen_nonfinite:
+                # Backstop: a report that still carries non-finite bits never
+                # enters the merge (it counts every active client it speaks
+                # for).
+                gfin = all_finite_mask(xbar_j, 1)
+                screened = screened + torch.sum(cmask * (gact * (1.0 - gfin))[:, None])
+                gact = gact * gfin
             if ht:
                 xbar_j0 = tu.tree_map(
                     lambda v: torch.where(tu.expand_mask(gact, v) != 0, v, 0), xbar_j)
@@ -546,9 +650,10 @@ def _build_global_round(
                 tu.tree_sub(xbar_j, tu.tree_broadcast_to_axis(xbar, 0, G))) / G
 
         if ef_g:
-            # Only a report that entered the merge advances its residual.
+            # Only a report that entered the merge (after the timeouts and
+            # the screen) advances its residual.
             errg = tu.tree_sub(ug, deqg)
-            efg = tu.tree_select(gact, errg, efg) if partial else errg
+            efg = tu.tree_select(gact, errg, efg) if masked else errg
 
         # Group-global correction update (line 11), from the group's own
         # (pre-wire) aggregate:
@@ -557,13 +662,13 @@ def _build_global_round(
             y_src = xbar_srv if comp_g else xbar_j
             y_new = tu.tree_map(lambda yj, xj, xg: yj + (xj - xg) / (H * E * lr),
                                 y, y_src, xbar)
-            y = tu.tree_select(gact, y_new, y) if partial else y_new
+            y = tu.tree_select(gact, y_new, y) if masked else y_new
 
         # FedDyn gradient-memory update (per client, after its local work).
         if use_dyn:
             dyn_new = tu.tree_map(lambda mi, xi, ai: mi - cfg.feddyn_alpha * (xi - ai),
                                   dyn, x, anchor)
-            dyn = tu.tree_select(cmask, dyn_new, dyn) if partial else dyn_new
+            dyn = tu.tree_select(cmask, dyn_new, dyn) if masked else dyn_new
 
         # Dissemination from the (server-lr) global model; frozen clients
         # keep what they have.
@@ -575,23 +680,32 @@ def _build_global_round(
             else:
                 prev = tu.tree_map(lambda xi: xi[0, 0], state.params)
             xbar = tu.tree_map(lambda p, xb: p + cfg.server_lr * (xb - p), prev, xbar)
-        if partial:
+        if masked:
+            dm = cmask
+            if fault_mode or defended:
+                # Timed-out groups miss the download too, and no one
+                # downloads a global mean with no surviving group.
+                dm = dm * (torch.sum(gact) > 0).to(torch.float32)
+                if f_timeout:
+                    dm = dm * tm_keep[:, None]
             x_glob = tu.tree_map(lambda xg: xg.expand((G, K) + tuple(xg.shape)), xbar)
-            x = tu.tree_select(cmask, x_glob, x)
+            x = tu.tree_select(dm, x_glob, x)
         else:
             x = tu.tree_map(lambda xg: _stack_leading(xg, (G, K)), xbar)
 
-        # Bytes on the wire: every upload actually sent this round.
-        n_up_c = E * torch.sum(cmask) if partial else E * G * K
+        # Bytes on the wire: every upload actually sent this round (screened
+        # uploads spent their bytes; crashed, unsampled and timed-out ones
+        # sent none).
+        n_up_c = E * torch.sum(cmask) if masked else E * G * K
         metrics = RoundMetrics(
             loss=torch.stack(losses),
             client_drift=torch.stack(drifts),
             group_drift=gdrift,
             z_norm=tu.tree_sq_norm(z) / (G * K),
             y_norm=tu.tree_sq_norm(y) / G,
-            participation=(torch.sum(cmask) / (G * K) if partial
+            participation=(torch.sum(cmask) / (G * K) if masked
                            else torch.ones((), dtype=torch.float32, device=dev)),
-            screened=torch.zeros((), dtype=torch.float32, device=dev),
+            screened=screened,
             comm_bytes=round_comm_bytes(state.params, comp, n_up_c, gup),
         )
         new_state = HFLState(params=x, z=z, y=y, dyn=dyn, rng=state.rng,

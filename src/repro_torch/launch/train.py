@@ -26,7 +26,14 @@ round --
   (plus ``efg``) through the group link's, z and y update from the
   pre-wire models, and a residual advances only for an upload that entered
   its mean; the stochastic-rounding noise comes from ``state.rng`` (after
-  the masks) or ``draws=RoundDraws(client_noise=, group_noise=)``.
+  the masks) or ``draws=RoundDraws(client_noise=, group_noise=)``;
+* faults and defense (``faults=FaultPlan(...)``, ``defense=DefensePlan(...)``)
+  with the simulator engine's semantics (``core/faults.py``): crashes join
+  the activity mask, a timed-out group misses the global exchange, a
+  corrupted upload is rewritten after the client link's round trip, and
+  the screen gates every mean and z/y update (compress -> corrupt ->
+  screen); the fault masks come from ``state.rng`` (after the
+  participation masks) or ``draws=RoundDraws(faults=)``.
 
 The reference vmaps ``value_and_grad`` over ``[G, K]``; here the per-client
 gradients are a Python loop over the replicas, each ``torch.autograd.grad``
@@ -35,8 +42,8 @@ accumulator in the reference's order (``(0 + g_1) + g_2 ...``). That loop
 composes with ``torch.utils.checkpoint`` in the model and holds one
 replica's activations at a time. This is the single-card form of the
 backend; the reference's mesh (``sharding/``, ``launch/mesh.py``) is a later
-slice, as are faults and defense, async schedules and virtual populations
-on this backend (each raises ``ValueError`` naming its slice).
+slice, as are async schedules and virtual populations on this backend (each
+raises ``ValueError`` naming its slice).
 
 Memory: the round updates the state's tensors IN PLACE and returns them in
 the new state, as the reference's driver donates the state to each round:
@@ -47,9 +54,19 @@ by piece, over column pieces of at most ``_CHUNK`` elements of each row
 temporary as large as a leaf is formed, masked or not (a flat glm4-9b
 ``[2, 2, N]`` buffer is 13.2 GB). A frozen replica is never written. What
 the round holds beyond the state: the phase-start model under client-link
-compression (``[G, ...]`` when each group's replicas hold one model, else a
-``[G, K, ...]`` copy) and the group link's round-start reference
-(``[G, ...]``).
+compression, corruption or the defense (``[G, ...]`` when the active
+replicas of each group hold one model, else a ``[G, K, ...]`` copy: a
+client that missed a download, by a crash or a timeout, starts from a stale
+model) and the group link's round-start reference (``[G, ...]``).
+
+A defended group round reads the uploads twice: pass 1 accumulates each
+client's float32 squared delta norm and the all-finite flag of its upload
+view over every piece of every leaf (the screen needs the whole model's
+norm before any mean), pass 2 forms each piece's upload view again
+(corruption payload, clip scale) inside the masked mean; the upload view is
+never stored. Stochastic-rounding noise drawn from ``state.rng`` is drawn
+again in pass 2 from the generator's state before pass 1. The global step's
+non-finite backstop reads every group report once before the merge.
 
 CLI (a reduced model on the CPU)::
 
@@ -70,7 +87,8 @@ from repro_torch.core import compression as cmp
 from repro_torch.core import tree as tu
 from repro_torch.core.compression import _CHUNK, round_comm_bytes
 from repro_torch.core.device import resolve_device
-from repro_torch.core.engine import ASYNC_SLICE, FAULTS_SLICE, RoundDraws
+from repro_torch.core.engine import ASYNC_SLICE, RoundDraws
+from repro_torch.core.faults import FaultMasks, all_finite, fault_masks, payload, screen_tests
 from repro_torch.core.packer import is_flat, make_packer
 from repro_torch.core.participation import ParticipationMasks, inclusion_prob, sample_hfl_masks
 from repro_torch.kernels import ops as kops
@@ -80,14 +98,14 @@ Tree = Any
 
 class ShardedHFLState(NamedTuple):
     """State carried between production rounds: the reference's sync
-    fields and its error-feedback residuals (its async and fault fields
-    come with those slices).
+    fields and its error-feedback residuals (its async fields, the fault
+    download mask among them, come with that slice).
 
     params: [G, K, ...] per-client replicas (tree, or flat [G, K, N]).
     z:      [G, K, ...] client->group corrections (``correction_dtype``).
     y:      [G, ...]    group->global corrections.
-    rng:    ``torch.Generator`` for the participation masks and the
-            stochastic-rounding noise (None: the round draws nothing).
+    rng:    ``torch.Generator`` for the participation masks, the fault masks
+            and the stochastic-rounding noise (None: the round draws nothing).
     efc:    [G, K, ...] client-link error-feedback residuals, in the params'
             dtype (``sharded_init(..., ef_client=True)``); else None.
     efg:    [G, ...]    group-link residuals, likewise (``ef_group=True``).
@@ -107,7 +125,7 @@ class ShardedMetrics(NamedTuple):
     z_norm: torch.Tensor
     y_norm: torch.Tensor
     participation: torch.Tensor  # fraction of clients active this round
-    screened: torch.Tensor       # count of screened contributions (0 here)
+    screened: torch.Tensor       # count of screened contributions
     comm_bytes: torch.Tensor     # modeled upload bytes on the wire this round
 
 
@@ -270,17 +288,20 @@ def _build_sharded_round(
     engine (the reference's signature). Returns ``round_fn(state, batches,
     draws=None)``; batches have leaves ``[E, H, A, G, K, ...]``, and
     ``draws=RoundDraws(masks=, client_noise=, group_noise=)`` fixes a
-    round's participation masks and stochastic-rounding noise (a field left
-    None is drawn from ``state.rng``: the masks, then each group round's
-    client noise, then the group noise). ``fused_mode`` takes None or
+    round's participation masks, fault masks and stochastic-rounding noise
+    (a field left None is drawn from ``state.rng``: the masks, then the
+    fault masks, then each group round's client noise, then the group
+    noise). ``fused_mode`` takes None or
     "auto" (the kernel on a CUDA tensor, its plain version on a CPU
     tensor); the reference's "pallas" and "interpret" have no counterpart
     here. ``compression`` (a ``CompressionPlan``) compresses the upload
     deltas of both links as the reference does, its round trips through
     the quantize kernels when ``use_fused_update`` holds and their plain
     versions otherwise, with the residuals ``sharded_init(...,
-    ef_client=, ef_group=)`` carries. ``plan``, ``faults`` and ``defense``
-    raise, naming their slice."""
+    ef_client=, ef_group=)`` carries. ``faults`` (a ``FaultPlan``) and
+    ``defense`` (a ``DefensePlan``) inject faults and screen the uploads as
+    the simulator engine does. ``plan`` (async schedules) raises, naming
+    its slice."""
     use_corr = algorithm == "mtgc"
     if algorithm not in ("mtgc", "hfedavg"):
         raise ValueError(f"unknown sharded algorithm {algorithm!r} (choose 'mtgc' or 'hfedavg')")
@@ -297,11 +318,18 @@ def _build_sharded_round(
     if not (0.0 < client_participation <= 1.0 and 0.0 < group_participation <= 1.0):
         raise ValueError("participation fractions must be in (0, 1], got "
                          f"{client_participation}/{group_participation}")
-    for value, what, where in ((plan, "an async staleness plan", ASYNC_SLICE),
-                               (faults, "fault injection", FAULTS_SLICE),
-                               (defense, "screened aggregation", FAULTS_SLICE)):
-        if value is not None and getattr(value, "enabled", True):
-            raise ValueError(f"{what} on the sharded backend needs {where}")
+    if plan is not None and getattr(plan, "enabled", True):
+        raise ValueError(f"an async staleness plan on the sharded backend needs {ASYNC_SLICE}")
+    faults = faults if (faults is not None and faults.enabled) else None
+    defense = defense if (defense is not None and defense.enabled) else None
+    fault_mode, defended = faults is not None, defense is not None
+    if fault_mode:
+        faults.validate()
+    if defended:
+        defense.validate()
+    f_crash = fault_mode and faults.crash_rate > 0
+    f_timeout = fault_mode and faults.timeout_rate > 0
+    f_corrupt = fault_mode and faults.corrupt_rate > 0
     comp = compression if (compression is not None and compression.enabled) else None
     if comp is not None:
         comp.validate()
@@ -313,6 +341,10 @@ def _build_sharded_round(
     frac = comp.topk_frac if comp is not None else 0.01
     partial = client_participation < 1.0 or group_participation < 1.0
     ht = partial and participation_weighting == "inverse_prob"
+    # The phase-start model is kept when an upload is taken against it: the
+    # client link's delta, a corrupted delta, the screen's norm and clip, and
+    # the revert of a fully screened group.
+    keep_start = comp_c or f_corrupt or defended
 
     def client_grads(x_tree: Tree, acc_tree: Tree, batch_h: Tree, G: int, K: int):
         """Per-client summed loss [G, K] and the gradient summed over the A
@@ -351,44 +383,72 @@ def _build_sharded_round(
         dev = tu.tree_leaves(x)[0].device
         draws = draws if draws is not None else RoundDraws()
 
+        def generator(what: str) -> torch.Generator:
+            if state.rng is None:
+                raise ValueError(
+                    f"this round draws {what} from the state: build it with "
+                    f"sharded_init(..., rng=torch.Generator(...)) or pass them in draws=")
+            return state.rng
+
+        # Masks first, then the fault masks, then the rounding noise (drawn
+        # where it is used).
+        cmask = gmask = cdenom = gdenom = None
         if partial:
             if draws.masks is not None:
                 masks = ParticipationMasks(
                     *(torch.as_tensor(m).to(dev, torch.float32) for m in draws.masks))
             else:
-                if state.rng is None:
-                    raise ValueError(
-                        "partial participation draws per-round masks from the state: build "
-                        "it with sharded_init(..., rng=torch.Generator(...))")
-                masks = sample_hfl_masks(state.rng, G, K, client_participation,
-                                         group_participation, participation_mode)
+                masks = sample_hfl_masks(generator("per-round masks"), G, K,
+                                         client_participation, group_participation,
+                                         participation_mode)
             cmask, gmask = masks.client, masks.group
             cdenom = inclusion_prob(client_participation, K, participation_mode) * K if ht else None
             gdenom = inclusion_prob(group_participation, G, participation_mode) * G if ht else None
+        if fault_mode:
+            fm = (draws.faults if draws.faults is not None
+                  else fault_masks(generator("fault masks"), faults, G, K))
+            fm = FaultMasks(*(torch.as_tensor(m).to(dev, torch.float32) for m in fm))
+            if f_crash:
+                # A crashed client is frozen exactly like an unsampled one.
+                alive = 1.0 - fm.crash
+                cmask = alive if cmask is None else cmask * alive
+        if (fault_mode or defended) and cmask is None:
+            cmask = torch.ones((G, K), dtype=torch.float32, device=dev)
+        if cmask is not None:
             n_active = torch.clamp(torch.sum(cmask), min=1.0)
             active = cmask.cpu().numpy() != 0          # host copy: which replicas to touch
             gact = (torch.sum(cmask, dim=1) > 0).to(torch.float32)
-            gact_host = active.any(axis=1)             # groups with an active client
         else:
-            cmask = gmask = cdenom = gdenom = n_active = active = gact = gact_host = None
+            n_active = active = gact = None
+        bad = bad_host = None
+        if f_corrupt:
+            # Only a client that worked this round can upload garbage.
+            bad = fm.corrupt * cmask
+            bad_host = bad.cpu().numpy() != 0
 
         def rand(shape) -> torch.Tensor:
             """U[0, 1) stochastic-rounding noise from ``state.rng``."""
-            if state.rng is None:
-                raise ValueError("stochastic compression draws rounding noise from the "
-                                 "state: build it with sharded_init(..., rng=torch.Generator("
-                                 "...)) or pass it in draws=")
-            return torch.rand(shape, generator=state.rng, dtype=torch.float32, device=dev)
+            return torch.rand(shape, generator=generator("stochastic-rounding noise"),
+                              dtype=torch.float32, device=dev)
 
         def injected(t, rows: int, sl: slice) -> torch.Tensor:
             """Columns ``sl`` of an injected noise tensor of ``rows`` rows."""
             return torch.as_tensor(t).to(dev).reshape(rows, -1)[:, sl]
 
+        def replayable():
+            """The generator's state before a screening pass that draws the
+            noise its second pass must draw again (None: nothing to replay)."""
+            return state.rng.get_state() if state.rng is not None else None
+
+        def replay(rng_state) -> None:
+            if rng_state is not None:
+                state.rng.set_state(rng_state)
+
         def select_(dst: torch.Tensor, new: torch.Tensor) -> None:
             """dst <- new on the active replicas of a [G, K, ...] leaf (all at
             full participation)."""
             _put(dst.view(G * K, -1), new.reshape(G * K, -1),
-                None if active is None else active.reshape(-1))
+                 None if active is None else active.reshape(-1))
 
         efc = efg = None
         for on, field, flag in ((ef_c, "efc", "ef_client"), (ef_g, "efg", "ef_group")):
@@ -429,6 +489,12 @@ def _build_sharded_round(
 
         def step_loss_mean(lsum, inv_a):
             lpc = lsum * inv_a
+            if defended:
+                # A corrupted client that has not healed yet has a non-finite
+                # loss while its upload is screened: so is the metric.
+                w = cmask * torch.isfinite(lpc).to(torch.float32)
+                return (torch.sum(torch.where(w != 0, lpc, 0))
+                        / torch.clamp(torch.sum(w), min=1.0))
             if cmask is not None:
                 return torch.sum(torch.where(cmask != 0, lpc, 0)) / n_active
             return torch.mean(lpc)
@@ -442,107 +508,185 @@ def _build_sharded_round(
                 else:
                     zl.masked_fill_(tu.expand_mask(cmask, zl) != 0, 0)
 
-        def aggregate_group(e: int, i: int, xi: torch.Tensor, zi: torch.Tensor, xs) -> None:
-            """One leaf's client uploads (through the client link), group mean
+        def phase_start(i: int, g: int, sl: slice) -> torch.Tensor:
+            """Group g's phase-start model of leaf i, one piece ([piece] shared
+            by the group's replicas, or [K, piece])."""
+            return xs[i][g, sl] if xs[i].dim() == 2 else xs[i][g, :, sl]
+
+        def client_u(i: int, g: int, sl: slice, start: torch.Tensor) -> torch.Tensor:
+            """The client link's input: the K deltas plus their residuals."""
+            u = x_leaves[i][g, :, sl] - start
+            return u + efc[i][g, :, sl] if ef_c else u
+
+        def client_views(e: int, i: int, g: int, sl: slice, param):
+            """One piece of group g's K uploads of leaf i: ``(x_end, start,
+            x_up, x_loc, u, deq)`` -- the local models (a view of the state),
+            the phase-start model, the upload view (through the client link,
+            then corrupted), the client's own view z updates from (the upload
+            uncompressed; the corrupted pre-wire model compressed), and the
+            link's input and output."""
+            x_end = x_leaves[i][g, :, sl]
+            start = None if xs is None else phase_start(i, g, sl)
+            x_up, u, deq = x_end, None, None
+            if comp_c:
+                # The wire carries the dequantized delta.
+                u = client_u(i, g, sl, start)
+                noise = None
+                if cmode == "int8_stochastic":
+                    noise = (rand((K, sl.stop - sl.start)) if draws.client_noise is None
+                             else injected(draws.client_noise[e][i], G * K,
+                                           sl)[g * K:(g + 1) * K])
+                deq = cmp.roundtrip_block(u, cmode, param, noise, use_fused_update)
+                x_up = start + deq
+            x_loc = x_up
+            if f_corrupt and bad_host[g].any():
+                rows = bad[g][:, None] != 0
+                x_up = torch.where(rows, start + payload(x_up - start, faults), x_up)
+                x_loc = (torch.where(rows, start + payload(x_end - start, faults), x_end)
+                         if comp_c else x_up)
+            elif comp_c:
+                x_loc = x_end
+            return x_end, start, x_up, x_loc, u, deq
+
+        def link_param(i: int, g: int):
+            """The client link's row parameters of group g's uploads of leaf i
+            (the int8 scale, the top-k threshold): a pass over the pieces."""
+            if not comp_c:
+                return None
+            n = x_leaves[i].shape[-1]
+            return cmp.row_params(
+                cmode, (client_u(i, g, sl, phase_start(i, g, sl)) for sl in _cols(n)), n, frac)
+
+        def screen(e: int):
+            """Pass 1 of a defended group round: each client's float32 squared
+            delta norm and the all-finite flag of its upload view's entries,
+            over every leaf, piece by piece; then the defense's verdict."""
+            sqn = torch.zeros((G, K), dtype=torch.float32, device=dev)
+            fin = torch.ones((G, K), dtype=torch.bool, device=dev)
+            rng_state = replayable() if comp_c else None
+            for i in range(len(x_leaves)):
+                for g in range(G):
+                    param = link_param(i, g)
+                    for sl in _cols(x_leaves[i].shape[-1]):
+                        _, start, x_up, *_ = client_views(e, i, g, sl, param)
+                        d = (x_up - start).to(torch.float32)
+                        sqn[g] += torch.sum(d * d, dim=1)
+                        fin[g] &= torch.isfinite(x_up).all(dim=1)
+                        del d, x_up
+            replay(rng_state)
+            ok, hit, scale = screen_tests(sqn, fin.to(torch.float32), defense)
+            smask = cmask * ok
+            if hit is not None:
+                hit = hit & (cmask != 0)   # a frozen client uploads nothing
+            has_srv = torch.sum(smask, dim=1) > 0
+            return {"smask": smask, "srv": smask.cpu().numpy() != 0,
+                    "has_srv": has_srv.cpu().numpy(), "hit": hit, "scale": scale,
+                    "hit_host": None if hit is None else hit.cpu().numpy(),
+                    "screened": torch.sum(cmask) - torch.sum(smask)}
+
+        def aggregate_group(e: int, i: int, zi: torch.Tensor, sv) -> None:
+            """One leaf's client uploads, group mean over the surviving clients
             (line 8), z update (line 9) and dissemination, group by group and
             piece by piece: the temporaries are [K, piece]."""
-            x3, z3 = xi.view(G, K, -1), zi.view(G, K, -1)
-            n = x3.shape[-1]
-            cols = _cols(n)
+            z3 = zi.view(G, K, -1)
+            cols = _cols(x_leaves[i].shape[-1])
             for g in range(G):
                 act = None if active is None else active[g]
-
-                def upload(sl):
-                    """The K uploads u = (x_end - x_start) + efc of one piece,
-                    and the phase-start model x_start."""
-                    start = xs[i][g, sl] if xs[i].dim() == 2 else xs[i][g, :, sl]
-                    u = x3[g, :, sl] - start
-                    if ef_c:
-                        u = u + efc[i][g, :, sl]
-                    return u, start
-
-                if comp_c:
-                    param = cmp.row_params(cmode, (upload(sl)[0] for sl in cols), n, frac)
+                srv = act if sv is None else sv["srv"][g]
+                smask_g = (None if cmask is None
+                           else (cmask if sv is None else sv["smask"])[g:g + 1])
+                param = link_param(i, g)
                 for sl in cols:
-                    x_end = x3[g, :, sl]
-                    wire = x_end
-                    if comp_c:
-                        # The wire carries the dequantized delta; the residual
-                        # advances only for an upload that entered the mean.
-                        u, start = upload(sl)
-                        noise = None
-                        if cmode == "int8_stochastic":
-                            noise = (rand((K, sl.stop - sl.start)) if draws.client_noise is None
-                                     else injected(draws.client_noise[e][i], G * K,
-                                                   sl)[g * K:(g + 1) * K])
-                        deq = cmp.roundtrip_block(u, cmode, param, noise, use_fused_update)
-                        wire = start + deq
-                        if ef_c:
-                            _put(efc[i][g, :, sl], u - deq, act)
-                        del u, deq, noise
+                    x_end, start, x_up, x_loc, u, deq = client_views(e, i, g, sl, param)
+                    if sv is not None and sv["hit"] is not None and sv["hit_host"][g].any():
+                        clipped = start + tu.expand_mask(sv["scale"][g], x_up).to(
+                            x_up.dtype) * (x_up - start)
+                        x_up = torch.where(sv["hit"][g][:, None], clipped, x_up)
+                        if not comp_c:
+                            x_loc = x_up
+                    if ef_c:
+                        # The residual advances only for an upload that entered
+                        # the mean.
+                        _put(efc[i][g, :, sl], u - deq, srv)
                     if cmask is None:
-                        xbar = _mean(wire, 0)
+                        xbar = _mean(x_up, 0)
                     else:
-                        xbar = tu.tree_masked_mean(wire[None], cmask[g:g + 1], axis=1,
+                        xbar = tu.tree_masked_mean(x_up[None], smask_g, axis=1,
                                                    denom=cdenom)[0]
-                    del wire
+                    del x_up, u, deq
                     if use_corr:
-                        # z_i += (x_{i,H} - xbar_j) / (H * lr), from the
-                        # client's own (pre-wire) model.
+                        # z_i += (x_{i,H} - xbar_j) / (H * lr), gated on the
+                        # screen.
                         for k in range(K):
-                            if act is None or act[k]:
-                                _correction_step(z3[g, k, sl], x_end[k], xbar, H * lr)
-                    _put(x_end, xbar.expand(x_end.shape), act)
-                    if comp_c and e < E - 1:
+                            if srv is None or srv[k]:
+                                _correction_step(z3[g, k, sl], x_loc[k], xbar, H * lr)
+                    del x_loc
+                    # Active clients download (a screened one too: that heals
+                    # it), unless the whole group was screened: then they
+                    # revert to the phase-start model.
+                    if sv is None or sv["has_srv"][g]:
+                        _put(x_end, xbar.expand(x_end.shape), act)
+                    else:
+                        _put(x_end, start.expand(x_end.shape), act)
+                    if xs is not None and e < E - 1:
                         # The next phase starts from what was disseminated.
-                        if xs[i].dim() == 2:
-                            xs[i][g, sl].copy_(xbar)
-                        else:
+                        if xs[i].dim() == 3:
                             xs[i][g, :, sl].copy_(x_end)
+                        elif (sv is None or sv["has_srv"][g]) and (act is None or act.any()):
+                            xs[i][g, sl].copy_(xbar)
 
-        def aggregate_global(i: int, xi: torch.Tensor, yi: torch.Tensor) -> None:
-            """One leaf's group reports (through the group link), global mean
-            (line 10), y update (line 11) and dissemination, piece by piece:
-            the temporaries are [G, K, piece] at most."""
-            x3, y2 = xi.view(G, K, -1), yi.view(G, -1)
-            n = x3.shape[-1]
-            cols = _cols(n)
+        def own(i: int, sl: slice) -> torch.Tensor:
+            """The groups' own (pre-wire) aggregates of one piece of leaf i
+            [G, piece]: the recovery mean under a mask (every active replica
+            of a group holds its xbar_j), else replica 0."""
+            x3 = x_leaves[i]
+            return (x3[:, 0, sl] if cmask is None
+                    else tu.tree_masked_mean(x3[:, :, sl], cmask, axis=1))
 
-            def own(sl):
-                """The groups' own (pre-wire) aggregates [G, piece]: the
-                recovery mean under a mask (every active replica of a group
-                holds its xbar_j), else replica 0 (clients equal)."""
-                if cmask is None:
-                    return x3[:, 0, sl]
-                return tu.tree_masked_mean(x3[:, :, sl], cmask, axis=1)
+        def group_u(i: int, sl: slice, xbar_j: torch.Tensor) -> torch.Tensor:
+            """The group link's input: the G report deltas plus residuals."""
+            ug = xbar_j - gref_piece(i, sl)
+            return ug + efg[i][:, sl] if ef_g else ug
 
-            def report(sl, xbar_j):
-                """The G report deltas ug = (xbar_j - gref) + efg of one piece,
-                and the reference gref."""
-                ref = gref_piece(i, sl)
-                ug = xbar_j - ref
-                if ef_g:
-                    ug = ug + efg[i][:, sl]
-                return ug, ref
-
+        def global_reports(i: int, sl: slice, param, gsel):
+            """One piece of leaf i's G group reports: ``(xbar_j, wire, ug,
+            deq)`` -- the groups' own aggregates, the reports through the
+            group link (a group outside ``gsel`` keeps its own), and the
+            link's input and output."""
+            xbar_j = own(i, sl)
+            wire, ug, deq = xbar_j, None, None
             if comp_g:
-                param = cmp.row_params(gmode, (report(sl, own(sl))[0] for sl in cols), n, frac)
-            for sl in cols:
-                xbar_j = own(sl)
-                wire = xbar_j
-                if comp_g:
-                    ug, ref = report(sl, xbar_j)
-                    noise = None
-                    if gmode == "int8_stochastic":
-                        noise = (rand((G, sl.stop - sl.start)) if draws.group_noise is None
-                                 else injected(draws.group_noise[i], G, sl))
-                    deq = cmp.roundtrip_block(ug, gmode, param, noise, use_fused_update)
-                    wire = ref + deq
-                    if gact is not None:
-                        wire = torch.where(tu.expand_mask(gact, wire) != 0, wire, xbar_j)
-                    if ef_g:
-                        _put(efg[i][:, sl], ug - deq, gact_host)
-                    del ug, ref, deq, noise
+                ref = gref_piece(i, sl)
+                ug = group_u(i, sl, xbar_j)
+                noise = None
+                if gmode == "int8_stochastic":
+                    noise = (rand((G, sl.stop - sl.start)) if draws.group_noise is None
+                             else injected(draws.group_noise[i], G, sl))
+                deq = cmp.roundtrip_block(ug, gmode, param, noise, use_fused_update)
+                wire = ref + deq
+                if gsel is not None:
+                    wire = torch.where(tu.expand_mask(gsel, wire) != 0, wire, xbar_j)
+            return xbar_j, wire, ug, deq
+
+        def group_link_param(i: int):
+            if not comp_g:
+                return None
+            n = x_leaves[i].shape[-1]
+            return cmp.row_params(gmode, (group_u(i, sl, own(i, sl)) for sl in _cols(n)), n,
+                                  frac)
+
+        def aggregate_global(i: int, yi: torch.Tensor, rows) -> None:
+            """One leaf's group reports (through the group link), global mean
+            over the merging groups (line 10), y update (line 11) and
+            dissemination to ``rows`` (host bools over the G * K replicas;
+            None: all), piece by piece: the temporaries are [G, K, piece] at
+            most."""
+            x3, y2 = x_leaves[i], yi.view(G, -1)
+            param = group_link_param(i)
+            for sl in _cols(x3.shape[-1]):
+                xbar_j, wire, ug, deq = global_reports(i, sl, param, gact)
+                if ef_g:
+                    _put(efg[i][:, sl], ug - deq, gact_host)
                 if cmask is None:
                     xbar = _mean(wire, 0)
                 elif gdenom is None:
@@ -551,17 +695,15 @@ def _build_sharded_round(
                     xbar = tu.tree_masked_mean(
                         torch.where(tu.expand_mask(gact, wire) != 0, wire, 0), gmask, axis=0,
                         denom=gdenom)
-                del wire
+                del wire, ug, deq
                 if use_corr:
                     # y_j += (xbar_j - xbar) / (H * E * lr), from the group's
-                    # own (pre-wire) aggregate; only groups with an active
-                    # client.
+                    # own (pre-wire) aggregate; only merging groups.
                     for g in range(G):
                         if gact_host is None or gact_host[g]:
                             _correction_step(y2[g, sl], xbar_j[g], xbar, H * E * lr)
                 del xbar_j
-                _put(x3[:, :, sl].view(G * K, -1), xbar.expand(G * K, xbar.shape[-1]),
-                    None if active is None else active.reshape(-1))
+                _put(x3[:, :, sl].reshape(G * K, -1), xbar.expand(G * K, xbar.shape[-1]), rows)
 
         def local_update(acc, acc_tree, corr_t, inv_a) -> None:
             """The local step (Alg. 1 line 7) from the summed gradient."""
@@ -591,19 +733,29 @@ def _build_sharded_round(
         acc = tu.tree_zeros_like(x)
         x_tree = packer.unflatten(x) if flat else x
         acc_tree = packer.unflatten(acc) if flat else acc
+        x_leaves = [t.view(G, K, -1) for t in tu.tree_leaves(x)]
 
-        losses, last_g, xs = [], None, None
+        losses, last_g, xs, scrs = [], None, None, []
         for e in range(E):
-            if comp_c and e == 0:
-                # The phase-start model the upload deltas are taken against:
-                # [G, ...] when every replica of each group holds one model
-                # (and, at full participation, after each dissemination),
-                # else a copy of the [G, K, ...] replicas.
-                shared = cmask is None and all(
-                    torch.equal(t[:, k], t[:, 0]) for t in tu.tree_leaves(x)
-                    for k in range(1, K))
-                xs = [(t.view(G, K, -1)[:, 0] if shared else t.view(G, K, -1)).clone(
-                    memory_format=torch.contiguous_format) for t in tu.tree_leaves(x)]
+            if keep_start and e == 0:
+                # The phase-start model the uploads are taken against: [G, ...]
+                # when the active replicas of each group hold one model (and
+                # then after each dissemination), else a copy of the
+                # [G, K, ...] replicas (a client that missed a download holds
+                # a stale model).
+                def agree(t3, g):
+                    ks = range(K) if active is None else np.flatnonzero(active[g]).tolist()
+                    return all(torch.equal(t3[g, k], t3[g, ks[0]]) for k in ks[1:])
+
+                shared = all(agree(t, g) for t in x_leaves for g in range(G))
+                xs = []
+                for t in x_leaves:
+                    if not shared:
+                        xs.append(t.clone(memory_format=torch.contiguous_format))
+                        continue
+                    first = [0 if active is None or not active[g].any()
+                             else int(np.flatnonzero(active[g])[0]) for g in range(G)]
+                    xs.append(torch.stack([t[g, k] for g, k in enumerate(first)]))
             loss_e = []
             # Flat, unfused: z + y folded into one correction for the phase.
             corr_t = None
@@ -617,31 +769,75 @@ def _build_sharded_round(
                 if e == E - 1 and h == H - 1:
                     if cmask is not None:
                         # The last step's gradient is read only here: zero the
-                        # frozen replicas' in place (the bits a where-copy
-                        # would hold) rather than copying the accumulator.
+                        # frozen replicas' (and, defended, the non-finite
+                        # ones') in place, the bits a where-copy would hold,
+                        # rather than copying the accumulator.
+                        keep = cmask != 0
+                        if defended:
+                            for t in tu.tree_leaves(acc):
+                                t3 = t.view(G, K, -1)
+                                keep &= torch.stack([
+                                    torch.stack([all_finite(t3[g, k]) for k in range(K)])
+                                    for g in range(G)])
                         for t in tu.tree_leaves(acc):
-                            t.masked_fill_(tu.expand_mask(cmask, t) == 0, 0)
-                        del t
+                            t.masked_fill_(tu.expand_mask(~keep, t), 0)
+                        del t, keep
                     last_g = _sq_norm(acc) * inv_a * inv_a
             losses.append(torch.stack(loss_e))
-            for i, (xi, zi) in enumerate(zip(tu.tree_leaves(x), tu.tree_leaves(z))):
-                aggregate_group(e, i, xi, zi, xs)
+            sv = screen(e) if defended else None
+            if sv is not None:
+                scrs.append(sv["screened"])
+            for i, zi in enumerate(tu.tree_leaves(z)):
+                aggregate_group(e, i, zi, sv)
+            del sv
         del acc, acc_tree, corr_t, xs
+        screened = (torch.sum(torch.stack(scrs)) if scrs
+                    else torch.zeros((), dtype=torch.float32, device=dev))
 
-        for i, (xi, yi) in enumerate(zip(tu.tree_leaves(x), tu.tree_leaves(y))):
-            aggregate_global(i, xi, yi)
+        # The merging groups: active, not timed out, and (defended) with a
+        # finite report -- the backstop reads every report first.
+        gup = G
+        gact_host = rows = None
+        if cmask is not None:
+            if f_timeout:
+                gact = gact * (1.0 - fm.timeout)
+            gup = torch.sum(gact)  # reports actually sent (before the screen)
+            if defended and defense.screen_nonfinite:
+                gfin = torch.ones(G, dtype=torch.bool, device=dev)
+                rng_state = replayable() if comp_g else None
+                for i in range(len(x_leaves)):
+                    param = group_link_param(i)
+                    for sl in _cols(x_leaves[i].shape[-1]):
+                        wire = global_reports(i, sl, param, gact)[1]
+                        gfin &= torch.isfinite(wire).all(dim=1)
+                replay(rng_state)
+                gfin = gfin.to(torch.float32)
+                screened = screened + torch.sum(cmask * (gact * (1.0 - gfin))[:, None])
+                gact = gact * gfin
+            gact_host = gact.cpu().numpy() != 0
+            dm = cmask
+            if fault_mode or defended:
+                # Timed-out groups miss the download too, and no one
+                # downloads a global mean with no merging group.
+                dm = dm * (torch.sum(gact) > 0).to(torch.float32)
+                if f_timeout:
+                    dm = dm * (1.0 - fm.timeout)[:, None]
+            rows = dm.cpu().numpy().reshape(-1) != 0
+        for i, yi in enumerate(tu.tree_leaves(y)):
+            aggregate_global(i, yi, rows)
         del gref
 
-        n_up_c = E * torch.sum(cmask) if partial else E * G * K
-        gup = torch.sum(gact) if partial else G
+        # Bytes on the wire: every upload actually sent (screened uploads
+        # spent their bytes; crashed, unsampled and timed-out ones none).
+        n_up_c = E * torch.sum(cmask) if cmask is not None else E * G * K
         metrics = ShardedMetrics(
             loss=torch.stack(losses),
             grad_norm=last_g,
             z_norm=_sq_norm(z) / (G * K),
             y_norm=_sq_norm(y) / G,
-            participation=(torch.sum(cmask) / (G * K) if partial
+            participation=(torch.sum(cmask) / (G * K) if cmask is not None
                            else torch.ones((), dtype=torch.float32, device=dev)),
-            screened=torch.zeros((), dtype=torch.float32, device=dev),
+            screened=screened,
             comm_bytes=round_comm_bytes(x, comp, n_up_c, gup),
         )
         return state._replace(params=x, z=z, y=y), metrics

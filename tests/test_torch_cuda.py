@@ -820,3 +820,113 @@ def test_piecewise_threshold_on_card(cuda, monkeypatch, dtype):
         assert torch.equal(torch.isnan(got), torch.isnan(want)), frac
         ok = ~torch.isnan(want)
         assert torch.equal(got[ok], want[ok]), frac
+
+
+# ---------------------------------------------------- faults and defense
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_flat_kernel_under_crash_masks_and_nan(cuda, dtype):
+    """The masked fused update as fault injection drives it: a crash mask
+    freezing replicas whose g and z hold NaN and Inf (their bits kept), and
+    active replicas with non-finite operands (undefended corruption) --
+    against the plain version with NaN positions compared, not NaN payload
+    bits, and every other element bit for bit."""
+    from repro_torch.core.faults import FaultPlan, fault_masks
+
+    G, K, N = 10, 10, 4099
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    x, g, z = (torch.randn(G, K, N, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    y = torch.randn(G, N, generator=gen, device=cuda).to(dtype)
+    fm = fault_masks(gen, FaultPlan(crash_rate=0.3), G, K)
+    assert 0 < fm.crash.sum() < G * K
+    cmask = 1.0 - fm.crash
+    crashed = fm.crash != 0
+    g[crashed] = float("nan")
+    z[crashed] = float("inf")
+    live = (~crashed).nonzero()[:3]
+    g[live[0, 0], live[0, 1], ::7] = float("nan")
+    z[live[1, 0], live[1, 1], 5] = -float("inf")
+    x[live[2, 0], live[2, 1], :17] = float("nan")
+    y[live[0, 0], 100:110] = float("inf")
+    got = mu.mtgc_update_flat(x, g, z, y, cmask, lr=0.05, g_scale=0.5)
+    torch.cuda.synchronize()
+    want = mu.mtgc_update_flat_ref(x, g, z, y, cmask, 0.05, 0.5)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    ok = ~torch.isnan(want)
+    assert torch.equal(got.view(ints)[ok], want.view(ints)[ok])
+    assert torch.equal(got[crashed].view(ints), x[crashed].view(ints))
+    assert torch.isnan(got[live[0, 0], live[0, 1], ::7]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_screen_and_clip_on_card_matches_cpu(cuda, dtype):
+    """``screen_and_clip`` and ``corrupt_uploads`` on the card against the
+    CPU: the same survivors, the clip within float32 rounding (the norm's
+    summation order differs), clean uploads and NaN positions exact."""
+    from repro_torch.core import faults as flt
+
+    rs_ = np.random.default_rng(42)
+    xs = {"a": rs_.normal(size=(3, 4, 300)).astype(np.float32),
+          "b": rs_.normal(size=(3, 4, 20, 7)).astype(np.float32)}
+    xe = {k: v + rs_.normal(size=v.shape).astype(np.float32) for k, v in xs.items()}
+    bad = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 1], [0, 0, 0, 0]])
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        s = {k: torch.from_numpy(v).to(dev, dtype) for k, v in xs.items()}
+        e = {k: torch.from_numpy(v).to(dev, dtype) for k, v in xe.items()}
+        res = []
+        for kind, dp in (("nan", dict()), ("explode", dict(screen_norm=100.0, clip_norm=20.0)),
+                         ("inf", dict(screen_nonfinite=False, clip_norm=5.0))):
+            up = flt.corrupt_uploads(s, e, bad.to(dev),
+                                     flt.FaultPlan(corrupt_rate=0.5, corrupt_kind=kind,
+                                                   explode_factor=30.0))
+            x_up, ok = flt.screen_and_clip(s, up, flt.DefensePlan(**dp))
+            res.append(({k: v.float().cpu() for k, v in up.items()},
+                        {k: v.float().cpu() for k, v in x_up.items()}, ok.cpu()))
+        outs[dev.type] = res
+    for (up_g, xu_g, ok_g), (up_c, xu_c, ok_c) in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(ok_g, ok_c)
+        for k in up_c:
+            assert torch.equal(torch.isnan(up_g[k]), torch.isnan(up_c[k]))
+            assert torch.equal(torch.nan_to_num(up_g[k]), torch.nan_to_num(up_c[k]))
+            assert torch.equal(torch.isnan(xu_g[k]), torch.isnan(xu_c[k]))
+            rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            torch.testing.assert_close(torch.nan_to_num(xu_g[k]), torch.nan_to_num(xu_c[k]),
+                                       rtol=rtol, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("backend,layout", [("simulator", "flat"), ("simulator", "tree"),
+                                            ("sharded", "flat"), ("sharded", "tree")])
+def test_faulty_round_on_card_matches_cpu(cuda, backend, layout):
+    """A fused round under crashes, timeouts and exploded uploads with the
+    screen and the clip, masks injected, on the card against the CPU: every
+    state field within rtol 1e-5 / atol 1e-6 (z, y: the atol carried), the
+    same screened count."""
+    from repro_torch.core.faults import DefensePlan, FaultMasks, FaultPlan
+
+    G, K, E, H = 2, 3, 2, 2
+    rs_ = np.random.default_rng(43)
+    loss, p0, b = _quad_problem(rs_, G, K, E, H)
+    if backend == "simulator":
+        b = {k: v[:, :, 0] for k, v in b.items()}
+    fm = FaultMasks(torch.tensor([[0.0, 1.0, 0.0], [0.0, 0.0, 0.0]]), torch.tensor([0.0, 1.0]),
+                    torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]))
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        spec = api.ExperimentSpec(levels=(G, K), backend=backend, state_layout=layout,
+                                  fusion="fused", lr=0.05, schedule=api.RoundSchedule(E, H),
+                                  faults=FaultPlan(crash_rate=0.1, timeout_rate=0.1,
+                                                   corrupt_rate=0.1, corrupt_kind="explode",
+                                                   explode_factor=50.0),
+                                  defense=DefensePlan(screen_norm=40.0, clip_norm=4.0))
+        eng = api.build(spec, loss, device=dev)
+        st, m = eng.round_fn(eng.init(p0), {k: v.to(dev) for k, v in b.items()},
+                             draws=RoundDraws(faults=fm))
+        outs[dev.type] = (convert.to_numpy(st), float(m.screened))
+    assert outs["cuda"][1] == outs["cpu"][1] > 0
+    for name, atol in (("params", 1e-6), ("z", 1e-5), ("y", 5e-6)):
+        for key, cpu in outs["cpu"][0][name].items():
+            np.testing.assert_allclose(outs["cuda"][0][name][key], cpu, rtol=1e-5, atol=atol,
+                                       err_msg=f"{name}/{key}")

@@ -297,7 +297,6 @@ def test_train_cli_flags_are_the_reference_table():
     spec = tapi.spec_from_args(args, defaults=tapi.ExperimentSpec(backend="sharded"),
                                microbatches=2)
     assert spec.levels == (2, 3) and spec.schedule.group_rounds == 3
-    assert spec.schedule.microbatches == 2 and spec.faults == {"crash_rate": 0.1}
-    with pytest.raises(ValueError, match="faults-and-defense slice"):
-        spec.validate()
+    assert spec.schedule.microbatches == 2 and spec.faults == tapi.FaultPlan(crash_rate=0.1)
+    assert spec.validate() is spec
     assert dataclasses.replace(spec, faults=None).validate() is not None

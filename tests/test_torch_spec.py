@@ -1,6 +1,6 @@
 """The port's ExperimentSpec: the reference's field list, later-slice
-fields rejected by name (partial participation and compressed uploads are
-accepted), and no quiet CPU run on a host without CUDA."""
+fields rejected by name (partial participation, compressed uploads, faults
+and defense are accepted), and no quiet CPU run on a host without CUDA."""
 import dataclasses
 
 import pytest
@@ -27,10 +27,15 @@ def test_field_list_equals_reference():
 
 
 @pytest.mark.parametrize("kwargs,slice_name", [
-    ({"client_participation": 0.5, "faults": object()}, "faults-and-defense"),
-    ({"group_participation": 0.5, "defense": object()}, "faults-and-defense"),
-    ({"faults": object()}, "faults-and-defense"),
-    ({"defense": object()}, "faults-and-defense"),
+    # Faults and defense run on both engines; with a later slice's field
+    # they still name that slice.
+    ({"client_participation": 0.5, "faults": tapi.FaultPlan(crash_rate=0.1),
+      "population": 4}, "virtual-population"),
+    ({"group_participation": 0.5, "defense": tapi.DefensePlan(),
+      "backend": "multilevel"}, "multilevel-backend"),
+    ({"faults": tapi.FaultPlan(timeout_rate=0.2), "staleness": "discount",
+      "schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "async-rounds"),
+    ({"defense": tapi.DefensePlan(), "client_state": "stateless"}, "virtual-population"),
     ({"compression": tapi.CompressionPlan("int8_stochastic"), "staleness": "discount",
       "schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "async-rounds"),
     ({"staleness": "discount",
@@ -42,7 +47,9 @@ def test_field_list_equals_reference():
     ({"level_participation": (1.0, 1.0)}, "multilevel-backend"),
     ({"backend": "sharded", "compression": tapi.CompressionPlan("int8_stochastic"),
       "population": 4}, "virtual-population"),
-    ({"backend": "sharded", "faults": object()}, "faults-and-defense"),
+    ({"backend": "sharded", "faults": tapi.FaultPlan(timeout_rate=0.2),
+      "staleness": "discount",
+      "schedule": tapi.RoundSchedule(group_rounds=(2, 1), microbatches=2)}, "async-rounds"),
     ({"backend": "sharded", "staleness": "discount",
       "schedule": tapi.RoundSchedule(group_rounds=(2, 1), microbatches=2)}, "async-rounds"),
 ])
@@ -108,13 +115,21 @@ def test_sharded_compression_validates_and_builds(modes, layout):
 
 
 def test_round_builder_rejects_later_slice_plans():
-    """Async plans, faults and defense still name their slice; compression
-    and partial participation build, with the reference's rejections of
-    compression under the gradient init or a server lr."""
+    """Async plans still name their slice; faults, defense, compression and
+    partial participation build, with the reference's rejections of a fault
+    plan, a defense or compression under the gradient init or a server lr,
+    and of a fault rate outside [0, 1)."""
     cfg = HFLConfig()
-    for kw in ({"plan": object()}, {"faults": object()}, {"defense": object()}):
-        with pytest.raises(ValueError, match="slice of the port"):
-            _build_global_round(lambda p, b: None, cfg, **kw)
+    with pytest.raises(ValueError, match="slice of the port"):
+        _build_global_round(lambda p, b: None, cfg, plan=object())
+    for kw in ({"faults": tapi.FaultPlan(crash_rate=0.1)}, {"defense": tapi.DefensePlan()}):
+        assert callable(_build_global_round(lambda p, b: None, cfg, **kw))
+        with pytest.raises(ValueError, match="correction_init='zero'"):
+            _build_global_round(lambda p, b: None, HFLConfig(correction_init="gradient"), **kw)
+        with pytest.raises(ValueError, match="server_lr=1.0"):
+            _build_global_round(lambda p, b: None, HFLConfig(server_lr=0.5), **kw)
+    with pytest.raises(ValueError, match="crash_rate"):
+        _build_global_round(lambda p, b: None, cfg, faults=tapi.FaultPlan(crash_rate=1.0))
     plan = tapi.CompressionPlan("int8_stochastic", "topk")
     assert callable(_build_global_round(lambda p, b: None, cfg, compression=plan))
     assert callable(_build_global_round(lambda p, b: None,
