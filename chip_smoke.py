@@ -11,12 +11,12 @@ main path at full width -- the paper's CIFAR-10 CNN (McMahan et al.:
 conv5x5x32, pool, conv5x5x64, pool, fc512, fc10; N = 2,156,490 float32
 parameters) over 10 groups x 10 clients at batch 50, on synthetic data of
 CIFAR-10's 32x32x3 shape -- uncompressed at full participation, with
-compressed uploads, under partial participation and under faults. Depth
-is cut: E = 2
+compressed uploads, under partial participation, under faults and with
+async group rounds. Depth is cut: E = 2
 group rounds of H = 5 local steps, 1 or 2 global rounds per path. After
 the serving phases it trains glm4-9b at full width (depth 2 of 40) on the
 sharded backend, plain, with compressed uploads, under partial
-participation and under faults. The CNN's learning rate is 0.01: at 0.1
+participation, under faults and with async group rounds. The CNN's learning rate is 0.01: at 0.1
 the loss of this CNN on the synthetic images spikes into the thousands and
 then settles at chance (ln 10) in both packages
 (``tests/test_torch_driver.py::test_cifar_cnn_loss_spike_tracks_reference``).
@@ -78,9 +78,23 @@ final line):
     after 2 retries and every retry starts from the snapshot's bits) and
     the guard's zero-fault overhead (guarded against unguarded rounds, in
     turns);
+10c. phase (o), async group rounds on the simulator engine, the CNN path
+    with group 9 at one group round to the others' two (it reports every
+    second window): (o1) flat + fused, delay-compensated, 4 windows through
+    ``fit`` in chunks of 2 -- every ``mtgc_update_flat`` launch masked
+    (``em x cmask``), every tenth held bit for bit against its plain
+    version on its own operands, group 9's rows kept through each step of
+    its idle iteration, its z (and params, in a window it does not report)
+    kept through the masked mean, its ``snap`` changed only at windows 1
+    and 3, ``global_model`` = group 0's replica; then two windows timed
+    against (a) and the peak; (o2) tree + fused, discount, one window:
+    ``mtgc_update`` once per leaf per step; (o3) flat + fused, naive, a
+    timeout injected in each of two windows: ``dl`` = ``rep x any_obs`` and
+    the timed-out group's y kept;
 11. the port on the card against the port on the CPU (the kernels' plain
-    versions) on a small input: the uncompressed round, and a compressed
-    round under partial participation with injected draws;
+    versions) on a small input: the uncompressed round, a compressed round
+    under partial participation with injected draws, and two async windows
+    (group_rounds (2, 1), delay-compensated);
 12. the LM kernels (``flash_attention``, ``rwkv6_scan``) against their plain
     versions on the card: at the serving shapes (q [4, 2048, 40, 128]
     against a [4, 2080, 8, 128] cache, causal; the scan at B = 4,
@@ -161,12 +175,24 @@ final line):
     and z and the timed-out group's y kept to their bits, the launch counts
     of (i), a finite state (read in 2^26 pieces), round ms with and without
     the guard's snapshot, each round's peak memory, and a traced round;
+20c. phases (p) and (q), async LM training: the training of (i) at
+    ``group_rounds = (2, 1)`` -- (p) flat + fused, delay-compensated; (q)
+    tree + fused, discount, client participation 0.5 (fixed masks,
+    injected; inverse_prob) with a timeout of group 1 injected in the
+    second window -- a warm-up window (t = 0: only group 0 reports), a timed
+    one (t = 1: group 1's stale report is due) and a traced one: the launch
+    counts of (i) (per-client gradients at the static shape, the idle
+    replicas' updates masked), the frozen and timed-out rows' bits, ``dl``,
+    ``snap``/``glob`` after the stale report, a finite state, the window
+    time, the tokens of computed microbatches and the tokens that entered
+    an update a second, and the peak;
 21. a reduced glm4-9b (float32, remat) sharded round at T = 1100 on the
-    card against the CPU (params within rtol 1e-4), and the fused step
-    against the unfused one on the card, bit for bit;
-22. a JSON line of the serving and training runs, one per phase of 18-20
-    and (n), one of (m), and one per kernel, then ``{"ok": true, "device":
-    {...}}`` last.
+    card against the CPU (params within rtol 1e-4), two async windows
+    (flat + fused, group_rounds (2, 1), delay-compensated) likewise, and the
+    fused step against the unfused one on the card, bit for bit;
+22. a JSON line of the serving and training runs, one per phase of 18-20,
+    (n), (p) and (q), one of (m), one of (o), and one per kernel, then
+    ``{"ok": true, "device": {...}}`` last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``) for the whole run, so every
@@ -1510,7 +1536,33 @@ def phase_lm_train_card_vs_cpu(torch, np, convert):
                                                                   dev)),
                                {k: v.to(dev) for k, v in batch.items()})
         outs[(dev, fusion)] = (convert.to_numpy(st), met.loss.cpu().numpy())
+    # Two async windows (group_rounds (2, 1), delay-compensated, flat + fused)
+    # of the same data: the window t = 1 merges group 1's stale report.
+    abatch = {k: v[0, 0][:, None, None].contiguous() for k, v in batch.items()}
+    aspec = api.ExperimentSpec(levels=(2, 2), backend="sharded", lr=0.05, fusion="fused",
+                               state_layout="flat", staleness="delay_compensated",
+                               schedule=api.RoundSchedule(group_rounds=(2, 1), local_steps=1,
+                                                          microbatches=1))
+    for dev in ("cuda", "cpu"):
+        eng = api.build(aspec, bundle.loss, device=dev)
+        st = eng.init(convert.params_from_numpy(convert.to_numpy(params), dev))
+        for _ in range(2):
+            st, met = eng.round_fn(st, {k: v.to(dev) for k, v in abatch.items()})
+        outs[(dev, "async")] = (convert.to_numpy(st), met.loss.cpu().numpy())
     torch.use_deterministic_algorithms(False)
+    worst_async = 0.0
+    card, cpu = outs[("cuda", "async")], outs[("cpu", "async")]
+    require(np.allclose(card[1], cpu[1], rtol=1e-5), f"async losses differ: {card[1]} vs {cpu[1]}")
+    for name in ("params", "z", "y", "snap", "glob"):
+        for key, c in cpu[0][name].items():
+            g = card[0][name][key]
+            worst_async = max(worst_async, float(np.max(np.abs(g - c) / (1e-5 + np.abs(c)))))
+            require(np.allclose(g, c, rtol=1e-4, atol=1e-5 if name != "z" and name != "y"
+                                else 1e-4), f"async reduced LM round: {name}/{key} differs "
+                                            f"between card and CPU")
+    log(f"card vs CPU, reduced glm4-9b (f32, remat) async sharded windows, flat + fused, "
+        f"group_rounds (2, 1), delay_compensated, T=1100: params, z, y, snap, glob within rtol "
+        f"1e-4 (worst {worst_async:.2e})")
     worst = 0.0
     card, cpu = outs[("cuda", "fused")], outs[("cpu", "fused")]
     require(np.allclose(card[1], cpu[1], rtol=1e-5), f"losses differ: {card[1]} vs {cpu[1]}")
@@ -1908,6 +1960,358 @@ def phase_lm_train_faults(torch, np) -> dict:
     return out
 
 
+# Phases (o)-(q): async group rounds. The CNN's straggler shape is
+# benchmarks/bench_async.py's: one group at E_g = 1 while the others run
+# E = 2, so it reports every second window (staleness 1). glm4-9b runs two
+# groups at (2, 1).
+CNN_ASYNC_ROUNDS = (E,) * (GROUPS - 1) + (1,)
+CNN_ASYNC_WINDOWS, CNN_ASYNC_CHUNK = 4, 2
+LM_ASYNC_ROUNDS = (LM_TRAIN_E, 1)
+
+
+def phase_async_hfl(torch, np, api, spec, data, p0, loss_fn) -> dict:
+    """Phase (o): the CNN at full width on the simulator engine with group 9
+    at E_9 = 1 of e_pad = 2 group rounds (it reports every second window).
+
+    (o1) flat + fused, delay-compensated, ``CNN_ASYNC_WINDOWS`` windows
+    through ``fit`` in chunks of 2 (a report cycle crosses a chunk): every
+    ``mtgc_update_flat`` launch carries a mask, every tenth is held against
+    its plain version on its own operands, group 9's rows keep their bits
+    through each step of its idle iteration, and after each window its z
+    (and, in a window it does not report, its params) are the ones its idle
+    iteration started from; its ``snap`` changes only at windows 1 and 3;
+    ``global_model`` is group 0's replica. Then two windows timed, and the
+    peak. (o2) tree + fused, discount, one window: ``mtgc_update`` once per
+    leaf per step. (o3) flat + fused, naive, a timeout injected in each of
+    two windows (group 3, then the straggler in its report window): after
+    each window ``dl`` is ``rep x any_obs`` and the timed-out group's y kept
+    its bits."""
+    from repro_torch.core.engine import RoundDraws
+    from repro_torch.core.faults import FaultMasks, FaultPlan
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import mtgc_update as mu
+    from repro_torch.kernels import ops
+
+    G, K = spec.levels
+    slow = G - 1
+    out = {"group_rounds": list(CNN_ASYNC_ROUNDS)}
+    launches = {"o1": {}, "o2": {}, "o3": {}}
+
+    # --- (o1) ---
+    o1 = dataclasses.replace(spec, schedule=api.RoundSchedule(CNN_ASYNC_ROUNDS, H),
+                             staleness="delay_compensated")
+    eng = api.build(o1, loss_fn)
+    plan = o1.staleness_plan()
+    require(plan.periods == (1,) * (G - 1) + (2,) and plan.fastest_group == 0,
+            f"(o1) plan periods {plan.periods}")
+    calls = {"n": 0, "masked": 0, "checked": 0, "idle_steps_kept": 0}
+    idle_start = {}
+    real = ops.mtgc_update_flat
+
+    def spy(x, g, z, y, mask=None, **kw):
+        i = calls["n"]
+        calls["n"] += 1
+        e, h, w = (i // H) % E, i % H, i // (E * H)
+        if e == 1 and h == 0:
+            idle_start[w] = (x[slow].clone(), z[slow].clone())
+        before = x[slow].clone() if e == 1 else None
+        res = real(x, g, z, y, mask, **kw)
+        calls["masked"] += int(mask is not None)
+        if e == 1:
+            require(mask is not None and not bool(mask[slow].any())
+                    and same_bits(torch, res[slow], before),
+                    f"(o1) group {slow}'s rows changed in its idle iteration (call {i})")
+            calls["idle_steps_kept"] += 1
+        if i % 10 == 0:
+            want = mu.mtgc_update_flat_ref(x, g, z, y, mask, kw["lr"], kw.get("g_scale", 1.0))
+            require(same_bits(torch, res, want),
+                    f"(o1) mtgc_update_flat disagrees with its plain version (call {i})")
+            calls["checked"] += 1
+        return res
+
+    snap_changes = []
+
+    def check(prev, st):
+        w = int(prev.round)
+        x0, z0 = idle_start[w]
+        x, z = st.params.bufs["float32"], st.z.bufs["float32"]
+        require(same_bits(torch, z[slow], z0), f"(o1) window {w}: group {slow}'s z changed after "
+                                               f"its idle iteration began")
+        if w % 2 == 0:
+            require(same_bits(torch, x[slow], x0), f"(o1) window {w}: group {slow} did not "
+                                                   f"report, yet its params changed")
+        else:
+            require(torch.equal(x[slow], x[0]), f"(o1) window {w}: group {slow} reported but "
+                                                f"did not download")
+        changed = not same_bits(torch, st.snap.bufs["float32"][slow],
+                                prev.snap.bufs["float32"][slow])
+        snap_changes.append(changed)
+        gm, g0 = eng.global_model(st), st.params.packer.unflatten(
+            {k: b[0, 0] for k, b in st.params.bufs.items()})
+        require(all(torch.equal(gm[a][b], g0[a][b]) for a in gm for b in gm[a]),
+                f"(o1) window {w}: global_model is not group 0's replica")
+        return {"snap_changed": float(changed)}
+
+    ops.reset_launch_counts()
+    ops.mtgc_update_flat = spy
+    try:
+        st, hz = api.fit(eng, data, CNN_ASYNC_WINDOWS, params=p0, chunk=CNN_ASYNC_CHUNK,
+                         eval_every=1, eval_fn=check)
+        torch.cuda.synchronize()
+    finally:
+        ops.mtgc_update_flat = real
+    n_launch = E * H * CNN_ASYNC_WINDOWS
+    require(mu.mtgc_update_flat.launches == n_launch and calls["masked"] == n_launch,
+            f"(o1) mtgc_update_flat launched {mu.mtgc_update_flat.launches} times "
+            f"({calls['masked']} with a mask), expected {n_launch} masked")
+    require(mu.mtgc_update.launches == 0, "(o1) the flat path launched the per-leaf kernel")
+    require(snap_changes == [False, True, False, True],
+            f"(o1) group {slow}'s snap changed at windows {snap_changes}, expected 1 and 3")
+    finite_metrics(np, hz)
+    launches["o1"] = {"mtgc_update_flat": mu.mtgc_update_flat.launches}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, hz2 = api.fit(eng, data, 2, state=st, chunk=2)
+    torch.cuda.synchronize()
+    o1_ms = (time.perf_counter() - t0) * 1e3 / 2
+    o1_peak = torch.cuda.max_memory_allocated() / 1e9
+    finite_metrics(np, hz2)
+    for f in ("params", "z", "y", "snap", "glob"):
+        require(bool(torch.isfinite(getattr(st, f).bufs["float32"]).all()), f"(o1) {f} not finite")
+    out["o1"] = {"policy": "delay_compensated", "windows": CNN_ASYNC_WINDOWS,
+                 "chunk": CNN_ASYNC_CHUNK, "window_ms": o1_ms, "peak_gb": o1_peak,
+                 "launches": calls["n"], "masked_launches": calls["masked"],
+                 "kernel_checks": calls["checked"], "idle_steps_kept": calls["idle_steps_kept"],
+                 "snap_changed": snap_changes,
+                 "loss": np.round(hz.metrics.loss.reshape(CNN_ASYNC_WINDOWS, -1).mean(1),
+                                  5).tolist(),
+                 "comm_bytes": hz.metrics.comm_bytes.tolist()}
+    log(f"(o1) async CNN, flat + fused, delay_compensated, group_rounds (2 x 9, 1): "
+        f"{CNN_ASYNC_WINDOWS} windows in chunks of {CNN_ASYNC_CHUNK}; mtgc_update_flat "
+        f"{calls['n']} launches, all masked, {calls['checked']} held bit-exact against the "
+        f"plain version; group {slow}'s rows kept their bits in {calls['idle_steps_kept']} "
+        f"idle steps; its snap changed at windows {snap_changes}; global_model = group 0's "
+        f"replica; then {o1_ms:.1f} ms a window, peak {o1_peak:.2f} GB; mean loss a window "
+        f"{out['o1']['loss']}")
+    del st, hz, eng, idle_start
+
+    # --- (o2) ---
+    eng = api.build(dataclasses.replace(o1, staleness="discount", state_layout="tree"), loss_fn)
+    st = eng.init(p0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, hz = api.fit(eng, data, 1, state=st)
+    torch.cuda.synchronize()
+    o2_ms = (time.perf_counter() - t0) * 1e3
+    n_leaves = len(tree_leaves(st.params))
+    require(mu.mtgc_update.launches == E * H * n_leaves and mu.mtgc_update_flat.launches == 0,
+            f"(o2) mtgc_update launched {mu.mtgc_update.launches} times, expected "
+            f"{E * H * n_leaves}")
+    finite_metrics(np, hz)
+    launches["o2"] = {"mtgc_update": mu.mtgc_update.launches}
+    out["o2"] = {"policy": "discount", "layout": "tree", "window_ms": o2_ms,
+                 "launches": mu.mtgc_update.launches}
+    log(f"(o2) async CNN, tree + fused, discount: one window {o2_ms:.1f} ms (first window of "
+        f"this spec); mtgc_update launches {mu.mtgc_update.launches}")
+    del st, hz, eng
+
+    # --- (o3) ---
+    o3 = dataclasses.replace(o1, staleness="naive", faults=FaultPlan(timeout_rate=0.1))
+    eng = api.build(o3, loss_fn)
+    plan = o3.staleness_plan()
+    timed_out = (3, slow)
+
+    def tdraw(g):
+        t = torch.zeros(G)
+        t[g] = 1.0
+        return RoundDraws(faults=FaultMasks(torch.zeros(G, K), t, torch.zeros(G, K)))
+
+    dls = []
+
+    def check3(prev, st):
+        w = int(prev.round)
+        g = timed_out[w]
+        rep = plan.report_mask(torch.tensor(w, dtype=torch.int32)).cpu()
+        rep[g] = 0.0
+        require(torch.equal(st.dl.cpu(), rep), f"(o3) window {w}: dl {st.dl.tolist()}, "
+                                               f"expected {rep.tolist()}")
+        require(same_bits(torch, st.y.bufs["float32"][g], prev.y.bufs["float32"][g]),
+                f"(o3) window {w}: the timed-out group {g}'s y changed")
+        dls.append(st.dl.tolist())
+        return {"dl_sum": st.dl.sum()}
+
+    ops.reset_launch_counts()
+    st, hz = api.fit(eng, data, 2, params=p0, chunk=1, eval_every=1, eval_fn=check3,
+                     draws=[tdraw(g) for g in timed_out])
+    torch.cuda.synchronize()
+    require(mu.mtgc_update_flat.launches == E * H * 2, "(o3) mtgc_update_flat launches")
+    finite_metrics(np, hz)
+    launches["o3"] = {"mtgc_update_flat": mu.mtgc_update_flat.launches}
+    out["o3"] = {"policy": "naive", "timed_out": list(timed_out), "dl": dls,
+                 "launches": mu.mtgc_update_flat.launches}
+    log(f"(o3) async CNN, flat + fused, naive, timeouts of groups {timed_out} in windows 0 and "
+        f"1: dl after each window {dls} (= rep x any_obs); the timed-out groups' y kept their "
+        f"bits")
+    del st, hz, eng
+    out["launches"] = launches
+    return out
+
+
+def phase_lm_train_async(torch, np, tag: str, layout: str, spec_kw: dict, draws: list,
+                         kept: list) -> dict:
+    """Phases (p) and (q): glm4-9b at its published widths (2 of 40 layers),
+    2 x 2, bf16, remat, on the sharded backend at ``group_rounds = (2, 1)``
+    (``LM_ASYNC_ROUNDS``) with the spec fields ``spec_kw``: a warm-up window
+    (t = 0: only group 0 reports), a timed window (t = 1: group 1 reports one
+    window stale) and a traced one, with ``draws`` (one ``RoundDraws`` or
+    None per window). The launch counts of one window are (i)'s reckoning
+    (per-client gradients run at the static shape; the idle replicas'
+    updates are masked); ``kept`` (replica rows ``("x"|"z", g, k)`` or
+    ``("y", g)``) keep their bits through the timed window. Two token rates:
+    every computed microbatch's tokens, and the tokens that entered an
+    update (live iterations of active clients)."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.lm import make_lm_tokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mtgc_update as mu
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH), num_layers=LM_TRAIN_LAYERS)
+    bundle = build_model(cfg)
+    G, K = LM_TRAIN_LEVELS
+    spec = api.ExperimentSpec(
+        levels=(G, K), backend="sharded", algorithm="mtgc", lr=LM_TRAIN_LR, fusion="fused",
+        state_layout=layout, schedule=api.RoundSchedule(
+            group_rounds=LM_ASYNC_ROUNDS, local_steps=LM_TRAIN_H, microbatches=LM_TRAIN_A),
+        **spec_kw)
+    plan = spec.staleness_plan()
+    engine = api.build(spec, bundle.loss)
+    rng = np.random.default_rng(0)
+    toks, _ = make_lm_tokens(rng, cfg.vocab_size, LM_TRAIN_TOKENS)
+    data = engine.pack_tokens(toks, batch_size=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, shards=2,
+                              rng=rng, generator=torch.Generator().manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    params = bundle.init(0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state = engine.init(params)
+    del params
+    torch.cuda.synchronize()
+    n_update = len(tree_leaves(state.params))
+    state_gb = sum(t.numel() * t.element_size()
+                   for f in ("params", "z", "y", "snap", "glob") if getattr(state, f) is not None
+                   for t in tree_leaves(getattr(state, f))) / 1e9
+    t0 = time.perf_counter()
+    state, hz0 = api.fit(engine, data, 1, state=state, draws=[draws[0]])       # t = 0
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    warm_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def rows(t, lead):
+        return t.view(*lead, -1)
+
+    x_l, z_l, y_l = (tree_leaves(getattr(state, f)) for f in ("params", "z", "y"))
+    # Before the stale report: group 1 has not downloaded window 0's global
+    # model, and (delay compensation) its snapshot lags the global one.
+    spans = [slice(0, UPLOAD_SPAN), slice(-UPLOAD_SPAN, None)]
+    m0 = draws[0].masks.client if draws[0] is not None and draws[0].masks is not None else None
+    k0, k1 = (0, 0) if m0 is None else (int(m0[0].argmax()), int(m0[1].argmax()))
+    require(not all(torch.equal(rows(t, (G, K))[1, k1, s], rows(t, (G, K))[0, k0, s])
+                    for t in x_l for s in spans),
+            f"({tag}) group 1 downloaded in window 0")
+    if state.snap is not None:
+        require(not all(torch.equal(rows(sn, (G,))[1, s], gl.view(-1)[s])
+                        for sn, gl in zip(tree_leaves(state.snap), tree_leaves(state.glob))
+                        for s in spans),
+                f"({tag}) glob - snap_1 is zero before the stale report")
+
+    def fingerprints():
+        out = []
+        for what, *idx in kept:
+            leaves = {"x": (x_l, (G, K)), "z": (z_l, (G, K)), "y": (y_l, (G,))}[what]
+            for t in leaves[0]:
+                r = rows(t, leaves[1])[tuple(idx)]
+                bits = r.view({2: torch.int16, 4: torch.int32}[r.element_size()])
+                out.append((int(bits.sum(dtype=torch.int64)), r[:UPLOAD_SPAN].clone(),
+                            r[-UPLOAD_SPAN:].clone()))
+        return out
+
+    before = fingerprints()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hz = api.fit(engine, data, 1, state=state, draws=[draws[1]])        # t = 1
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3
+    timed_peak = torch.cuda.max_memory_allocated() / 1e9
+    got = {"flash_attention": fa.flash_attention.launches,
+           "flash_attention_bwd": fa.flash_attention_bwd.launches,
+           "mtgc_update_flat": mu.mtgc_update_flat.launches,
+           "mtgc_update": mu.mtgc_update.launches,
+           "int8_roundtrip": qz.int8_roundtrip.launches, "topk_mask": qz.topk_mask.launches}
+    want = dict(lm_train_launches(cfg, n_update, 1), int8_roundtrip=0, topk_mask=0)
+    require(got == want, f"({tag}) launched {got}, expected {want}")
+    require(all(a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+                for a, b in zip(before, fingerprints())),
+            f"({tag}) a kept row ({kept}) changed in the timed window")
+    finite_metrics(np, hz0)
+    finite_metrics(np, hz)
+    for f in ("params", "z", "y", "snap", "glob"):
+        if getattr(state, f) is not None:
+            for t in tree_leaves(getattr(state, f)):
+                require(finite_and_nonzero(torch, t)[0], f"({tag}) {f} is not finite")
+    after = {"round": int(state.round), "dl": None if state.dl is None else state.dl.tolist()}
+    if state.snap is not None:
+        require(all(torch.equal(rows(sn, (G,))[g, s], gl.view(-1)[s])
+                    for sn, gl in zip(tree_leaves(state.snap), tree_leaves(state.glob))
+                    for g in range(G) for s in spans),
+                f"({tag}) a group that reported at t = 1 did not record the global model")
+    res = {}
+    tr = profile_round(torch, lambda: res.setdefault(                             # t = 2
+        "fit", api.fit(engine, data, 1, state=state, draws=[draws[2]])))
+    log_trace(f"  ({tag}) async LM training window ({layout}, traced)", tr, top_n=20)
+    finite_metrics(np, res["fit"][1])
+    tok = LM_TRAIN_H * LM_TRAIN_A * LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    computed = G * K * plan.e_pad * tok
+    masks = draws[1].masks if draws[1] is not None and draws[1].masks is not None else None
+    active = (K * np.ones(G) if masks is None
+              else np.asarray(masks.client.cpu()).sum(axis=1))
+    live = int(sum(e * a for e, a in zip(LM_ASYNC_ROUNDS, active))) * tok
+    peak = max(warm_peak, timed_peak)
+    out = {"phase": tag, "arch": LM_TRAIN_ARCH, "layers": cfg.num_layers, "layout": layout,
+           "group_rounds": list(LM_ASYNC_ROUNDS),
+           "spec": {k: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
+                    for k, v in spec_kw.items()},
+           "params": n_params, "state_gb": state_gb, "warmup_round_ms": warm_ms,
+           "round_ms": round_ms, "tokens_computed_per_round": computed,
+           "tokens_computed_per_s": computed / round_ms * 1e3,
+           "tokens_updating_per_round": live, "tokens_updating_per_s": live / round_ms * 1e3,
+           "peak_gb": peak, "warmup_peak_gb": warm_peak, "timed_peak_gb": timed_peak,
+           "held_gb": held_gb, "launches": got, "kept_rows": [list(k) for k in kept],
+           "after_timed_window": after,
+           "busy_share": tr["busy"] / tr["wall_us"] if tr else None,
+           "losses": [float(v) for v in np.concatenate([hz0.metrics.loss.reshape(-1),
+                                                        hz.metrics.loss.reshape(-1)])]}
+    log(f"({tag}) async LM training {LM_TRAIN_ARCH} ({cfg.num_layers} of 40 layers, "
+        f"{n_params / 1e9:.3f} B params, bf16, remat), {layout} + fused, group_rounds "
+        f"{LM_ASYNC_ROUNDS}, {json.dumps(out['spec'])}: warm-up window {warm_ms:.1f} ms, timed "
+        f"window (t = 1: group 1's stale report is due) {round_ms:.1f} ms: "
+        f"{out['tokens_computed_per_s']:.0f} tokens/s of computed microbatches ({computed} a "
+        f"window), {out['tokens_updating_per_s']:.0f} tokens/s that entered an update ({live} a "
+        f"window); state {state_gb:.2f} GB, peak {peak:.2f} GB (of which {held_gb:.2f} GB was "
+        f"held before the phase; warm-up {warm_peak:.2f}, timed {timed_peak:.2f}); launches "
+        f"{got} (reckoned as (i)); kept rows {kept} with their bits; after the timed window "
+        f"{after}")
+    del state, engine, data, res, x_l, z_l, y_l
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2207,6 +2611,11 @@ def main() -> int:
 
     # --- 10b. (m) HFL under faults on the simulator engine ---------------
     hfl_m = phase_faults_hfl(torch, np, api, spec, data, p0, loss_fn)
+    # --- 10c. (o) async group rounds on the simulator engine -------------
+    hfl_o = phase_async_hfl(torch, np, api, spec, data, p0, loss_fn)
+    log(f"(o1) against the same run's (a): {hfl_o['o1']['window_ms']:.1f} ms a window against "
+        f"{steady_ms:.1f} ms a round; peak {hfl_o['o1']['peak_gb']:.2f} GB against "
+        f"{peak_gb:.2f} GB")
     del data
     torch.cuda.empty_cache()
 
@@ -2270,6 +2679,26 @@ def main() -> int:
                         f"compressed partial {layout}: {name}/{key} differs between card and CPU")
     log("card vs CPU, compressed (int8 client, top-k group) at C=0.5 with injected draws, "
         "flat and tree: agree within rtol 1e-5")
+    # Two async windows (group_rounds (2, 1), delay-compensated) of the small
+    # CNN, flat + fused, at the uncompressed round's tolerance.
+    worst = 0.0
+    sp = api.ExperimentSpec(levels=(2, 3), schedule=api.RoundSchedule((2, 1), 2), fusion="fused",
+                            staleness="delay_compensated")
+    outs = []
+    for dev in ("cuda", "cpu"):
+        eng = api.build(sp, small.make_loss(small_apply), device=dev)
+        st = eng.init(ps)
+        for _ in range(2):
+            st, met = eng.round_fn(st, {k: v.to(dev) for k, v in b.items()})
+        outs.append(convert.to_numpy(st))
+    for name in ("params", "snap", "glob"):
+        for key, cpu in outs[1][name].items():
+            gpu = outs[0][name][key]
+            worst = max(worst, float(np.max(np.abs(gpu - cpu) / (1e-5 + np.abs(cpu)))))
+            require(np.allclose(gpu, cpu, rtol=1e-4, atol=1e-5),
+                    f"async: {name}/{key} differs between card and CPU")
+    log(f"card vs CPU, async (2, 1) delay_compensated, two windows of cnn(8x8x1): params, snap, "
+        f"glob agree within rtol 1e-4 (worst {worst:.2e})")
 
     # --- 12. LM kernels ------------------------------------------------
     del acc, p0, ds, train, test
@@ -2317,6 +2746,30 @@ def main() -> int:
         f"{lm_flat['peak_gb']:.2f} GB and (k) {lm_k['round_ms']:.1f} ms / "
         f"{lm_k['peak_gb']:.2f} GB: {lm_n['round_ms_less_snapshot']:.1f} ms less the snapshot, "
         f"{lm_n['peak_gb']:.2f} GB")
+    # --- 20c. (p), (q) async LM training on the sharded backend ----------
+    from repro_torch.core.faults import FaultMasks, FaultPlan
+    lm_p = phase_lm_train_async(torch, np, "p", "flat", dict(staleness="delay_compensated"),
+                                [None, None, None], kept=[])
+    G2, K2 = LM_TRAIN_LEVELS
+    qmasks = ParticipationMasks(torch.ones(G2), torch.tensor([[1.0, 0.0], [0.0, 1.0]]))
+
+    def qdraw(timeout):
+        return RoundDraws(masks=qmasks, faults=FaultMasks(
+            torch.zeros(G2, K2), torch.tensor(timeout), torch.zeros(G2, K2)))
+
+    lm_q = phase_lm_train_async(
+        torch, np, "q", "tree", dict(staleness="discount", client_participation=LM_TRAIN_PARTIAL,
+                                     participation_mode="fixed",
+                                     participation_weighting="inverse_prob",
+                                     faults=FaultPlan(timeout_rate=0.05)),
+        [qdraw([0.0, 0.0]), qdraw([0.0, 1.0]), qdraw([0.0, 0.0])],
+        kept=[("x", 0, 1), ("z", 0, 1), ("x", 1, 0), ("z", 1, 0), ("y", 1)])
+    require(lm_q["after_timed_window"]["dl"] == [1.0, 0.0],
+            f"(q) dl after the timeout {lm_q['after_timed_window']['dl']}, expected [1, 0]")
+    log(f"(p)/(q) against the same run's (i) {lm_flat['round_ms']:.1f} ms / "
+        f"{lm_flat['peak_gb']:.2f} GB and (k) {lm_k['round_ms']:.1f} ms / "
+        f"{lm_k['peak_gb']:.2f} GB: (p) {lm_p['round_ms']:.1f} ms / {lm_p['peak_gb']:.2f} GB, "
+        f"(q) {lm_q['round_ms']:.1f} ms / {lm_q['peak_gb']:.2f} GB")
     # --- 21. LM training: card against CPU, reduced -----------------------
     phase_lm_train_card_vs_cpu(torch, np, convert)
 
@@ -2395,16 +2848,23 @@ def main() -> int:
         "h": lm_tree["launches"]["flash_attention"]}
     for name, k in by_name.items():
         # Phase (m) and (n)'s launches: the sum over (m)'s runs; (n)'s two
-        # faulty rounds.
+        # faulty rounds; (o)'s runs; (p) and (q)'s timed window.
         k.setdefault("training_launches", {})
         k["training_launches"]["m"] = hfl_m["launches"].get(name, 0)
         k["training_launches"]["n"] = lm_n["launches"].get(name, 0)
+        for run, counts in hfl_o["launches"].items():
+            k["training_launches"][run] = counts.get(name, 0)
+        k["training_launches"]["p"] = lm_p["launches"].get(name, 0)
+        k["training_launches"]["q"] = lm_q["launches"].get(name, 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": [qwen, rwkv]}))
     print(json.dumps({"training": [lm_tree, lm_flat]}))
     for run in (lm_j, lm_k, lm_l, lm_n):
         print(json.dumps({f"training_{run['phase']}": run}))
     print(json.dumps({"faults_m": hfl_m}))
+    print(json.dumps({"async_o": hfl_o}))
+    for run in (lm_p, lm_q):
+        print(json.dumps({f"training_{run['phase']}": run}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

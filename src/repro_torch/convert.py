@@ -49,14 +49,19 @@ def _field_builder(template, dev):
     return lambda f: FlatBuffers({k: tensor_from_numpy(v, dev) for k, v in f.items()}, packer)
 
 
-def state_from_numpy(params, z, y, dyn, round=0, *, efc=None, efg=None, template=None,
-                     rng=None, device=None) -> HFLState:
+def _mask(a, dev):
+    return None if a is None else torch.as_tensor(np.array(a, np.float32)).to(dev)
+
+
+def state_from_numpy(params, z, y, dyn, round=0, *, snap=None, glob=None, dl=None, efc=None,
+                     efg=None, template=None, rng=None, device=None) -> HFLState:
     """An ``HFLState`` from numpy fields.
 
     Tree layout (``template=None``): each of params / z / y / dyn (and the
-    error-feedback residuals efc / efg, when given) is a nested dict of
-    stacked arrays. Flat layout: pass the single-model ``template`` params
-    tree (shapes and dtypes are all that is read); each field is then a
+    async fields snap / glob, the error-feedback residuals efc / efg, when
+    given) is a nested dict of stacked arrays; ``dl`` is a [G] array. Flat
+    layout: pass the single-model ``template`` params tree (shapes and
+    dtypes are all that is read); each field is then a
     ``{dtype key: [*lead, N] array}`` dict -- the reference's
     ``FlatBuffers.bufs`` -- wrapped with the segment table
     ``make_packer(template)``, identical to the reference's.
@@ -65,20 +70,32 @@ def state_from_numpy(params, z, y, dyn, round=0, *, efc=None, efg=None, template
     field = _field_builder(template, dev)
     return HFLState(*(field(f) for f in (params, z, y, dyn)), rng=rng,
                     round=torch.as_tensor(np.array(round), dtype=torch.int32).to(dev),
+                    snap=None if snap is None else field(snap),
+                    glob=None if glob is None else field(glob),
+                    dl=_mask(dl, dev),
                     efc=None if efc is None else field(efc),
                     efg=None if efg is None else field(efg))
 
 
-def sharded_state_from_numpy(params, z, y, *, template=None, rng=None,
-                             device=None) -> ShardedHFLState:
+def sharded_state_from_numpy(params, z, y, *, round=None, snap=None, glob=None, dl=None,
+                             template=None, rng=None, device=None) -> ShardedHFLState:
     """A ``ShardedHFLState`` (the sharded backend's state) from numpy fields:
     params and z stacked ``[G, K, ...]``, y ``[G, ...]``, each a nested dict
     of arrays (tree layout; z and y may be bfloat16 arrays, the reference's
     ``correction_dtype``) or, with the single-model ``template`` params tree,
     a ``{dtype key: array}`` dict wrapped with ``make_packer(template)``
-    (flat layout). ``rng``: the port's generator for partial participation."""
-    field = _field_builder(template, resolve_device(device))
-    return ShardedHFLState(params=field(params), z=field(z), y=field(y), rng=rng)
+    (flat layout). An async state's window counter ``round``, snapshots
+    ``snap`` [G, ...] / ``glob`` [...] (laid out like params) and download
+    mask ``dl`` [G] cross when given. ``rng``: the port's generator for
+    partial participation."""
+    dev = resolve_device(device)
+    field = _field_builder(template, dev)
+    return ShardedHFLState(
+        params=field(params), z=field(z), y=field(y), rng=rng,
+        round=None if round is None else torch.as_tensor(np.array(round),
+                                                         dtype=torch.int32).to(dev),
+        snap=None if snap is None else field(snap), glob=None if glob is None else field(glob),
+        dl=_mask(dl, dev))
 
 
 def to_numpy(obj: Any):

@@ -5,9 +5,11 @@ the reference's full field list, so one set of keyword arguments builds
 both packages' specs; a field whose feature belongs to a later slice of
 the port raises ``ValueError`` naming that slice. Partial participation
 (``client_participation``/``group_participation`` < 1), compressed
-uploads (``compression=CompressionPlan(...)``) and fault injection with
+uploads (``compression=CompressionPlan(...)``), fault injection with
 screened aggregation (``faults=FaultPlan(...)``, ``defense=DefensePlan(...)``)
-run on both engines.
+and async group rounds (a per-group ``RoundSchedule(group_rounds=(E_1,
+..., E_G))`` with ``staleness=`` and ``max_staleness=``) run on both
+engines.
 :func:`build` turns a spec into a :class:`SimulatorEngine` on a device
 (the CUDA card unless ``device="cpu"`` is passed) and :func:`fit` drives it
 through the horizon driver (``core.driver``), guarded against divergence
@@ -50,13 +52,13 @@ from repro_torch.core.driver import (
     run_rounds,
 )
 from repro_torch.core.engine import (
-    ASYNC_SLICE,
     RoundMetrics,
     _build_global_round,
     global_model,
     hfl_init,
 )
 from repro_torch.core.packer import as_tree
+from repro_torch.core.staleness import STALENESS_POLICIES, make_plan
 from repro_torch.core.tree import tree_map
 
 Tree = Any
@@ -66,7 +68,6 @@ BACKENDS = ("simulator", "multilevel", "sharded")
 LAYOUTS = ("tree", "flat")
 FUSIONS = ("none", "fused")
 CLIENT_STATES = ("stateful", "stateless")
-STALENESS_POLICIES = ("sync", "naive", "discount", "delay_compensated")
 
 # Which algorithms each backend implements (the reference's table).
 BACKEND_ALGORITHMS = {
@@ -92,9 +93,11 @@ def _needs(what: str, where: str) -> ValueError:
 class RoundSchedule:
     """When each timescale fires (the reference's fields).
 
-    group_rounds: E -- group aggregations per global round. A per-group
-        tuple ``(E_1, ..., E_G)`` is accepted when uniform; a non-uniform
-        one (async group rounds) needs the async-rounds slice.
+    group_rounds: E -- group aggregations per global round. A scalar, or a
+        per-group tuple ``(E_1, ..., E_G)`` (length ``levels[0]``): a
+        non-uniform tuple enables async group rounds -- each group runs its
+        own E_g inside a padded ``max(E_g)`` window, and
+        ``ExperimentSpec.staleness`` picks the stale-report policy.
     local_steps: H -- local SGD steps per group round.
     microbatches: A -- gradient-accumulation chunks per local step; a
         sharded-backend knob (None elsewhere).
@@ -141,8 +144,6 @@ class RoundSchedule:
                  f"local_steps must be >= 1, got {self.local_steps}")
         _require(self.microbatches is None or self.microbatches >= 1,
                  f"microbatches must be None or >= 1, got {self.microbatches}")
-        if not self.is_uniform:
-            raise _needs("non-uniform group_rounds (async group rounds)", ASYNC_SLICE)
         if self.periods is not None:
             raise _needs("schedule.periods", MULTILEVEL_SLICE)
         return self
@@ -153,11 +154,12 @@ class ExperimentSpec:
     """Everything that defines one HFL experiment (the reference's fields;
     see ``src/repro/core/api.py`` for each one's meaning).
 
-    The port runs the simulator backend under the sync schedule, in
-    either state layout, fused (mtgc) or not, at full or partial
-    participation, with or without a ``CompressionPlan``, a ``FaultPlan``
-    and a ``DefensePlan``; and the sharded backend (mtgc, hfedavg)
-    likewise, with ``schedule.microbatches`` and ``correction_dtype``.
+    The port runs the simulator backend under the sync schedule or async
+    group rounds, in either state layout, fused (mtgc) or not, at full or
+    partial participation, with or without a ``CompressionPlan`` (sync
+    schedules only, as in the reference), a ``FaultPlan`` and a
+    ``DefensePlan``; and the sharded backend (mtgc, hfedavg) likewise, with
+    ``schedule.microbatches`` and ``correction_dtype``.
     ``fused_mode`` takes None or "auto" (the reference's
     "pallas"/"interpret" have no counterpart: the kernel runs on a CUDA
     tensor, its plain version on a CPU tensor).
@@ -207,12 +209,26 @@ class ExperimentSpec:
                  f"got {self.levels}")
         _require(all(n >= 1 for n in self.levels),
                  f"every topology dim must be >= 1: {self.levels}")
+        self.schedule.validate(self.levels)
+        # Async group rounds: the reference's rejections of contradictory
+        # combinations.
         _require(self.staleness in STALENESS_POLICIES,
                  f"unknown staleness policy {self.staleness!r} "
                  f"(choose from {STALENESS_POLICIES})")
-        if self.staleness != "sync" or self.max_staleness is not None:
-            raise _needs(f"staleness={self.staleness!r} / max_staleness", ASYNC_SLICE)
-        self.schedule.validate(self.levels)
+        uniform = self.schedule.is_uniform
+        _require(self.staleness == "sync" or not uniform,
+                 f"staleness={self.staleness!r} is a no-op with uniform group_rounds: stale "
+                 "reports only arise when groups run different round counts -- set a "
+                 "per-group tuple or drop the policy")
+        _require(self.max_staleness is None or self.staleness != "sync",
+                 "max_staleness bounds async reporting; it needs a non-'sync' staleness "
+                 "policy")
+        _require(self.max_staleness is None or self.max_staleness >= 1,
+                 f"max_staleness must be None or >= 1, got {self.max_staleness}")
+        _require(uniform or self.correction_init == "zero",
+                 "async group rounds require correction_init='zero' (the gradient init has "
+                 "no per-cycle analogue)")
+        _require(uniform or self.server_lr == 1.0, "async group rounds require server_lr=1.0")
         for name in ("client_participation", "group_participation"):
             frac = getattr(self, name)
             _require(0.0 < frac <= 1.0, f"{name} must be in (0, 1], got {frac}")
@@ -221,6 +237,12 @@ class ExperimentSpec:
                  f"(choose from {CLIENT_STATES})")
         if (self.population is not None or self.cohort_size is not None
                 or self.client_state != "stateful"):
+            if self.population is not None and self.population > self.levels[1]:
+                # The reference's rule, ahead of the slice that runs them.
+                _require(self.schedule.is_uniform and self.staleness == "sync",
+                         "virtual populations require a uniform sync schedule: async "
+                         "per-group cadences assume slot occupants persist across windows "
+                         f"(and virtual populations need {POPULATION_SLICE})")
             raise _needs("a virtual population (population, cohort_size, "
                          "client_state)", POPULATION_SLICE)
 
@@ -277,11 +299,14 @@ class ExperimentSpec:
             _require(self.server_lr == 1.0,
                      "fault injection / screened aggregation require server_lr=1.0")
 
-        # Compressed uploads (the reference's rejections; the multilevel,
-        # async and population combinations raise their slice above).
+        # Compressed uploads (the reference's rejections; the multilevel and
+        # population combinations raise their slice above).
         if self.compression is not None:
             self.compression.validate()
         if self.compressed:
+            _require(self.staleness == "sync" and self.schedule.is_uniform,
+                     "compressed uploads under an async schedule are not supported yet: "
+                     "stale reports would need their own residual timeline (see ROADMAP)")
             _require(self.correction_init == "zero",
                      "compressed uploads require correction_init='zero' "
                      "(the gradient init predates the upload seam)")
@@ -307,8 +332,16 @@ class ExperimentSpec:
         """True when any upload link carries a non-trivial compressor."""
         return self.compression is not None and self.compression.enabled
 
+    def staleness_plan(self):
+        """The :class:`~repro_torch.core.staleness.StalenessPlan` this spec's
+        schedule implies, or None for the uniform sync schedule (the engines
+        then run their sync round)."""
+        return make_plan(self.schedule.group_rounds, self.levels[0], self.staleness,
+                         self.max_staleness)
+
     def to_hfl_config(self) -> HFLConfig:
-        """The equivalent two-level ``HFLConfig`` (simulator engine)."""
+        """The equivalent two-level ``HFLConfig`` (simulator engine);
+        ``group_rounds`` is the padded loop length ``max(E_g)``."""
         _require(len(self.levels) == 2,
                  f"HFLConfig is two-level; spec has levels={self.levels}")
         return HFLConfig(
@@ -387,6 +420,13 @@ class _EngineBase:
                                  device=self.device).round_fn
         return cache[retry]
 
+    def _fault_download(self) -> bool:
+        """Whether the state carries the realized-download mask ``dl``: only
+        where it is read, timeouts under an async schedule."""
+        spec = self.spec
+        return (spec.fault_mode and spec.faults.timeout_rate > 0
+                and self._plan is not None)
+
     def _needs_rng(self) -> bool:
         """Whether the round draws from the state's generator: participation
         masks, fault masks or stochastic-rounding noise."""
@@ -411,14 +451,17 @@ class SimulatorEngine(_EngineBase):
         self.loss_fn = loss_fn
         self.device = device
         self._cfg = spec.to_hfl_config().validate()
+        self._plan = spec.staleness_plan()
         self.metric_fields = RoundMetrics._fields
-        self.round_fn = _build_global_round(loss_fn, self._cfg, faults=spec.faults,
-                                            defense=spec.defense,
+        self.round_fn = _build_global_round(loss_fn, self._cfg, plan=self._plan,
+                                            faults=spec.faults, defense=spec.defense,
                                             compression=spec.compression)
 
     def init(self, params: Tree, rng: torch.Generator | None = None):
         """Broadcast one model into the round state on the engine's device,
-        with the error-feedback residuals the compression plan carries.
+        with the error-feedback residuals the compression plan carries, and
+        an async schedule's download snapshots (delay compensation) and
+        realized-download mask (timeouts under an async schedule).
 
         A partial-participation, fault-injecting or stochastic-rounding run
         draws from the state's ``rng``; without one it gets a generator on
@@ -428,12 +471,21 @@ class SimulatorEngine(_EngineBase):
         comp = spec.compression if spec.compressed else None
         if rng is None and self._needs_rng():
             rng = torch.Generator(device=self.device).manual_seed(0)
+        plan = self._plan
         return hfl_init(params, self._cfg, rng,
+                        staleness_snapshots=plan is not None and plan.needs_snapshots,
+                        fault_download=self._fault_download(),
                         ef_client=comp is not None and comp.ef_client,
                         ef_group=comp is not None and comp.ef_group,
                         device=self.device)
 
     def global_model(self, state) -> Tree:
+        """The global model: replica [0, 0], or under an async schedule
+        replica 0 of the plan's fastest group (only a cadence-1 group's
+        replicas hold the fresh global model between windows)."""
+        if self._plan is not None:
+            g = self._plan.fastest_group
+            return as_tree(tree_map(lambda x: x[g, 0], state.params))
         return global_model(state)
 
     def pack_arrays(self, data_arrays: dict[str, np.ndarray], indices: list, *,
@@ -469,13 +521,14 @@ class ShardedEngine(_EngineBase):
         self.loss_fn = loss_fn
         self.device = device
         self.metric_fields = _train.ShardedMetrics._fields
+        self._plan = spec.staleness_plan()
         self.round_fn = _train._build_sharded_round(
             loss_fn, E=spec.schedule.max_group_rounds, H=spec.schedule.local_steps,
             lr=spec.lr, algorithm=spec.algorithm, use_fused_update=spec.fusion == "fused",
             fused_mode=spec.fused_mode, client_participation=spec.client_participation,
             group_participation=spec.group_participation,
             participation_mode=spec.participation_mode,
-            participation_weighting=spec.participation_weighting,
+            participation_weighting=spec.participation_weighting, plan=self._plan,
             faults=spec.faults, defense=spec.defense, compression=spec.compression)
 
     @property
@@ -485,7 +538,8 @@ class ShardedEngine(_EngineBase):
     def init(self, params: Tree, rng: torch.Generator | None = None):
         """Broadcast one model into the ``[G, K]`` state on the engine's
         device, with the error-feedback residuals the compression plan
-        carries. A partial-participation, fault-injecting or
+        carries and an async schedule's round counter, download snapshots
+        and realized-download mask. A partial-participation, fault-injecting or
         stochastic-rounding run draws from the state's ``rng``; without one
         it gets a generator on the engine's device seeded with 0 (the
         reference's ``PRNGKey(0)``)."""
@@ -496,15 +550,22 @@ class ShardedEngine(_EngineBase):
         comp = spec.compression if spec.compressed else None
         if rng is None and self._needs_rng():
             rng = torch.Generator(device=self.device).manual_seed(0)
+        plan = self._plan
         return sharded_init(params, G, K, use_flat_state=spec.state_layout == "flat",
                             correction_dtype=spec.correction_dtype, rng=rng,
+                            round_counter=plan is not None and plan.needs_round_counter,
+                            staleness_snapshots=plan is not None and plan.needs_snapshots,
+                            fault_download=self._fault_download(),
                             ef_client=comp is not None and comp.ef_client,
                             ef_group=comp is not None and comp.ef_group,
                             device=self.device)
 
     def global_model(self, state) -> Tree:
-        """The global model, read from replica [0, 0] (flat states unpacked)."""
-        return as_tree(tree_map(lambda x: x[0, 0], state.params))
+        """The global model, read from replica [0, 0] (under an async
+        schedule, replica 0 of the plan's fastest group; flat states
+        unpacked)."""
+        g = 0 if self._plan is None else self._plan.fastest_group
+        return as_tree(tree_map(lambda x: x[g, 0], state.params))
 
     def pack_arrays(self, data_arrays: dict[str, np.ndarray], indices: list, *,
                     batch_size: int, shards: int = 16, rng: np.random.Generator,
@@ -620,13 +681,20 @@ def _parse_group_rounds(s: str) -> tuple[int, ...]:
     return tuple(int(part) for part in s.split(","))
 
 
+def _parse_e(s: str) -> int | tuple[int, ...]:
+    """'2' -> 2 and '2,1' -> (2, 1) -- the --E argparse type: a scalar E as
+    in the reference, or per-group counts as its --group-rounds takes them."""
+    return _parse_group_rounds(s) if "," in s else int(s)
+
+
 #: The reference's table: every row maps one ExperimentSpec (or
 #: RoundSchedule / plan) field to one argparse flag.
 CLI_FLAGS: tuple[CliFlag, ...] = (
     CliFlag("levels", "--levels", "topology dims, e.g. --levels 2 2 (G K)",
             type=int, nargs="+"),
     CliFlag("schedule.group_rounds", "--E",
-            "group aggregations per global round", type=int),
+            "group aggregations per global round, or per-group counts "
+            "comma-separated (e.g. 2,1: async group rounds)", type=_parse_e),
     CliFlag("schedule.group_rounds", "--group-rounds",
             "per-group async round counts, comma-separated (e.g. 4,2,1); "
             "overrides --E", type=_parse_group_rounds, optional=True),

@@ -301,7 +301,9 @@ def _reseed(gen: torch.Generator, snap: torch.Tensor, salt: int) -> None:
 
 class _HostSnapshot:
     """The guard's copy of a state in host memory, in buffers kept from one
-    chunk to the next (page-locked for a card's tensors)."""
+    chunk to the next (page-locked for a card's tensors): every tensor of
+    every field, an async state's window counter, ``snap``, ``glob`` and
+    ``dl`` among them, so a restore gives the snapshot's bits back."""
 
     def __init__(self):
         self.bufs, self.seconds, self.nbytes, self.alloc_s = None, 0.0, 0, 0.0

@@ -22,9 +22,20 @@ tree state layouts, the fused (mtgc only) and unfused local steps, partial
 participation (``uniform``/``fixed`` masks, ``none``/``inverse_prob``
 weighting), compressed uploads (``core.compression``) with error
 feedback, and fault injection with screened aggregation
-(``core.faults``). Async rounds, populations and the other backends are
-later slices of the port; asking for them raises ``ValueError`` naming the
-slice.
+(``core.faults``), and async group rounds (``core.staleness``). Virtual
+populations and the other backends are later slices of the port; asking
+for them raises ``ValueError`` naming the slice.
+
+Async group rounds (``plan=``, a ``core.staleness.StalenessPlan``): a
+window runs ``e_pad = max(E_g)`` group rounds; the static iteration mask
+``em`` joins the activity mask (``em x cmask``, handed to the fused flat
+kernel as its mask), so a straggler past its E_g rounds is frozen like an
+unsampled client. The report and fresh masks come from the round counter
+(``state.round``); only fresh groups restart z; the global step merges the
+reporting groups (weights ``rep x dw``, a delay-compensated report shifted
+by ``glob - snap_g``), y updates per group with ``1 / (E_g r_g H lr)``, and
+only reporting groups download. Under timeouts a timed-out group misses
+its report and the realized-download mask ``dl`` carries freshness.
 
 Partial participation: per-round 0/1 masks (``core.participation``);
 inactive clients keep their params and corrections frozen (``where``
@@ -69,6 +80,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
@@ -89,8 +101,6 @@ from repro_torch.kernels import ops as kops
 
 Tree = Any
 
-ASYNC_SLICE = "the async-rounds slice of the port"
-
 
 class HFLState(NamedTuple):
     """State carried between global rounds.
@@ -105,6 +115,15 @@ class HFLState(NamedTuple):
             random draws (participation masks, stochastic-rounding noise),
             or None when the round draws nothing. It advances in place.
     round:  global round counter t (int32 scalar tensor on the device).
+    snap:   [G, ...]     the global model each group last downloaded, carried
+            only for delay-compensated async rounds (``hfl_init(...,
+            staleness_snapshots=True)``); else None.
+    glob:   [...]        the last aggregated global model, paired with
+            ``snap`` (a copy: it never aliases the params); else None.
+    dl:     [G]          realized-download mask (which groups downloaded at
+            the end of the last window), carried only when group timeouts
+            meet an async schedule (``hfl_init(..., fault_download=True)``);
+            else None.
     efc:    [G, K, ...]  client-link error-feedback residual, carried only
             when a ``CompressionPlan`` with error feedback compresses the
             client uploads (``hfl_init(..., ef_client=True)``); else None.
@@ -117,6 +136,9 @@ class HFLState(NamedTuple):
     dyn: Tree
     rng: Any
     round: torch.Tensor
+    snap: Tree | None = None
+    glob: Tree | None = None
+    dl: torch.Tensor | None = None
     efc: Tree | None = None
     efg: Tree | None = None
 
@@ -156,23 +178,35 @@ def _stack_leading(t: torch.Tensor, lead: tuple[int, ...]) -> torch.Tensor:
     return t.expand(lead + tuple(t.shape)).contiguous()
 
 
-def hfl_init(params0: Tree, cfg: HFLConfig, rng=None, *, ef_client: bool = False,
+def hfl_init(params0: Tree, cfg: HFLConfig, rng=None, *, staleness_snapshots: bool = False,
+             fault_download: bool = False, ef_client: bool = False,
              ef_group: bool = False, device=None) -> HFLState:
     """Broadcast a single model to every client and zero the corrections.
 
     ``device=None`` runs on the CUDA card and raises on a host without one;
     pass ``device="cpu"`` for the CPU. With ``cfg.use_flat_state`` the state
-    leaves are FlatBuffers (recover trees with ``as_tree``). ``ef_client`` /
-    ``ef_group`` carry the zero-initialized error-feedback residuals
-    (``efc`` [G, K, ...] / ``efg`` [G, ...]) of a compression plan.
+    leaves are FlatBuffers (recover trees with ``as_tree``).
+    ``staleness_snapshots`` carries the download snapshots ``snap`` [G, ...]
+    and ``glob`` [...] of delay-compensated async rounds, both copies of the
+    initial model (the first compensation is exactly zero);
+    ``fault_download`` carries the realized-download mask ``dl`` (all ones:
+    every group starts fresh) of timeouts under an async schedule.
+    ``ef_client`` / ``ef_group`` carry the zero-initialized error-feedback
+    residuals (``efc`` [G, K, ...] / ``efg`` [G, ...]) of a compression plan.
     """
     dev = resolve_device(device)
     G, K = cfg.num_groups, cfg.clients_per_group
     params0 = tu.tree_map(lambda t: torch.as_tensor(t).to(dev), params0)
     round0 = torch.zeros((), dtype=torch.int32, device=dev)
+    dl = torch.ones(G, dtype=torch.float32, device=dev) if fault_download else None
     if cfg.use_flat_state:
         packer = make_packer(params0)
         flat0 = packer.flatten(params0)
+        snap = glob = None
+        if staleness_snapshots:
+            # Copies: glob and snap never alias the caller's params.
+            glob = tu.tree_map(lambda b: b.clone(), flat0)
+            snap = tu.tree_map(lambda b: _stack_leading(b, (G,)), flat0)
         return HFLState(
             params=tu.tree_map(lambda b: _stack_leading(b, (G, K)), flat0),
             z=packer.zeros((G, K), dev),
@@ -180,12 +214,19 @@ def hfl_init(params0: Tree, cfg: HFLConfig, rng=None, *, ef_client: bool = False
             dyn=packer.zeros((G, K), dev),
             rng=rng,
             round=round0,
+            snap=snap,
+            glob=glob,
+            dl=dl,
             efc=packer.zeros((G, K), dev) if ef_client else None,
             efg=packer.zeros((G,), dev) if ef_group else None,
         )
     stacked = tu.tree_map(lambda t: _stack_leading(t, (G, K)), params0)
     y0 = tu.tree_map(lambda t: torch.zeros((G,) + tuple(t.shape), dtype=t.dtype,
                                            device=dev), params0)
+    snap = glob = None
+    if staleness_snapshots:
+        glob = tu.tree_map(lambda t: t.clone(memory_format=torch.contiguous_format), params0)
+        snap = tu.tree_map(lambda t: _stack_leading(t, (G,)), params0)
     return HFLState(
         params=stacked,
         z=tu.tree_zeros_like(stacked),
@@ -193,6 +234,9 @@ def hfl_init(params0: Tree, cfg: HFLConfig, rng=None, *, ef_client: bool = False
         dyn=tu.tree_zeros_like(stacked),
         rng=rng,
         round=round0,
+        snap=snap,
+        glob=glob,
+        dl=dl,
         efc=tu.tree_zeros_like(stacked) if ef_client else None,
         efg=tu.tree_zeros_like(y0) if ef_group else None,
     )
@@ -232,19 +276,19 @@ def _build_global_round(
     ``loss_fn(params, batch) -> scalar`` is a single-client loss; batches
     passed to the returned function have leaves ``[E, H, G, K, ...]``. The
     returned function ``global_round(state, batches, draws=None)`` adapts
-    to the layout of the state it is given. ``compression`` (a
+    to the layout of the state it is given. ``plan`` (a
+    ``core.staleness.StalenessPlan``) runs async group rounds: ``E`` is the
+    padded loop length ``max(E_g)``, the iteration mask joins the activity
+    mask, and the global step is the staleness-aware merge of the groups
+    reporting this window; None runs the sync round. ``compression`` (a
     ``core.compression.CompressionPlan``) compresses the client and/or
     group uploads; ``faults`` (a ``core.faults.FaultPlan``) injects
     per-round crashes, timeouts and corrupted uploads; ``defense`` (a
     ``core.faults.DefensePlan``) screens and clips uploads before any
     aggregate or correction update sees them. A disabled plan (or None)
-    runs the round without it and draws nothing. ``plan`` (async
-    schedules) exists for the reference's signature; anything but None
-    raises (a later slice).
+    runs the round without it and draws nothing.
     """
     cfg.validate()
-    if plan is not None:
-        raise ValueError(f"an async staleness plan needs {ASYNC_SLICE}")
     faults = faults if (faults is not None and faults.enabled) else None
     defense = defense if (defense is not None and defense.enabled) else None
     fault_mode, defended = faults is not None, defense is not None
@@ -265,6 +309,10 @@ def _build_global_round(
     comp = compression if (compression is not None and compression.enabled) else None
     if comp is not None:
         comp.validate()
+        if plan is not None:
+            raise ValueError(
+                "compressed uploads under an async schedule are not supported yet (the "
+                "staleness merge would need per-window residual bookkeeping; see ROADMAP)")
         if cfg.correction_init != "zero":
             raise ValueError(
                 "compressed uploads require correction_init='zero' (the "
@@ -288,6 +336,22 @@ def _build_global_round(
     lr = cfg.lr
     use_fused = cfg.use_fused_update
     partial = not cfg.full_participation
+    async_mode = plan is not None
+    if async_mode:
+        if plan.num_groups != G:
+            raise ValueError(f"staleness plan covers {plan.num_groups} groups, config has {G}")
+        if plan.e_pad != E:
+            raise ValueError(f"cfg.group_rounds must be the padded loop length "
+                             f"max(E_g)={plan.e_pad}, got {E}")
+        if cfg.correction_init != "zero":
+            raise ValueError("async group rounds require correction_init='zero' (the "
+                             "gradient init has no per-cycle analogue)")
+        if cfg.server_lr != 1.0:
+            raise ValueError("async group rounds require server_lr=1.0")
+        # The plan's static constants, copied to a round's device once.
+        plan_np = (plan.iteration_mask(), plan.discount_weights(),
+                   np.asarray(plan.effective_rounds, np.float32))
+        plan_on = {}
     # Horvitz-Thompson denominators (expected active counts per level);
     # None = realized-count weighting.
     ht = partial and cfg.participation_weighting == "inverse_prob"
@@ -340,25 +404,44 @@ def _build_global_round(
         masked = cmask is not None
         n_active = torch.clamp(torch.sum(cmask), min=1.0) if masked else None
 
+        if async_mode:
+            if dev not in plan_on:
+                plan_on[dev] = tuple(torch.from_numpy(a).to(dev) for a in plan_np)
+            em_all, dw, e_eff = plan_on[dev]
+            # The window's report and fresh masks from the round counter.
+            rep = plan.report_mask(state.round)                # [G]
+            fresh = plan.fresh_mask(state.round)               # [G]
+            if f_timeout:
+                # A timed-out group misses its report; freshness then comes
+                # from the realized downloads of the last window.
+                if state.dl is None:
+                    raise ValueError(
+                        "group-timeout faults under an async schedule carry the "
+                        "realized-download mask in the state: build it with "
+                        "hfl_init(..., fault_download=True) (repro_torch.api.build does "
+                        "this for you)")
+                rep = rep * tm_keep
+                fresh = state.dl
+
         def noise_kw(injected) -> dict:
             """roundtrip's noise: the injected tensors, else state.rng."""
             if injected is not None:
                 return {"noise": [torch.as_tensor(t).to(dev) for t in injected]}
             return {"generator": generator("stochastic-rounding noise")}
 
-        def step_loss_mean(loss):
+        def step_loss_mean(loss, am, n_act):
             if defended:
                 # A corrupted client that has not healed yet (downloaded a
                 # clean model) has a non-finite loss while its upload is
                 # screened: the metric screens it the same way.
-                w = cmask * torch.isfinite(loss).to(torch.float32)
+                w = am * torch.isfinite(loss).to(torch.float32)
                 return (torch.sum(torch.where(w != 0, loss, 0))
                         / torch.clamp(torch.sum(w), min=1.0))
-            if masked:
-                return torch.sum(torch.where(cmask != 0, loss, 0)) / n_active
+            if am is not None:
+                return torch.sum(torch.where(am != 0, loss, 0)) / n_act
             return torch.mean(loss)
 
-        def local_phase_tree(x, z, batches_eh):
+        def local_phase_tree(x, z, batches_eh, am, n_act):
             """H local SGD steps (Alg. 1, lines 6-7). batches_eh: [H, G, K, ...]."""
             y_b = tu.tree_broadcast_to_axis(y, 1, K)  # [G, K, ...]
             if use_fused:
@@ -387,27 +470,27 @@ def _build_global_round(
                             lambda di, mi, xi, ai: di - mi + cfg.feddyn_alpha * (xi - ai),
                             d, dyn, x, anchor)
                     x_new = tu.tree_map(lambda xi, di: xi - lr * di, x, d)
-                x = tu.tree_select(cmask, x_new, x) if masked else x_new
-                losses.append(step_loss_mean(loss))
+                x = tu.tree_select(am, x_new, x) if am is not None else x_new
+                losses.append(step_loss_mean(loss, am, n_act))
             return x, torch.stack(losses)
 
-        def local_phase_flat(x, z, batches_eh):
+        def local_phase_flat(x, z, batches_eh, am, n_act):
             """Flat local phase: unpack at the phase boundary, never per step."""
             losses = []
             if use_fused:
                 # One kernel launch per dtype buffer per step over the whole
                 # model: y stays [G, N] (broadcast inside the kernel) and the
-                # client mask is applied in the kernel (frozen rows copy x).
+                # activity mask is applied in the kernel (frozen rows copy x).
                 for h in range(H):
                     loss, g = _client_grads(loss_fn, packer.unflatten(x),
                                             _index(batches_eh, h))
                     gf = packer.flatten(g)
                     x = FlatBuffers(
                         {k: kops.mtgc_update_flat(x.bufs[k], gf.bufs[k], z.bufs[k],
-                                                  y.bufs[k], cmask, lr=lr)
+                                                  y.bufs[k], am, lr=lr)
                          for k in x.bufs},
                         packer)
-                    losses.append(step_loss_mean(loss))
+                    losses.append(step_loss_mean(loss, am, n_act))
                 return x, torch.stack(losses)
 
             # z, y, anchor and dyn are constant for the whole phase: unpack
@@ -436,15 +519,15 @@ def _build_global_round(
                 if use_dyn:
                     d = d - next(it) + cfg.feddyn_alpha * (xi - ai)
                 x_new = xi - lr * d
-                if masked:
-                    return torch.where(tu.expand_mask(cmask, x_new) != 0, x_new, xi)
+                if am is not None:
+                    return torch.where(tu.expand_mask(am, x_new) != 0, x_new, xi)
                 return x_new
 
             x_t = packer.unflatten(x)
             for h in range(H):
                 loss, g = _client_grads(loss_fn, x_t, _index(batches_eh, h))
                 x_t = tu.tree_map(upd, x_t, g, *extra)
-                losses.append(step_loss_mean(loss))
+                losses.append(step_loss_mean(loss, am, n_act))
             return packer.flatten(x_t), torch.stack(losses)
 
         local_phase = local_phase_flat if flat else local_phase_tree
@@ -452,7 +535,18 @@ def _build_global_round(
         def group_round(e, x, z, efc, batches_eh):
             """One group round: local phase, client upload, group aggregation
             and z update (Alg. 1, lines 5-9)."""
-            x_end, loss_e = local_phase(x, z, batches_eh)
+            if async_mode:
+                # Iteration liveness joins the activity mask: a straggler
+                # past its E_g rounds this window is frozen exactly like an
+                # unsampled client, so the mean, z update and dissemination
+                # below need no further gating.
+                em = em_all[e]
+                am = (em[:, None] * cmask if masked
+                      else em[:, None].expand(G, K).contiguous())
+                n_act = torch.clamp(torch.sum(am), min=1.0)
+            else:
+                am, n_act = cmask, n_active
+            x_end, loss_e = local_phase(x, z, batches_eh, am, n_act)
             # Upload view: compression first (the wire carries the
             # dequantized delta), then corruption rewrites and the defense
             # screens what the group server would reconstruct; frozen and
@@ -466,16 +560,16 @@ def _build_global_round(
                                 **(noise_kw(None if draws.client_noise is None
                                             else draws.client_noise[e]) if c_noise else {}))
                 x_cmp = tu.tree_add(x, deq)
-                x_up = tu.tree_select(cmask, x_cmp, x_end) if masked else x_cmp
+                x_up = tu.tree_select(am, x_cmp, x_end) if am is not None else x_cmp
             if f_corrupt:
-                x_up = corrupt_uploads(x, x_up, fm.corrupt * cmask, faults)
+                x_up = corrupt_uploads(x, x_up, fm.corrupt * am, faults)
             if defended:
                 x_up, ok = screen_and_clip(x, x_up, defense)
-                smask = cmask * ok
-                scr = torch.sum(cmask) - torch.sum(smask)
+                smask = am * ok
+                scr = torch.sum(am) - torch.sum(smask)
                 n_srv = torch.clamp(torch.sum(smask), min=1.0)
             else:
-                smask, scr, n_srv = cmask, None, n_active
+                smask, scr, n_srv = am, None, n_act
             # z is the client's own state: it updates from the client's model
             # (the corrupted and clipped upload uncompressed; the corrupted
             # pre-wire model under compression), never from the residual the
@@ -484,41 +578,41 @@ def _build_global_round(
             if comp_c:
                 x_loc = x_end
                 if f_corrupt:
-                    x_loc = corrupt_uploads(x, x_loc, fm.corrupt * cmask, faults)
+                    x_loc = corrupt_uploads(x, x_loc, fm.corrupt * am, faults)
             if ef_c:
                 # The residual advances only for an upload that entered the
                 # aggregate: an inactive or screened client keeps its own.
                 err = tu.tree_sub(u, deq)
-                efc = tu.tree_select(smask, err, efc) if masked else err
+                efc = tu.tree_select(smask, err, efc) if smask is not None else err
             # Group aggregation (line 8): xbar_j = mean over the active,
             # surviving clients.
-            if masked:
+            if smask is not None:
                 xbar = tu.tree_masked_mean(x_up, smask, axis=1, denom=cdenom)
             else:
                 xbar = tu.tree_mean(x_up, 1)
             xbar_b = tu.tree_broadcast_to_axis(xbar, 1, K)
             diff = tu.tree_sub(x_up, xbar_b)
-            drift = (tu.tree_masked_sq_norm(diff, smask) / n_srv if masked
+            drift = (tu.tree_masked_sq_norm(diff, smask) / n_srv if smask is not None
                      else tu.tree_sq_norm(diff) / (G * K))
             # Client-group correction update (line 9), gated on the screen:
             #   z_i += (x_{i,H} - xbar_j) / (H * lr)
             if use_z:
                 z_new = tu.tree_map(lambda zi, xe, xb: zi + (xe - xb) / (H * lr),
                                     z, x_loc, xbar_b)
-                z = tu.tree_select(smask, z_new, z) if masked else z_new
+                z = tu.tree_select(smask, z_new, z) if smask is not None else z_new
             # Dissemination: active clients restart from the group model;
             # inactive clients stay frozen. Under the defense a screened but
             # active client downloads too (that heals it), unless its whole
             # group was screened: then the group's active clients revert to
             # their group-round start model, so no screened upload survives
             # in a replica.
-            if not masked:
+            if smask is None:
                 x = _contiguous(xbar_b)
             elif defended:
                 has_srv = (torch.sum(smask, dim=1) > 0).to(torch.float32)
-                x = tu.tree_select(cmask * has_srv[:, None], xbar_b, x)
+                x = tu.tree_select(am * has_srv[:, None], xbar_b, x)
             else:
-                x = tu.tree_select(cmask, xbar_b, x_up)
+                x = tu.tree_select(am, xbar_b, x_up)
             return x, z, efc, loss_e, drift, scr
 
         # --- Round initialization (lines 2-4) ---------------------------
@@ -530,9 +624,16 @@ def _build_global_round(
         if use_z:
             if cfg.correction_init == "zero":
                 # Footnote 2: experiments initialize z = 0 each round
-                # (participants only -- frozen clients keep their z).
+                # (participants only -- frozen clients keep their z). Async:
+                # once per report cycle, for the groups that start from a
+                # fresh download (mid-cycle stragglers keep accumulating).
                 z0 = tu.tree_zeros_like(z)
-                z = tu.tree_select(cmask, z0, z) if masked else z0
+                if async_mode:
+                    zmask = (fresh[:, None] * cmask if masked
+                             else fresh[:, None].expand(G, K))
+                    z = tu.tree_select(zmask, z0, z)
+                else:
+                    z = tu.tree_select(cmask, z0, z) if masked else z0
             elif partial:
                 # Theoretical init (line 3): z_i = -g_i + mean_group g_i.
                 g0m = tu.tree_broadcast_to_axis(
@@ -602,7 +703,69 @@ def _build_global_round(
                 xbar_c = tu.tree_select(gact, xbar_c, xbar_j)
             return xbar_c, ug, deqg
 
-        if masked and (fault_mode or defended or comp_g):
+        if async_mode:
+            # Staleness-aware merge of the groups reporting this window:
+            # weights rep x dw x the participation estimator; groups that do
+            # not report neither upload nor download.
+            if masked:
+                gact = (torch.sum(cmask, dim=1) > 0).to(torch.float32)
+                gup = torch.sum(rep * gact)  # reports actually sent (before the screen)
+                # Recovery: active replicas of group j hold its xbar_j from
+                # its last live iteration.
+                xbar_j = tu.tree_masked_mean(x, cmask, axis=1)
+                if defended and defense.screen_nonfinite:
+                    gfin = all_finite_mask(xbar_j, 1)
+                    screened = screened + torch.sum(cmask * (gact * (1.0 - gfin))[:, None])
+                    gact = gact * gfin
+                obs = rep * gact
+            else:
+                xbar_j = tu.tree_map(lambda xi: xi[:, 0], x)
+                obs = rep
+                gup = torch.sum(rep)
+            if plan.needs_snapshots:
+                if state.snap is None or state.glob is None:
+                    raise ValueError(
+                        "staleness='delay_compensated' carries per-group download "
+                        "snapshots in the state: build it with hfl_init(..., "
+                        "staleness_snapshots=True) (repro_torch.api.build does this for "
+                        "you)")
+                # First-order delay compensation: a stale report shifted by
+                # the global progress its group missed (exactly zero for a
+                # fresh group).
+                xbar_used = tu.tree_map(lambda xj, gl, sn: xj + (gl.unsqueeze(0) - sn),
+                                        xbar_j, state.glob, state.snap)
+            else:
+                xbar_used = xbar_j
+            w = rep * dw                                       # [G]
+            if ht:
+                # Horvitz-Thompson over reachable groups composed with the
+                # report and policy weights: an empty reachable report
+                # contributes an exact zero, the denominator stays the
+                # expected reporting mass.
+                wsum = w * gmask
+                sup = wsum * gact
+                den = (gdenom / G) * torch.sum(w)
+            elif masked:
+                wsum = w * gact
+                sup = wsum
+                den_raw = torch.sum(wsum)
+                den = torch.where(den_raw > 0, den_raw, 1.0)
+            else:
+                # >= 1: the pace-setting group reports every window.
+                wsum = w
+                sup = wsum
+                den = torch.sum(w)
+
+            def stale_merge(v):
+                live = tu.expand_mask(sup, v) != 0
+                return torch.sum(torch.where(live, v, 0) * tu.expand_mask(wsum, v),
+                                 dim=0) / den
+
+            xbar = tu.tree_map(stale_merge, xbar_used)
+            gdrift = tu.tree_masked_sq_norm(
+                tu.tree_sub(xbar_j, tu.tree_broadcast_to_axis(xbar, 0, G)), obs
+            ) / torch.clamp(torch.sum(obs), min=1.0)
+        elif masked and (fault_mode or defended or comp_g):
             # tree_group_global_mean's recovery/estimation split, opened up
             # so timeouts, the group link and the group-level finite screen
             # compose into the estimation mask between the two stages.
@@ -658,7 +821,16 @@ def _build_global_round(
         # Group-global correction update (line 11), from the group's own
         # (pre-wire) aggregate:
         #   y_j += (xbar_j^{t,E} - xbar^{t+1}) / (H * E * lr)
-        if use_y:
+        if use_y and async_mode:
+            # Per report cycle: a reporting group ran E_g * r_g group rounds
+            # since its last download. The policy discount weights the merge
+            # only; y tracks at full rate.
+            coef = 1.0 / (e_eff * H * lr)                      # [G]
+            xbar_g = tu.tree_broadcast_to_axis(xbar, 0, G)
+            y_new = tu.tree_map(lambda yj, xj, xg: yj + tu.expand_mask(coef, yj) * (xj - xg),
+                                y, xbar_used, xbar_g)
+            y = tu.tree_select(obs, y_new, y)
+        elif use_y:
             y_src = xbar_srv if comp_g else xbar_j
             y_new = tu.tree_map(lambda yj, xj, xg: yj + (xj - xg) / (H * E * lr),
                                 y, y_src, xbar)
@@ -680,7 +852,24 @@ def _build_global_round(
             else:
                 prev = tu.tree_map(lambda xi: xi[0, 0], state.params)
             xbar = tu.tree_map(lambda p, xb: p + cfg.server_lr * (xb - p), prev, xbar)
-        if masked:
+        any_obs = None
+        if async_mode:
+            if fault_mode or defended or plan.needs_snapshots:
+                any_obs = (torch.sum(obs) > 0).to(torch.float32)
+            if fault_mode or defended:
+                # Reporting groups download only when the window merged
+                # something (a window whose every report was screened has an
+                # exact-zero merge).
+                dm = rep[:, None] * cmask * any_obs
+            elif masked:
+                # Only reporting groups download; stragglers keep their
+                # mid-cycle replicas (the lag that makes their report stale).
+                dm = rep[:, None] * cmask
+            else:
+                dm = rep[:, None].expand(G, K)
+            x_glob = tu.tree_map(lambda xg: xg.expand((G, K) + tuple(xg.shape)), xbar)
+            x = tu.tree_select(dm, x_glob, x)
+        elif masked:
             dm = cmask
             if fault_mode or defended:
                 # Timed-out groups miss the download too, and no one
@@ -693,10 +882,26 @@ def _build_global_round(
         else:
             x = tu.tree_map(lambda xg: _stack_leading(xg, (G, K)), xbar)
 
+        snap, glob, dl = state.snap, state.glob, state.dl
+        if async_mode and plan.needs_snapshots:
+            # Reporting groups record the global model they downloaded; the
+            # server records it as the latest global when the window merged
+            # anything. New tensors: nothing aliases the params.
+            snap = tu.tree_select(obs, tu.tree_broadcast_to_axis(xbar, 0, G), snap)
+            glob = tu.tree_select(any_obs, xbar, glob)
+        if async_mode and f_timeout:
+            # Realized downloads this window (rep already excludes timed-out
+            # groups): next window's freshness for the z restart.
+            dl = rep * any_obs
+
         # Bytes on the wire: every upload actually sent this round (screened
         # uploads spent their bytes; crashed, unsampled and timed-out ones
         # sent none).
-        n_up_c = E * torch.sum(cmask) if masked else E * G * K
+        if async_mode:
+            n_up_c = (torch.sum(em_all[:, :, None] * cmask[None]) if masked
+                      else torch.sum(em_all) * K)
+        else:
+            n_up_c = E * torch.sum(cmask) if masked else E * G * K
         metrics = RoundMetrics(
             loss=torch.stack(losses),
             client_drift=torch.stack(drifts),
@@ -709,7 +914,7 @@ def _build_global_round(
             comm_bytes=round_comm_bytes(state.params, comp, n_up_c, gup),
         )
         new_state = HFLState(params=x, z=z, y=y, dyn=dyn, rng=state.rng,
-                             round=state.round + 1,
+                             round=state.round + 1, snap=snap, glob=glob, dl=dl,
                              efc=efc if ef_c else state.efc,
                              efg=efg if ef_g else state.efg)
         return new_state, metrics

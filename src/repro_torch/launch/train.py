@@ -33,7 +33,15 @@ round --
   corrupted upload is rewritten after the client link's round trip, and
   the screen gates every mean and z/y update (compress -> corrupt ->
   screen); the fault masks come from ``state.rng`` (after the
-  participation masks) or ``draws=RoundDraws(faults=)``.
+  participation masks) or ``draws=RoundDraws(faults=)``;
+* async group rounds (``plan=``, a ``core.staleness.StalenessPlan``) with
+  the simulator engine's semantics: the iteration mask joins the activity
+  mask of each group round (``em x cmask``, the fused kernel's mask), the
+  report and fresh masks come from the window counter ``state.round``, the
+  global step is the staleness-aware merge of the reporting groups
+  (``dw`` weights, the delay-compensated shift ``glob - snap_g``), each
+  reporting group's y updates with its own ``1 / (E_g r_g H lr)``, and only
+  reporting groups download.
 
 The reference vmaps ``value_and_grad`` over ``[G, K]``; here the per-client
 gradients are a Python loop over the replicas, each ``torch.autograd.grad``
@@ -42,8 +50,7 @@ accumulator in the reference's order (``(0 + g_1) + g_2 ...``). That loop
 composes with ``torch.utils.checkpoint`` in the model and holds one
 replica's activations at a time. This is the single-card form of the
 backend; the reference's mesh (``sharding/``, ``launch/mesh.py``) is a later
-slice, as are async schedules and virtual populations on this backend (each
-raises ``ValueError`` naming its slice).
+slice, as are virtual populations on this backend.
 
 Memory: the round updates the state's tensors IN PLACE and returns them in
 the new state, as the reference's driver donates the state to each round:
@@ -68,6 +75,13 @@ never stored. Stochastic-rounding noise drawn from ``state.rng`` is drawn
 again in pass 2 from the generator's state before pass 1. The global step's
 non-finite backstop reads every group report once before the merge.
 
+An async round takes its host copies at the start: the activity mask and
+the window's report mask in one copy; each group round's active rows are
+that copy times the static iteration mask. Its global step works piece by
+piece too: the recovered reports, the delay-compensated shift (in float32,
+rounded once to the report's dtype), the weighted merge, the per-group y
+update, the masked download and the ``snap``/``glob`` writes.
+
 CLI (a reduced model on the CPU)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b --smoke \\
@@ -87,7 +101,7 @@ from repro_torch.core import compression as cmp
 from repro_torch.core import tree as tu
 from repro_torch.core.compression import _CHUNK, round_comm_bytes
 from repro_torch.core.device import resolve_device
-from repro_torch.core.engine import ASYNC_SLICE, RoundDraws
+from repro_torch.core.engine import RoundDraws
 from repro_torch.core.faults import FaultMasks, all_finite, fault_masks, payload, screen_tests
 from repro_torch.core.packer import is_flat, make_packer
 from repro_torch.core.participation import ParticipationMasks, inclusion_prob, sample_hfl_masks
@@ -97,15 +111,20 @@ Tree = Any
 
 
 class ShardedHFLState(NamedTuple):
-    """State carried between production rounds: the reference's sync
-    fields and its error-feedback residuals (its async fields, the fault
-    download mask among them, come with that slice).
+    """State carried between production rounds (the reference's fields).
 
     params: [G, K, ...] per-client replicas (tree, or flat [G, K, N]).
     z:      [G, K, ...] client->group corrections (``correction_dtype``).
     y:      [G, ...]    group->global corrections.
     rng:    ``torch.Generator`` for the participation masks, the fault masks
             and the stochastic-rounding noise (None: the round draws nothing).
+    round:  the window counter (int32 scalar) that async report cadences are
+            read from (``sharded_init(..., round_counter=True)``); else None.
+    snap:   [G, ...]    the global model each group last downloaded, for
+            delay-compensated async rounds (``staleness_snapshots=True``).
+    glob:   [...]       the last global model (a copy), paired with ``snap``.
+    dl:     [G]         realized-download mask, for timeouts under an async
+            schedule (``fault_download=True``); else None.
     efc:    [G, K, ...] client-link error-feedback residuals, in the params'
             dtype (``sharded_init(..., ef_client=True)``); else None.
     efg:    [G, ...]    group-link residuals, likewise (``ef_group=True``).
@@ -115,6 +134,10 @@ class ShardedHFLState(NamedTuple):
     z: Tree
     y: Tree
     rng: Any = None
+    round: torch.Tensor | None = None
+    snap: Tree | None = None
+    glob: Tree | None = None
+    dl: torch.Tensor | None = None
     efc: Tree | None = None
     efg: Tree | None = None
 
@@ -137,17 +160,23 @@ def _torch_dtype(dtype) -> torch.dtype | None:
 
 def sharded_init(params0: Tree, G: int, K: int, *, use_flat_state: bool = False,
                  correction_dtype=None, rng: torch.Generator | None = None,
-                 ef_client: bool = False, ef_group: bool = False,
-                 device=None) -> ShardedHFLState:
+                 round_counter: bool = False, staleness_snapshots: bool = False,
+                 fault_download: bool = False, ef_client: bool = False,
+                 ef_group: bool = False, device=None) -> ShardedHFLState:
     """Stacked per-client state on ``device`` (the CUDA card unless
     ``device="cpu"``). ``correction_dtype`` (a torch dtype or its name, e.g.
     ``"bfloat16"``) stores z and y narrower than the params; the flat layout
     packs params and corrections into one buffer per dtype, so it rejects
     it. ``rng`` draws the per-round participation masks and the
     stochastic-rounding noise (rounds that draw neither ignore it).
-    ``ef_client`` / ``ef_group`` carry the per-link error-feedback residuals
-    compressed uploads accumulate, zero and always in the params' dtype (they
-    store upload-delta error, not corrections)."""
+    ``round_counter`` carries the window counter async report cadences are
+    read from; ``staleness_snapshots`` the download snapshots ``snap``
+    [G, ...] and ``glob`` (copies of the initial model) of delay-compensated
+    async rounds; ``fault_download`` the realized-download mask ``dl`` (all
+    ones) of timeouts under an async schedule. ``ef_client`` / ``ef_group``
+    carry the per-link error-feedback residuals compressed uploads
+    accumulate, zero and always in the params' dtype (they store
+    upload-delta error, not corrections)."""
     dev = resolve_device(device)
     cdt = _torch_dtype(correction_dtype)
     params0 = tu.tree_map(lambda t: torch.as_tensor(t).to(dev), params0)
@@ -155,14 +184,26 @@ def sharded_init(params0: Tree, G: int, K: int, *, use_flat_state: bool = False,
     def stack(t, lead):
         return t.expand(lead + tuple(t.shape)).contiguous()
 
+    rnd = torch.zeros((), dtype=torch.int32, device=dev) if round_counter else None
+    dl = torch.ones(G, dtype=torch.float32, device=dev) if fault_download else None
+
+    def snapshots(model):
+        """(snap, glob): copies of the initial model, never views of it."""
+        if not staleness_snapshots:
+            return None, None
+        return (tu.tree_map(lambda t: stack(t, (G,)), model),
+                tu.tree_map(lambda t: t.clone(memory_format=torch.contiguous_format), model))
+
     if use_flat_state:
         if cdt is not None:
             raise ValueError("flat state packs params and corrections into one buffer per "
                              "dtype; correction_dtype needs the tree layout")
         packer = make_packer(params0)
         flat0 = packer.flatten(params0)
+        snap, glob = snapshots(flat0)
         return ShardedHFLState(params=tu.tree_map(lambda b: stack(b, (G, K)), flat0),
                                z=packer.zeros((G, K), dev), y=packer.zeros((G,), dev), rng=rng,
+                               round=rnd, snap=snap, glob=glob, dl=dl,
                                efc=packer.zeros((G, K), dev) if ef_client else None,
                                efg=packer.zeros((G,), dev) if ef_group else None)
 
@@ -170,9 +211,11 @@ def sharded_init(params0: Tree, G: int, K: int, *, use_flat_state: bool = False,
         return tu.tree_map(lambda t: torch.zeros(lead + tuple(t.shape), dtype=dtype or t.dtype,
                                                  device=dev), params0)
 
+    snap, glob = snapshots(params0)
     return ShardedHFLState(
         params=tu.tree_map(lambda t: stack(t, (G, K)), params0),
         z=zeros((G, K), cdt), y=zeros((G,), cdt), rng=rng,
+        round=rnd, snap=snap, glob=glob, dl=dl,
         efc=zeros((G, K)) if ef_client else None,
         efg=zeros((G,)) if ef_group else None)
 
@@ -258,15 +301,21 @@ def _put(dst: torch.Tensor, src: torch.Tensor, rows) -> None:
 
 
 def _correction_step(c: torch.Tensor, src: torch.Tensor, ref: torch.Tensor,
-                     denom: float) -> None:
-    """c <- c + (src - ref) / denom in float32, stored in c's dtype, IN PLACE,
-    on one piece of one replica (z: ``ref`` is its group's aggregate; y: the
-    global one)."""
+                     denom: float | None = None, coef: float | None = None) -> None:
+    """c <- c + (src - ref) / denom (or c + coef * (src - ref), the async
+    round's per-group float32 coefficient, as the reference writes it) in
+    float32, stored in c's dtype, IN PLACE, on one piece of one replica (z:
+    ``ref`` is its group's aggregate; y: the global one)."""
     # In place on one float32 temporary: a narrower operand is widened
     # exactly inside each op, so every rounding is the expression's
     # (c + (src - ref) / denom), and the last copy rounds into c's dtype.
     d = src.to(torch.float32, copy=True)
-    d.sub_(ref).div_(denom).add_(c)
+    d.sub_(ref)
+    if coef is None:
+        d.div_(denom)
+    else:
+        d.mul_(coef)
+    d.add_(c)
     c.copy_(d)
 
 
@@ -300,8 +349,10 @@ def _build_sharded_round(
     versions otherwise, with the residuals ``sharded_init(...,
     ef_client=, ef_group=)`` carries. ``faults`` (a ``FaultPlan``) and
     ``defense`` (a ``DefensePlan``) inject faults and screen the uploads as
-    the simulator engine does. ``plan`` (async schedules) raises, naming
-    its slice."""
+    the simulator engine does. ``plan`` (a ``StalenessPlan``) runs async
+    group rounds as the simulator engine does, ``E`` being the padded loop
+    length ``max(E_g)``; the state then carries the window counter (and,
+    by the plan, ``snap``/``glob`` and ``dl``)."""
     use_corr = algorithm == "mtgc"
     if algorithm not in ("mtgc", "hfedavg"):
         raise ValueError(f"unknown sharded algorithm {algorithm!r} (choose 'mtgc' or 'hfedavg')")
@@ -318,8 +369,6 @@ def _build_sharded_round(
     if not (0.0 < client_participation <= 1.0 and 0.0 < group_participation <= 1.0):
         raise ValueError("participation fractions must be in (0, 1], got "
                          f"{client_participation}/{group_participation}")
-    if plan is not None and getattr(plan, "enabled", True):
-        raise ValueError(f"an async staleness plan on the sharded backend needs {ASYNC_SLICE}")
     faults = faults if (faults is not None and faults.enabled) else None
     defense = defense if (defense is not None and defense.enabled) else None
     fault_mode, defended = faults is not None, defense is not None
@@ -333,6 +382,23 @@ def _build_sharded_round(
     comp = compression if (compression is not None and compression.enabled) else None
     if comp is not None:
         comp.validate()
+        if plan is not None:
+            raise ValueError(
+                "compressed uploads under an async schedule are not supported yet: stale "
+                "reports would need their own residual timeline (see ROADMAP)")
+    async_mode = plan is not None
+    if async_mode:
+        if plan.e_pad != E:
+            raise ValueError(f"E must be the padded loop length max(E_g)={plan.e_pad}, got {E}")
+        # The plan's static constants: the iteration mask on the host (each
+        # group round's active rows) and on the device (its mask), the merge
+        # weights, and each group's y coefficient 1 / (E_g r_g H lr) in
+        # float32 as the reference computes it.
+        em_np = plan.iteration_mask()
+        dw_np = plan.discount_weights()
+        y_coef = [float(np.float32(1.0) / (np.float32(e) * np.float32(H) * np.float32(lr)))
+                  for e in plan.effective_rounds]
+        plan_on = {}
     cmode = comp.client_mode if comp is not None else "none"
     gmode = comp.group_mode if comp is not None else "none"
     comp_c, comp_g = cmode != "none", gmode != "none"
@@ -414,9 +480,41 @@ def _build_sharded_round(
                 cmask = alive if cmask is None else cmask * alive
         if (fault_mode or defended) and cmask is None:
             cmask = torch.ones((G, K), dtype=torch.float32, device=dev)
+        rep = fresh = None
+        rep_read = async_mode and (plan.needs_round_counter or f_timeout)
+        if async_mode:
+            if plan.num_groups != G:
+                raise ValueError(f"staleness plan covers {plan.num_groups} groups, state has {G}")
+            if plan.needs_round_counter and state.round is None:
+                raise ValueError(
+                    "this async schedule reads report cadences from the window counter: "
+                    "build the state with sharded_init(..., round_counter=True) "
+                    "(repro_torch.api.build does this for you)")
+            if dev not in plan_on:
+                plan_on[dev] = (torch.from_numpy(em_np).to(dev), torch.from_numpy(dw_np).to(dev))
+            em_all, dw = plan_on[dev]
+            t = (state.round if state.round is not None
+                 else torch.zeros((), dtype=torch.int32, device=dev))
+            rep, fresh = plan.report_mask(t), plan.fresh_mask(t)      # [G] each
+            if f_timeout:
+                # A timed-out group misses its report; freshness comes from
+                # the realized downloads of the last window.
+                if state.dl is None:
+                    raise ValueError(
+                        "group-timeout faults under an async schedule carry the "
+                        "realized-download mask in the state: build it with "
+                        "sharded_init(..., fault_download=True) (repro_torch.api.build does "
+                        "this for you)")
+                rep = rep * (1.0 - fm.timeout)
+                fresh = state.dl
+        # One host copy: the activity mask (which replicas to touch) and the
+        # window's report mask (which groups merge and download).
+        host = [m.reshape(-1) for m in (cmask, rep if rep_read else None) if m is not None]
+        host = torch.cat(host).cpu().numpy() != 0 if host else None
+        rep_host = (host[-G:] if rep_read else np.ones(G, dtype=bool)) if async_mode else None
         if cmask is not None:
             n_active = torch.clamp(torch.sum(cmask), min=1.0)
-            active = cmask.cpu().numpy() != 0          # host copy: which replicas to touch
+            active = host[:G * K].reshape(G, K)
             gact = (torch.sum(cmask, dim=1) > 0).to(torch.float32)
         else:
             n_active = active = gact = None
@@ -425,6 +523,20 @@ def _build_sharded_round(
             # Only a client that worked this round can upload garbage.
             bad = fm.corrupt * cmask
             bad_host = bad.cpu().numpy() != 0
+        # The group round's activity: the round's own, or under an async
+        # schedule that times the iteration mask (set per group round).
+        am, n_act, act, bad_e, bad_host_e = cmask, n_active, active, bad, bad_host
+
+        def live(e: int):
+            """Group round e's (mask, active count, host rows, corrupted
+            uploads, their host rows) under an async schedule: the iteration
+            mask times the activity mask, taken without another host copy."""
+            em = em_all[e][:, None]
+            am_e = em * cmask if cmask is not None else em.expand(G, K).contiguous()
+            emh = em_np[e][:, None] != 0
+            act_e = emh & active if active is not None else np.repeat(emh, K, axis=1)
+            return (am_e, torch.clamp(torch.sum(am_e), min=1.0), act_e,
+                    None if bad is None else bad * em, None if bad_host is None else bad_host & emh)
 
         def rand(shape) -> torch.Tensor:
             """U[0, 1) stochastic-rounding noise from ``state.rng``."""
@@ -445,10 +557,10 @@ def _build_sharded_round(
                 state.rng.set_state(rng_state)
 
         def select_(dst: torch.Tensor, new: torch.Tensor) -> None:
-            """dst <- new on the active replicas of a [G, K, ...] leaf (all at
-            full participation)."""
+            """dst <- new on the group round's active replicas of a [G, K, ...]
+            leaf (all at full participation)."""
             _put(dst.view(G * K, -1), new.reshape(G * K, -1),
-                 None if active is None else active.reshape(-1))
+                 None if act is None else act.reshape(-1))
 
         efc = efg = None
         for on, field, flag in ((ef_c, "efc", "ef_client"), (ef_g, "efg", "ef_group")):
@@ -492,21 +604,26 @@ def _build_sharded_round(
             if defended:
                 # A corrupted client that has not healed yet has a non-finite
                 # loss while its upload is screened: so is the metric.
-                w = cmask * torch.isfinite(lpc).to(torch.float32)
+                w = am * torch.isfinite(lpc).to(torch.float32)
                 return (torch.sum(torch.where(w != 0, lpc, 0))
                         / torch.clamp(torch.sum(w), min=1.0))
-            if cmask is not None:
-                return torch.sum(torch.where(cmask != 0, lpc, 0)) / n_active
+            if am is not None:
+                return torch.sum(torch.where(am != 0, lpc, 0)) / n_act
             return torch.mean(lpc)
 
         if use_corr:
             # Alg. 1 line 3 (footnote 2's zero init): z restarts every global
             # round, for participants only; only y persists across rounds.
+            # Async: once per report cycle, for the groups that start from a
+            # fresh download (mid-cycle stragglers keep accumulating).
+            zmask = cmask
+            if async_mode:
+                zmask = fresh[:, None] * cmask if cmask is not None else fresh[:, None]
             for zl in tu.tree_leaves(z):
-                if cmask is None:
+                if zmask is None:
                     zl.zero_()
                 else:
-                    zl.masked_fill_(tu.expand_mask(cmask, zl) != 0, 0)
+                    zl.masked_fill_(tu.expand_mask(zmask, zl) != 0, 0)
 
         def phase_start(i: int, g: int, sl: slice) -> torch.Tensor:
             """Group g's phase-start model of leaf i, one piece ([piece] shared
@@ -539,8 +656,8 @@ def _build_sharded_round(
                 deq = cmp.roundtrip_block(u, cmode, param, noise, use_fused_update)
                 x_up = start + deq
             x_loc = x_up
-            if f_corrupt and bad_host[g].any():
-                rows = bad[g][:, None] != 0
+            if f_corrupt and bad_host_e[g].any():
+                rows = bad_e[g][:, None] != 0
                 x_up = torch.where(rows, start + payload(x_up - start, faults), x_up)
                 x_loc = (torch.where(rows, start + payload(x_end - start, faults), x_end)
                          if comp_c else x_up)
@@ -575,14 +692,14 @@ def _build_sharded_round(
                         del d, x_up
             replay(rng_state)
             ok, hit, scale = screen_tests(sqn, fin.to(torch.float32), defense)
-            smask = cmask * ok
+            smask = am * ok
             if hit is not None:
-                hit = hit & (cmask != 0)   # a frozen client uploads nothing
+                hit = hit & (am != 0)   # a frozen client uploads nothing
             has_srv = torch.sum(smask, dim=1) > 0
             return {"smask": smask, "srv": smask.cpu().numpy() != 0,
                     "has_srv": has_srv.cpu().numpy(), "hit": hit, "scale": scale,
                     "hit_host": None if hit is None else hit.cpu().numpy(),
-                    "screened": torch.sum(cmask) - torch.sum(smask)}
+                    "screened": torch.sum(am) - torch.sum(smask)}
 
         def aggregate_group(e: int, i: int, zi: torch.Tensor, sv) -> None:
             """One leaf's client uploads, group mean over the surviving clients
@@ -591,10 +708,16 @@ def _build_sharded_round(
             z3 = zi.view(G, K, -1)
             cols = _cols(x_leaves[i].shape[-1])
             for g in range(G):
-                act = None if active is None else active[g]
-                srv = act if sv is None else sv["srv"][g]
-                smask_g = (None if cmask is None
-                           else (cmask if sv is None else sv["smask"])[g:g + 1])
+                act_g = None if act is None else act[g]
+                if act_g is not None and not act_g.any() and not comp_c:
+                    # No active replica (a straggler's idle iteration): its
+                    # mean is an exact zero that nothing reads, and no
+                    # replica or z is written. (The client link draws its
+                    # noise for every group, so it goes through.)
+                    continue
+                srv = act_g if sv is None else sv["srv"][g]
+                smask_g = (None if am is None
+                           else (am if sv is None else sv["smask"])[g:g + 1])
                 param = link_param(i, g)
                 for sl in cols:
                     x_end, start, x_up, x_loc, u, deq = client_views(e, i, g, sl, param)
@@ -608,7 +731,7 @@ def _build_sharded_round(
                         # The residual advances only for an upload that entered
                         # the mean.
                         _put(efc[i][g, :, sl], u - deq, srv)
-                    if cmask is None:
+                    if am is None:
                         xbar = _mean(x_up, 0)
                     else:
                         xbar = tu.tree_masked_mean(x_up[None], smask_g, axis=1,
@@ -625,14 +748,15 @@ def _build_sharded_round(
                     # it), unless the whole group was screened: then they
                     # revert to the phase-start model.
                     if sv is None or sv["has_srv"][g]:
-                        _put(x_end, xbar.expand(x_end.shape), act)
+                        _put(x_end, xbar.expand(x_end.shape), act_g)
                     else:
-                        _put(x_end, start.expand(x_end.shape), act)
+                        _put(x_end, start.expand(x_end.shape), act_g)
                     if xs is not None and e < E - 1:
                         # The next phase starts from what was disseminated.
                         if xs[i].dim() == 3:
                             xs[i][g, :, sl].copy_(x_end)
-                        elif (sv is None or sv["has_srv"][g]) and (act is None or act.any()):
+                        elif (sv is None or sv["has_srv"][g]) and (act_g is None
+                                                                   or act_g.any()):
                             xs[i][g, sl].copy_(xbar)
 
         def own(i: int, sl: slice) -> torch.Tensor:
@@ -705,6 +829,47 @@ def _build_sharded_round(
                 del xbar_j
                 _put(x3[:, :, sl].reshape(G * K, -1), xbar.expand(G * K, xbar.shape[-1]), rows)
 
+        def aggregate_global_async(i: int, yi: torch.Tensor, weights, obs_host, rows,
+                                   glob_write: bool) -> None:
+            """One leaf's staleness-aware merge (the async global step), piece
+            by piece: the groups' recovered reports (shifted by ``glob -
+            snap_g`` under delay compensation, in float32 and rounded once to
+            the report's dtype), their weighted merge ``weights = (wsum,
+            sup, den)``, the y update of the observed groups (``obs_host``)
+            with each group's own coefficient, the download to ``rows`` and
+            the ``snap``/``glob`` writes."""
+            x3, y2 = x_leaves[i], yi.view(G, -1)
+            wsum, sup, den = weights
+            if dc:
+                snap2, glob1 = snap_leaves[i], glob_leaves[i]
+            for sl in _cols(x3.shape[-1]):
+                xbar_j = own(i, sl)
+                used = xbar_j
+                if dc:
+                    # Copies, never views of the state: the download below
+                    # overwrites the replicas they are read from.
+                    shift = glob1[sl].to(torch.float32) - snap2[:, sl].to(torch.float32)
+                    used = (xbar_j.to(torch.float32) + shift).to(xbar_j.dtype)
+                    del shift
+                live = tu.expand_mask(sup, used) != 0
+                xbar = torch.sum(torch.where(live, used, 0) * tu.expand_mask(wsum, used),
+                                 dim=0) / den
+                del live
+                if use_corr:
+                    # y_j += (report_j - xbar) / (E_j r_j H lr): a reporting
+                    # group ran E_j r_j group rounds since its download.
+                    for g in range(G):
+                        if obs_host[g]:
+                            _correction_step(y2[g, sl], used[g], xbar, coef=y_coef[g])
+                del used, xbar_j
+                _put(x3[:, :, sl].reshape(G * K, -1), xbar.expand(G * K, xbar.shape[-1]), rows)
+                if dc:
+                    # Reporting groups record the model they downloaded; the
+                    # server records it when the window merged anything.
+                    _put(snap2[:, sl], xbar.expand(G, xbar.shape[-1]), obs_host)
+                    if glob_write:
+                        glob1[sl].copy_(xbar)
+
         def local_update(acc, acc_tree, corr_t, inv_a) -> None:
             """The local step (Alg. 1 line 7) from the summed gradient."""
             if use_fused_update:
@@ -715,7 +880,7 @@ def _build_sharded_round(
                                           tu.tree_leaves(z), tu.tree_leaves(y)):
                     xg = xi.view(G, K, -1)
                     kops.mtgc_update_flat(xg, gi.view(G, K, -1), zi.view(G, K, -1),
-                                          yi.view(G, -1), cmask, lr=lr, g_scale=inv_a, out=xg)
+                                          yi.view(G, -1), am, lr=lr, g_scale=inv_a, out=xg)
             elif use_corr and flat:
                 for xi, gi, ci in zip(tu.tree_leaves(x_tree), tu.tree_leaves(acc_tree),
                                       tu.tree_leaves(corr_t)):
@@ -737,6 +902,8 @@ def _build_sharded_round(
 
         losses, last_g, xs, scrs = [], None, None, []
         for e in range(E):
+            if async_mode:
+                am, n_act, act, bad_e, bad_host_e = live(e)
             if keep_start and e == 0:
                 # The phase-start model the uploads are taken against: [G, ...]
                 # when the active replicas of each group hold one model (and
@@ -744,7 +911,7 @@ def _build_sharded_round(
                 # [G, K, ...] replicas (a client that missed a download holds
                 # a stale model).
                 def agree(t3, g):
-                    ks = range(K) if active is None else np.flatnonzero(active[g]).tolist()
+                    ks = range(K) if act is None else np.flatnonzero(act[g]).tolist()
                     return all(torch.equal(t3[g, k], t3[g, ks[0]]) for k in ks[1:])
 
                 shared = all(agree(t, g) for t in x_leaves for g in range(G))
@@ -753,8 +920,8 @@ def _build_sharded_round(
                     if not shared:
                         xs.append(t.clone(memory_format=torch.contiguous_format))
                         continue
-                    first = [0 if active is None or not active[g].any()
-                             else int(np.flatnonzero(active[g])[0]) for g in range(G)]
+                    first = [0 if act is None or not act[g].any()
+                             else int(np.flatnonzero(act[g])[0]) for g in range(G)]
                     xs.append(torch.stack([t[g, k] for g, k in enumerate(first)]))
             loss_e = []
             # Flat, unfused: z + y folded into one correction for the phase.
@@ -767,12 +934,12 @@ def _build_sharded_round(
                 local_update(acc, acc_tree, corr_t, inv_a)
                 loss_e.append(step_loss_mean(lsum, inv_a))
                 if e == E - 1 and h == H - 1:
-                    if cmask is not None:
+                    if am is not None:
                         # The last step's gradient is read only here: zero the
                         # frozen replicas' (and, defended, the non-finite
                         # ones') in place, the bits a where-copy would hold,
                         # rather than copying the accumulator.
-                        keep = cmask != 0
+                        keep = am != 0
                         if defended:
                             for t in tu.tree_leaves(acc):
                                 t3 = t.view(G, K, -1)
@@ -795,13 +962,15 @@ def _build_sharded_round(
                     else torch.zeros((), dtype=torch.float32, device=dev))
 
         # The merging groups: active, not timed out, and (defended) with a
-        # finite report -- the backstop reads every report first.
+        # finite report -- the backstop reads every report first. (Under an
+        # async schedule a timed-out group is out of the report mask.)
         gup = G
-        gact_host = rows = None
+        gact_host = rows = gfin = None
         if cmask is not None:
-            if f_timeout:
+            if f_timeout and not async_mode:
                 gact = gact * (1.0 - fm.timeout)
-            gup = torch.sum(gact)  # reports actually sent (before the screen)
+            # Reports actually sent (before the screen).
+            gup = torch.sum(gact) if not async_mode else torch.sum(rep * gact)
             if defended and defense.screen_nonfinite:
                 gfin = torch.ones(G, dtype=torch.bool, device=dev)
                 rng_state = replayable() if comp_g else None
@@ -814,22 +983,73 @@ def _build_sharded_round(
                 gfin = gfin.to(torch.float32)
                 screened = screened + torch.sum(cmask * (gact * (1.0 - gfin))[:, None])
                 gact = gact * gfin
-            gact_host = gact.cpu().numpy() != 0
-            dm = cmask
-            if fault_mode or defended:
-                # Timed-out groups miss the download too, and no one
-                # downloads a global mean with no merging group.
-                dm = dm * (torch.sum(gact) > 0).to(torch.float32)
-                if f_timeout:
-                    dm = dm * (1.0 - fm.timeout)[:, None]
-            rows = dm.cpu().numpy().reshape(-1) != 0
-        for i, yi in enumerate(tu.tree_leaves(y)):
-            aggregate_global(i, yi, rows)
+            if not async_mode:
+                gact_host = gact.cpu().numpy() != 0
+                dm = cmask
+                if fault_mode or defended:
+                    # Timed-out groups miss the download too, and no one
+                    # downloads a global mean with no merging group.
+                    dm = dm * (torch.sum(gact) > 0).to(torch.float32)
+                    if f_timeout:
+                        dm = dm * (1.0 - fm.timeout)[:, None]
+                rows = dm.cpu().numpy().reshape(-1) != 0
+        if async_mode:
+            # The staleness-aware merge of the groups reporting this window:
+            # weights rep x dw x the participation estimator.
+            if cmask is not None:
+                # Observed: reporting, active and (defended) finite; from the
+                # round's host copy and, after the backstop, its verdict.
+                obs_host = rep_host & active.any(axis=1)
+                if gfin is not None:
+                    obs_host = obs_host & (gfin.cpu().numpy() != 0)
+            else:
+                obs_host = rep_host
+                gup = torch.sum(rep)
+            any_obs = bool(obs_host.any())
+            w = rep * dw
+            if ht:
+                wsum = w * gmask
+                sup = wsum * gact
+                den = (gdenom / G) * torch.sum(w)
+            elif cmask is not None:
+                wsum = sup = w * gact
+                den_raw = torch.sum(wsum)
+                den = torch.where(den_raw > 0, den_raw, 1.0)
+            else:
+                wsum = sup = w
+                den = torch.sum(w)
+            # Only reporting groups download (stragglers keep their
+            # mid-cycle replicas); with faults or the defense, none from a
+            # window that merged nothing.
+            dm_host = np.repeat(rep_host[:, None], K, axis=1)
+            if cmask is not None:
+                dm_host = dm_host & active
+            if (fault_mode or defended) and not any_obs:
+                dm_host = np.zeros_like(dm_host)
+            dc = plan.needs_snapshots
+            if dc:
+                if state.snap is None or state.glob is None:
+                    raise ValueError(
+                        "staleness='delay_compensated' carries per-group download snapshots "
+                        "in the state: build it with sharded_init(..., "
+                        "staleness_snapshots=True) (repro_torch.api.build does this for you)")
+                snap_leaves = [t.view(G, -1) for t in tu.tree_leaves(state.snap)]
+                glob_leaves = [t.view(-1) for t in tu.tree_leaves(state.glob)]
+            for i, yi in enumerate(tu.tree_leaves(y)):
+                aggregate_global_async(i, yi, (wsum, sup, den), obs_host, dm_host.reshape(-1),
+                                       any_obs)
+        else:
+            for i, yi in enumerate(tu.tree_leaves(y)):
+                aggregate_global(i, yi, rows)
         del gref
 
         # Bytes on the wire: every upload actually sent (screened uploads
         # spent their bytes; crashed, unsampled and timed-out ones none).
-        n_up_c = E * torch.sum(cmask) if cmask is not None else E * G * K
+        if async_mode:
+            n_up_c = (torch.sum(em_all[:, :, None] * cmask[None]) if cmask is not None
+                      else torch.sum(em_all) * K)
+        else:
+            n_up_c = E * torch.sum(cmask) if cmask is not None else E * G * K
         metrics = ShardedMetrics(
             loss=torch.stack(losses),
             grad_norm=last_g,
@@ -840,7 +1060,14 @@ def _build_sharded_round(
             screened=screened,
             comm_bytes=round_comm_bytes(x, comp, n_up_c, gup),
         )
-        return state._replace(params=x, z=z, y=y), metrics
+        new = state._replace(params=x, z=z, y=y)
+        if state.round is not None:
+            new = new._replace(round=state.round + 1)
+        if async_mode and f_timeout:
+            # Realized downloads this window (rep already excludes timed-out
+            # groups): the next window's freshness for the z restart.
+            new = new._replace(dl=rep * float(any_obs))
+        return new, metrics
 
     return round_fn
 

@@ -294,6 +294,62 @@ def test_compressed_partial_round_on_card_matches_cpu(cuda, layout, plan):
     _close(outs[0][1], outs[1][1], 1e-6, "metrics")
 
 
+@pytest.mark.parametrize("backend", ["simulator", "sharded"])
+@pytest.mark.parametrize("policy", ["delay_compensated", "discount"])
+def test_async_flat_fused_round_on_card_matches_cpu(cuda, policy, backend):
+    """Two async windows (group_rounds (2, 1, 2), flat + fused, C = 0.5 with
+    injected masks) on the card and on the CPU: every fused step hands the
+    masked kernel ``em x cmask``, the straggler's idle iteration keeps its
+    bits, and params, z, y, snap and glob agree within float32 rounding of
+    the masked means (quadratic model, element-wise)."""
+    rng = np.random.default_rng(2)
+    G, K, H = 3, 2, 2
+    A = (1,) if backend == "sharded" else ()
+    p0 = {"w": torch.zeros(200), "v": torch.zeros(30)}
+    b = {k: torch.from_numpy((rng.normal(size=(2, H) + A + (G, K, n)) + off)
+                             .astype(np.float32))
+         for k, n, off in (("a", 200, 1.0), ("b", 200, 0.0), ("c", 30, 1.0), ("e", 30, 0.0))}
+    draws = RoundDraws(masks=ParticipationMasks(
+        torch.ones(G), torch.tensor([[1.0, 0.0], [1.0, 1.0], [0.0, 1.0]])))
+    spec = api.ExperimentSpec(
+        levels=(G, K), backend=backend, fusion="fused", state_layout="flat", lr=0.05,
+        client_participation=0.5, staleness=policy,
+        schedule=api.RoundSchedule((2, 1, 2), H, microbatches=1 if A else None))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        eng = api.build(spec, _quad_loss, device=dev)
+        state = eng.init(p0)
+        calls = []
+        real = ops.mtgc_update_flat
+
+        def spy(x, g, z, y, mask=None, **kw):
+            before = x[1].clone()
+            out = real(x, g, z, y, mask, **kw)
+            calls.append((mask.cpu(), torch.equal(out[1], before)))
+            return out
+
+        ops.mtgc_update_flat = spy
+        mu.reset_launch_counts()
+        try:
+            for _ in range(2):
+                state, metrics = eng.round_fn(state, {k: v.to(dev) for k, v in b.items()},
+                                              draws=draws)
+        finally:
+            ops.mtgc_update_flat = real
+        if dev == "cuda":
+            assert mu.mtgc_update_flat.launches == 2 * 2 * H
+        for e, (mask, kept) in enumerate(calls):
+            want = draws.masks.client.clone()
+            if (e // H) % 2 == 1:
+                want[1] = 0.0
+            assert torch.equal(mask, want) and (kept or (e // H) % 2 == 0)
+        outs.append((convert.to_numpy(state), convert.to_numpy(metrics)))
+    for name in ("params", "z", "y", "snap", "glob"):
+        if name in outs[1][0]:
+            _close(outs[0][0][name], outs[1][0][name], 1e-5 if name != "z" else 1e-4, name)
+    _close(outs[0][1], outs[1][1], 1e-5, "metrics")
+
+
 # ---------------------------------------------------------------- LM kernels
 # Tolerances: 5e-5 abs for attention and rtol/atol 1e-4 for the scan in
 # float32 (as tests/test_kernels.py holds the Pallas kernels against their

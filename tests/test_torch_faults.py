@@ -400,17 +400,41 @@ def test_fully_screened_group_reverts_not_poisons(layout):
     assert all(torch.isfinite(m.loss).all() for m in mets)
 
 
-def test_async_timeout_raises_naming_the_slice():
-    """The reference routes a timeout under an async schedule through its
-    staleness machinery (``state.dl``); the port has no async schedule yet,
-    so such a spec names that slice on both engines."""
-    for backend, mb in (("simulator", None), ("sharded", 1)):
-        spec = tapi.ExperimentSpec(levels=(3, 2), backend=backend, staleness="discount",
-                                   schedule=tapi.RoundSchedule(group_rounds=(2, 1, 1),
-                                                               microbatches=mb),
-                                   faults=tapi.FaultPlan(timeout_rate=0.5))
-        with pytest.raises(ValueError, match="async-rounds slice"):
-            tapi.build(spec, quad_loss, device="cpu")
+@pytest.mark.parametrize("backend", ["simulator", "sharded"])
+def test_async_timeout_matches_reference(backend):
+    """A timeout under an async schedule goes through the staleness
+    machinery, as in the reference: a timed-out group misses its report,
+    and the realized-download mask ``state.dl`` carries freshness into the
+    next window. Three windows on either engine against the reference
+    engine, the fault masks injected: params, z, y, ``dl`` and the window
+    counter."""
+    from repro.core import as_tree as jtree
+
+    G, K, E, H, lr = 3, 2, 2, 2, 0.05
+    mb = 1 if backend == "sharded" else None
+    kw = dict(levels=(G, K), backend=backend, lr=lr, staleness="discount")
+    jspec = japi.ExperimentSpec(schedule=japi.RoundSchedule(group_rounds=(2, 1, 1),
+                                                            local_steps=H, microbatches=mb),
+                                faults=jflt.FaultPlan(timeout_rate=0.5), **kw)
+    tspec = tapi.ExperimentSpec(schedule=tapi.RoundSchedule(group_rounds=(2, 1, 1),
+                                                            local_steps=H, microbatches=mb),
+                                faults=tapi.FaultPlan(timeout_rate=0.5), **kw)
+    jeng, teng = japi.build(jspec, quad_loss), tapi.build(tspec, quad_loss, device="cpu")
+    jstate = jeng.init({"w": jnp.zeros(D)}, rng=jax.random.PRNGKey(12))
+    tstate = teng.init({"w": torch.zeros(D)})
+    assert tstate.dl is not None
+    for r in range(3):
+        b = make_batches(G, K, E, H, seed=40 + r)[2]
+        if backend == "sharded":
+            b = {k: np.ascontiguousarray(np.asarray(v)[:, :, None]) for k, v in b.items()}
+        draws = reference_draws(jstate.rng, jspec.to_hfl_config(), jspec.faults, None, [D])
+        jstate, _ = jeng.round_fn(jstate, jax.tree.map(jnp.asarray, b))
+        tstate, _ = teng.round_fn(tstate, {k: _t(v) for k, v in b.items()}, draws=draws)
+        for f in ("params", "z", "y"):
+            assert_close(_w(getattr(tstate, f)), np.asarray(jtree(getattr(jstate, f))["w"]),
+                         RTOL, ATOL / (H * lr) if f != "params" else ATOL, f"round {r}: {f}")
+        np.testing.assert_array_equal(tstate.dl.numpy(), np.asarray(jstate.dl))
+        assert int(tstate.round) == int(jstate.round)
 
 
 # ------------------------------- the engine against the reference engine

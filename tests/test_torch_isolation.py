@@ -40,7 +40,8 @@ def test_port_files_exist():
             "kernels/quantize.py", "kernels/flash_attention.py", "kernels/rwkv6_scan.py",
             "models/config.py", "configs/__init__.py", "configs/qwen3_14b.py",
             "configs/rwkv6_1_6b.py", "models/layers.py", "models/rwkv6.py",
-            "models/transformer.py", "launch/serve.py"} <= names
+            "models/transformer.py", "launch/serve.py", "launch/train.py",
+            "core/staleness.py", "core/faults.py", "core/compression.py"} <= names
     for src in ("mtgc_update", "quantize", "flash_attention", "rwkv6_scan"):
         assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file()
     assert (ROOT / "chip_smoke.py").is_file()
@@ -56,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.data, repro_torch.configs, "
             "repro_torch.configs.qwen3_14b, repro_torch.configs.rwkv6_1_6b, "
-            "repro_torch.models.transformer, repro_torch.launch.serve; "
+            "repro_torch.models.transformer, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.core.staleness; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1,12 +1,14 @@
 """The port's ExperimentSpec: the reference's field list, later-slice
-fields rejected by name (partial participation, compressed uploads, faults
-and defense are accepted), and no quiet CPU run on a host without CUDA."""
+fields rejected by name (partial participation, compressed uploads, faults,
+defense and async group rounds are accepted), and no quiet CPU run on a
+host without CUDA."""
 import dataclasses
 
 import pytest
 
 pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from repro import api as japi  # noqa: E402
@@ -33,25 +35,15 @@ def test_field_list_equals_reference():
       "population": 4}, "virtual-population"),
     ({"group_participation": 0.5, "defense": tapi.DefensePlan(),
       "backend": "multilevel"}, "multilevel-backend"),
-    ({"faults": tapi.FaultPlan(timeout_rate=0.2), "staleness": "discount",
-      "schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "async-rounds"),
     ({"defense": tapi.DefensePlan(), "client_state": "stateless"}, "virtual-population"),
-    ({"compression": tapi.CompressionPlan("int8_stochastic"), "staleness": "discount",
-      "schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "async-rounds"),
-    ({"staleness": "discount",
-      "schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "async-rounds"),
-    ({"schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "async-rounds"),
     ({"population": 4}, "virtual-population"),
+    ({"population": 4, "staleness": "discount",
+      "schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "virtual-population"),
     ({"client_state": "stateless"}, "virtual-population"),
     ({"backend": "multilevel"}, "multilevel-backend"),
     ({"level_participation": (1.0, 1.0)}, "multilevel-backend"),
     ({"backend": "sharded", "compression": tapi.CompressionPlan("int8_stochastic"),
       "population": 4}, "virtual-population"),
-    ({"backend": "sharded", "faults": tapi.FaultPlan(timeout_rate=0.2),
-      "staleness": "discount",
-      "schedule": tapi.RoundSchedule(group_rounds=(2, 1), microbatches=2)}, "async-rounds"),
-    ({"backend": "sharded", "staleness": "discount",
-      "schedule": tapi.RoundSchedule(group_rounds=(2, 1), microbatches=2)}, "async-rounds"),
 ])
 def test_later_slice_fields_raise_naming_the_slice(kwargs, slice_name):
     spec = tapi.ExperimentSpec(levels=(2, 2), **kwargs)
@@ -59,6 +51,68 @@ def test_later_slice_fields_raise_naming_the_slice(kwargs, slice_name):
         spec.validate()
     with pytest.raises(ValueError, match=slice_name):
         tapi.build(spec, lambda p, b: None, device="cpu")
+
+
+def _quad(params, batch):
+    mod = torch if isinstance(params["w"], torch.Tensor) else jnp
+    r = batch["a"] * params["w"] - batch["b"]
+    return 0.5 * mod.sum(r * r)
+
+
+@pytest.mark.parametrize("kwargs", [
+    # The async specs that named the async-rounds slice before it was ported.
+    {"faults": tapi.FaultPlan(timeout_rate=0.2), "staleness": "discount",
+     "schedule": tapi.RoundSchedule(group_rounds=(2, 1))},
+    {"staleness": "discount", "schedule": tapi.RoundSchedule(group_rounds=(2, 1))},
+    {"schedule": tapi.RoundSchedule(group_rounds=(2, 1))},
+    {"backend": "sharded", "faults": tapi.FaultPlan(timeout_rate=0.2), "staleness": "discount",
+     "schedule": tapi.RoundSchedule(group_rounds=(2, 1), microbatches=2)},
+    {"backend": "sharded", "staleness": "discount",
+     "schedule": tapi.RoundSchedule(group_rounds=(2, 1), microbatches=2)},
+], ids=["sim-timeout-discount", "sim-discount", "sim-sync-tuple", "sharded-timeout-discount",
+        "sharded-discount"])
+def test_async_specs_build_and_match_reference(kwargs):
+    """An async spec builds on the CPU and its first round matches the
+    reference engine's, the reference's fault masks injected (params, z, y
+    at rtol 1e-5; the realized-download mask and the window counter
+    exactly)."""
+    import jax
+    import numpy as np
+    from test_torch_faults import _tplan, reference_draws
+
+    from repro_torch import convert
+    from repro_torch.core.packer import as_tree
+    from repro.core import as_tree as jas_tree
+
+    jkw = dict(kwargs)
+    jkw["schedule"] = japi.RoundSchedule(**dataclasses.asdict(kwargs["schedule"]))
+    if "faults" in jkw:
+        from repro.core.faults import FaultPlan
+        jkw["faults"] = FaultPlan(**dataclasses.asdict(kwargs["faults"]))
+    jspec = japi.ExperimentSpec(levels=(2, 2), lr=0.05, **jkw)
+    tspec = tapi.ExperimentSpec(levels=(2, 2), lr=0.05, **kwargs)
+    assert tspec.validate().staleness_plan() is not None
+    assert _tplan(jspec.faults) == tspec.faults
+    jeng, teng = japi.build(jspec, _quad), tapi.build(tspec, _quad, device="cpu")
+    jst = jeng.init({"w": jnp.zeros(5)}, rng=jax.random.PRNGKey(4))
+    tst = teng.init({"w": torch.zeros(5)})
+    A = tspec.schedule.microbatches
+    rng = np.random.default_rng(4)
+    lead = (2, 5) + ((A,) if A else ()) + (2, 2, 5)
+    b = {"a": (rng.normal(size=lead) + 2.0).astype(np.float32),
+         "b": rng.normal(size=lead).astype(np.float32)}
+    draws = reference_draws(jst.rng, jspec.to_hfl_config(), jspec.faults, None, [])
+    jst, _ = jeng.round_fn(jst, jax.tree.map(jnp.asarray, b))
+    tst, _ = teng.round_fn(tst, {k: torch.from_numpy(v) for k, v in b.items()}, draws=draws)
+    for f in ("params", "z", "y"):
+        np.testing.assert_allclose(convert.to_numpy(as_tree(getattr(tst, f)))["w"],
+                                   np.asarray(jas_tree(getattr(jst, f))["w"]), rtol=1e-5,
+                                   atol=1e-5, err_msg=f)
+    for f in ("round", "dl"):
+        want = getattr(jst, f)
+        assert (getattr(tst, f) is None) == (want is None), f
+        if want is not None:
+            np.testing.assert_array_equal(getattr(tst, f).numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -75,6 +129,26 @@ def test_later_slice_fields_raise_naming_the_slice(kwargs, slice_name):
     ({"compression": tapi.CompressionPlan(topk_frac=0.0)}, "topk_frac"),
     ({"levels": (2, 2, 2)}, "two-level"),
     ({"schedule": tapi.RoundSchedule(local_steps=0)}, "local_steps"),
+    # Compression under an async schedule: the reference's own message.
+    ({"compression": tapi.CompressionPlan("int8_stochastic"), "staleness": "discount",
+      "schedule": tapi.RoundSchedule(group_rounds=(2, 1))},
+     "compressed uploads under an async schedule are not supported yet"),
+    # The reference's rejections of contradictory async specs
+    # (tests/test_async_rounds.py::test_contradictory_async_specs_raise).
+    ({"staleness": "discount"}, "no-op with uniform group_rounds"),
+    ({"staleness": "naive", "schedule": tapi.RoundSchedule(group_rounds=(2, 2))}, "no-op"),
+    ({"max_staleness": 2}, "max_staleness bounds async reporting"),
+    ({"schedule": tapi.RoundSchedule(group_rounds=(2, 1)), "max_staleness": 2},
+     "max_staleness bounds async reporting"),
+    ({"schedule": tapi.RoundSchedule(group_rounds=(2, 1)), "staleness": "naive",
+      "max_staleness": 0}, "max_staleness must be None or >= 1"),
+    ({"schedule": tapi.RoundSchedule(group_rounds=(2, 1)), "staleness": "stale_ok"},
+     "unknown staleness policy"),
+    ({"schedule": tapi.RoundSchedule(group_rounds=(2, 1)), "staleness": "naive",
+      "correction_init": "gradient"}, "async group rounds require correction_init='zero'"),
+    ({"schedule": tapi.RoundSchedule(group_rounds=(2, 1)), "staleness": "naive",
+      "server_lr": 0.5}, "async group rounds require server_lr=1.0"),
+    ({"schedule": tapi.RoundSchedule(group_rounds=(2, 1, 1))}, "one entry per group"),
     # The reference's rejections of a compressed spec, on the sharded backend.
     ({"backend": "sharded", "compression": tapi.CompressionPlan("int8_stochastic"),
       "correction_init": "gradient"}, "correction_init"),
@@ -115,13 +189,28 @@ def test_sharded_compression_validates_and_builds(modes, layout):
 
 
 def test_round_builder_rejects_later_slice_plans():
-    """Async plans still name their slice; faults, defense, compression and
-    partial participation build, with the reference's rejections of a fault
-    plan, a defense or compression under the gradient init or a server lr,
-    and of a fault rate outside [0, 1)."""
+    """Async plans build, with the reference's rejections of a plan that
+    does not fit the config, of compression under an async plan and of the
+    gradient init or a server lr under one; faults, defense, compression
+    and partial participation build, with the reference's rejections of a
+    fault plan, a defense or compression under the gradient init or a
+    server lr, and of a fault rate outside [0, 1)."""
+    from repro_torch.core.staleness import StalenessPlan
+
     cfg = HFLConfig()
-    with pytest.raises(ValueError, match="slice of the port"):
-        _build_global_round(lambda p, b: None, cfg, plan=object())
+    plan = StalenessPlan((2, 1), "discount")
+    assert callable(_build_global_round(lambda p, b: None, cfg, plan=plan))
+    for bad, match in ((StalenessPlan((2, 1, 1), "naive"), "covers 3 groups"),
+                       (StalenessPlan((3, 1), "naive"), "padded loop length")):
+        with pytest.raises(ValueError, match=match):
+            _build_global_round(lambda p, b: None, cfg, plan=bad)
+    with pytest.raises(ValueError, match="async schedule"):
+        _build_global_round(lambda p, b: None, cfg, plan=plan,
+                            compression=tapi.CompressionPlan("bf16"))
+    for kw, match in (({"correction_init": "gradient"}, "correction_init='zero'"),
+                      ({"server_lr": 0.5}, "server_lr=1.0")):
+        with pytest.raises(ValueError, match=match):
+            _build_global_round(lambda p, b: None, HFLConfig(**kw), plan=plan)
     for kw in ({"faults": tapi.FaultPlan(crash_rate=0.1)}, {"defense": tapi.DefensePlan()}):
         assert callable(_build_global_round(lambda p, b: None, cfg, **kw))
         with pytest.raises(ValueError, match="correction_init='zero'"):
