@@ -11,12 +11,14 @@ main path at full width -- the paper's CIFAR-10 CNN (McMahan et al.:
 conv5x5x32, pool, conv5x5x64, pool, fc512, fc10; N = 2,156,490 float32
 parameters) over 10 groups x 10 clients at batch 50, on synthetic data of
 CIFAR-10's 32x32x3 shape -- uncompressed at full participation, with
-compressed uploads, under partial participation, under faults and with
-async group rounds. Depth is cut: E = 2
+compressed uploads, under partial participation, under faults, with
+async group rounds, with virtual client populations and through
+checkpoints. Depth is cut: E = 2
 group rounds of H = 5 local steps, 1 or 2 global rounds per path. After
 the serving phases it trains glm4-9b at full width (depth 2 of 40) on the
 sharded backend, plain, with compressed uploads, under partial
-participation, under faults and with async group rounds. The CNN's learning rate is 0.01: at 0.1
+participation, under faults, with async group rounds and with a virtual
+client population. The CNN's learning rate is 0.01: at 0.1
 the loss of this CNN on the synthetic images spikes into the thousands and
 then settles at chance (ln 10) in both packages
 (``tests/test_torch_driver.py::test_cifar_cnn_loss_spike_tracks_reference``).
@@ -91,6 +93,26 @@ final line):
     ``mtgc_update`` once per leaf per step; (o3) flat + fused, naive, a
     timeout injected in each of two windows: ``dl`` = ``rep x any_obs`` and
     the timed-out group's y kept;
+10d. phases (r) and (t), the CNN path (a) with virtual client
+    populations and checkpoints: (r0) population 10 = K, 2 rounds in
+    chunks of 1, bit for bit (a)'s from the same state and shard ids, the
+    store the final z; (r1) population 100 a group (an 8.63 GB float32
+    store), 4 rounds in chunks of 1 with injected cohorts, overlapped and
+    sequential bit for bit in state and store, clients that sat out keeping
+    their rows' bits; then (a), (r1) overlapped and sequential, (r2)
+    population 50 and (a) again timed in turns (4 rounds each), the store's
+    host steps apart, one cohort's copies alone (gather, page-locked H2D
+    and D2H, scatter) and the page-locking, and the device peaks ((r)'s
+    within 0.01 GB of (a)'s); (r3) ``client_state="stateless"``, 2 rounds:
+    no store, z zero at each round's start; (r4) the tree layout at
+    population 100, 2 rounds: ``mtgc_update`` once per leaf per step, the
+    last cohort's store rows the final z. (t) ``fit(checkpoint_every=2)``
+    over 4 rounds into a temp directory (its free space printed first;
+    under 12 GB fails), the round-4 files deleted, ``resume=True`` bit for
+    bit the uninterrupted state; ``{"state", "population"}`` at population
+    20 a group saved, restored and continued 2 rounds bit for bit the
+    original continuation; file bytes, save and restore seconds. Every
+    bit-for-bit comparison between two card runs under deterministic cuDNN;
 11. the port on the card against the port on the CPU (the kernels' plain
     versions) on a small input: the uncompressed round, a compressed round
     under partial participation with injected draws, and two async windows
@@ -147,6 +169,17 @@ final line):
     training tokens/s, peak memory, and a traced round;
 17. LM training, flat + fused (phase (i)): the same, ``mtgc_update_flat``
     once per step, its check on the one [2, 2, N] buffer (6.6e9 elements);
+17b. phase (s), a virtual population on the sharded backend: the training
+    of (i) at population 4 a group (3 when MemAvailable, printed first, is
+    under 70 GB; a 26.4 GB bf16 store, two page-locked cohort buffers of
+    13.2 GB, their locking timed alone), overlapped, 4 rounds in chunks of
+    2 with two injected cohorts (printed): at the first round of the second
+    chunk the installed z equals the second cohort's store rows bit for
+    bit, and a first-cohort client the second cohort does not draw keeps
+    its store bits; then 4 more rounds timed (the store's own draws,
+    printed): each chunk's time, each host step, the launch counts of (i),
+    the device peak within 0.5 GB of (i)'s, the host bytes. It runs before
+    (n), whose 33 GB page-locked snapshot stays in PyTorch's host cache;
 18-20. the same training with compressed uploads and partial
     participation (a warm-up round, a timed one and a traced one each):
     (j) flat, client link ``int8_stochastic`` with error feedback; (k) flat,
@@ -191,7 +224,8 @@ final line):
     (flat + fused, group_rounds (2, 1), delay-compensated) likewise, and the
     fused step against the unfused one on the card, bit for bit;
 22. a JSON line of the serving and training runs, one per phase of 18-20,
-    (n), (p) and (q), one of (m), one of (o), and one per kernel, then
+    (n), (p), (q) and (s), one of (m), one of (o), one of (r), one of (t),
+    and one per kernel, then
     ``{"ok": true, "device": {...}}`` last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
@@ -2312,6 +2346,544 @@ def phase_lm_train_async(torch, np, tag: str, layout: str, spec_kw: dict, draws:
     return out
 
 
+# Phases (r)-(t): virtual client populations and checkpoints. (r) runs path
+# (a) (the CNN, 10 x 10 materialized) with a host store of P clients a group,
+# (s) glm4-9b's flat path (i) with P = 4 a group (3 when the host has less
+# than 70 GB available), (t) checkpoints of path (a). Cohorts, shard ids and
+# the checks' draws come from CPU generators seeded with POP_SEED.
+POP_ROUNDS, POP_SEED = 4, 3
+POP_P1, POP_P2, POP_TREE_P, POP_CKPT_P = 100, 50, 100, 20
+POP_SAT_OUT_ROWS = 8                      # rows (r1) records for its sat-out check
+LM_POP_P, LM_POP_P_LOW, LM_POP_MIN_AVAILABLE = 4, 3, 70e9
+LM_POP_ROUNDS, LM_POP_CHUNK = 4, 2
+CKPT_MIN_FREE = 12e9
+
+
+def host_memory() -> dict:
+    """MemTotal and MemAvailable in bytes, from /proc/meminfo."""
+    return {line.split(":")[0]: int(line.split()[1]) * 1024
+            for line in Path("/proc/meminfo").read_text().splitlines()
+            if line.split(":")[0] in ("MemTotal", "MemAvailable")}
+
+
+def update_launches() -> dict:
+    from repro_torch.kernels import mtgc_update as mu
+
+    return {"mtgc_update_flat": mu.mtgc_update_flat.launches,
+            "mtgc_update": mu.mtgc_update.launches}
+
+
+def same_state(torch, a, b, fields=("params", "z", "y")) -> bool:
+    """Every tensor of the named fields of two flat or tree states holds
+    the same bits (float32 compared as int32, so NaN positions count)."""
+    from repro_torch.core.tree import tree_leaves
+
+    return all(same_bits(torch, x, y) for f in fields
+               for x, y in zip(tree_leaves(getattr(a, f)), tree_leaves(getattr(b, f))))
+
+
+def same_store(np, a, b) -> bool:
+    return a.fields == b.fields and all(np.array_equal(a.data[f][k], b.data[f][k])
+                                        for f in a.fields for k in a.data[f])
+
+
+def store_steps(store, before: dict | None = None) -> dict:
+    """The store's host-step seconds (less ``before``'s)."""
+    return {k: v - (before or {}).get(k, 0.0) for k, v in store.seconds.items()}
+
+
+def phase_population_hfl(torch, np, api, spec, data, p0, loss_fn) -> dict:
+    """Phase (r): path (a) with a virtual population on the simulator engine.
+
+    (r0) population 10 = K: 2 rounds in chunks of 1 against (a) from the
+    same state and shard ids, deterministic cuDNN: the state bit for bit,
+    and the store equal to the final z. (r1) population 100 a group (an
+    8.63 GB float32 store): 4 rounds in chunks of 1 with the same injected
+    cohorts and shard ids, overlapped and sequential, deterministic cuDNN:
+    the same bits in state and store; clients that sat out keep the rows
+    their last chunk left; then (a) and (r1) timed in the same run (4 rounds
+    each, chunk 1, the store's own draws), the host steps apart, the
+    page-locked copies alone, and the device peaks. (r2) population 50,
+    overlapped, timed. (r3) ``client_state="stateless"``: 2 rounds, no
+    store, z zero at each round's start. (r4) tree layout at population
+    100: 2 rounds, ``mtgc_update`` once per leaf per step; the store's rows
+    of the last cohort are the final z through the segment table."""
+    from repro_torch.core.population import (
+        CohortBuffers,
+        draw_cohort,
+        run_population_rounds,
+        stateless_round,
+    )
+    from repro_torch.kernels import ops
+
+    G, K = spec.levels
+    out, launches = {}, {}
+    mem = host_memory()
+    log(f"(r) host memory: MemTotal {mem['MemTotal'] / 1e9:.1f} GB, MemAvailable "
+        f"{mem['MemAvailable'] / 1e9:.1f} GB")
+    out["host_memory"] = mem
+    gen = torch.Generator().manual_seed(POP_SEED)
+    sids = torch.randint(0, data.num_shards, (POP_ROUNDS, E, G, K), generator=gen)
+
+    def fit(sp, T, **kw):
+        """One ``fit`` through ``sp``'s engine from a fresh state, the
+        counts and the peak reset just before it; its store is made
+        beforehand unless ``store=False``."""
+        make_store = kw.pop("store", True)
+        eng = api.build(sp, loss_fn)
+        st = eng.init(p0)
+        store = (eng.init_population(st, torch.Generator().manual_seed(POP_SEED))
+                 if make_store and sp.population is not None and sp.client_state == "stateful"
+                 else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        before = dict(store.seconds) if store is not None else None
+        t0 = time.perf_counter()
+        st, hz = api.fit(eng, data, T, state=st, population_store=store, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        finite_metrics(np, hz)
+        run = {"ms_per_round": sec * 1e3 / T, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": update_launches()}
+        if store is not None:
+            run["host_steps_s"] = store_steps(store, before)
+        return eng, st, hz, run
+
+    # --- (r0) P == K against (a) ---
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, s_a, _, _ = fit(spec, 2, shard_ids=sids[:2], chunk=1)
+        _, s_r0, hz_r0, run = fit(dataclasses.replace(spec, population=K), 2,
+                                  shard_ids=sids[:2], chunk=1)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    require(same_state(torch, s_a, s_r0), "(r0) population == K: the state differs from (a)'s")
+    z = s_r0.z.bufs["float32"].cpu().numpy()
+    require(np.array_equal(hz_r0.population.data["z"]["float32"].view(np.uint32),
+                           z.view(np.uint32)), "(r0) the store is not the final z")
+    require(run["launches"]["mtgc_update_flat"] == 2 * E * H, f"(r0) launches {run['launches']}")
+    launches["r0"] = run["launches"]
+    out["r0"] = run
+    log(f"(r0) population {K} = cohort: 2 rounds bit for bit (a)'s (deterministic cuDNN, same "
+        f"state and shard ids); the store is the final z")
+    del s_a, s_r0, hz_r0, z
+
+    # --- (r1) population 100: overlapped against sequential ---
+    cohorts = np.stack([draw_cohort(gen, G, POP_P1, K) for _ in range(POP_ROUNDS)])
+    last = {}                                  # (g, client) -> (last chunk drawn, slot)
+    for c, co in enumerate(cohorts):
+        for g in range(G):
+            for k, client in enumerate(co[g]):
+                last[(g, int(client))] = (c, k)
+    sat_out = sorted((key for key, (c, _) in last.items() if c < POP_ROUNDS - 1),
+                     key=lambda key: last[key])[:POP_SAT_OUT_ROWS]
+    require(sat_out, "(r1) no client sat out after its last chunk")
+    p1 = dataclasses.replace(spec, population=POP_P1)
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for overlap in (True, False):
+            rows, rnd = {}, {"i": 0}
+
+            def record(prev, st):
+                for g, client in sat_out:
+                    c, k = last[(g, client)]
+                    if c == rnd["i"]:
+                        row = st.z.bufs["float32"][g, k]
+                        rows[(g, client)] = row.to("cpu", copy=True).numpy()
+                rnd["i"] += 1
+                return {"n": torch.zeros(())}
+
+            eng, st, hz, run = fit(p1, POP_ROUNDS, chunk=1, overlap=overlap, cohorts=cohorts,
+                                   shard_ids=sids, eval_fn=record)
+            runs[overlap] = (st, hz.population, rows, run)
+        del eng, st, hz
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (s_o, store_o, rows_o, run_o), (s_s, store_s, rows_s, _) = runs[True], runs[False]
+    require(same_state(torch, s_o, s_s), "(r1) overlapped and sequential states differ")
+    require(same_store(np, store_o, store_s), "(r1) overlapped and sequential stores differ")
+    for (g, client), row in rows_o.items():
+        require(np.array_equal(store_o.data["z"]["float32"][g, client].view(np.uint32),
+                               row.view(np.uint32)) and np.array_equal(row, rows_s[(g, client)]),
+                f"(r1) client ({g}, {client}) sat out and lost its row's bits")
+    drawn = np.zeros((G, POP_P1), bool)
+    for co in cohorts:
+        drawn[np.arange(G)[:, None], co] = True
+    require(not any(store_o.data["z"]["float32"][g, c].any()
+                    for g, c in zip(*np.nonzero(~drawn))),
+            "(r1) a client never drawn has a nonzero row")
+    require(run_o["launches"]["mtgc_update_flat"] == POP_ROUNDS * E * H,
+            f"(r1) launches {run_o['launches']}")
+    launches["r1"] = run_o["launches"]
+    out["r1_check"] = {"cohorts": cohorts.tolist(), "sat_out_rows_checked": len(rows_o),
+                       "store_bytes": store_o.state_bytes(),
+                       "refresh_s": store_o.seconds["refresh"]}
+    log(f"(r1) population {POP_P1} a group ({store_o.state_bytes() / 1e9:.2f} GB store): "
+        f"{POP_ROUNDS} rounds in chunks of 1, cohorts injected, overlapped and sequential "
+        f"bit for bit in state and store (deterministic cuDNN); {len(rows_o)} clients that "
+        f"sat out kept their rows' bits; never-drawn rows zero")
+    del runs, s_o, s_s, store_o, store_s, rows_o, rows_s
+
+    # --- (r1)/(r2) timed against (a), in turns ---
+    timing = {}
+    for tag, sp, kw in (("a", spec, {}), ("r1", p1, {"overlap": True}),
+                        ("r1_sequential", p1, {"overlap": False}),
+                        ("r2", dataclasses.replace(spec, population=POP_P2), {"overlap": True}),
+                        ("a_again", spec, {})):
+        _, st, hz, run = fit(sp, POP_ROUNDS, chunk=1, **kw)
+        timing[tag] = run
+        del st, hz
+    for tag in ("r1", "r1_sequential", "r2"):
+        require(timing[tag]["peak_gb"] <= timing["a"]["peak_gb"] + 0.01,
+                f"({tag}) peak {timing[tag]['peak_gb']:.4f} GB above (a)'s "
+                f"{timing['a']['peak_gb']:.4f} GB")
+    out["timing"] = timing
+    a_ms = (timing["a"]["ms_per_round"] + timing["a_again"]["ms_per_round"]) / 2
+    for tag in ("r1", "r1_sequential", "r2"):
+        t = timing[tag]
+        log(f"({tag}) {t['ms_per_round']:.1f} ms a round against (a)'s {a_ms:.1f} "
+            f"({timing['a']['ms_per_round']:.1f}, {timing['a_again']['ms_per_round']:.1f}); "
+            f"peak {t['peak_gb']:.4f} GB against {timing['a']['peak_gb']:.4f}; host steps "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in t["host_steps_s"].items())
+            + f" over {POP_ROUNDS} chunks")
+
+    # The copies alone, one cohort: page-locked H2D (install) and D2H
+    # (extract), each waited for; the host row copies (gather, scatter).
+    # The buffers come from PyTorch's page-locked host cache here; (s) times
+    # the locking itself.
+    eng = api.build(p1, loss_fn)
+    st = eng.init(p0)
+    store = eng.init_population(st)
+    bufs = [CohortBuffers(store, K, pin=True) for _ in range(2)]
+    idx = cohorts[0]
+    steps = {}
+    for _ in range(2):                                   # the second reading is kept
+        t0 = time.perf_counter()
+        store.gather(idx, out=bufs[0])
+        steps["gather_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.install(st, bufs[0])
+        torch.cuda.synchronize()
+        steps["install_h2d_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        host = store.extract(st, out=bufs[1])
+        steps["extract_d2h_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        store.scatter(idx, host)
+        steps["scatter_ms"] = (time.perf_counter() - t0) * 1e3
+    nbytes = bufs[0].nbytes
+    steps.update(cohort_bytes=nbytes, h2d_gb_per_s=nbytes / steps["install_h2d_ms"] / 1e6,
+                 d2h_gb_per_s=nbytes / steps["extract_d2h_ms"] / 1e6,
+                 gather_gb_per_s=nbytes / steps["gather_ms"] / 1e6,
+                 scatter_gb_per_s=nbytes / steps["scatter_ms"] / 1e6)
+    out["copies"] = steps
+    log(f"(r1) one cohort's {nbytes / 1e9:.3f} GB alone: gather {steps['gather_ms']:.1f} ms "
+        f"({steps['gather_gb_per_s']:.1f} GB/s), install (H2D, page-locked) "
+        f"{steps['install_h2d_ms']:.1f} ms ({steps['h2d_gb_per_s']:.1f} GB/s), extract (D2H) "
+        f"{steps['extract_d2h_ms']:.1f} ms ({steps['d2h_gb_per_s']:.1f} GB/s), scatter "
+        f"{steps['scatter_ms']:.1f} ms ({steps['scatter_gb_per_s']:.1f} GB/s); each the second "
+        f"of two readings (the first touches the rows)")
+    del eng, st, store, bufs, host
+
+    # --- (r3) stateless ---
+    base = api.build(spec, loss_fn)
+    less = api.build(dataclasses.replace(spec, population=POP_P1, client_state="stateless"),
+                     loss_fn)
+    zero_starts = []
+
+    def spy(state, batches, **kw):
+        zero_starts.append(not bool(state.z.bufs["float32"].any()))
+        return base.round_fn(state, batches, **kw)
+
+    less.round_fn = stateless_round(spy, ("z", "dyn"))
+    ops.reset_launch_counts()
+    st, hz = api.fit(less, data, 2, params=p0)
+    torch.cuda.synchronize()
+    finite_metrics(np, hz)
+    require(hz.population is None, "(r3) a stateless run made a store")
+    require(zero_starts == [True, True], f"(r3) z at the rounds' starts zero: {zero_starts}")
+    require(bool(st.z.bufs["float32"].any()), "(r3) z stayed zero within the rounds")
+    launches["r3"] = update_launches()
+    require(launches["r3"]["mtgc_update_flat"] == 2 * E * H, f"(r3) launches {launches['r3']}")
+    log("(r3) stateless: 2 rounds, no store, z zero at each round's start")
+    del base, less, st, hz
+
+    # --- (r4) tree layout at population 100 ---
+    tree = dataclasses.replace(spec, population=POP_TREE_P, state_layout="tree")
+    tco = np.stack([draw_cohort(gen, G, POP_TREE_P, K) for _ in range(2)])
+    eng, st, hz, run = fit(tree, 2, chunk=1, cohorts=tco)
+    store = hz.population
+    n_leaves = len(store.packers["z"].segments)
+    require(run["launches"] == {"mtgc_update_flat": 0, "mtgc_update": 2 * E * H * n_leaves},
+            f"(r4) launches {run['launches']}")
+    flat_z = store.packers["z"].flatten(st.z).bufs["float32"].cpu().numpy()
+    rows = store.data["z"]["float32"][np.arange(G)[:, None], tco[-1]]
+    require(np.array_equal(rows.view(np.uint32), flat_z.view(np.uint32)),
+            "(r4) the store's rows of the last cohort are not the final z")
+    launches["r4"] = run["launches"]
+    out["r4"] = run
+    log(f"(r4) tree layout, population {POP_TREE_P}: 2 rounds, {run['ms_per_round']:.1f} ms a "
+        f"round (the first tree rounds of the run); mtgc_update launches "
+        f"{run['launches']['mtgc_update']}; the last cohort's store rows are the final z")
+    del eng, st, hz, store
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def phase_checkpoint_hfl(torch, np, api, spec, data, p0, loss_fn) -> dict:
+    """Phase (t): checkpoints of path (a), deterministic cuDNN. ``fit`` over
+    4 rounds with ``checkpoint_every=2``; the round-4 files deleted;
+    ``resume=True`` gives the uninterrupted state bit for bit. Then
+    ``{"state", "population"}`` at population 20 a group saved, restored,
+    and continued 2 rounds: bit for bit the original continuation. File
+    bytes, save and restore seconds."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint
+    from repro_torch.kernels import ops
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(tmp).free
+    log(f"(t) checkpoint directory {tmp}: {free / 1e9:.1f} GB free")
+    require(free >= CKPT_MIN_FREE, f"(t) {free / 1e9:.1f} GB free in the temp directory; the "
+                                   f"checkpoints need {CKPT_MIN_FREE / 1e9:.0f} GB")
+    out = {"free_bytes": free}
+    torch.backends.cudnn.deterministic = True
+    try:
+        eng = api.build(spec, loss_fn)
+        run_dir = os.path.join(tmp, "fit")
+        gen0 = data.generator.get_state()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        s_a, h_a = api.fit(eng, data, 4, params=p0, checkpoint_every=2, checkpoint_path=run_dir)
+        torch.cuda.synchronize()
+        out["fit_with_autosave_s"] = time.perf_counter() - t0
+        out["launches"] = update_launches()
+        files = sorted(os.listdir(run_dir))
+        require(files == ["ckpt_00000002.json", "ckpt_00000002.npz", "ckpt_00000004.json",
+                          "ckpt_00000004.npz"], f"(t) autosaved files {files}")
+        out["state_file_bytes"] = os.path.getsize(os.path.join(run_dir, "ckpt_00000004.npz"))
+        for name in ("ckpt_00000004.npz", "ckpt_00000004.json"):
+            os.remove(os.path.join(run_dir, name))
+        data.generator.set_state(gen0)
+        t0 = time.perf_counter()
+        s_b, h_b = api.fit(eng, data, 4, params=p0, checkpoint_every=2, checkpoint_path=run_dir,
+                           resume=True)
+        torch.cuda.synchronize()
+        out["resume_s"] = time.perf_counter() - t0
+        require(len(h_b.metrics.loss) == 2 and np.array_equal(h_b.metrics.loss,
+                                                               h_a.metrics.loss[2:]),
+                "(t) the resumed run did not run rounds 3-4 with the same losses")
+        require(same_state(torch, s_a, s_b, ("params", "z", "y", "dyn")),
+                "(t) the resumed state is not the uninterrupted one")
+        log(f"(t) fit(checkpoint_every=2) over 4 rounds ({out['fit_with_autosave_s']:.2f} s with "
+            f"two saves of {out['state_file_bytes'] / 1e9:.3f} GB); round-4 files deleted; "
+            f"resume=True ({out['resume_s']:.2f} s) gives the uninterrupted state bit for bit")
+        del s_a, s_b, eng
+
+        pe = api.build(dataclasses.replace(spec, population=POP_CKPT_P), loss_fn)
+        st = pe.init(p0)
+        store = pe.init_population(st)
+        st, hz = api.fit(pe, data, 2, state=st, population_store=store, chunk=1)
+        torch.cuda.synchronize()
+        gen1 = data.generator.get_state()
+        pair_dir = os.path.join(tmp, "pair")
+        t0 = time.perf_counter()
+        path = checkpoint.save(pair_dir, 2, {"state": st, "population": store})
+        out["pair_save_s"] = time.perf_counter() - t0
+        out["pair_file_bytes"] = os.path.getsize(path)
+        like_state = pe.init(p0)
+        like = {"state": like_state, "population": pe.init_population(like_state)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = checkpoint.restore(pair_dir, 2, like)
+        torch.cuda.synchronize()
+        out["pair_restore_s"] = time.perf_counter() - t0
+        del like, like_state
+        require(same_state(torch, back["state"], st, ("params", "z", "y", "dyn"))
+                and same_store(np, back["population"], store)
+                and torch.equal(back["population"].generator.get_state(),
+                                store.generator.get_state()),
+                "(t) the restored {state, population} differs from the saved one")
+        a, _ = api.fit(pe, data, 2, state=st, population_store=store, chunk=1)
+        data.generator.set_state(gen1)
+        b, _ = api.fit(pe, data, 2, state=back["state"], population_store=back["population"],
+                       chunk=1)
+        torch.cuda.synchronize()
+        require(same_state(torch, a, b, ("params", "z", "y", "dyn"))
+                and same_store(np, store, back["population"]),
+                "(t) the restored pair's continuation differs from the original's")
+        out["store_bytes"] = store.state_bytes()
+        log(f"(t) {{state, population}} at population {POP_CKPT_P} a group (store "
+            f"{store.state_bytes() / 1e9:.3f} GB): file {out['pair_file_bytes'] / 1e9:.3f} GB, "
+            f"save {out['pair_save_s']:.2f} s, restore {out['pair_restore_s']:.2f} s; 2 more "
+            f"rounds from the restored pair bit for bit the original continuation")
+        del pe, st, store, back, a, b
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_population(torch, np, peak_i_gb: float) -> dict:
+    """Phase (s): path (i) (glm4-9b at full width, 2 of 40 layers, flat +
+    fused, bf16, 2 x 2) with a virtual population of ``LM_POP_P`` clients a
+    group (``LM_POP_P_LOW`` when MemAvailable is under 70 GB), overlapped,
+    in chunks of ``LM_POP_CHUNK``. A checked run of 4 rounds (two injected
+    cohorts, printed): at the first round of the second chunk the installed
+    z equals the store rows of the second cohort bit for bit, and a
+    first-cohort client the second cohort does not draw keeps its store
+    bits to the end. Then a timed run of 4 more rounds (the store's own
+    draws, printed beforehand): each chunk's time, each host step, the
+    device peak against (i)'s, the host bytes."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.core.population import CohortBuffers, draw_cohort
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.lm import make_lm_tokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import build_model
+
+    empty_host_cache = getattr(torch._C, "_host_emptyCache", None)
+    if empty_host_cache is not None:
+        empty_host_cache()          # return earlier phases' cached page-locked memory
+    mem = host_memory()
+    P = LM_POP_P if mem["MemAvailable"] >= LM_POP_MIN_AVAILABLE else LM_POP_P_LOW
+    log(f"(s) host memory: MemTotal {mem['MemTotal'] / 1e9:.1f} GB, MemAvailable "
+        f"{mem['MemAvailable'] / 1e9:.1f} GB: population {P} a group")
+    cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH), num_layers=LM_TRAIN_LAYERS)
+    bundle = build_model(cfg)
+    G, K = LM_TRAIN_LEVELS
+    spec = api.ExperimentSpec(
+        levels=(G, K), backend="sharded", algorithm="mtgc", lr=LM_TRAIN_LR, fusion="fused",
+        state_layout="flat", population=P, schedule=api.RoundSchedule(
+            group_rounds=LM_TRAIN_E, local_steps=LM_TRAIN_H, microbatches=LM_TRAIN_A))
+    engine = api.build(spec, bundle.loss)
+    rng = np.random.default_rng(0)
+    toks, _ = make_lm_tokens(rng, cfg.vocab_size, LM_TRAIN_TOKENS)
+    data = engine.pack_tokens(toks, batch_size=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                              shards=2, rng=rng, generator=torch.Generator().manual_seed(1))
+    state = engine.init(bundle.init(0))
+    torch.cuda.synchronize()
+    n_update = len(tree_leaves(state.params))
+    t0 = time.perf_counter()
+    store = engine.init_population(state, torch.Generator().manual_seed(POP_SEED))
+    store_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bufs = [CohortBuffers(store, K, pin=True) for _ in range(2)]
+    pin_s = time.perf_counter() - t0
+    cohort_bytes = bufs[0].nbytes
+    del bufs                        # cached by PyTorch's host allocator for the runs
+    key = "bfloat16"
+    N = store.data["z"][key].shape[-1]
+    log(f"(s) store [{G}, {P}, {N}] bf16: {store.state_bytes() / 1e9:.2f} GB on the host "
+        f"(made and seeded from the state in {store_s:.2f} s); two page-locked cohort buffers "
+        f"of {cohort_bytes / 1e9:.2f} GB each locked in {pin_s:.2f} s")
+
+    # --- the checked run ---
+    co = np.array([[[0, 1], [P - 1, 0]], [[1, 2], [0, 1]]])
+    log(f"(s) checked run: cohorts {co.tolist()} (chunks of {LM_POP_CHUNK} rounds)")
+    seen = {"round": 0, "checked": False}
+    kept = {}
+    real = engine.round_fn
+
+    def spy(st, batches, **kw):
+        if seen["round"] == LM_POP_CHUNK:                  # first round of the second chunk
+            z = st.z.bufs[key]
+            for g in range(G):
+                for k in range(K):
+                    row = z[g, k].view(torch.int16).cpu().numpy().view(np.uint16)
+                    require(np.array_equal(row, store.data["z"][key][g, co[1][g, k]]),
+                            f"(s) slot ({g}, {k}): the installed z is not the store row of "
+                            f"client {co[1][g, k]}")
+            for g in range(G):
+                for c in set(co[0][g].tolist()) - set(co[1][g].tolist()):
+                    kept[(g, c)] = store.data["z"][key][g, c].copy()
+            seen["checked"] = True
+        seen["round"] += 1
+        return real(st, batches, **kw)
+
+    engine.round_fn = spy
+    try:
+        state, hz = api.fit(engine, data, LM_POP_ROUNDS, state=state, population_store=store,
+                            chunk=LM_POP_CHUNK, cohorts=co)
+        torch.cuda.synchronize()
+    finally:
+        engine.round_fn = real
+    finite_metrics(np, hz)
+    require(seen["checked"] and kept, "(s) the second chunk's install was not checked")
+    for (g, c), row in kept.items():
+        require(np.array_equal(store.data["z"][key][g, c], row),
+                f"(s) client ({g}, {c}) sat out the second chunk and lost its store bits")
+        require(bool(row.any()), f"(s) client ({g}, {c})'s row is zero after its chunk")
+    log(f"(s) the second cohort's installed z equals its store rows bit for bit; clients "
+        f"{sorted(kept)} sat out the second chunk and kept their store bits")
+    del kept
+
+    # --- the timed run ---
+    replay = torch.Generator().manual_seed(0)
+    replay.set_state(store.generator.get_state())
+    drawn = [draw_cohort(replay, G, P, K).tolist() for _ in range(LM_POP_ROUNDS // LM_POP_CHUNK)]
+    log(f"(s) timed run: the store's cohorts {drawn}")
+    marks = []
+    cls = type(store)
+    extract = cls.extract
+
+    def timed_extract(self, *a, **kw):
+        res = extract(self, *a, **kw)
+        marks.append(time.perf_counter())          # a chunk ends at its extract
+        return res
+
+    cls.extract = timed_extract
+    before = dict(store.seconds)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        state, hz = api.fit(engine, data, LM_POP_ROUNDS, state=state, population_store=store,
+                            chunk=LM_POP_CHUNK)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    finally:
+        cls.extract = extract
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = {"flash_attention": fa.flash_attention.launches,
+           "flash_attention_bwd": fa.flash_attention_bwd.launches, **update_launches()}
+    want = {k: v for k, v in lm_train_launches(cfg, n_update, LM_POP_ROUNDS).items()}
+    require(got == want, f"(s) launched {got}, expected {want}")
+    finite_metrics(np, hz)
+    for t in tree_leaves(state.params):
+        require(finite_and_nonzero(torch, t)[0], "(s) params not finite")
+    require(peak_gb <= peak_i_gb + 0.5,
+            f"(s) peak {peak_gb:.2f} GB is not within 0.5 GB of (i)'s {peak_i_gb:.2f} GB")
+    chunk_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    steps = store_steps(store, before)
+    out = {"phase": "s", "population": P, "store_bytes": store.state_bytes(),
+           "cohort_buffer_bytes": cohort_bytes,
+           "host_bytes": store.state_bytes() + 2 * cohort_bytes,
+           "store_make_s": store_s, "pin_s": pin_s, "cohorts_checked": co.tolist(),
+           "cohorts_timed": drawn, "chunk_s": chunk_s, "total_s": total_s,
+           "round_ms": total_s * 1e3 / LM_POP_ROUNDS, "host_steps_s": steps, "peak_gb": peak_gb,
+           "peak_i_gb": peak_i_gb, "launches": got, "host_memory": mem,
+           "losses": [float(x) for x in hz.metrics.loss.reshape(-1)]}
+    log(f"(s) {LM_POP_ROUNDS} rounds in chunks of {LM_POP_CHUNK}: chunks "
+        f"{[round(c, 3) for c in chunk_s]} s ({out['round_ms']:.1f} ms a round); host steps "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items())
+        + f"; device peak {peak_gb:.2f} GB against (i)'s {peak_i_gb:.2f} GB; host "
+        f"{out['host_bytes'] / 1e9:.2f} GB (store + two cohort buffers); launches {got}")
+    del state, engine, data, store
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2616,6 +3188,9 @@ def main() -> int:
     log(f"(o1) against the same run's (a): {hfl_o['o1']['window_ms']:.1f} ms a window against "
         f"{steady_ms:.1f} ms a round; peak {hfl_o['o1']['peak_gb']:.2f} GB against "
         f"{peak_gb:.2f} GB")
+    # --- 10d. (r) virtual populations, (t) checkpoints, path (a) ---------
+    hfl_r = phase_population_hfl(torch, np, api, spec, data, p0, loss_fn)
+    hfl_t = phase_checkpoint_hfl(torch, np, api, spec, data, p0, loss_fn)
     del data
     torch.cuda.empty_cache()
 
@@ -2728,6 +3303,8 @@ def main() -> int:
     lm_tree = phase_lm_train(torch, np, "tree", rounds=1, trace=True, tag="h")
     # --- 17. LM training, flat + fused ------------------------------------
     lm_flat = phase_lm_train(torch, np, "flat", rounds=1, trace=False, tag="i")
+    # --- 17b. (s) a virtual population on the sharded backend ------------
+    lm_s = phase_lm_population(torch, np, lm_flat["peak_gb"])
     # --- 18-20. LM training: compressed uploads, partial participation ---
     part = dict(client_participation=LM_TRAIN_PARTIAL, participation_mode="fixed")
     lm_j = phase_lm_train(torch, np, "flat", rounds=1, trace=True, tag="j", spec_kw=dict(
@@ -2856,6 +3433,12 @@ def main() -> int:
             k["training_launches"][run] = counts.get(name, 0)
         k["training_launches"]["p"] = lm_p["launches"].get(name, 0)
         k["training_launches"]["q"] = lm_q["launches"].get(name, 0)
+        # Phase (r)'s checked and timed runs, (s)'s timed run, (t)'s
+        # autosaving fit.
+        for run, counts in hfl_r["launches"].items():
+            k["training_launches"][run] = counts.get(name, 0)
+        k["training_launches"]["s"] = lm_s["launches"].get(name, 0)
+        k["training_launches"]["t"] = hfl_t["launches"].get(name, 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": [qwen, rwkv]}))
     print(json.dumps({"training": [lm_tree, lm_flat]}))
@@ -2863,8 +3446,10 @@ def main() -> int:
         print(json.dumps({f"training_{run['phase']}": run}))
     print(json.dumps({"faults_m": hfl_m}))
     print(json.dumps({"async_o": hfl_o}))
-    for run in (lm_p, lm_q):
+    for run in (lm_p, lm_q, lm_s):
         print(json.dumps({f"training_{run['phase']}": run}))
+    print(json.dumps({"population_r": hfl_r}))
+    print(json.dumps({"checkpoint_t": hfl_t}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

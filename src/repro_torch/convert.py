@@ -5,7 +5,10 @@ the same segment table (``core.packer``), so a model, an ``HFLState`` or a
 ``ShardedHFLState`` crosses as plain numpy arrays: the JAX side hands over
 ``np.asarray`` of each leaf (of each ``FlatBuffers.bufs`` entry for a flat
 state), this module builds the port's tensors, and :func:`to_numpy` goes
-back. Nothing here imports JAX.
+back. A virtual population's store crosses the same way: its ``[G, P, N]``
+numpy buffers as they are, bfloat16 as its 16-bit pattern
+(:func:`store_from_reference`, :func:`store_to_reference_data`). Nothing
+here imports JAX.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.engine import HFLState
-from repro_torch.core.packer import FlatBuffers, key_dtype, make_packer
+from repro_torch.core.packer import FlatBuffers, Packer, Segment, key_dtype, make_packer, tree_paths
+from repro_torch.core.population import PopulationStore
 from repro_torch.core.tree import tree_map
 from repro_torch.launch.train import ShardedHFLState
 
@@ -118,3 +122,41 @@ def to_numpy(obj: Any):
     if isinstance(obj, dict):
         return {k: to_numpy(v) for k, v in obj.items()}
     return obj
+
+
+def _packer_from_reference(packer) -> Packer:
+    """The port's segment table equal to a reference ``Packer``'s: the same
+    segments and buffer sizes, the leaf paths read off its treedef."""
+    n = len(packer.segments)
+    order = tree_paths(packer.treedef.unflatten(list(range(n))))
+    paths = [None] * n
+    for path, i in order:
+        paths[i] = path
+    return Packer(paths=tuple(paths),
+                  segments=tuple(Segment(s.buffer, s.offset, s.size, tuple(s.shape))
+                                 for s in packer.segments),
+                  buffer_sizes=tuple(packer.buffer_sizes))
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    """A store buffer as the port holds it: bfloat16 as its uint16 pattern."""
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+def store_from_reference(store) -> PopulationStore:
+    """The port's :class:`PopulationStore` holding a reference store's rows
+    (copies of its ``[G, P, N]`` buffers; bfloat16 as uint16 bits), its
+    segment tables and layout flags (its cohort generator seeded with 0)."""
+    data = {f: {key: np.array(_bits(buf)) for key, buf in store.data[f].items()}
+            for f in store.fields}
+    packers = {f: _packer_from_reference(p) for f, p in store.packers.items()}
+    return PopulationStore(store.fields, store.num_groups, store.population, packers,
+                           dict(store.flat), data)
+
+
+def store_to_reference_data(store: PopulationStore) -> dict:
+    """A port store's buffers as the reference's ``store.data`` holds them,
+    ``{field: {dtype key: [G, P, N] array}}``, bfloat16 as its uint16
+    pattern (view it as the reference's bfloat16 to compare)."""
+    return {f: {key: np.array(buf) for key, buf in bufs.items()} for f, bufs in store.data.items()}

@@ -3,17 +3,21 @@
 Port of the simulator path of ``src/repro/core/api.py``. The spec keeps
 the reference's full field list, so one set of keyword arguments builds
 both packages' specs; a field whose feature belongs to a later slice of
-the port raises ``ValueError`` naming that slice. Partial participation
-(``client_participation``/``group_participation`` < 1), compressed
-uploads (``compression=CompressionPlan(...)``), fault injection with
-screened aggregation (``faults=FaultPlan(...)``, ``defense=DefensePlan(...)``)
-and async group rounds (a per-group ``RoundSchedule(group_rounds=(E_1,
-..., E_G))`` with ``staleness=`` and ``max_staleness=``) run on both
-engines.
+the port (the multilevel backend) raises ``ValueError`` naming that slice.
+Partial participation (``client_participation``/``group_participation`` <
+1), compressed uploads (``compression=CompressionPlan(...)``), fault
+injection with screened aggregation (``faults=FaultPlan(...)``,
+``defense=DefensePlan(...)``), async group rounds (a per-group
+``RoundSchedule(group_rounds=(E_1, ..., E_G))`` with ``staleness=`` and
+``max_staleness=``) and virtual client populations (``population=``,
+``cohort_size=``, ``client_state=``; ``core.population``) run on both
+engines, with the reference's rejections of contradictory combinations.
 :func:`build` turns a spec into a :class:`SimulatorEngine` on a device
 (the CUDA card unless ``device="cpu"`` is passed) and :func:`fit` drives it
 through the horizon driver (``core.driver``), guarded against divergence
-with ``fit(..., guard=True)``::
+with ``fit(..., guard=True)``, autosaving checkpoints with
+``fit(..., checkpoint_every=, checkpoint_path=)`` (``repro_torch.checkpoint``)
+and resuming with ``resume=True``::
 
     from repro_torch import api
     spec = api.ExperimentSpec(
@@ -58,6 +62,12 @@ from repro_torch.core.engine import (
     hfl_init,
 )
 from repro_torch.core.packer import as_tree
+from repro_torch.core.population import (
+    PopulationStore,
+    population_fields,
+    run_population_rounds,
+    stateless_round,
+)
 from repro_torch.core.staleness import STALENESS_POLICIES, make_plan
 from repro_torch.core.tree import tree_map
 
@@ -77,7 +87,6 @@ BACKEND_ALGORITHMS = {
 }
 
 MULTILEVEL_SLICE = "the multilevel-backend slice of the port"
-POPULATION_SLICE = "the virtual-population slice of the port"
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -201,6 +210,7 @@ class ExperimentSpec:
     def validate(self) -> "ExperimentSpec":
         _require(self.backend in BACKENDS,
                  f"unknown backend {self.backend!r} (choose from {BACKENDS})")
+        self._validate_population()
         if self.backend == "multilevel" or self.level_participation is not None:
             raise _needs("the multilevel backend", MULTILEVEL_SLICE)
         sharded = self.backend == "sharded"
@@ -232,19 +242,6 @@ class ExperimentSpec:
         for name in ("client_participation", "group_participation"):
             frac = getattr(self, name)
             _require(0.0 < frac <= 1.0, f"{name} must be in (0, 1], got {frac}")
-        _require(self.client_state in CLIENT_STATES,
-                 f"unknown client_state {self.client_state!r} "
-                 f"(choose from {CLIENT_STATES})")
-        if (self.population is not None or self.cohort_size is not None
-                or self.client_state != "stateful"):
-            if self.population is not None and self.population > self.levels[1]:
-                # The reference's rule, ahead of the slice that runs them.
-                _require(self.schedule.is_uniform and self.staleness == "sync",
-                         "virtual populations require a uniform sync schedule: async "
-                         "per-group cadences assume slot occupants persist across windows "
-                         f"(and virtual populations need {POPULATION_SLICE})")
-            raise _needs("a virtual population (population, cohort_size, "
-                         "client_state)", POPULATION_SLICE)
 
         _require(self.algorithm in ALGORITHMS,
                  f"unknown algorithm {self.algorithm!r} (choose from {ALGORITHMS})")
@@ -286,21 +283,24 @@ class ExperimentSpec:
                  f"participation_weighting must be 'none' or 'inverse_prob', "
                  f"got {self.participation_weighting!r}")
 
-        # Fault tolerance (the reference's rejections; the multilevel and
-        # population combinations raise their slice above).
+        # Fault tolerance (the reference's rejections; the multilevel
+        # combinations raise their slice above).
         if self.faults is not None:
             self.faults.validate()
         if self.defense is not None:
             self.defense.validate()
         if self.fault_mode or self.defended:
+            _require(self.population is None,
+                     "fault injection with a virtual population is follow-up work: screened "
+                     "slots would need store-side healing")
             _require(self.correction_init == "zero",
                      "fault injection / screened aggregation require correction_init='zero' "
                      "(the gradient init has no crash-consistent analogue)")
             _require(self.server_lr == 1.0,
                      "fault injection / screened aggregation require server_lr=1.0")
 
-        # Compressed uploads (the reference's rejections; the multilevel and
-        # population combinations raise their slice above).
+        # Compressed uploads (the reference's rejections; the multilevel
+        # combinations raise their slice above).
         if self.compression is not None:
             self.compression.validate()
         if self.compressed:
@@ -311,7 +311,57 @@ class ExperimentSpec:
                      "compressed uploads require correction_init='zero' "
                      "(the gradient init predates the upload seam)")
             _require(self.server_lr == 1.0, "compressed uploads require server_lr=1.0")
+            if self.compression.error_feedback:
+                _require(self.client_state == "stateful",
+                         "error feedback is per-client persistent state; client_state="
+                         "'stateless' contradicts it -- set CompressionPlan(error_feedback=False)")
+                _require(self.population is None,
+                         "error feedback with a virtual population is follow-up work: "
+                         "per-client residuals would need store-side gather/scatter like z; "
+                         "set CompressionPlan(error_feedback=False)")
+            else:
+                _require(self.population is None or self.compression.client_mode == "none",
+                         "client-link compression with a virtual population is follow-up work "
+                         "(the cohort seam predates the upload seam)")
         return self
+
+    def _validate_population(self) -> None:
+        """The reference's rejections of contradictory virtual-population
+        specs (``src/repro/core/api.py``), with its messages."""
+        _require(self.client_state in CLIENT_STATES,
+                 f"unknown client_state {self.client_state!r} "
+                 f"(choose from {CLIENT_STATES})")
+        _require(self.cohort_size is None or self.population is not None,
+                 "cohort_size describes the sampled cohort of a virtual population; set "
+                 "population too")
+        _require(self.client_state == "stateful" or self.population is not None,
+                 "client_state='stateless' is a virtual-population contract; set population "
+                 "(the materialized engines are stateful by construction)")
+        if self.population is not None:
+            _require(self.population >= 1, f"population must be >= 1, got {self.population}")
+            _require(len(self.levels) == 2,
+                     f"a virtual population is two-level (groups x clients); got "
+                     f"levels={self.levels}")
+            _require(self.backend != "multilevel",
+                     "the multilevel backend has no cohort gather/scatter path; use the "
+                     "simulator or sharded backend")
+            _require(self.cohort_size is None or self.cohort_size == self.levels[1],
+                     f"cohort_size ({self.cohort_size}) must equal levels[1] "
+                     f"({self.levels[1]}), the compiled cohort shape -- levels stays the "
+                     "single authoritative topology")
+            _require(self.population >= self.levels[1],
+                     f"population ({self.population}) must be >= the cohort levels[1] "
+                     f"({self.levels[1]}): a cohort larger than the population cannot be "
+                     "sampled without replacement")
+        if self.virtual_population:
+            _require(self.full_participation,
+                     "a virtual population (population > levels[1]) samples its cohort from "
+                     "the store -- that *is* the participation mechanism; in-round partial "
+                     "participation would freeze slots whose occupants change between "
+                     "chunks. Keep client_/group_participation at 1.0")
+            _require(self.schedule.is_uniform and self.staleness == "sync",
+                     "virtual populations require a uniform sync schedule: async per-group "
+                     "cadences assume slot occupants persist across windows (follow-up work)")
 
     @property
     def full_participation(self) -> bool:
@@ -331,6 +381,12 @@ class ExperimentSpec:
     def compressed(self) -> bool:
         """True when any upload link carries a non-trivial compressor."""
         return self.compression is not None and self.compression.enabled
+
+    @property
+    def virtual_population(self) -> bool:
+        """True when the population exceeds the materialized cohort (cohort
+        draws then sample; ``population == levels[1]`` materializes all)."""
+        return self.population is not None and self.population > self.levels[1]
 
     def staleness_plan(self):
         """The :class:`~repro_torch.core.staleness.StalenessPlan` this spec's
@@ -397,7 +453,30 @@ def _index_depth(indices) -> int:
 
 
 class _EngineBase:
-    """What both engines share: the guarded horizon's retry rounds."""
+    """What both engines share: the stateless-client wrapper, the population
+    store, and the guarded horizon's retry rounds."""
+
+    def _wrap_stateless(self) -> None:
+        """Wrap the round once at build time under ``client_state="stateless"``
+        (``z`` and ``dyn`` zeroed before every round)."""
+        if self.spec.client_state == "stateless":
+            self.round_fn = stateless_round(self.round_fn, ("z", "dyn"))
+
+    @property
+    def population_fields(self) -> tuple[str, ...]:
+        """State fields the population store persists for this spec."""
+        return population_fields(self.spec.algorithm)
+
+    def init_population(self, state, generator: torch.Generator | None = None
+                        ) -> PopulationStore:
+        """A zeroed host store for ``spec.population`` virtual clients, rows
+        ``[0, K)`` seeded from ``state``'s corrections; ``generator`` (a CPU
+        generator, default seeded with 0) draws the cohorts."""
+        _require(self.spec.population is not None, "init_population needs spec.population set")
+        _require(self.spec.client_state == "stateful",
+                 "stateless clients keep no per-client state; no store exists to initialize")
+        return PopulationStore.from_state(state, self.spec.population, self.population_fields,
+                                          generator)
 
     def retry_round_fn(self, retry: int):
         """The round function for guarded-horizon retry ``retry`` (>= 1).
@@ -428,11 +507,13 @@ class _EngineBase:
                 and self._plan is not None)
 
     def _needs_rng(self) -> bool:
-        """Whether the round draws from the state's generator: participation
-        masks, fault masks or stochastic-rounding noise."""
+        """Whether the state carries a generator: participation masks, fault
+        masks or stochastic-rounding noise, or a virtual population (the
+        reference's state then carries its cohort key; the port draws
+        cohorts from the store's own CPU generator)."""
         spec = self.spec
         comp = spec.compression if spec.compressed else None
-        return (not spec.full_participation or spec.fault_mode
+        return (not spec.full_participation or spec.fault_mode or spec.virtual_population
                 or (comp is not None and comp.stochastic))
 
 
@@ -456,6 +537,7 @@ class SimulatorEngine(_EngineBase):
         self.round_fn = _build_global_round(loss_fn, self._cfg, plan=self._plan,
                                             faults=spec.faults, defense=spec.defense,
                                             compression=spec.compression)
+        self._wrap_stateless()
 
     def init(self, params: Tree, rng: torch.Generator | None = None):
         """Broadcast one model into the round state on the engine's device,
@@ -464,8 +546,9 @@ class SimulatorEngine(_EngineBase):
         realized-download mask (timeouts under an async schedule).
 
         A partial-participation, fault-injecting or stochastic-rounding run
-        draws from the state's ``rng``; without one it gets a generator on
-        the engine's device seeded with 0 (the reference's ``PRNGKey(0)``).
+        (or a virtual population's) draws from the state's ``rng``; without
+        one it gets a generator on the engine's device seeded with 0 (the
+        reference's ``PRNGKey(0)``).
         """
         spec = self.spec
         comp = spec.compression if spec.compressed else None
@@ -530,6 +613,7 @@ class ShardedEngine(_EngineBase):
             participation_mode=spec.participation_mode,
             participation_weighting=spec.participation_weighting, plan=self._plan,
             faults=spec.faults, defense=spec.defense, compression=spec.compression)
+        self._wrap_stateless()
 
     @property
     def microbatches(self) -> int:
@@ -621,6 +705,12 @@ def fit(
     shard_ids=None,
     draws=None,
     guard: GuardSpec | bool | None = None,
+    population_store: PopulationStore | None = None,
+    overlap: bool = True,
+    cohorts=None,
+    checkpoint_every: int | None = None,
+    checkpoint_path: str | None = None,
+    resume: bool = False,
 ) -> tuple[Tree, Horizon]:
     """Train ``T`` global rounds through the horizon driver.
 
@@ -634,19 +724,82 @@ def fit(
     reseeded generators (``core.driver.GuardSpec``); unless the spec says
     otherwise, retries run ``engine.retry_round_fn``, whose norm screen
     tightens by ``retry_widen`` each attempt, and ``horizon.guard`` reports
-    the rollbacks and retries taken. Returns ``(state, horizon)``.
+    the rollbacks and retries taken.
+
+    With ``spec.population`` set and stateful clients, the run goes through
+    ``core.population.run_population_rounds``: each chunk gathers the
+    sampled cohort's corrections from a host :class:`PopulationStore`
+    (``engine.init_population`` unless ``population_store`` is passed --
+    pass ``horizon.population`` to continue a run; its cohort generator is
+    seeded with ``rng.initial_seed()``, or 0 without ``rng``) and scatters
+    them back, overlapped with the card's work unless ``overlap=False``;
+    ``cohorts`` (``[ceil(T / chunk), G, K]``) injects the cohort ids. The
+    store comes back on ``horizon.population``. A guard and checkpoint
+    autosave are materialized-path features (the reference's rule).
+
+    ``checkpoint_every=N`` with ``checkpoint_path=dir`` saves ``{"state",
+    "data_rng"}`` (``data_rng``: ``data.generator``) through
+    ``repro_torch.checkpoint`` at every chunk boundary that is a multiple of
+    N rounds, and at round T (``chunk`` defaults to N). ``resume=True``
+    restores the latest checkpoint in ``checkpoint_path`` (if any) and runs
+    only the remaining rounds, bit for bit the uninterrupted run.
+
+    Returns ``(state, horizon)``.
     """
     if state is None:
         _require(params is not None,
                  "fit() needs either state=... or params=... to start from")
         state = engine.init(params, rng)
+    if checkpoint_every is not None or resume:
+        _require(checkpoint_path is not None, "checkpoint autosave/resume needs checkpoint_path=")
+    if checkpoint_every is not None:
+        _require(checkpoint_every >= 1, f"checkpoint_every must be >= 1, got {checkpoint_every}")
+        if chunk is None:
+            chunk = checkpoint_every
     if guard is True:
         guard = GuardSpec()
     if guard and guard.round_fn_for_retry is None:
         guard = guard._replace(round_fn_for_retry=engine.retry_round_fn)
+
+    spec = engine.spec
+    if spec.population is not None and spec.client_state == "stateful":
+        _require(not guard and checkpoint_every is None and not resume,
+                 "guarded horizons and checkpoint autosave are materialized-path features; the "
+                 "population gather/scatter loop is follow-up work")
+        store = population_store
+        if store is None:
+            seed = 0 if rng is None else rng.initial_seed()
+            store = engine.init_population(state, torch.Generator().manual_seed(seed))
+        state, _, horizon = run_population_rounds(
+            engine.round_fn, state, store, data, T, chunk=chunk, eval_every=eval_every,
+            eval_fn=eval_fn, overlap=overlap, cohorts=cohorts, shard_ids=shard_ids, draws=draws)
+        return state, horizon
+    _require(cohorts is None, "cohorts= injects a virtual population's cohort draws")
+
+    from repro_torch import checkpoint as _ckpt
+
+    start = 0
+    if resume:
+        step = _ckpt.latest_step(checkpoint_path)
+        if step is not None:
+            restored = _ckpt.restore(checkpoint_path, step,
+                                     {"state": state, "data_rng": data.generator})
+            state = restored["state"]
+            data.generator.set_state(restored["data_rng"].get_state())
+            start = step
+            _require(start < T, f"checkpoint at round {start} >= T={T}: nothing left to resume")
+
+    on_chunk = None
+    if checkpoint_every is not None:
+        def on_chunk(done, st, da):
+            rounds = start + done
+            if rounds % checkpoint_every == 0 or rounds == T:
+                _ckpt.save(checkpoint_path, rounds, {"state": st, "data_rng": da.generator})
+
     state, _, horizon = run_rounds(
-        engine.round_fn, state, data, T, chunk=chunk, eval_every=eval_every,
-        eval_fn=eval_fn, shard_ids=shard_ids, draws=draws, guard=guard or None)
+        engine.round_fn, state, data, T - start, chunk=chunk, eval_every=eval_every,
+        eval_fn=eval_fn, shard_ids=None if shard_ids is None else shard_ids[start:],
+        draws=None if draws is None else draws[start:], guard=guard or None, on_chunk=on_chunk)
     return state, horizon
 
 
@@ -857,6 +1010,7 @@ __all__ = [
     "Horizon",
     "LAYOUTS",
     "PackedBatches",
+    "PopulationStore",
     "RoundSchedule",
     "STALENESS_POLICIES",
     "ShardedEngine",

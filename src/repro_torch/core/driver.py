@@ -205,6 +205,8 @@ class Horizon(NamedTuple):
         (multiples of ``eval_every`` plus the final round).
     data: the :class:`PackedBatches` (its generator advanced past this
         horizon) to continue training from.
+    population: the ``core.population.PopulationStore`` of a virtual
+        population run (updated in place), else None.
     guard: a :class:`GuardReport` when the run was guarded, else None.
     """
 
@@ -212,6 +214,7 @@ class Horizon(NamedTuple):
     evals: Any | None
     eval_rounds: np.ndarray
     data: Any | None = None
+    population: Any | None = None
     guard: Any | None = None
 
 
@@ -349,9 +352,35 @@ def eval_mask_for_chunk(done: int, n: int, T: int, eval_every: int) -> np.ndarra
                      for i in range(n)])
 
 
+def dispatch_chunk(round_fn: Callable, state: Tree, data: PackedBatches, mask: np.ndarray, *,
+                   done: int = 0, eval_fn: Callable | None = None, shard_ids=None,
+                   draws=None) -> tuple[Tree, list, list]:
+    """Queue rounds ``done+1 .. done+len(mask)`` (batch selection +
+    ``round_fn``) without a host synchronization of its own (the
+    reference's ``dispatch_chunk``), so the host may work (a population
+    store's gather) while the card runs them; once the card's launch queue
+    is full, queuing itself waits for the card. ``shard_ids`` (``[T, E, G, K]``) and
+    ``draws`` (T entries) are indexed by the global round ``done + i``;
+    ``eval_fn(prev, state)`` runs where ``mask`` is True. Returns ``(state,
+    metrics, evals)``: per-round results still on the device, for
+    :func:`_to_host`."""
+    mets, evs = [], []
+    for i in range(len(mask)):
+        sid = shard_ids[done + i] if shard_ids is not None else draw_shard_ids(data)
+        d = draws[done + i] if draws is not None else None
+        prev = state
+        batches = select_round(data, sid)
+        state, metrics = (round_fn(state, batches) if d is None
+                          else round_fn(state, batches, draws=d))
+        mets.append(metrics)
+        if eval_fn is not None and mask[i]:
+            evs.append(eval_fn(prev, state))
+    return state, mets, evs
+
+
 def _to_host(items: list):
     """Stack a list of same-structured results (NamedTuple / dict / tensor)
-    along a new leading axis, as numpy arrays."""
+    along a new leading axis, as numpy arrays (waits for the device)."""
     first = items[0]
     if isinstance(first, tuple) and hasattr(first, "_fields"):
         return type(first)(*(_to_host([it[i] for it in items])
@@ -382,6 +411,7 @@ def run_rounds(
     shard_ids=None,
     draws=None,
     guard: GuardSpec | None = None,
+    on_chunk: Callable[[int, Tree, PackedBatches], None] | None = None,
 ) -> tuple[Tree, PackedBatches, Horizon]:
     """Run ``T`` global rounds of (batch selection + ``round_fn``).
 
@@ -400,7 +430,8 @@ def run_rounds(
     the Horizon then carries a :class:`GuardReport`. A retry reseeds the
     generators from their snapshots and the salt ``done * (max_retries +
     1) + attempt`` (``done``: rounds before the chunk), as the reference
-    folds that salt into its keys.
+    folds that salt into its keys. ``on_chunk(done, state, data)`` runs
+    after every accepted chunk (``api.fit`` autosaves checkpoints there).
 
     Returns ``(state, data, Horizon)``.
     """
@@ -418,18 +449,8 @@ def run_rounds(
         raise ValueError(f"draws has {len(draws)} rounds, T={T}")
 
     def run_chunk(rf, state, done: int, mask: np.ndarray):
-        chunk_mets, chunk_evs = [], []
-        for i in range(len(mask)):
-            sid = (shard_ids[done + i] if shard_ids is not None
-                   else draw_shard_ids(data))
-            d = draws[done + i] if draws is not None else None
-            prev = state
-            batches = select_round(data, sid)
-            state, metrics = (rf(state, batches) if d is None
-                              else rf(state, batches, draws=d))
-            chunk_mets.append(metrics)
-            if eval_fn is not None and mask[i]:
-                chunk_evs.append(eval_fn(prev, state))
+        state, chunk_mets, chunk_evs = dispatch_chunk(
+            rf, state, data, mask, done=done, eval_fn=eval_fn, shard_ids=shard_ids, draws=draws)
         return state, _to_host(chunk_mets), _to_host(chunk_evs) if chunk_evs else None
 
     mets, evs, masks = [], [], []
@@ -474,9 +495,12 @@ def run_rounds(
             evs.append(chunk_evs)
         masks.append(mask)
         done += n
+        if on_chunk is not None:
+            on_chunk(done, state, data)
 
     eval_rounds = np.nonzero(np.concatenate(masks))[0] + 1
     evals = _concat(evs) if eval_fn is not None else None
     report = (GuardReport(rollbacks, retries, snap.seconds, snap.nbytes, snap.alloc_s)
               if guard is not None else None)
-    return state, data, Horizon(_concat(mets), evals, eval_rounds, data, report)
+    return state, data, Horizon(metrics=_concat(mets), evals=evals, eval_rounds=eval_rounds,
+                                data=data, guard=report)

@@ -22,9 +22,10 @@ tree state layouts, the fused (mtgc only) and unfused local steps, partial
 participation (``uniform``/``fixed`` masks, ``none``/``inverse_prob``
 weighting), compressed uploads (``core.compression``) with error
 feedback, and fault injection with screened aggregation
-(``core.faults``), and async group rounds (``core.staleness``). Virtual
-populations and the other backends are later slices of the port; asking
-for them raises ``ValueError`` naming the slice.
+(``core.faults``), and async group rounds (``core.staleness``); virtual
+client populations wrap it from outside (``core.population``). The
+multilevel backend is a later slice of the port; asking for it raises
+``ValueError`` naming the slice.
 
 Async group rounds (``plan=``, a ``core.staleness.StalenessPlan``): a
 window runs ``e_pad = max(E_g)`` group rounds; the static iteration mask

@@ -136,6 +136,21 @@ class Packer:
         mult = math.prod(lead) if lead else 1
         return sum(mult * n * key_dtype(key).itemsize for key, n in self.buffer_sizes)
 
+    def size_report(self, lead: tuple[int, ...] = ()) -> dict[str, Any]:
+        """Per-dtype-buffer size breakdown under the given leading axes (the
+        reference's): ``{"lead": lead, "total_bytes": ..., "buffers": {dtype
+        key: {"elements", "bytes", "leaves"}}}``."""
+        mult = math.prod(lead) if lead else 1
+        leaves_per = {key: 0 for key, _ in self.buffer_sizes}
+        for seg in self.segments:
+            leaves_per[seg.buffer] += 1
+        buffers = {
+            key: {"elements": mult * n, "bytes": mult * n * key_dtype(key).itemsize,
+                  "leaves": leaves_per[key]}
+            for key, n in self.buffer_sizes
+        }
+        return {"lead": tuple(lead), "total_bytes": self.state_bytes(lead), "buffers": buffers}
+
 
 def make_packer(template: Tree) -> Packer:
     """Build the static segment table from a single-model template tree."""

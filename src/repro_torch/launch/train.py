@@ -50,7 +50,9 @@ accumulator in the reference's order (``(0 + g_1) + g_2 ...``). That loop
 composes with ``torch.utils.checkpoint`` in the model and holds one
 replica's activations at a time. This is the single-card form of the
 backend; the reference's mesh (``sharding/``, ``launch/mesh.py``) is a later
-slice, as are virtual populations on this backend.
+slice. Virtual client populations wrap the round from outside
+(``core.population``; ``--population``/``--cohort-size``/``--client-state``
+on the CLI).
 
 Memory: the round updates the state's tensors IN PLACE and returns them in
 the new state, as the reference's driver donates the state to each round:
@@ -1133,6 +1135,18 @@ def main(argv=None):
     data = engine.pack_tokens(toks, batch_size=args.batch, seq_len=args.seq,
                               shards=args.shards, rng=rng,
                               generator=torch.Generator().manual_seed(args.seed + 1))
+    if spec.population is not None:
+        G, K = spec.levels
+        if spec.client_state == "stateful":
+            # Segment-table arithmetic: the host store holds [G, P]
+            # correction rows, the device only [G, K].
+            per_client = make_packer(params).state_bytes()
+            nfields = len(engine.population_fields)
+            print(f"[train] population={spec.population}/group cohort={K} "
+                  f"store={G * spec.population * per_client * nfields / 1e6:.1f}MB host, "
+                  f"device corrections {G * K * per_client * nfields / 1e6:.1f}MB")
+        else:
+            print(f"[train] population={spec.population}/group cohort={K} stateless (no store)")
     rng_state = (None if spec.full_participation
                  else torch.Generator(device=device).manual_seed(args.seed + 2))
     state, hz = fit(engine, data, args.rounds, params=params, rng=rng_state, chunk=args.chunk)

@@ -986,3 +986,101 @@ def test_faulty_round_on_card_matches_cpu(cuda, backend, layout):
         for key, cpu in outs["cpu"][0][name].items():
             np.testing.assert_allclose(outs["cuda"][0][name][key], cpu, rtol=1e-5, atol=atol,
                                        err_msg=f"{name}/{key}")
+
+
+def _quad_data(G, K, E, H, dev, n=(200, 30), seed=44):
+    """Packed [G, K, S, H, n] quadratic-loss shards on ``dev`` and the loss."""
+    from repro_torch.core.driver import PackedBatches
+
+    rs_ = np.random.default_rng(seed)
+    loss, p0, _ = _quad_problem(rs_, G, K, E, H, n)
+    arrays = {k: torch.from_numpy((rs_.normal(size=(G, K, 4, H, m)) + off).astype(np.float32))
+              .to(dev) for k, m, off in (("a", n[0], 1.0), ("b", n[0], 0.0),
+                                          ("c", n[1], 1.0), ("e", n[1], 0.0))}
+    return loss, p0, PackedBatches(arrays, torch.Generator().manual_seed(1), E, H)
+
+
+@pytest.mark.parametrize("layout", ["flat", "tree"])
+def test_population_install_extract_through_page_locked_memory(cuda, layout):
+    """A cohort gathered into page-locked buffers, installed into the card's
+    state in place (no new tensor) and extracted back gives the staged bits;
+    a bfloat16 tree leaf crosses as its 16-bit pattern."""
+    from repro_torch.core.population import CohortBuffers, PopulationStore
+
+    G, K, P = 2, 3, 7
+    p0 = {"w": torch.zeros(200), "v": torch.zeros(30, dtype=torch.bfloat16)}
+    spec = api.ExperimentSpec(levels=(G, K), state_layout=layout, population=P)
+    state = api.build(spec, lambda p, b: None, device=cuda).init(p0)
+    store = PopulationStore.from_state(state, P)
+    rng = np.random.default_rng(5)
+    for key, buf in store.data["z"].items():
+        buf[...] = (rng.normal(size=buf.shape).astype(np.float32).view(np.uint32) >> 16
+                    ).astype(np.uint16) if key == "bfloat16" else rng.normal(size=buf.shape)
+    def ptrs(z):
+        return [t.data_ptr() for t in (z.bufs if layout == "flat" else z).values()]
+
+    before = ptrs(state.z)
+    bufs = CohortBuffers(store, K, pin=True)
+    assert all(t.is_pinned() for t in bufs.tensors["z"].values())
+    idx = np.array([[6, 1, 3], [0, 5, 2]])
+    staged = {f: {k: a.copy() for k, a in v.items()}
+              for f, v in store.gather(idx, out=bufs).items()}
+    state = store.install(state, bufs)
+    assert ptrs(state.z) == before
+    out = CohortBuffers(store, K, pin=True)
+    host = store.extract(state, out=out)
+    for key, arr in host["z"].items():
+        np.testing.assert_array_equal(arr, staged["z"][key], err_msg=key)
+
+
+def test_population_overlap_matches_sequential_on_card(cuda):
+    """The overlapped gather/scatter loop (page-locked buffers, queued
+    copies) against the sequential one on the card: state and store bit for
+    bit, at P = 5 over K = 4 with chunk 1 (consecutive cohorts share
+    clients)."""
+    from repro_torch.core.population import run_population_rounds
+
+    G, K, E, H, P = 2, 4, 2, 2, 5
+    runs = []
+    for overlap in (True, False):
+        loss, p0, data = _quad_data(G, K, E, H, cuda)
+        spec = api.ExperimentSpec(levels=(G, K), fusion="fused", lr=0.05, population=P,
+                                  schedule=api.RoundSchedule(E, H))
+        eng = api.build(spec, loss, device=cuda)
+        state = eng.init(p0)
+        store = eng.init_population(state, torch.Generator().manual_seed(5))
+        state, _, hz = run_population_rounds(eng.round_fn, state, store, data, 6, chunk=1,
+                                             overlap=overlap)
+        runs.append((convert.to_numpy(state), store))
+    for f in ("params", "z", "y"):
+        for k in runs[0][0][f]:
+            np.testing.assert_array_equal(runs[0][0][f][k], runs[1][0][f][k], err_msg=f)
+    for k, buf in runs[0][1].data["z"].items():
+        np.testing.assert_array_equal(buf, runs[1][1].data["z"][k])
+
+
+def test_checkpoint_of_a_card_state_restores_onto_the_card(cuda, tmp_path):
+    """A card state (partial participation: a CUDA generator) saved and
+    restored into a card ``like``: every tensor back on the card bit for
+    bit, the generator's state equal, and one more round from each equal."""
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.core.driver import select_round
+
+    G, K, E, H = 2, 3, 2, 2
+    loss, p0, data = _quad_data(G, K, E, H, cuda)
+    spec = api.ExperimentSpec(levels=(G, K), fusion="fused", lr=0.05, client_participation=0.5,
+                              schedule=api.RoundSchedule(E, H))
+    eng = api.build(spec, loss, device=cuda)
+    state, _ = api.fit(eng, data, 2, params=p0, rng=torch.Generator(device=cuda).manual_seed(3))
+    save(str(tmp_path), 2, state)
+    got = restore(str(tmp_path), 2, eng.init(p0))
+    assert got.rng.device.type == cuda.type
+    assert torch.equal(got.rng.get_state(), state.rng.get_state())
+    for f in ("params", "z", "y", "dyn"):
+        for k, t in getattr(got, f).bufs.items():
+            assert t.device.type == cuda.type and torch.equal(t, getattr(state, f).bufs[k]), f
+    sid = torch.zeros((E, G, K), dtype=torch.int64)
+    a = eng.round_fn(state, select_round(data, sid))[0]
+    b = eng.round_fn(got, select_round(data, sid))[0]
+    for f in ("params", "z", "y"):
+        assert torch.equal(getattr(a, f).bufs["float32"], getattr(b, f).bufs["float32"]), f

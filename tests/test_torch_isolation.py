@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch/``, and not
-``chip_smoke.py``, imports JAX or anything of the JAX package."""
+``chip_smoke.py``, imports JAX, ``ml_dtypes`` or anything of the JAX
+package."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _port_files():
@@ -41,7 +42,8 @@ def test_port_files_exist():
             "models/config.py", "configs/__init__.py", "configs/qwen3_14b.py",
             "configs/rwkv6_1_6b.py", "models/layers.py", "models/rwkv6.py",
             "models/transformer.py", "launch/serve.py", "launch/train.py",
-            "core/staleness.py", "core/faults.py", "core/compression.py"} <= names
+            "core/staleness.py", "core/faults.py", "core/compression.py",
+            "core/population.py", "checkpoint/__init__.py", "checkpoint/checkpoint.py"} <= names
     for src in ("mtgc_update", "quantize", "flash_attention", "rwkv6_scan"):
         assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file()
     assert (ROOT / "chip_smoke.py").is_file()
@@ -58,9 +60,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.ops, repro_torch.data, repro_torch.configs, "
             "repro_torch.configs.qwen3_14b, repro_torch.configs.rwkv6_1_6b, "
             "repro_torch.models.transformer, repro_torch.launch.serve, "
-            "repro_torch.launch.train, repro_torch.core.staleness; "
+            "repro_torch.launch.train, repro_torch.core.staleness, "
+            "repro_torch.core.population, repro_torch.checkpoint; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)

@@ -1,7 +1,7 @@
 """The port's ExperimentSpec: the reference's field list, later-slice
 fields rejected by name (partial participation, compressed uploads, faults,
-defense and async group rounds are accepted), and no quiet CPU run on a
-host without CUDA."""
+defense, async group rounds and virtual populations are accepted, with the
+reference's rejections), and no quiet CPU run on a host without CUDA."""
 import dataclasses
 
 import pytest
@@ -31,19 +31,10 @@ def test_field_list_equals_reference():
 @pytest.mark.parametrize("kwargs,slice_name", [
     # Faults and defense run on both engines; with a later slice's field
     # they still name that slice.
-    ({"client_participation": 0.5, "faults": tapi.FaultPlan(crash_rate=0.1),
-      "population": 4}, "virtual-population"),
     ({"group_participation": 0.5, "defense": tapi.DefensePlan(),
       "backend": "multilevel"}, "multilevel-backend"),
-    ({"defense": tapi.DefensePlan(), "client_state": "stateless"}, "virtual-population"),
-    ({"population": 4}, "virtual-population"),
-    ({"population": 4, "staleness": "discount",
-      "schedule": tapi.RoundSchedule(group_rounds=(2, 1))}, "virtual-population"),
-    ({"client_state": "stateless"}, "virtual-population"),
     ({"backend": "multilevel"}, "multilevel-backend"),
     ({"level_participation": (1.0, 1.0)}, "multilevel-backend"),
-    ({"backend": "sharded", "compression": tapi.CompressionPlan("int8_stochastic"),
-      "population": 4}, "virtual-population"),
 ])
 def test_later_slice_fields_raise_naming_the_slice(kwargs, slice_name):
     spec = tapi.ExperimentSpec(levels=(2, 2), **kwargs)
@@ -51,6 +42,53 @@ def test_later_slice_fields_raise_naming_the_slice(kwargs, slice_name):
         spec.validate()
     with pytest.raises(ValueError, match=slice_name):
         tapi.build(spec, lambda p, b: None, device="cpu")
+
+
+def _reference_kwargs(kwargs):
+    """The reference's spec keywords for the port's: its own plan and
+    schedule classes."""
+    from repro.core.faults import DefensePlan, FaultPlan
+
+    classes = {"schedule": japi.RoundSchedule, "faults": FaultPlan, "defense": DefensePlan,
+               "compression": japi.CompressionPlan}
+    return {k: classes[k](**dataclasses.asdict(v)) if k in classes else v
+            for k, v in kwargs.items()}
+
+
+@pytest.mark.parametrize("kwargs", [
+    # The population specs that named the virtual-population slice before it
+    # was ported, and two more the reference accepts.
+    {"client_participation": 0.5, "faults": tapi.FaultPlan(crash_rate=0.1), "population": 4},
+    {"defense": tapi.DefensePlan(), "client_state": "stateless"},
+    {"population": 4},
+    {"population": 4, "staleness": "discount",
+     "schedule": tapi.RoundSchedule(group_rounds=(2, 1))},
+    {"client_state": "stateless"},
+    {"backend": "sharded", "compression": tapi.CompressionPlan("int8_stochastic"),
+     "population": 4},
+    {"backend": "sharded", "population": 4, "cohort_size": 2,
+     "schedule": tapi.RoundSchedule(microbatches=1)},
+    {"population": 6, "client_state": "stateless", "faults": tapi.FaultPlan(crash_rate=0.1)},
+], ids=["faults-partial", "stateless-defense", "population", "population-async", "stateless",
+        "sharded-compressed", "sharded-population", "stateless-faults"])
+def test_population_specs_match_reference(kwargs):
+    """A population spec the reference accepts builds on the port (its store
+    too, for a stateful one); one it rejects raises the reference's own
+    message."""
+    jspec = japi.ExperimentSpec(levels=(2, 2), **_reference_kwargs(kwargs))
+    tspec = tapi.ExperimentSpec(levels=(2, 2), **kwargs)
+    try:
+        jspec.validate()
+    except ValueError as err:
+        with pytest.raises(ValueError) as got:
+            tapi.build(tspec, _quad, device="cpu")
+        assert str(got.value) == str(err)
+        return
+    eng = tapi.build(tspec, _quad, device="cpu")
+    assert tspec.virtual_population == jspec.virtual_population
+    state = eng.init({"w": torch.zeros(5)})
+    if tspec.client_state == "stateful":
+        assert eng.init_population(state).population == tspec.population
 
 
 def _quad(params, batch):
