@@ -12,8 +12,9 @@ conv5x5x32, pool, conv5x5x64, pool, fc512, fc10; N = 2,156,490 float32
 parameters) over 10 groups x 10 clients at batch 50, on synthetic data of
 CIFAR-10's 32x32x3 shape -- uncompressed at full participation, with
 compressed uploads, under partial participation, under faults, with
-async group rounds, with virtual client populations and through
-checkpoints. Depth is cut: E = 2
+async group rounds, with virtual client populations, through
+checkpoints, and on the multilevel backend over a 4 x 5 x 5 tree. Depth is
+cut: E = 2
 group rounds of H = 5 local steps, 1 or 2 global rounds per path. After
 the serving phases it trains glm4-9b at full width (depth 2 of 40) on the
 sharded backend, plain, with compressed uploads, under partial
@@ -113,6 +114,14 @@ final line):
     20 a group saved, restored and continued 2 rounds bit for bit the
     original continuation; file bytes, save and restore seconds. Every
     bit-for-bit comparison between two card runs under deterministic cuDNN;
+10e. phase (u), the multilevel backend (Appendix E) on the same CNN over
+    fig11's 4 x 5 x 5 tree at periods (8, 4, 2) (``phase_multilevel_hfl``):
+    (u1) tree and (u2) flat at full participation, (u3) tree at
+    ``level_participation=(1.0, 0.8, 0.6)`` with inverse_prob weighting,
+    each 2 warm-up rounds, 3 timed and one traced: no kernel launched,
+    the leaves equal and the corrections summing to zero over the children
+    (u1), a round on the card against the CPU (u1), flat against tree (u2),
+    frozen subtrees' bits (u3), round ms and peaks;
 11. the port on the card against the port on the CPU (the kernels' plain
     versions) on a small input: the uncompressed round, a compressed round
     under partial participation with injected draws, and two async windows
@@ -225,7 +234,7 @@ final line):
     fused step against the unfused one on the card, bit for bit;
 22. a JSON line of the serving and training runs, one per phase of 18-20,
     (n), (p), (q) and (s), one of (m), one of (o), one of (r), one of (t),
-    and one per kernel, then
+    one of (u), and one per kernel, then
     ``{"ok": true, "device": {...}}`` last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
@@ -2884,6 +2893,243 @@ def phase_lm_population(torch, np, peak_i_gb: float) -> dict:
     return out
 
 
+# Phase (u): the multilevel backend over fig11's --full tree, periods cut to
+# examples/three_level.py's; (u3)'s per-level live-uplink fractions.
+ML_LEVELS, ML_PERIODS, ML_PART = (4, 5, 5), (8, 4, 2), (1.0, 0.8, 0.6)
+ML_WARM, ML_TIMED, ML_SHARDS = 2, 3, 4
+ML_AGREE = 1e-4           # (u2) against (u1), and the card against the CPU: relative
+
+
+def all_launches() -> dict:
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mtgc_update as mu
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    return {"mtgc_update_flat": mu.mtgc_update_flat.launches,
+            "mtgc_update": mu.mtgc_update.launches,
+            "int8_roundtrip": qz.int8_roundtrip.launches, "topk_mask": qz.topk_mask.launches,
+            "flash_attention": fa.flash_attention.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches,
+            "rwkv6_scan": rw.rwkv6_scan.launches}
+
+
+def phase_multilevel_hfl(torch, np, api, train, p0, loss_fn) -> dict:
+    """Phase (u): the multilevel backend (Appendix E's M-level MTGC) at the
+    CIFAR CNN's full width over fig11's ``--full`` tree ``levels=(4, 5,
+    5)`` (100 clients, as (a)'s 10 x 10), batch 50, lr 0.01. The periods are
+    cut from fig11's (500, 100, 10) to ``examples/three_level.py``'s (8, 4,
+    2): at the full periods one round's selected batches alone, ``[500, 4,
+    5, 5, 50, 3, 32, 32]`` float32, would take 30.7 GB. The client pools
+    follow fig11 (``partition(both_noniid)`` over 4 groups of 25, re-nested
+    ``[4][5][5]``) at alpha 0.5, not 0.1: at 0.1 the 16,000 training images
+    leave some of the 100 clients under ``partition``'s 8 samples. Every run
+    takes the same shard ids.
+
+    (u1) tree layout, full participation, ``build`` -> ``fit``: 2 warm-up
+    rounds, then 3 timed; finite losses; all 100 leaves equal; each level's
+    nu summing to zero over the children of every aggregator, within the
+    rounding of the means carried through the quotient (rounds x children
+    x 2^-20 x max|x| / (lr P_m); the deeper nus are re-initialized at the
+    round's last aggregation, so exactly zero); one round on the card
+    against the same round on the CPU from the same state and shard ids
+    (params within rtol and atol 1e-4 of max|x|). (u2) the flat layout,
+    same spec and shard ids: after the warm-up (both runs' under
+    deterministic cuDNN) its params within 1e-4 of max|x| of (u1)'s; timed
+    the same way. A nu is a sum over rounds of
+    (s - a) / (lr P_m), s and a each within the params' bound, so nu_m is
+    held to 2 x rounds x that bound / (lr P_m).
+    (u3) ``level_participation=(1.0, 0.8, 0.6)``, uniform, inverse_prob,
+    tree: in each warm-up round (its masks replayed from a copy of the
+    state's generator) every leaf outside the active chains keeps its
+    params' bits and every node without an active leaf its nu's bits;
+    timed. Its losses are reported, not required finite: Horvitz-Thompson
+    weighting of whole models rescales a subtree's model by its realized
+    over its expected live-child count, and the corrections carry that
+    rescale over lr P_m, so the CNN can diverge, in the reference as here.
+    A ``torch.profiler`` trace of one round of each. No kernel runs
+    on this path: every wrapper's count stays 0."""
+    from repro_torch.core.driver import select_round
+    from repro_torch.core.multilevel import MultiLevelState
+    from repro_torch.core.packer import as_tree
+    from repro_torch.core.participation import sample_axis_mask
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import partition
+    from repro_torch.kernels import ops
+
+    dims, periods, M = ML_LEVELS, ML_PERIODS, len(ML_LEVELS)
+    E = periods[0] // periods[-1]
+    rounds = ML_WARM + ML_TIMED
+    flat_idx = partition(train.y, dims[0], dims[1] * dims[2], mode="both_noniid", alpha=0.5,
+                         seed=0)
+    idx = [[[flat_idx[a][b * dims[2] + c] for c in range(dims[2])] for b in range(dims[1])]
+           for a in range(dims[0])]
+    spec = api.ExperimentSpec(levels=dims, backend="multilevel", lr=LR, state_layout="tree",
+                              schedule=api.RoundSchedule(periods=periods))
+    engine = api.build(spec, loss_fn)
+    t0 = time.perf_counter()
+    data = engine.pack_arrays({"x": train.x, "y": train.y}, idx, batch_size=BATCH,
+                              shards=ML_SHARDS, rng=np.random.default_rng(1),
+                              generator=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    out = {"levels": list(dims), "periods": list(periods), "pack_s": time.perf_counter() - t0,
+           "packed_gb": sum(t.numel() * t.element_size() for t in data.arrays.values()) / 1e9,
+           "launches": {}}
+    log(f"(u) packed {tuple(data.arrays['x'].shape)} ({out['packed_gb']:.2f} GB) in "
+        f"{out['pack_s']:.2f} s")
+    sid = torch.randint(0, ML_SHARDS, (rounds + 1, E) + dims,
+                        generator=torch.Generator().manual_seed(11))
+
+    def leaf_max(tree) -> float:
+        leaves = tree if isinstance(tree, list) else tree_leaves(tree)
+        return max(float(t.abs().max()) for t in leaves)
+
+    def run(tag, eng, warm, extra=None, finite=True):
+        """Warm-up (``warm(state) -> state``), then ML_TIMED rounds timed; the
+        launch counts, peak and a traced round. Returns (state after the
+        warm-up, state after the timed rounds)."""
+        held = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        st_w = warm(eng.init(p0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, hz = api.fit(eng, data, ML_TIMED, state=st_w, shard_ids=sid[ML_WARM:rounds])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / ML_TIMED
+        launches = all_launches()
+        require(not any(launches.values()), f"({tag}) launched a kernel: {launches}")
+        if finite:
+            finite_metrics(np, hz)
+        require(hz.metrics.loss.shape == (ML_TIMED, periods[0]),
+                f"({tag}) loss shape {hz.metrics.loss.shape}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        trace = profile_round(torch, lambda: api.fit(eng, data, 1, state=st))
+        log_trace(f"({tag}) profiled round", trace)
+        out[tag] = {"round_ms": ms, "peak_gb": peak, "held_gb": held,
+                    "busy_share": trace["busy"] / trace["wall_us"] if trace else None,
+                    "loss": hz.metrics.loss[-1].tolist(),
+                    "finite": bool(np.isfinite(hz.metrics.loss).all()), **(extra or {})}
+        out["launches"][tag] = launches
+        log(f"({tag}) {ML_TIMED} rounds: {ms:.1f} ms a round; peak {peak:.2f} GB ({held:.2f} GB "
+            f"held before); loss {np.round(hz.metrics.loss[-1], 4).tolist()}")
+        return st_w, st
+
+    def warm_fit(eng):
+        """The warm-up rounds under deterministic cuDNN: (u2)'s are held
+        against (u1)'s, and the default algorithms' atomics would add the
+        run-to-run spread to the layouts' own rounding."""
+        def warm(st):
+            torch.backends.cudnn.deterministic = True
+            try:
+                st = api.fit(eng, data, ML_WARM, state=st, shard_ids=sid[:ML_WARM])[0]
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            return st
+
+        return warm
+
+    # --- (u1) tree, full participation --------------------------------------
+    st1_w, st1 = run("u1", engine, warm_fit(engine))
+    for t in tree_leaves(st1.params):
+        require(torch.equal(t, t[0, 0, 0].expand_as(t)), "(u1) the 100 leaves differ")
+    x_max = leaf_max(st1.params)
+    worst = []
+    for m, nu in enumerate(st1.nus):
+        bound = rounds * dims[m] * 2.0 ** -20 * x_max / (LR * periods[m])
+        err = max(float(t.sum(dim=m).abs().max()) for t in tree_leaves(nu))
+        require(err <= bound, f"(u1) nus[{m}] sums to {err} over the children, bound {bound}")
+        require(m == 0 or err == 0.0, f"(u1) nus[{m}] is not re-initialized")
+        worst.append(err)
+    out["u1"]["nu_child_sums"] = worst
+    log(f"(u1) all 100 leaves equal; |sum of nu over the children| per level {worst}")
+    # One round on the card against the same round on the CPU.
+    batches = select_round(data, sid[rounds])
+    s_card, m_card = engine.round_fn(st1, batches)
+    cpu_eng = api.build(spec, loss_fn, device="cpu")
+    st_cpu = MultiLevelState(tree_map(lambda t: t.cpu(), st1.params),
+                             tuple(tree_map(lambda t: t.cpu(), nu) for nu in st1.nus),
+                             torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    s_cpu, m_cpu = cpu_eng.round_fn(st_cpu, {k: v.cpu() for k, v in batches.items()})
+    out["u1"]["cpu_round_s"] = time.perf_counter() - t0
+    gx = [t[0, 0, 0].cpu() for t in tree_leaves(s_card.params)]
+    cx = [t[0, 0, 0] for t in tree_leaves(s_cpu.params)]
+    tol = ML_AGREE * leaf_max(cx)
+    err = max(float((g - c).abs().max()) for g, c in zip(gx, cx))
+    nu_ok, nu_err = [], []
+    for m in range(M):
+        for g, c in zip(tree_leaves(s_card.nus[m]), tree_leaves(s_cpu.nus[m])):
+            g = g.cpu()
+            nu_ok.append(torch.allclose(g, c, rtol=ML_AGREE, atol=2 * tol / (LR * periods[m])))
+            nu_err.append(float((g - c).abs().max()))
+    out["u1"]["card_vs_cpu"] = {"max_abs_dx": err, "atol": tol, "max_abs_dnu": max(nu_err),
+                                "max_abs_nu": leaf_max(s_cpu.nus[0]),
+                                "loss_card": m_card.loss.tolist(), "loss_cpu": m_cpu.loss.tolist()}
+    log(f"(u1) one round on the card against the CPU ({out['u1']['cpu_round_s']:.1f} s there): "
+        f"max |dx| {err:.3e} (atol {tol:.3e}), max |dnu| {max(nu_err):.3e} (max |nu_1| "
+        f"{out['u1']['card_vs_cpu']['max_abs_nu']:.3e})")
+    require(all(torch.allclose(g, c, rtol=ML_AGREE, atol=tol) for g, c in zip(gx, cx)),
+            f"(u1) the card's round differs from the CPU's: max |dx| {err}, atol {tol}")
+    require(all(nu_ok), "(u1) a nu differs between the card and the CPU")
+    del s_card, s_cpu, st_cpu, cpu_eng, batches, st1
+
+    # --- (u2) flat, same spec and shard ids ---------------------------------
+    eng2 = api.build(dataclasses.replace(spec, state_layout="flat"), loss_fn)
+    st2_w, st2 = run("u2", eng2, warm_fit(eng2))
+    def max_diff(a, b) -> float:
+        return max(float((x - y).abs().max()) for x, y in zip(tree_leaves(a),
+                                                              tree_leaves(as_tree(b))))
+
+    tol = ML_AGREE * leaf_max(st1_w.params)
+    dx = max_diff(st1_w.params, st2_w.params)
+    dnu = [max_diff(st1_w.nus[m], st2_w.nus[m]) for m in range(M)]
+    nu_bound = [2 * ML_WARM * tol / (LR * periods[m]) for m in range(M)]
+    out["u2"]["vs_u1"] = {"max_abs_dx": dx, "bound": tol, "max_abs_dnu": dnu,
+                          "nu_bound": nu_bound, "max_abs_nu": leaf_max(st1_w.nus[0])}
+    log(f"(u2) flat against (u1) tree after {ML_WARM} rounds: max |dx| {dx:.3e} (bound "
+        f"{tol:.3e}), max |dnu| per level {dnu} (bounds {nu_bound}; max |nu_1| "
+        f"{out['u2']['vs_u1']['max_abs_nu']:.3e})")
+    require(dx <= tol, f"(u2) flat and tree params differ by {dx} after the warm-up, bound {tol}")
+    require(all(d <= b for d, b in zip(dnu, nu_bound)), "(u2) flat and tree nus differ")
+    del st1_w, st2_w, st2, eng2
+
+    # --- (u3) partial participation, inverse_prob, tree -----------------------
+    eng3 = api.build(dataclasses.replace(spec, level_participation=ML_PART,
+                                         participation_weighting="inverse_prob"), loss_fn)
+    frozen = []
+
+    def warm_partial(st):
+        for r in range(ML_WARM):
+            gen = torch.Generator(device=st.rng.device)
+            gen.set_state(st.rng.get_state())
+            masks = [sample_axis_mask(gen, dims[:m + 1], ML_PART[m], "uniform") for m in range(M)]
+            leaf = masks[0]
+            for m in range(1, M):
+                leaf = leaf[..., None] * masks[m]
+            before = st
+            st, _ = api.fit(eng3, data, 1, state=st, shard_ids=sid[r:r + 1])
+            off = leaf == 0
+            for a, b in zip(tree_leaves(before.params), tree_leaves(st.params)):
+                require(same_bits(torch, b[off], a[off]), "(u3) a frozen leaf's params changed")
+            for m in range(M):
+                off_m = leaf.reshape(dims[:m + 1] + (-1,)).amax(dim=-1) == 0
+                for a, b in zip(tree_leaves(before.nus[m]), tree_leaves(st.nus[m])):
+                    require(same_bits(torch, b[off_m], a[off_m]),
+                            f"(u3) a frozen node's nus[{m}] changed")
+            frozen.append(int(off.sum()))
+            require(0 < frozen[-1] < leaf.numel(), f"(u3) {frozen[-1]} frozen leaves")
+        return st
+
+    run("u3", eng3, warm_partial, {"frozen_leaves": frozen}, finite=False)
+    log(f"(u3) frozen leaves a warm-up round {frozen}: their params and nus kept their bits")
+    del eng3, engine, data
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3193,6 +3439,8 @@ def main() -> int:
     hfl_t = phase_checkpoint_hfl(torch, np, api, spec, data, p0, loss_fn)
     del data
     torch.cuda.empty_cache()
+    # --- 10e. (u) the multilevel backend over a 4 x 5 x 5 tree -----------
+    hfl_u = phase_multilevel_hfl(torch, np, api, train, p0, loss_fn)
 
     # --- 11. card against CPU on a small input ---------------------------
     small_init, small_apply = small.cnn(10, (8, 8, 1))
@@ -3439,6 +3687,9 @@ def main() -> int:
             k["training_launches"][run] = counts.get(name, 0)
         k["training_launches"]["s"] = lm_s["launches"].get(name, 0)
         k["training_launches"]["t"] = hfl_t["launches"].get(name, 0)
+        # Phase (u)'s timed runs: the multilevel backend runs no kernel.
+        for run, counts in hfl_u["launches"].items():
+            k["training_launches"][run] = counts[name]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": [qwen, rwkv]}))
     print(json.dumps({"training": [lm_tree, lm_flat]}))
@@ -3450,6 +3701,7 @@ def main() -> int:
         print(json.dumps({f"training_{run['phase']}": run}))
     print(json.dumps({"population_r": hfl_r}))
     print(json.dumps({"checkpoint_t": hfl_t}))
+    print(json.dumps({"multilevel_u": hfl_u}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

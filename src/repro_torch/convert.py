@@ -103,8 +103,9 @@ def sharded_state_from_numpy(params, z, y, *, round=None, snap=None, glob=None, 
 
 
 def to_numpy(obj: Any):
-    """Tensors -> numpy arrays, recursively through dicts, FlatBuffers (to
-    their ``bufs`` dict) and NamedTuples (``HFLState``, ``ShardedHFLState``,
+    """Tensors -> numpy arrays, recursively through dicts, lists and tuples
+    (a multilevel state's ``nus``), FlatBuffers (to their ``bufs`` dict) and
+    NamedTuples (``HFLState``, ``ShardedHFLState``,
     ``RoundMetrics``: to
     a dict of fields, leaving out a None or ``torch.Generator`` field, so a
     state carries ``efc``/``efg`` only where it has them).
@@ -121,6 +122,8 @@ def to_numpy(obj: Any):
                 if v is not None and not isinstance(v, torch.Generator)}
     if isinstance(obj, dict):
         return {k: to_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_numpy(v) for v in obj)
     return obj
 
 

@@ -1,10 +1,9 @@
 """The port's front door: ``ExperimentSpec`` -> ``build`` -> ``fit``.
 
-Port of the simulator path of ``src/repro/core/api.py``. The spec keeps
-the reference's full field list, so one set of keyword arguments builds
-both packages' specs; a field whose feature belongs to a later slice of
-the port (the multilevel backend) raises ``ValueError`` naming that slice.
-Partial participation (``client_participation``/``group_participation`` <
+Port of ``src/repro/core/api.py``. The spec keeps the reference's full
+field list, so one set of keyword arguments builds both packages' specs,
+and rejects a contradictory spec with the reference's message, in the
+reference's order. Partial participation (``client_participation``/``group_participation`` <
 1), compressed uploads (``compression=CompressionPlan(...)``), fault
 injection with screened aggregation (``faults=FaultPlan(...)``,
 ``defense=DefensePlan(...)``), async group rounds (a per-group
@@ -12,8 +11,11 @@ injection with screened aggregation (``faults=FaultPlan(...)``,
 ``max_staleness=``) and virtual client populations (``population=``,
 ``cohort_size=``, ``client_state=``; ``core.population``) run on both
 engines, with the reference's rejections of contradictory combinations.
-:func:`build` turns a spec into a :class:`SimulatorEngine` on a device
-(the CUDA card unless ``device="cpu"`` is passed) and :func:`fit` drives it
+:func:`build` turns a spec into a :class:`SimulatorEngine`, a
+:class:`MultiLevelEngine` (Appendix E's M-level MTGC over
+``levels=(N_1, ..., N_M)`` with ``schedule=RoundSchedule(periods=...)`` and
+``level_participation=``; ``core.multilevel``) or a :class:`ShardedEngine`
+on a device (the CUDA card unless ``device="cpu"`` is passed) and :func:`fit` drives it
 through the horizon driver (``core.driver``), guarded against divergence
 with ``fit(..., guard=True)``, autosaving checkpoints with
 ``fit(..., checkpoint_every=, checkpoint_path=)`` (``repro_torch.checkpoint``)
@@ -32,13 +34,12 @@ and resuming with ``resume=True``::
 
 The CLI table (:data:`CLI_FLAGS`, :func:`add_spec_args`,
 :func:`spec_from_args`) is the reference's: one argparse flag per spec
-field, so ``launch/train.py`` takes the reference trainer's flags. Flags of
-later-slice fields parse, and the spec they build raises in ``validate``.
+field, so ``launch/train.py`` takes the reference trainer's flags.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -86,16 +87,10 @@ BACKEND_ALGORITHMS = {
     "sharded": ("mtgc", "hfedavg"),
 }
 
-MULTILEVEL_SLICE = "the multilevel-backend slice of the port"
-
 
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
-
-
-def _needs(what: str, where: str) -> ValueError:
-    return ValueError(f"{what} needs {where}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,8 +105,9 @@ class RoundSchedule:
     local_steps: H -- local SGD steps per group round.
     microbatches: A -- gradient-accumulation chunks per local step; a
         sharded-backend knob (None elsewhere).
-    periods: M-level aggregation periods -- a multilevel-backend knob
-        (later slice).
+    periods: M-level aggregation periods ``(P_1, ..., P_M)``, each
+        dividing the one before -- a multilevel-backend knob; they define
+        ``(group_rounds, local_steps) = (P_1 // P_M, P_M)``.
     """
 
     group_rounds: int | tuple[int, ...] = 2
@@ -134,11 +130,34 @@ class RoundSchedule:
         return True
 
     @property
+    def uniform_group_rounds(self) -> int:
+        """E as a scalar; raises for non-uniform (async) schedules."""
+        if isinstance(self.group_rounds, tuple):
+            _require(self.is_uniform,
+                     "this code path needs a uniform group-round schedule "
+                     f"(got {self.group_rounds}); async per-group schedules "
+                     "run through the padded max(E_g) loop "
+                     "(max_group_rounds)")
+            return self.group_rounds[0]
+        return int(self.group_rounds)
+
+    @property
     def max_group_rounds(self) -> int:
         """max(E_g) -- equals E for uniform schedules."""
         if isinstance(self.group_rounds, tuple):
             return max(self.group_rounds)
         return int(self.group_rounds)
+
+    def level_periods(self, num_levels: int) -> tuple[int, ...]:
+        """Aggregation periods for an ``num_levels``-deep topology."""
+        if self.periods is not None:
+            return self.periods
+        E, H = self.uniform_group_rounds, self.local_steps
+        _require(num_levels == 2,
+                 f"a {num_levels}-level topology needs explicit "
+                 "schedule.periods (group_rounds/local_steps only define "
+                 "the two-level schedule)")
+        return (E * H, H)
 
     def validate(self, levels: tuple[int, ...]) -> "RoundSchedule":
         gr = self.group_rounds
@@ -154,7 +173,27 @@ class RoundSchedule:
         _require(self.microbatches is None or self.microbatches >= 1,
                  f"microbatches must be None or >= 1, got {self.microbatches}")
         if self.periods is not None:
-            raise _needs("schedule.periods", MULTILEVEL_SLICE)
+            _require(self.is_uniform,
+                     "explicit schedule.periods (the multilevel backend) "
+                     "require a uniform group-round schedule, got "
+                     f"group_rounds={self.group_rounds}")
+            _require(len(self.periods) == len(levels),
+                     f"one period per level: {len(self.periods)} periods for "
+                     f"{len(levels)} levels")
+            for a, b in zip(self.periods, self.periods[1:]):
+                _require(a > b and a % b == 0,
+                         f"periods must nest (P_m > P_m+1, divisible): {self.periods}")
+            # periods are authoritative: an explicitly different E/H would
+            # be ignored, so the conflict is rejected (the field defaults
+            # count as unset).
+            derived = (self.periods[0] // self.periods[-1], self.periods[-1])
+            given = (self.uniform_group_rounds, self.local_steps)
+            defaults = (RoundSchedule.group_rounds, RoundSchedule.local_steps)
+            _require(given == derived or given == defaults,
+                     f"schedule.periods={self.periods} implies "
+                     f"(group_rounds, local_steps)={derived}, which "
+                     f"conflicts with the explicit {given}; set periods "
+                     "alone or keep them consistent")
         return self
 
 
@@ -167,9 +206,11 @@ class ExperimentSpec:
     group rounds, in either state layout, fused (mtgc) or not, at full or
     partial participation, with or without a ``CompressionPlan`` (sync
     schedules only, as in the reference), a ``FaultPlan`` and a
-    ``DefensePlan``; and the sharded backend (mtgc, hfedavg) likewise, with
-    ``schedule.microbatches`` and ``correction_dtype``.
-    ``fused_mode`` takes None or "auto" (the reference's
+    ``DefensePlan``; the multilevel backend (mtgc) over any ``levels`` depth
+    with ``schedule.periods`` and ``level_participation``, in either layout,
+    at full or partial participation; and the sharded backend (mtgc,
+    hfedavg) like the simulator, with ``schedule.microbatches`` and
+    ``correction_dtype``. ``fused_mode`` takes None or "auto" (the reference's
     "pallas"/"interpret" have no counterpart: the kernel runs on a CUDA
     tensor, its plain version on a CPU tensor).
     """
@@ -208,24 +249,37 @@ class ExperimentSpec:
                                tuple(float(p) for p in self.level_participation))
 
     def validate(self) -> "ExperimentSpec":
-        _require(self.backend in BACKENDS,
-                 f"unknown backend {self.backend!r} (choose from {BACKENDS})")
-        self._validate_population()
-        if self.backend == "multilevel" or self.level_participation is not None:
-            raise _needs("the multilevel backend", MULTILEVEL_SLICE)
-        sharded = self.backend == "sharded"
-        _require(len(self.levels) == 2,
-                 f"the simulator and sharded backends are two-level (groups, clients), "
-                 f"got {self.levels}")
+        """Reject a contradictory spec with the reference's message, checking
+        in the reference's order (so the first rule a spec breaks names the
+        same fault in both packages). Returns the spec."""
+        _require(len(self.levels) >= 2,
+                 f"levels needs at least (groups, clients), got {self.levels}")
         _require(all(n >= 1 for n in self.levels),
                  f"every topology dim must be >= 1: {self.levels}")
+        _require(self.backend in BACKENDS,
+                 f"unknown backend {self.backend!r} (choose from {BACKENDS})")
+        _require(self.algorithm in ALGORITHMS,
+                 f"unknown algorithm {self.algorithm!r} (choose from {ALGORITHMS})")
+        _require(self.algorithm in BACKEND_ALGORITHMS[self.backend],
+                 f"algorithm {self.algorithm!r} is not implemented by the {self.backend!r} "
+                 f"backend (supported: {BACKEND_ALGORITHMS[self.backend]})")
+        _require(len(self.levels) == 2 or self.backend == "multilevel",
+                 f"{len(self.levels)}-level topologies need backend='multilevel', "
+                 f"got {self.backend!r}")
         self.schedule.validate(self.levels)
-        # Async group rounds: the reference's rejections of contradictory
-        # combinations.
+        _require(self.schedule.microbatches is None or self.backend == "sharded",
+                 "schedule.microbatches is a sharded-backend knob")
+        if self.backend == "multilevel":
+            self.schedule.level_periods(len(self.levels))
+
+        # Async group rounds.
         _require(self.staleness in STALENESS_POLICIES,
                  f"unknown staleness policy {self.staleness!r} "
                  f"(choose from {STALENESS_POLICIES})")
         uniform = self.schedule.is_uniform
+        _require(uniform or self.backend != "multilevel",
+                 "non-uniform group_rounds (async group rounds) are a two-level feature: the "
+                 "multilevel backend requires a uniform schedule")
         _require(self.staleness == "sync" or not uniform,
                  f"staleness={self.staleness!r} is a no-op with uniform group_rounds: stale "
                  "reports only arise when groups run different round counts -- set a "
@@ -239,95 +293,57 @@ class ExperimentSpec:
                  "async group rounds require correction_init='zero' (the gradient init has "
                  "no per-cycle analogue)")
         _require(uniform or self.server_lr == 1.0, "async group rounds require server_lr=1.0")
-        for name in ("client_participation", "group_participation"):
-            frac = getattr(self, name)
-            _require(0.0 < frac <= 1.0, f"{name} must be in (0, 1], got {frac}")
 
-        _require(self.algorithm in ALGORITHMS,
-                 f"unknown algorithm {self.algorithm!r} (choose from {ALGORITHMS})")
-        _require(self.algorithm in BACKEND_ALGORITHMS[self.backend],
-                 f"algorithm {self.algorithm!r} is not implemented by the {self.backend!r} "
-                 f"backend (supported: {BACKEND_ALGORITHMS[self.backend]})")
-        _require(self.schedule.microbatches is None or sharded,
-                 "schedule.microbatches is a sharded-backend knob")
-        _require(self.fused_mode is None or sharded,
-                 "fused_mode overrides the sharded backend's kernel dispatch")
-        _require(self.fused_mode in (None, "auto"),
-                 f"fused_mode {self.fused_mode!r} has no counterpart in the port: the kernel "
-                 "runs on a CUDA tensor, its plain version on a CPU tensor (None or 'auto')")
-        _require(self.correction_dtype is None
-                 or (sharded and self.state_layout == "tree"),
-                 "correction_dtype (narrow z/y storage) exists only on the sharded "
-                 "backend's tree layout")
-        if sharded:
-            _require(self.correction_init == "zero",
-                     "correction_init='gradient' is a simulator-engine feature")
-            for name in ("prox_mu", "feddyn_alpha"):
-                _require(getattr(self, name) == 0.0,
-                         f"{name} only affects the simulator engine's fedprox/feddyn "
-                         "algorithms")
-            _require(self.server_lr == 1.0, "server_lr is a simulator-engine knob")
         _require(self.state_layout in LAYOUTS,
                  f"unknown state_layout {self.state_layout!r} (choose from {LAYOUTS})")
         _require(self.fusion in FUSIONS,
                  f"unknown fusion {self.fusion!r} (choose from {FUSIONS})")
         _require(self.fusion == "none" or self.algorithm == "mtgc",
                  "fusion='fused' fuses exactly g + z + y: mtgc only")
+        _require(self.fusion == "none" or self.backend != "multilevel",
+                 "the multilevel backend has no fused-kernel path")
+        _require(self.fused_mode is None or self.backend == "sharded",
+                 "fused_mode overrides the sharded backend's kernel dispatch")
+        _require(self.fused_mode in (None, "auto"),
+                 f"fused_mode {self.fused_mode!r} has no counterpart in the port: the kernel "
+                 "runs on a CUDA tensor, its plain version on a CPU tensor (None or 'auto')")
+        _require(self.correction_dtype is None
+                 or (self.backend == "sharded" and self.state_layout == "tree"),
+                 "correction_dtype (narrow z/y storage) exists only on the sharded "
+                 "backend's tree layout")
+
         _require(self.correction_init in ("zero", "gradient"),
                  f"correction_init must be 'zero' or 'gradient', "
                  f"got {self.correction_init!r}")
+        _require(self.correction_init == "zero" or self.backend == "simulator",
+                 "correction_init='gradient' is a simulator-engine feature")
+        for name in ("prox_mu", "feddyn_alpha"):
+            _require(getattr(self, name) == 0.0 or self.backend == "simulator",
+                     f"{name} only affects the simulator engine's fedprox/feddyn "
+                     "algorithms")
+        _require(self.server_lr == 1.0 or self.backend == "simulator",
+                 "server_lr is a simulator-engine knob")
+
+        for name in ("client_participation", "group_participation"):
+            frac = getattr(self, name)
+            _require(0.0 < frac <= 1.0, f"{name} must be in (0, 1], got {frac}")
         _require(self.participation_mode in ("uniform", "fixed"),
                  f"participation_mode must be 'uniform' or 'fixed', "
                  f"got {self.participation_mode!r}")
         _require(self.participation_weighting in ("none", "inverse_prob"),
                  f"participation_weighting must be 'none' or 'inverse_prob', "
                  f"got {self.participation_weighting!r}")
+        if self.level_participation is not None:
+            _require(self.backend == "multilevel",
+                     "level_participation is a multilevel-backend knob; two-level backends "
+                     "use client_/group_participation")
+            _require(len(self.level_participation) == len(self.levels),
+                     "one participation fraction per level: "
+                     f"{len(self.level_participation)} for {len(self.levels)} levels")
+            _require(all(0.0 < p <= 1.0 for p in self.level_participation),
+                     f"participation fractions must be in (0, 1]: {self.level_participation}")
 
-        # Fault tolerance (the reference's rejections; the multilevel
-        # combinations raise their slice above).
-        if self.faults is not None:
-            self.faults.validate()
-        if self.defense is not None:
-            self.defense.validate()
-        if self.fault_mode or self.defended:
-            _require(self.population is None,
-                     "fault injection with a virtual population is follow-up work: screened "
-                     "slots would need store-side healing")
-            _require(self.correction_init == "zero",
-                     "fault injection / screened aggregation require correction_init='zero' "
-                     "(the gradient init has no crash-consistent analogue)")
-            _require(self.server_lr == 1.0,
-                     "fault injection / screened aggregation require server_lr=1.0")
-
-        # Compressed uploads (the reference's rejections; the multilevel
-        # combinations raise their slice above).
-        if self.compression is not None:
-            self.compression.validate()
-        if self.compressed:
-            _require(self.staleness == "sync" and self.schedule.is_uniform,
-                     "compressed uploads under an async schedule are not supported yet: "
-                     "stale reports would need their own residual timeline (see ROADMAP)")
-            _require(self.correction_init == "zero",
-                     "compressed uploads require correction_init='zero' "
-                     "(the gradient init predates the upload seam)")
-            _require(self.server_lr == 1.0, "compressed uploads require server_lr=1.0")
-            if self.compression.error_feedback:
-                _require(self.client_state == "stateful",
-                         "error feedback is per-client persistent state; client_state="
-                         "'stateless' contradicts it -- set CompressionPlan(error_feedback=False)")
-                _require(self.population is None,
-                         "error feedback with a virtual population is follow-up work: "
-                         "per-client residuals would need store-side gather/scatter like z; "
-                         "set CompressionPlan(error_feedback=False)")
-            else:
-                _require(self.population is None or self.compression.client_mode == "none",
-                         "client-link compression with a virtual population is follow-up work "
-                         "(the cohort seam predates the upload seam)")
-        return self
-
-    def _validate_population(self) -> None:
-        """The reference's rejections of contradictory virtual-population
-        specs (``src/repro/core/api.py``), with its messages."""
+        # Virtual populations.
         _require(self.client_state in CLIENT_STATES,
                  f"unknown client_state {self.client_state!r} "
                  f"(choose from {CLIENT_STATES})")
@@ -363,8 +379,58 @@ class ExperimentSpec:
                      "virtual populations require a uniform sync schedule: async per-group "
                      "cadences assume slot occupants persist across windows (follow-up work)")
 
+        # Fault tolerance.
+        if self.faults is not None:
+            self.faults.validate()
+        if self.defense is not None:
+            self.defense.validate()
+        if self.fault_mode or self.defended:
+            _require(self.backend != "multilevel",
+                     "fault injection / screened aggregation are two-level features "
+                     "(simulator and sharded backends); the multilevel backend is follow-up "
+                     "work")
+            _require(self.population is None,
+                     "fault injection with a virtual population is follow-up work: screened "
+                     "slots would need store-side healing")
+            _require(self.correction_init == "zero",
+                     "fault injection / screened aggregation require correction_init='zero' "
+                     "(the gradient init has no crash-consistent analogue)")
+            _require(self.server_lr == 1.0,
+                     "fault injection / screened aggregation require server_lr=1.0")
+
+        # Compressed uploads.
+        if self.compression is not None:
+            self.compression.validate()
+        if self.compressed:
+            _require(self.backend != "multilevel",
+                     "compressed uploads are a two-level feature (simulator and sharded "
+                     "backends); per-level plans for the multilevel backend are follow-up "
+                     "work")
+            _require(self.staleness == "sync" and self.schedule.is_uniform,
+                     "compressed uploads under an async schedule are not supported yet: "
+                     "stale reports would need their own residual timeline (see ROADMAP)")
+            _require(self.correction_init == "zero",
+                     "compressed uploads require correction_init='zero' "
+                     "(the gradient init predates the upload seam)")
+            _require(self.server_lr == 1.0, "compressed uploads require server_lr=1.0")
+            if self.compression.error_feedback:
+                _require(self.client_state == "stateful",
+                         "error feedback is per-client persistent state; client_state="
+                         "'stateless' contradicts it -- set CompressionPlan(error_feedback=False)")
+                _require(self.population is None,
+                         "error feedback with a virtual population is follow-up work: "
+                         "per-client residuals would need store-side gather/scatter like z; "
+                         "set CompressionPlan(error_feedback=False)")
+            else:
+                _require(self.population is None or self.compression.client_mode == "none",
+                         "client-link compression with a virtual population is follow-up work "
+                         "(the cohort seam predates the upload seam)")
+        return self
+
     @property
     def full_participation(self) -> bool:
+        if self.level_participation is not None:
+            return all(p >= 1.0 for p in self.level_participation)
         return self.client_participation >= 1.0 and self.group_participation >= 1.0
 
     @property
@@ -387,6 +453,15 @@ class ExperimentSpec:
         """True when the population exceeds the materialized cohort (cohort
         draws then sample; ``population == levels[1]`` materializes all)."""
         return self.population is not None and self.population > self.levels[1]
+
+    def participation_by_level(self) -> tuple[float, ...]:
+        """Per-level live-uplink fractions for the multilevel engine: the
+        ``level_participation``, else the two scalar fractions (groups at
+        level 1, clients at the deepest level, 1.0 between)."""
+        if self.level_participation is not None:
+            return self.level_participation
+        return ((self.group_participation,) + (1.0,) * (len(self.levels) - 2)
+                + (self.client_participation,))
 
     def staleness_plan(self):
         """The :class:`~repro_torch.core.staleness.StalenessPlan` this spec's
@@ -506,6 +581,50 @@ class _EngineBase:
         return (spec.fault_mode and spec.faults.timeout_rate > 0
                 and self._plan is not None)
 
+    # The driver layout (E, H[, A]) of one round's packed batches.
+    @property
+    def _pack_rounds(self) -> int:
+        return self.spec.schedule.max_group_rounds
+
+    @property
+    def _pack_steps(self) -> int:
+        return self.spec.schedule.local_steps
+
+    @property
+    def _pack_microbatches(self) -> int | None:
+        return None
+
+    def pack_arrays(self, data_arrays: dict[str, np.ndarray], indices: list, *,
+                    batch_size: int, shards: int = 16, rng: np.random.Generator,
+                    generator: torch.Generator | None = None) -> PackedBatches:
+        """Pack a partitioned array dataset for :func:`fit` (uploads once):
+        ``indices`` nests one index pool per client, as deep as ``levels``."""
+        _require(_index_depth(indices) == len(self.spec.levels),
+                 f"index nesting depth {_index_depth(indices)} does not "
+                 f"match levels={self.spec.levels}")
+        return pack_client_shards(
+            data_arrays, indices, group_rounds=self._pack_rounds,
+            local_steps=self._pack_steps, batch_size=batch_size, shards=shards,
+            microbatches=self._pack_microbatches, rng=rng, generator=generator,
+            device=self.device)
+
+    def pack_tokens(self, tokens, *, batch_size: int, seq_len: int, shards: int = 8,
+                    rng: np.random.Generator,
+                    generator: torch.Generator | None = None) -> PackedBatches:
+        """Pack an LM token stream (one shared stream, or ``[G][K]``
+        per-client streams) for :func:`fit`: ``seq_len`` windows, A
+        microbatches of ``batch_size`` a local step on the sharded backend
+        (uploads once). Two-level backends only."""
+        _require(len(self.spec.levels) == 2,
+                 "token packing is two-level; use pack_arrays with nested "
+                 "index pools for deeper trees")
+        G, K = self.spec.levels
+        return pack_lm_shards(
+            tokens, num_groups=G, clients_per_group=K, group_rounds=self._pack_rounds,
+            local_steps=self._pack_steps, batch_size=batch_size, seq_len=seq_len,
+            shards=shards, microbatches=self._pack_microbatches, rng=rng,
+            generator=generator, device=self.device)
+
     def _needs_rng(self) -> bool:
         """Whether the state carries a generator: participation masks, fault
         masks or stochastic-rounding noise, or a virtual population (the
@@ -571,17 +690,74 @@ class SimulatorEngine(_EngineBase):
             return as_tree(tree_map(lambda x: x[g, 0], state.params))
         return global_model(state)
 
-    def pack_arrays(self, data_arrays: dict[str, np.ndarray], indices: list, *,
-                    batch_size: int, shards: int = 16, rng: np.random.Generator,
-                    generator: torch.Generator | None = None) -> PackedBatches:
-        """Pack a partitioned array dataset for :func:`fit` (uploads once)."""
-        _require(_index_depth(indices) == len(self.spec.levels),
-                 f"index nesting depth {_index_depth(indices)} does not "
-                 f"match levels={self.spec.levels}")
-        return pack_client_shards(
-            data_arrays, indices, group_rounds=self.spec.schedule.max_group_rounds,
-            local_steps=self.spec.schedule.local_steps, batch_size=batch_size,
-            shards=shards, rng=rng, generator=generator, device=self.device)
+
+
+class MultiLevelMetrics(NamedTuple):
+    """Metrics of the multilevel backend (losses only)."""
+
+    loss: torch.Tensor  # [P_1] mean training loss per local step
+
+
+class MultiLevelEngine(_EngineBase):
+    """Appendix E's M-level engine (``core.multilevel``) behind the uniform
+    surface.
+
+    spec: the validated :class:`ExperimentSpec` (``backend="multilevel"``).
+    device: where the state and the packed data live.
+    round_fn: ``(state, batches, draws=None) -> (state, metrics)`` over the
+        driver layout ``[E, H, *dims, ...]`` (``E * H = P_1``); it merges the
+        two leading axes into ``legacy_round_fn``'s ``[P_1, *dims, ...]``.
+        ``draws`` (M masks, ``masks[m]`` of shape ``dims[:m + 1]``) replaces
+        a partial-participation round's draw.
+    metric_fields: the names of :class:`MultiLevelMetrics`' fields.
+    """
+
+    def __init__(self, spec: ExperimentSpec, loss_fn: LossFn, device: torch.device):
+        from repro_torch.core import multilevel as _ml
+
+        self.spec = spec
+        self.loss_fn = loss_fn
+        self.device = device
+        self.metric_fields = MultiLevelMetrics._fields
+        self.legacy_round_fn = _ml._build_multilevel_round(
+            loss_fn, spec.levels, spec.schedule.level_periods(len(spec.levels)), spec.lr,
+            participation=None if spec.full_participation else spec.participation_by_level(),
+            participation_mode=spec.participation_mode,
+            participation_weighting=spec.participation_weighting)
+        E, H, raw = self._pack_rounds, self._pack_steps, self.legacy_round_fn
+
+        def round_fn(state, batches, draws=None):
+            merged = tree_map(lambda b: b.reshape((E * H,) + tuple(b.shape[2:])), batches)
+            state, losses = raw(state, merged, draws=draws)
+            return state, MultiLevelMetrics(loss=losses)
+
+        self.round_fn = round_fn
+
+    @property
+    def _pack_rounds(self) -> int:
+        periods = self.spec.schedule.level_periods(len(self.spec.levels))
+        return periods[0] // periods[-1]
+
+    @property
+    def _pack_steps(self) -> int:
+        return self.spec.schedule.level_periods(len(self.spec.levels))[-1]
+
+    def init(self, params: Tree, rng: torch.Generator | None = None):
+        """Broadcast one model to every leaf on the engine's device, in the
+        spec's layout, with zero corrections; without ``rng`` the state gets
+        a generator on the device seeded with 0 (the reference's
+        ``PRNGKey(0)``)."""
+        from repro_torch.core.multilevel import multilevel_init
+
+        return multilevel_init(params, self.spec.levels, rng,
+                               use_flat_state=self.spec.state_layout == "flat",
+                               device=self.device)
+
+    def global_model(self, state) -> Tree:
+        """The global model, read from leaf client 0 (flat states unpacked)."""
+        from repro_torch.core.multilevel import multilevel_global_model
+
+        return multilevel_global_model(state)
 
 
 class ShardedEngine(_EngineBase):
@@ -619,6 +795,10 @@ class ShardedEngine(_EngineBase):
     def microbatches(self) -> int:
         return self.spec.schedule.microbatches or 1
 
+    @property
+    def _pack_microbatches(self) -> int:
+        return self.microbatches
+
     def init(self, params: Tree, rng: torch.Generator | None = None):
         """Broadcast one model into the ``[G, K]`` state on the engine's
         device, with the error-feedback residuals the compression plan
@@ -651,36 +831,9 @@ class ShardedEngine(_EngineBase):
         g = 0 if self._plan is None else self._plan.fastest_group
         return as_tree(tree_map(lambda x: x[g, 0], state.params))
 
-    def pack_arrays(self, data_arrays: dict[str, np.ndarray], indices: list, *,
-                    batch_size: int, shards: int = 16, rng: np.random.Generator,
-                    generator: torch.Generator | None = None) -> PackedBatches:
-        """Pack a partitioned array dataset for :func:`fit`, A microbatches
-        of ``batch_size`` a local step (uploads once)."""
-        _require(_index_depth(indices) == len(self.spec.levels),
-                 f"index nesting depth {_index_depth(indices)} does not "
-                 f"match levels={self.spec.levels}")
-        return pack_client_shards(
-            data_arrays, indices, group_rounds=self.spec.schedule.max_group_rounds,
-            local_steps=self.spec.schedule.local_steps, batch_size=batch_size,
-            shards=shards, microbatches=self.microbatches, rng=rng, generator=generator,
-            device=self.device)
 
-    def pack_tokens(self, tokens, *, batch_size: int, seq_len: int, shards: int = 8,
-                    rng: np.random.Generator,
-                    generator: torch.Generator | None = None) -> PackedBatches:
-        """Pack an LM token stream (one shared stream, or ``[G][K]``
-        per-client streams) for :func:`fit`: ``seq_len`` windows, A
-        microbatches of ``batch_size`` a local step (uploads once)."""
-        G, K = self.spec.levels
-        return pack_lm_shards(
-            tokens, num_groups=G, clients_per_group=K,
-            group_rounds=self.spec.schedule.max_group_rounds,
-            local_steps=self.spec.schedule.local_steps, batch_size=batch_size,
-            seq_len=seq_len, shards=shards, microbatches=self.microbatches, rng=rng,
-            generator=generator, device=self.device)
-
-
-_ENGINES = {"simulator": SimulatorEngine, "sharded": ShardedEngine}
+_ENGINES = {"simulator": SimulatorEngine, "multilevel": MultiLevelEngine,
+            "sharded": ShardedEngine}
 
 
 def build(spec: ExperimentSpec, loss_fn: LossFn, *, device=None):
@@ -692,7 +845,7 @@ def build(spec: ExperimentSpec, loss_fn: LossFn, *, device=None):
 
 
 def fit(
-    engine: SimulatorEngine | ShardedEngine,
+    engine: SimulatorEngine | MultiLevelEngine | ShardedEngine,
     data: PackedBatches,
     T: int,
     *,
@@ -716,7 +869,7 @@ def fit(
 
     Pass either a ready ``state`` (to continue a run, with the previous
     ``horizon.data``) or the initial model ``params``. ``shard_ids``
-    (``[T, E, G, K]``) fixes the per-round shard selection; otherwise it is
+    (``[T, E, *levels]``) fixes the per-round shard selection; otherwise it is
     drawn from ``data.generator``. ``draws`` (T ``RoundDraws``, or None
     entries) fixes rounds' random draws. ``guard`` (a ``GuardSpec``, or
     True for the defaults) makes the horizon self-heal: each chunk is
@@ -1009,6 +1162,8 @@ __all__ = [
     "GuardSpec",
     "Horizon",
     "LAYOUTS",
+    "MultiLevelEngine",
+    "MultiLevelMetrics",
     "PackedBatches",
     "PopulationStore",
     "RoundSchedule",

@@ -27,6 +27,7 @@ the device, and ``run_rounds`` (port of ``src/repro/core/driver.py``).
 from __future__ import annotations
 
 import hashlib
+import math
 import time
 from typing import Any, Callable, NamedTuple
 
@@ -43,36 +44,43 @@ class PackedBatches:
 
     arrays: dict of tensors ``[G, K, S, steps, B, ...]`` -- ``S``
         pre-sampled blocks per client, each holding ``steps = H * (A or 1)``
-        step-batches.
+        step-batches. Deeper topologies (the multilevel backend) carry all
+        their client axes up front: ``[*dims, S, steps, ...]`` with
+        ``topo_ndim = len(dims)``.
     generator: the ``torch.Generator`` that draws the shard ids; it
         advances in place, so passing the same object to a later
         ``run_rounds`` continues the stream.
     group_rounds / local_steps: the static layout (E, H) of one round.
     microbatches: A, the sharded backend's gradient-accumulation chunks per
         local step, or None (the simulator's layout, no A axis).
+    topo_ndim: how many leading axes index the client topology (2 for the
+        two-level engines, M for an M-level tree).
     """
 
-    __slots__ = ("arrays", "generator", "group_rounds", "local_steps", "microbatches")
+    __slots__ = ("arrays", "generator", "group_rounds", "local_steps", "microbatches",
+                 "topo_ndim")
 
     def __init__(self, arrays: dict, generator: torch.Generator,
-                 group_rounds: int, local_steps: int, microbatches: int | None = None):
+                 group_rounds: int, local_steps: int, microbatches: int | None = None,
+                 topo_ndim: int = 2):
         self.arrays = arrays
         self.generator = generator
         self.group_rounds = int(group_rounds)
         self.local_steps = int(local_steps)
         self.microbatches = None if microbatches is None else int(microbatches)
+        self.topo_ndim = int(topo_ndim)
 
     @property
     def _first(self) -> torch.Tensor:
         return next(iter(self.arrays.values()))
 
     @property
-    def topology(self) -> tuple[int, int]:
-        return tuple(self._first.shape[:2])
+    def topology(self) -> tuple[int, ...]:
+        return tuple(self._first.shape[:self.topo_ndim])
 
     @property
     def num_shards(self) -> int:
-        return self._first.shape[2]
+        return self._first.shape[self.topo_ndim]
 
     def __repr__(self) -> str:
         shapes = [tuple(x.shape) for x in self.arrays.values()]
@@ -81,31 +89,33 @@ class PackedBatches:
 
 
 def draw_shard_ids(data: PackedBatches) -> torch.Tensor:
-    """One shard index per (group round, client): int64 ``[E, G, K]``,
-    drawn from ``data.generator``."""
+    """One shard index per (group round, client): int64 ``[E, *dims]``
+    (``[E, G, K]`` on the two-level engines), drawn from ``data.generator``."""
     return torch.randint(0, data.num_shards, (data.group_rounds,) + data.topology,
                          generator=data.generator, device=data.generator.device)
 
 
 def select_round(data: PackedBatches, sid) -> dict:
     """Gather one global round of batches from the packed shards, on the
-    device. ``sid``: ``[E, G, K]`` shard indices. Returns tensors
-    ``[E, H, G, K, B, ...]``, or ``[E, H, A, G, K, B, ...]`` when the data
-    carries ``A`` microbatches."""
+    device. ``sid``: ``[E, *dims]`` shard indices. Returns tensors
+    ``[E, H, *dims, B, ...]``, or ``[E, H, A, *dims, B, ...]`` when the data
+    carries ``A`` microbatches (``dims`` is ``(G, K)`` on the two-level
+    engines)."""
     E, H, A = data.group_rounds, data.local_steps, data.microbatches
-    G, K = data.topology
-    P = G * K
+    dims = data.topology
+    P = math.prod(dims)
     device = data._first.device
     sid = torch.as_tensor(sid).to(device=device, dtype=torch.int64)
-    if tuple(sid.shape) != (E, G, K):
-        raise ValueError(f"shard ids must be [E, G, K] = {(E, G, K)}, got {tuple(sid.shape)}")
+    if tuple(sid.shape) != (E,) + dims:
+        raise ValueError(f"shard ids must be [E, *dims] = {(E,) + dims}, "
+                         f"got {tuple(sid.shape)}")
     rows = torch.arange(P, device=device)[None, :]
     sid = sid.reshape(E, P)
 
     def gather(leaf):
-        sel = leaf.reshape((P,) + tuple(leaf.shape[2:]))[rows, sid]   # [E, P, steps, ...]
-        sel = sel.movedim(2, 1)                                        # [E, steps, P, ...]
-        sel = sel.reshape(tuple(sel.shape[:2]) + (G, K) + tuple(sel.shape[3:]))
+        sel = leaf.reshape((P,) + tuple(leaf.shape[len(dims):]))[rows, sid]  # [E, P, steps, ...]
+        sel = sel.movedim(2, 1)                                              # [E, steps, P, ...]
+        sel = sel.reshape(tuple(sel.shape[:2]) + dims + tuple(sel.shape[3:]))
         if A is None:
             return sel
         return sel.reshape((E, H, A) + tuple(sel.shape[2:]))
@@ -128,24 +138,30 @@ def pack_client_shards(
 ) -> PackedBatches:
     """Pack a partitioned array dataset (``data.partition``) for the driver.
 
-    For every client (row-major over ``indices[g][k]``), pre-samples
-    ``shards`` blocks of ``steps x batch_size`` examples (``steps =
-    local_steps * (microbatches or 1)``) with replacement from its index
-    pool with numpy's ``rng.choice`` -- draw for draw as the reference
-    packs -- and uploads the gathered features once as
-    ``[G, K, S, steps, B, ...]`` tensors on ``device``. ``generator``
-    (default: a CPU generator seeded with 0) draws the per-round shard ids.
+    ``indices`` nests the per-client index pools: ``[G][K]`` for the
+    two-level engines, ``[N_1][N_2]...[N_M]`` for an M-level tree (the
+    nesting depth becomes ``topo_ndim``). For every client, in row-major
+    order, pre-samples ``shards`` blocks of ``steps x batch_size`` examples
+    (``steps = local_steps * (microbatches or 1)``) with replacement from
+    its pool with numpy's ``rng.choice`` -- draw for draw as the reference
+    packs -- and uploads the gathered features once as ``[*dims, S, steps,
+    B, ...]`` tensors on ``device``. ``generator`` (default: a CPU generator
+    seeded with 0) draws the per-round shard ids.
     """
     steps = local_steps * (microbatches or 1)
-    sel = np.stack([
-        np.stack([rng.choice(pool, size=(shards, steps, batch_size), replace=True)
-                  for pool in group])
-        for group in indices])                                     # [G, K, S, steps, B]
+
+    def draw(node):
+        if isinstance(node, (list, tuple)):
+            return np.stack([draw(child) for child in node])
+        return rng.choice(node, size=(shards, steps, batch_size), replace=True)
+
+    sel = draw(indices)                                            # [*dims, S, steps, B]
     arrays = {name: torch.from_numpy(np.ascontiguousarray(arr[sel])).to(device)
               for name, arr in data_arrays.items()}
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return PackedBatches(arrays, generator, group_rounds, local_steps, microbatches)
+    return PackedBatches(arrays, generator, group_rounds, local_steps, microbatches,
+                         topo_ndim=sel.ndim - 3)
 
 
 def pack_lm_shards(
@@ -265,8 +281,12 @@ _GUARD_FIELDS = ("z", "y", "dyn", "glob")
 
 
 def _tensor_leaves(tree) -> list:
+    """The tensors of a tree, a list of trees or a tuple of trees (a
+    multilevel state's ``nus``), in leaf order."""
     from repro_torch.core.tree import tree_leaves
 
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in _tensor_leaves(sub)]
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
@@ -359,7 +379,7 @@ def dispatch_chunk(round_fn: Callable, state: Tree, data: PackedBatches, mask: n
     ``round_fn``) without a host synchronization of its own (the
     reference's ``dispatch_chunk``), so the host may work (a population
     store's gather) while the card runs them; once the card's launch queue
-    is full, queuing itself waits for the card. ``shard_ids`` (``[T, E, G, K]``) and
+    is full, queuing itself waits for the card. ``shard_ids`` (``[T, E, *dims]``) and
     ``draws`` (T entries) are indexed by the global round ``done + i``;
     ``eval_fn(prev, state)`` runs where ``mask`` is True. Returns ``(state,
     metrics, evals)``: per-round results still on the device, for
@@ -415,8 +435,8 @@ def run_rounds(
 ) -> tuple[Tree, PackedBatches, Horizon]:
     """Run ``T`` global rounds of (batch selection + ``round_fn``).
 
-    ``shard_ids`` (optional, ``[T, E, G, K]``) fixes every round's shard
-    selection; otherwise each round draws ``[E, G, K]`` ids from
+    ``shard_ids`` (optional, ``[T, E, *dims]``) fixes every round's shard
+    selection; otherwise each round draws ``[E, *dims]`` ids from
     ``data.generator``. ``draws`` (optional, T entries, each a
     ``RoundDraws`` or None) fixes rounds' random draws
     (``round_fn(state, batches, draws=...)``); a retry replays them as

@@ -24,8 +24,7 @@ weighting), compressed uploads (``core.compression``) with error
 feedback, and fault injection with screened aggregation
 (``core.faults``), and async group rounds (``core.staleness``); virtual
 client populations wrap it from outside (``core.population``). The
-multilevel backend is a later slice of the port; asking for it raises
-``ValueError`` naming the slice.
+M-level generalization (Appendix E) is ``core.multilevel``.
 
 Async group rounds (``plan=``, a ``core.staleness.StalenessPlan``): a
 window runs ``e_pad = max(E_g)`` group rounds; the static iteration mask

@@ -28,7 +28,7 @@ from repro_torch import api as tapi  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.checkpoint import latest_step, restore, save  # noqa: E402
 from repro_torch.core.config import HFLConfig  # noqa: E402
-from repro_torch.core.driver import select_round  # noqa: E402
+from repro_torch.core.driver import PackedBatches, select_round  # noqa: E402
 from repro_torch.core.engine import hfl_init  # noqa: E402
 from repro_torch.core.population import PopulationStore  # noqa: E402
 from test_torch_population import (  # noqa: E402
@@ -295,3 +295,116 @@ def test_population_pair_crosses(layout, tmp_path):
     back = jckpt.restore(str(tmp_path / "t"), 1, {"population": jstore})
     np.testing.assert_array_equal(np.asarray(back["population"].data["z"]["float32"]),
                                   np.asarray(jstore.data["z"]["float32"]))
+
+
+# ------------------------------------------------------------ multilevel
+
+ML_DIMS, ML_PERIODS = (2, 2, 3), (8, 4, 2)
+
+
+def _ml_spec(api, layout, **kw):
+    return api.ExperimentSpec(levels=ML_DIMS, backend="multilevel", lr=0.05,
+                              schedule=api.RoundSchedule(periods=ML_PERIODS),
+                              state_layout=layout, **kw)
+
+
+def _ml_batches(seed=0):
+    rng = np.random.default_rng(seed)
+    lead = (ML_PERIODS[0] // ML_PERIODS[-1], ML_PERIODS[-1]) + ML_DIMS + (D,)
+    return {"a": (rng.normal(size=lead) + 2.0).astype(np.float32),
+            "b": rng.normal(size=lead).astype(np.float32)}
+
+
+def assert_ml_equal(a, b, tag):
+    """params and every nu of two multilevel states, bit for bit."""
+    for m, (x, y) in enumerate(zip([a.params, *a.nus], [b.params, *b.nus])):
+        x, y = convert.to_numpy(x), convert.to_numpy(y)
+        assert x.keys() == y.keys(), tag
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k], err_msg=f"{tag}: leaf {m}/{k}")
+
+
+@pytest.mark.parametrize("layout", ["tree", "flat"])
+def test_multilevel_state_roundtrip_bitexact(layout, tmp_path):
+    """A multilevel state under partial participation (its generator draws
+    the level masks) survives save -> restore, under the reference's key
+    paths (``.nus||[m]||...``), and one more round from the restored state
+    is bit-identical."""
+    from test_torch_population import tquad
+
+    engine = tapi.build(_ml_spec(tapi, layout, level_participation=(1.0, 0.5, 0.5)), tquad,
+                        device="cpu")
+    b = {k: torch.from_numpy(v) for k, v in _ml_batches().items()}
+    state = engine.round_fn(engine.init({"w": torch.ones(D)}, torch.Generator().manual_seed(3)),
+                            b)[0]
+    path = save(str(tmp_path), 1, state)
+    leaf = "['float32']" if layout == "flat" else "['w']"
+    assert _keys(path) == [".params||" + leaf] + [f".nus||[{m}]||{leaf}" for m in range(3)] + [
+        ".rng"]
+    like = engine.init({"w": torch.zeros(D)}, torch.Generator().manual_seed(0))
+    restored = restore(str(tmp_path), 1, like)
+    assert_ml_equal(restored, state, f"{layout}/roundtrip")
+    assert torch.equal(restored.rng.get_state(), state.rng.get_state())
+    assert_ml_equal(engine.round_fn(restored, b)[0], engine.round_fn(state, b)[0],
+                    f"{layout}/one-round")
+
+
+@pytest.mark.parametrize("layout", ["tree", "flat"])
+def test_reference_multilevel_checkpoint_restores_into_port(layout, tmp_path):
+    """A reference multilevel save (after one round, so nu_1 is nonzero; the
+    round's last aggregation re-initializes the deeper nus) restores into
+    the port's state bit for bit, with the same npz keys as the port's own
+    save; the reference's JAX key reseeds the generator."""
+    from test_mtgc_engine import quad_loss as jquad
+    from test_torch_population import tquad
+
+    from repro import api as japi
+    from repro.core.packer import as_tree as jas_tree
+
+    jeng = japi.build(_ml_spec(japi, layout), jquad)
+    teng = tapi.build(_ml_spec(tapi, layout), tquad, device="cpu")
+    jstate = jeng.round_fn(jeng.init({"w": jnp.ones(D)}, jax.random.PRNGKey(5)),
+                           {k: jnp.asarray(v) for k, v in _ml_batches(1).items()})[0]
+    jpath = jckpt.save(str(tmp_path / "j"), 3, jstate)
+    got = restore(str(tmp_path / "j"), 3, teng.init({"w": torch.zeros(D)}))
+    for t, j in zip([got.params, *got.nus], [jstate.params, *jstate.nus]):
+        t = convert.to_numpy(t)
+        j = {k: np.asarray(v) for k, v in (j.bufs if hasattr(j, "bufs") else j).items()}
+        assert t.keys() == j.keys()
+        for k in j:
+            np.testing.assert_array_equal(t[k], j[k])
+    assert np.abs(np.asarray(jas_tree(jstate.nus[0])["w"])).max() > 0
+    w0, w1 = (int(v) for v in np.asarray(jstate.rng))
+    assert torch.equal(got.rng.get_state(),
+                       torch.Generator().manual_seed((w0 << 32) | w1).get_state())
+    assert _keys(save(str(tmp_path / "t"), 3, got)) == _keys(jpath)
+
+
+def test_multilevel_fit_resume_bitexact(tmp_path):
+    """``fit(checkpoint_every=2)`` on the multilevel engine, then
+    ``resume=True`` after the last checkpoint is lost: bit for bit the
+    uninterrupted run."""
+    from test_torch_population import tquad
+
+    engine = tapi.build(_ml_spec(tapi, "flat", level_participation=(1.0, 0.5, 0.5)), tquad,
+                        device="cpu")
+    rng = np.random.default_rng(4)
+    shape = ML_DIMS + (3, ML_PERIODS[-1], D)
+    arrays = {"a": torch.from_numpy((rng.normal(size=shape) + 2.0).astype(np.float32)),
+              "b": torch.from_numpy(rng.normal(size=shape).astype(np.float32))}
+
+    def packed(seed):
+        return PackedBatches(arrays, torch.Generator().manual_seed(seed),
+                             ML_PERIODS[0] // ML_PERIODS[-1], ML_PERIODS[-1], topo_ndim=3)
+
+    p = {"w": torch.ones(D)}
+    sA, hA = tapi.fit(engine, packed(1), 6, params=p, rng=torch.Generator().manual_seed(3),
+                      checkpoint_every=2, checkpoint_path=str(tmp_path))
+    assert latest_step(str(tmp_path)) == 6
+    for q in tmp_path.glob("*0006*"):
+        q.unlink()
+    sB, hB = tapi.fit(engine, packed(99), 6, params=p, rng=torch.Generator().manual_seed(3),
+                      checkpoint_every=2, checkpoint_path=str(tmp_path), resume=True)
+    assert_ml_equal(sA, sB, "resume")
+    assert torch.equal(sA.rng.get_state(), sB.rng.get_state())
+    np.testing.assert_array_equal(hB.metrics.loss, hA.metrics.loss[4:])

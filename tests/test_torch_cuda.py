@@ -1084,3 +1084,38 @@ def test_checkpoint_of_a_card_state_restores_onto_the_card(cuda, tmp_path):
     b = eng.round_fn(got, select_round(data, sid))[0]
     for f in ("params", "z", "y"):
         assert torch.equal(getattr(a, f).bufs["float32"], getattr(b, f).bufs["float32"]), f
+
+
+@pytest.mark.parametrize("layout", ["tree", "flat"])
+@pytest.mark.parametrize("participation", [None, (1.0, 0.5, 0.5)], ids=["full", "partial"])
+def test_multilevel_round_on_card_matches_cpu(cuda, layout, participation):
+    """One round of the multilevel backend (a small CNN on a 2 x 2 x 3
+    tree, periods (4, 2, 1)) on the card against the same round on the
+    CPU, masks injected: params and every nu within rtol 1e-4 (the
+    convolutions sum in another order on each device)."""
+    from repro_torch.core.packer import as_tree
+
+    init, apply = small.cnn(10, (8, 8, 1))
+    p = init(torch.Generator().manual_seed(3), device="cpu")
+    dims = (2, 2, 3)
+    spec = api.ExperimentSpec(levels=dims, backend="multilevel", lr=0.05, state_layout=layout,
+                              schedule=api.RoundSchedule(periods=(4, 2, 1)),
+                              level_participation=participation)
+    rng = np.random.default_rng(3)
+    b = {"x": torch.from_numpy(rng.normal(size=(4, 1) + dims + (4, 8, 8, 1)).astype(np.float32)),
+         "y": torch.from_numpy(rng.integers(0, 10, size=(4, 1) + dims + (4,)).astype(np.int32))}
+    masks = None
+    if participation is not None:
+        masks = [torch.ones(2), torch.tensor([1.0, 0.0]).repeat(2, 1),
+                 torch.tensor([[[1.0, 0.0, 1.0], [0.0, 1.0, 1.0]]]).repeat(2, 1, 1)]
+    outs = []
+    for dev in (cuda, "cpu"):
+        eng = api.build(spec, small.make_loss(apply), device=dev)
+        st, met = eng.round_fn(eng.init(p), {k: v.to(dev) for k, v in b.items()}, draws=masks)
+        assert bool(torch.isfinite(met.loss).all())
+        outs.append([convert.to_numpy(as_tree(t)) for t in (st.params, *st.nus)])
+    for got, want in zip(*outs):
+        for name in want:
+            for leaf in want[name]:
+                np.testing.assert_allclose(got[name][leaf], want[name][leaf], rtol=1e-4,
+                                           atol=1e-5, err_msg=f"{name}/{leaf}")

@@ -20,6 +20,7 @@ port's simulator engine, against the JAX package, on the CPU.
   reseeded draws, and ``retry_round_fn``; ``fit(guard=True)``.
 """
 import dataclasses
+import re
 
 import pytest
 
@@ -660,10 +661,10 @@ def test_api_validation_rejects_contradictions():
         dict(population=8, levels=(2, 4), faults=tapi.FaultPlan(crash_rate=0.1)),
     ]
     for kw in bad:
-        with pytest.raises(ValueError):
-            tapi.ExperimentSpec(**kw).validate()
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError) as want:
             japi.ExperimentSpec(**{k: _tplan_any(v) for k, v in kw.items()}).validate()
+        with pytest.raises(ValueError, match=f"^{re.escape(str(want.value))}$"):
+            tapi.ExperimentSpec(**kw).validate()
     # A disabled plan is not fault mode: the combination becomes legal.
     tapi.ExperimentSpec(server_lr=0.5, faults=tapi.FaultPlan()).validate()
     spec = tapi.ExperimentSpec(faults=tapi.FaultPlan(crash_rate=0.1), defense=tapi.DefensePlan())

@@ -43,7 +43,8 @@ def test_port_files_exist():
             "configs/rwkv6_1_6b.py", "models/layers.py", "models/rwkv6.py",
             "models/transformer.py", "launch/serve.py", "launch/train.py",
             "core/staleness.py", "core/faults.py", "core/compression.py",
-            "core/population.py", "checkpoint/__init__.py", "checkpoint/checkpoint.py"} <= names
+            "core/population.py", "checkpoint/__init__.py", "checkpoint/checkpoint.py",
+            "core/multilevel.py"} <= names
     for src in ("mtgc_update", "quantize", "flash_attention", "rwkv6_scan"):
         assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file()
     assert (ROOT / "chip_smoke.py").is_file()
@@ -61,7 +62,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs.qwen3_14b, repro_torch.configs.rwkv6_1_6b, "
             "repro_torch.models.transformer, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.core.staleness, "
-            "repro_torch.core.population, repro_torch.checkpoint; "
+            "repro_torch.core.population, repro_torch.checkpoint, "
+            "repro_torch.core.multilevel; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

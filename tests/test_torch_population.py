@@ -334,11 +334,9 @@ def test_stateless_fit_has_no_store():
         "cohort-mismatch", "too-small", "client-participation", "group-participation"])
 def test_validate_rejects_contradictions(kw, match):
     """The reference's rejections (its test's cases and patterns), with the
-    reference's own messages. One exception: the reference rejects the
-    three-level spec in its multilevel schedule check ("... only define the
-    two-level schedule") before it reaches the population rules; the port,
-    which has no multilevel backend yet, rejects it in the population rule
-    "a virtual population is two-level", the same pattern."""
+    reference's own messages (the three-level spec fails the multilevel
+    schedule check, "... only define the two-level schedule", before the
+    population rules, in both packages)."""
     base = dict(levels=(G, K), algorithm="mtgc", lr=LR)
     with pytest.raises(ValueError, match=match) as want:
         japi.ExperimentSpec(schedule=japi.RoundSchedule(group_rounds=E, local_steps=H),
@@ -346,10 +344,7 @@ def test_validate_rejects_contradictions(kw, match):
     with pytest.raises(ValueError, match=match) as got:
         tapi.ExperimentSpec(schedule=tapi.RoundSchedule(group_rounds=E, local_steps=H),
                             **{**base, **kw}).validate()
-    if len(kw.get("levels", base["levels"])) == 2:
-        assert str(got.value) == str(want.value)
-    else:
-        assert str(got.value).startswith("a virtual population is two-level")
+    assert str(got.value) == str(want.value)
 
 
 def test_validate_accepts_virtual_combinations():

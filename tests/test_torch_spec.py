@@ -1,7 +1,8 @@
-"""The port's ExperimentSpec: the reference's field list, later-slice
-fields rejected by name (partial participation, compressed uploads, faults,
-defense, async group rounds and virtual populations are accepted, with the
-reference's rejections), and no quiet CPU run on a host without CUDA."""
+"""The port's ExperimentSpec: the reference's field list, the reference's
+rejections with its messages (partial participation, compressed uploads,
+faults, defense, async group rounds, virtual populations and the multilevel
+backend are accepted where the reference accepts them), and no quiet CPU
+run on a host without CUDA."""
 import dataclasses
 
 import pytest
@@ -28,20 +29,95 @@ def test_field_list_equals_reference():
             == [(f.name, f.default) for f in dataclasses.fields(JHFLConfig)])
 
 
-@pytest.mark.parametrize("kwargs,slice_name", [
-    # Faults and defense run on both engines; with a later slice's field
-    # they still name that slice.
-    ({"group_participation": 0.5, "defense": tapi.DefensePlan(),
-      "backend": "multilevel"}, "multilevel-backend"),
-    ({"backend": "multilevel"}, "multilevel-backend"),
-    ({"level_participation": (1.0, 1.0)}, "multilevel-backend"),
-])
-def test_later_slice_fields_raise_naming_the_slice(kwargs, slice_name):
-    spec = tapi.ExperimentSpec(levels=(2, 2), **kwargs)
-    with pytest.raises(ValueError, match=f"the {slice_name} slice of the port"):
-        spec.validate()
-    with pytest.raises(ValueError, match=slice_name):
-        tapi.build(spec, lambda p, b: None, device="cpu")
+@pytest.mark.parametrize("kwargs", [
+    # The three specs that named the multilevel-backend slice before it was
+    # ported (levels (2, 2)).
+    {"group_participation": 0.5, "defense": tapi.DefensePlan(), "backend": "multilevel"},
+    {"backend": "multilevel"},
+    {"level_participation": (1.0, 1.0)},
+    # M-level specs the reference accepts.
+    {"levels": (2, 2, 3), "backend": "multilevel",
+     "schedule": tapi.RoundSchedule(periods=(8, 4, 2))},
+    {"levels": (2, 2, 3), "backend": "multilevel", "state_layout": "tree",
+     "schedule": tapi.RoundSchedule(periods=(8, 4, 2)), "level_participation": (1.0, 0.8, 0.6),
+     "participation_weighting": "inverse_prob"},
+    {"levels": (2, 2), "backend": "multilevel",
+     "schedule": tapi.RoundSchedule(group_rounds=2, local_steps=4, periods=(8, 4))},
+    # M-level periods rejections.
+    {"levels": (2, 2, 3), "backend": "multilevel"},
+    {"levels": (2, 2, 3), "backend": "multilevel", "schedule": tapi.RoundSchedule(periods=(8, 4))},
+    {"levels": (2, 2, 3), "backend": "multilevel",
+     "schedule": tapi.RoundSchedule(periods=(8, 3, 2))},
+    {"levels": (2, 2), "backend": "multilevel",
+     "schedule": tapi.RoundSchedule(group_rounds=5, local_steps=2, periods=(8, 4))},
+    {"levels": (2, 2), "backend": "multilevel",
+     "schedule": tapi.RoundSchedule(group_rounds=(2, 1), periods=(8, 4))},
+    {"schedule": tapi.RoundSchedule(periods=(4, 2, 1))},
+    {"levels": (2, 2, 3), "schedule": tapi.RoundSchedule(periods=(8, 4, 2))},
+    # level_participation rejections.
+    {"levels": (2, 2, 3), "backend": "multilevel", "level_participation": (0.5, 0.5),
+     "schedule": tapi.RoundSchedule(periods=(8, 4, 2))},
+    {"levels": (2, 2, 3), "backend": "multilevel", "level_participation": (0.5, 0.0, 1.0),
+     "schedule": tapi.RoundSchedule(periods=(8, 4, 2))},
+    {"levels": (2, 2, 3), "level_participation": (0.5, 0.5, 0.5)},
+    # What the multilevel backend does not do.
+    {"backend": "multilevel", "algorithm": "hfedavg"},
+    {"backend": "multilevel", "fusion": "fused"},
+    {"backend": "multilevel", "compression": tapi.CompressionPlan("int8_stochastic")},
+    {"backend": "multilevel", "faults": tapi.FaultPlan(crash_rate=0.1)},
+    {"backend": "multilevel", "population": 4},
+    {"backend": "multilevel", "schedule": tapi.RoundSchedule(group_rounds=(2, 1)),
+     "staleness": "naive"},
+    {"backend": "multilevel", "correction_init": "gradient"},
+], ids=["defense-partial", "multilevel", "level-participation-simulator", "three-level",
+        "three-level-partial", "two-level-periods", "three-level-no-periods",
+        "periods-length", "periods-nest", "periods-conflict", "periods-async",
+        "periods-simulator", "three-level-simulator", "level-participation-length",
+        "level-participation-range", "level-participation-three-level-simulator",
+        "hfedavg", "fused", "compressed", "faults", "population", "async", "gradient-init"])
+def test_multilevel_specs_match_reference(kwargs):
+    """A multilevel spec the reference accepts builds on the port and runs a
+    round; one it rejects raises the reference's own message."""
+    import numpy as np
+
+    jspec = japi.ExperimentSpec(**_reference_kwargs(kwargs))
+    tspec = tapi.ExperimentSpec(**kwargs)
+    try:
+        jspec.validate()
+    except ValueError as err:
+        with pytest.raises(ValueError) as got:
+            tapi.build(tspec, _quad, device="cpu")
+        assert str(got.value) == str(err)
+        return
+    eng = tapi.build(tspec, _quad, device="cpu")
+    assert type(eng).__name__ == type(japi.build(jspec, _quad)).__name__
+    assert tspec.full_participation == jspec.full_participation
+    if tspec.backend != "multilevel":
+        return
+    assert tspec.participation_by_level() == jspec.participation_by_level()
+    assert tspec.schedule.level_periods(len(tspec.levels)) == jspec.schedule.level_periods(
+        len(jspec.levels))
+    E, H = eng._pack_rounds, eng._pack_steps
+    rng = np.random.default_rng(0)
+    b = {k: torch.from_numpy(rng.normal(size=(E, H) + tspec.levels + (5,)).astype(np.float32))
+         for k in ("a", "b")}
+    state, met = eng.round_fn(eng.init({"w": torch.zeros(5)}), b)
+    assert tuple(met.loss.shape) == (E * H,) and bool(torch.isfinite(met.loss).all())
+    assert len(state.nus) == len(tspec.levels)
+
+
+def test_api_all_snapshot():
+    """The port's ``api.__all__``: the reference's names less those of its
+    JAX-only surface (``Engine``, ``GuardReport``, ``LoweredChunk``,
+    ``run_population_rounds``), the multilevel engine and its metrics
+    included (tests/test_api_surface.py's snapshot)."""
+    from test_api_surface import EXPECTED_ALL
+
+    jax_only = {"Engine", "GuardReport", "LoweredChunk", "run_population_rounds"}
+    assert tapi.__all__ == [n for n in EXPECTED_ALL if n not in jax_only]
+    assert {"MultiLevelEngine", "MultiLevelMetrics"} <= set(tapi.__all__)
+    for name in tapi.__all__:
+        assert getattr(tapi, name) is not None, name
 
 
 def _reference_kwargs(kwargs):
@@ -165,7 +241,8 @@ def test_async_specs_build_and_match_reference(kwargs):
     ({"compression": tapi.CompressionPlan(group_mode="topk"), "server_lr": 0.5},
      "server_lr=1.0"),
     ({"compression": tapi.CompressionPlan(topk_frac=0.0)}, "topk_frac"),
-    ({"levels": (2, 2, 2)}, "two-level"),
+    pytest.param({"levels": (2, 2, 2)}, "3-level topologies need backend='multilevel'",
+                 id="kwargs9-two-level"),
     ({"schedule": tapi.RoundSchedule(local_steps=0)}, "local_steps"),
     # Compression under an async schedule: the reference's own message.
     ({"compression": tapi.CompressionPlan("int8_stochastic"), "staleness": "discount",
@@ -196,8 +273,10 @@ def test_async_specs_build_and_match_reference(kwargs):
      "unknown client_mode"),
     ({"backend": "sharded", "compression": tapi.CompressionPlan(topk_frac=0.0)},
      "topk_frac"),
-    ({"backend": "sharded", "levels": (2, 2, 2),
-      "compression": tapi.CompressionPlan("int8_stochastic")}, "two-level"),
+    pytest.param({"backend": "sharded", "levels": (2, 2, 2),
+                  "compression": tapi.CompressionPlan("int8_stochastic")},
+                 "3-level topologies need backend='multilevel', got 'sharded'",
+                 id="kwargs25-two-level"),
 ])
 def test_invalid_specs_raise(kwargs, match):
     with pytest.raises(ValueError, match=match):
