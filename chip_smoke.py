@@ -19,7 +19,8 @@ group rounds of H = 5 local steps, 1 or 2 global rounds per path. After
 the serving phases it trains glm4-9b at full width (depth 2 of 40) on the
 sharded backend, plain, with compressed uploads, under partial
 participation, under faults, with async group rounds and with a virtual
-client population. The CNN's learning rate is 0.01: at 0.1
+client population; and rwkv6-1.6b at full width and full depth (24
+layers), through the scan's backward kernel. The CNN's learning rate is 0.01: at 0.1
 the loss of this CNN on the synthetic images spikes into the thousands and
 then settles at chance (ln 10) in both packages
 (``tests/test_torch_driver.py::test_cifar_cnn_loss_spike_tracks_reference``).
@@ -141,6 +142,17 @@ final line):
     then kernel, plain, bound (and the kernel's share of it) and, for
     attention, ``scaled_dot_product_attention`` times, and a trace of
     three calls of each kernel (the scan's three launches apart);
+12b. the scan's backward (``csrc/rwkv6_scan_bwd.cu``, four launches) at
+    rwkv6-1.6b's training shape (r/k/v [1, 2048, 32, 64], C = 64) on the
+    forward kernel's saved chunk states, bf16 and float32, no final-state
+    gradient (training's case), against ``rwkv6_scan_bwd_ref`` within 5e-6
+    of each gradient's largest entry (dlogw 2e-5; bf16 dr/dk/dv one bf16
+    ulp more); T = 1100 with a nonzero final-state gradient and state
+    likewise; logw down to -20 against the float64 definition of the
+    gradients (kernel and plain version, half an ulp for bf16); every case
+    called twice, bit for bit; then kernel, plain and bound times (and the
+    float32-operations time), the forward at this shape, registers and
+    spills (none allowed) and a trace of three calls by kernel;
 13. LM serving at full width through ``repro_torch.launch.serve.generate``:
     qwen3-14b (40 layers, d 5120, bf16, 14.77 B params) and rwkv6-1.6b (24
     layers, d 2048), each from random params (seed 0), 4 prompts of 2048
@@ -232,9 +244,21 @@ final line):
     card against the CPU (params within rtol 1e-4), two async windows
     (flat + fused, group_rounds (2, 1), delay-compensated) likewise, and the
     fused step against the unfused one on the card, bit for bit;
+23. phase (v), ssm training: rwkv6-1.6b at its published widths and all 24
+    layers (1.678 B params, bf16, remat, random params from seed 0),
+    trained as (h)/(i) are (2 x 2 clients, E = H = A = 2, lr 0.05, 1 x 2048
+    tokens a microbatch): (v1) flat + fused (two state buffers: bf16 and
+    the float32 ``u``/``decay_base``), (v2) tree + fused; a warm-up, a timed
+    and a traced round each (the trace records the device alone: the round
+    makes about 283,000 launches); launches required as reckoned
+    (``rwkv6_scan`` 4608 and its backward 3072 over 768 layer passes,
+    ``mtgc_update_flat`` 8 on (v1), 76 leaf launches on (v2)); finite
+    losses and params, round ms, tokens/s, peak, busy share and the scan's
+    shares; (v3) a reduced rwkv6 round (float32, remat, chunk 64, T = 1100)
+    on the card against the CPU and fused against unfused, as phase 21;
 22. a JSON line of the serving and training runs, one per phase of 18-20,
     (n), (p), (q) and (s), one of (m), one of (o), one of (r), one of (t),
-    one of (u), and one per kernel, then
+    one of (u), one each of (v1), (v2) and (v3), and one per kernel, then
     ``{"ok": true, "device": {...}}`` last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
@@ -270,6 +294,9 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32      # the serving traffic of phase 13
 LM_TRAIN_ARCH, LM_TRAIN_LAYERS, LM_TRAIN_LEVELS, LM_TRAIN_LR = "glm4-9b", 2, (2, 2), 0.05
 LM_TRAIN_E, LM_TRAIN_H, LM_TRAIN_A = 2, 2, 2
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_TOKENS = 1, 2048, 400_000
+# Phase (v): rwkv6-1.6b at its published widths and full depth (24 layers),
+# trained as glm4-9b is above.
+SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS = "rwkv6-1.6b", 24
 # Phases 19-21 ((j)-(l)): the same training, with compressed uploads and
 # partial participation (client_participation 0.5, fixed masks); top-k keeps
 # 1% of a row. Recorded column slices of an upload block are 2^16 wide.
@@ -378,6 +405,10 @@ def log_kernel_resources(build, logs: dict) -> None:
     for i, name in enumerate(("rwkv6_chunk_state_kernel", "rwkv6_state_scan_kernel",
                               "rwkv6_chunk_out_kernel")):
         log(f"  {name}: {sc.rwkv6_scan_smem_bytes(i)} B of dynamic shared memory")
+    sb = build.load("rwkv6_scan_bwd")
+    for i, name in enumerate(("rwkv6_bwd_chunk_grad_kernel", "rwkv6_bwd_state_scan_kernel",
+                              "rwkv6_bwd_chunk_out_kernel", "rwkv6_bwd_du_kernel")):
+        log(f"  {name}: {sb.rwkv6_scan_bwd_smem_bytes(i)} B of dynamic shared memory")
     bw = build.load("flash_attention_bwd")
     log(f"  flash_bwd_dq_wgmma_kernel<128>, flash_bwd_dkdv_wgmma_kernel<128> (bf16): "
         f"{bw.flash_attention_bwd_smem_bytes(2, 128)} B of dynamic shared memory each, 384 "
@@ -659,16 +690,19 @@ def _union(spans) -> float:
     return total if cur_end is None else total + cur_end - cur_start
 
 
-def profile_round(torch, run) -> dict:
+def profile_round(torch, run, host: bool = True) -> dict:
     """Trace one call of ``run`` with ``torch.profiler``; return the wall
     time and ``device_time`` of its Chrome trace (written to a temporary
-    directory and removed), or {} when the trace holds no device time."""
+    directory and removed), or {} when the trace holds no device time.
+    ``host=False`` records the device's activity alone (no host operator
+    events: for a run of hundreds of thousands of launches)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -870,6 +904,165 @@ def phase_lm_kernels(torch, fa, rs):
     log(f"  flash_attention: {flash['pairs']} live pairs; SDPA against the kernel: max abs "
         f"diff {flash['sdpa_max_abs_diff']}; rwkv6_scan: {scan['exps']} exponentials")
     return errs, {"flash_attention": flash, "rwkv6_scan": scan}
+
+
+def scan_bwd_oracle(torch, r, k, v, logw, u, s0, do, d_final):
+    """The scan's gradients by their definition, token by token in float64
+    on the card, over all (b, h) at once: with G_t the gradient of the state
+    after token t (G_T = d_final, G_{t-1} = r_t do_t^T + diag(w_t) G_t),
+    dr_t = S_{t-1} do_t + (u k_t)(v_t . do_t), dk_t = G_t v_t +
+    (u r_t)(v_t . do_t), dv_t = G_t^T k_t + (r_t . u k_t) do_t,
+    dlogw_t = w_t sum_j S_{t-1} G_t, du = sum (r k)(v . do), dstate = G_0."""
+    f64 = torch.float64
+    r, k, v, logw, do = (a.to(f64).transpose(1, 2) for a in (r, k, v, logw, do))  # [B, H, T, Dh]
+    u = u.to(f64)
+    B, H, T, Dh = r.shape
+    S = s0.to(f64).clone()
+    before = torch.empty((T, B, H, Dh, Dh), dtype=f64, device=r.device)
+    for t in range(T):
+        before[t] = S
+        S = torch.exp(logw[:, :, t])[..., None] * S + k[:, :, t, :, None] * v[:, :, t, None, :]
+    G = (torch.zeros_like(S) if d_final is None else d_final.to(f64).clone())
+    dr, dk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(u)
+    for t in reversed(range(T)):
+        rt, kt, vt, dt_ = r[:, :, t], k[:, :, t], v[:, :, t], do[:, :, t]
+        wt, vd = torch.exp(logw[:, :, t]), (vt * dt_).sum(-1, keepdim=True)
+        dr[:, :, t] = torch.einsum("bhde,bhe->bhd", before[t], dt_) + u * kt * vd
+        dk[:, :, t] = torch.einsum("bhde,bhe->bhd", G, vt) + u * rt * vd
+        dv[:, :, t] = (torch.einsum("bhde,bhd->bhe", G, kt)
+                       + (rt * u * kt).sum(-1, keepdim=True) * dt_)
+        dlogw[:, :, t] = wt * (before[t] * G).sum(-1)
+        du += (rt * kt * vd).sum(0)
+        G = rt[..., :, None] * dt_[..., None, :] + wt[..., None] * G
+    del before
+    return [a.transpose(1, 2) for a in (dr, dk, dv, dlogw)] + [du, G]
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 values (8 significant bits) at magnitude x."""
+    return math.ldexp(1.0, math.frexp(x)[1] - 8)
+
+
+def scan_bwd_errors(got, want, dtype, ulps: float) -> dict:
+    """Each gradient's max abs error and its error over its largest entry,
+    required within 5e-6 of that entry (dlogw 2e-5: its per-chunk suffix
+    sums of r dr' and k dk' cancel to a value far below their terms; see
+    tests/test_torch_ssm_train.py), plus, for bf16 dr/dk/dv, ``ulps`` bf16
+    ulps of the largest entry (each side rounds its own float32 value: half
+    an ulp against an exact value, one between two roundings)."""
+    out = {}
+    for i, (name, g, w) in enumerate(zip(("dr", "dk", "dv", "dlogw", "du", "dstate"), got, want)):
+        scale = w.double().abs().max().item()
+        err = (g.double() - w.double()).abs().max().item()
+        allow = (2e-5 if name == "dlogw" else 5e-6) * scale
+        if dtype != "float32" and i < 3:
+            allow += ulps * bf16_ulp(scale)
+        require(err <= allow, f"rwkv6_scan_bwd {name}: max abs err {err:.3g} over {allow:.3g} "
+                              f"(largest entry {scale:.3g})")
+        out[name] = {"max_abs_err": err, "of_largest": err / scale}
+    return out
+
+
+def phase_scan_backward(torch, rs, logs: dict):
+    """Phase 12b: the scan's backward kernel (``csrc/rwkv6_scan_bwd.cu``) on
+    the forward kernel's saved chunk states, at rwkv6-1.6b's training shape
+    [1, 2048, 32, 64] (C = 64) in bfloat16 and float32 against
+    ``rwkv6_scan_bwd_ref``, the final state's gradient None as in training;
+    a ragged T (1100) with a nonzero final-state gradient and state; strong
+    decays (logw down to -20) against the float64 definition; a second call
+    bit for bit; then kernel, plain and bound times and a trace of three
+    calls (each of its four kernels)."""
+    dev = torch.device("cuda")
+    B, T, H, Dh, C = LM_TRAIN_BATCH, LM_TRAIN_SEQ, 32, 64, 64
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def inputs(T_, dtype, strong=False, d_final=False):
+        r, k, v, do = (torch.randn(B, T_, H, Dh, generator=gen, device=dev) for _ in range(4))
+        logw = (-20.0 * torch.rand(B, T_, H, Dh, generator=gen, device=dev) if strong else
+                -torch.exp(-1.0 + torch.tanh(torch.randn(B, T_, H, Dh, generator=gen, device=dev))))
+        u = 0.5 * torch.randn(H, Dh, generator=gen, device=dev)
+        s0 = torch.randn(B, H, Dh, Dh, generator=gen, device=dev)
+        dfin = torch.randn(B, H, Dh, Dh, generator=gen, device=dev) if d_final else None
+        return tuple(a.to(dtype) for a in (r, k, v)) + (logw, u, s0, do, dfin)
+
+    def run(args, saved=None):
+        return rs.rwkv6_scan_bwd(*args, chunk=C, saved=saved)
+
+    checks = {}
+    for tag, T_, dtype, strong, dfin in (("train/bf16", T, torch.bfloat16, False, False),
+                                         ("train/f32", T, torch.float32, False, False),
+                                         ("ragged/bf16", 1100, torch.bfloat16, False, True),
+                                         ("ragged/f32", 1100, torch.float32, False, True),
+                                         ("strong/bf16", T, torch.bfloat16, True, True)):
+        args = inputs(T_, dtype, strong, dfin)
+        got, again = run(args), run(args)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"rwkv6_scan_bwd ({tag}): a second call gave other bits")
+        require([g.dtype for g in got] == [args[0].dtype] * 3 + [torch.float32] * 3,
+                f"rwkv6_scan_bwd ({tag}): gradient dtypes {[g.dtype for g in got]}")
+        name = str(dtype).removeprefix("torch.")
+        if strong:
+            want = scan_bwd_oracle(torch, *args)
+            checks[tag] = {"against": "float64 definition",
+                           **scan_bwd_errors(got, want, name, 0.5)}
+            ref = rs.rwkv6_scan_bwd_ref(*args, chunk=C)
+            checks[tag + "/plain"] = {"against": "float64 definition",
+                                      **scan_bwd_errors(ref, want, name, 0.5)}
+        else:
+            want = rs.rwkv6_scan_bwd_ref(*args, chunk=C)
+            checks[tag] = {"against": "rwkv6_scan_bwd_ref",
+                           **scan_bwd_errors(got, want, name, 1.0)}
+        log(f"rwkv6_scan_bwd {tag} [{B},{T_},{H},{Dh}] C={C}"
+            f"{', logw in (-20, 0]' if strong else ''}{', dS_final and state nonzero' if dfin else ''}"
+            f": two calls bit-identical; against {checks[tag]['against']}: "
+            + ", ".join(f"{n} {e['max_abs_err']:.3g} ({e['of_largest']:.2g} of its largest)"
+                        for n, e in checks[tag].items() if n != "against"))
+        if strong:
+            log("  its plain version against the same definition: " + ", ".join(
+                f"{n} {e['of_largest']:.2g}" for n, e in checks[tag + "/plain"].items()
+                if n != "against"))
+        del got, again, want, args
+    torch.cuda.empty_cache()
+    # Times at the training shape in the model's dtypes, on the saved states.
+    args = inputs(T, torch.bfloat16)
+    r, k, v, logw, u, s0, do, _ = args
+    _, s_fin, states = rs._launch(r, k, v, logw, u, s0, C, B, H, T, Dh, 0)
+    t = timed(torch, lambda: run(args, (states, s_fin)),
+              lambda: rs.rwkv6_scan_bwd_ref(*args, chunk=C), iters=20, plain_iters=3)
+    nc = T // C
+    n = r.numel()
+    nbytes = (3 * n * 2 + 2 * n * 4 + states.numel() * 4 + s_fin.numel() * 4 + u.numel() * 4
+              + 3 * n * 2 + n * 4 + u.numel() * 4 + s_fin.numel() * 4)
+    flops = B * H * nc * (8 * C * Dh * Dh + 10 * C * C * Dh)
+    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    t["f32_operations_ms"] = flops / F32_FLOPS_PER_S * 1e3
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    t.update(bytes=nbytes, flops=flops, library_ms=None, checks=checks,
+             ptxas=[[e, rg, sp] for e, rg, sp in ptxas_entries(logs.get("rwkv6_scan_bwd", ""))])
+    for e, rg, sp in t["ptxas"]:
+        require("0 bytes spill stores" in sp and "0 bytes spill loads" in sp,
+                f"{e} spills registers: {sp}")
+    trace = profile_round(torch, lambda: [run(args, (states, s_fin)) for _ in range(3)])
+    t["pass_ms"] = {re.search(r"rwkv6_bwd_\w+", name).group(0): nn["summed"] / 3e3
+                    for name, nn in trace.get("by_name", {}).items() if "rwkv6_bwd" in name}
+    t["fwd_ms"] = cuda_ms(torch, lambda: rs._launch(r, k, v, logw, u, s0, C, B, H, T, Dh, 0),
+                          iters=20)
+    log(f"rwkv6_scan_bwd [{B},{T},{H},{Dh}] bf16 on the saved states: kernel {t['ms']:.4f} ms "
+        f"{t['ms_readings']}, plain {t['plain_ms']:.4f} ms {t['plain_ms_readings']}, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {nbytes} bytes, {flops:.4g} FLOP; float32 "
+        f"operations alone {t['f32_operations_ms']:.4f} ms; bound share {t['bound_share']:.3f}); "
+        f"library none; traced per call {t['pass_ms'] or 'not measured'}; the forward kernel at "
+        f"this shape {t['fwd_ms']:.4f} ms; registers {[(e, rg, sp) for e, rg, sp in t['ptxas']]}")
+    log_trace("  rwkv6_scan_bwd, three calls (traced)", trace, top_n=4)
+    del args, r, k, v, logw, u, s0, do, states, s_fin
+    torch.cuda.empty_cache()
+    errs = {"rwkv6_scan_bwd": max(c[n]["max_abs_err"] for key, c in checks.items()
+                                  if key.endswith("bf16") for n in ("dr", "dk", "dv")),
+            "rwkv6_scan_bwd/f32": max(c[n]["max_abs_err"] for key, c in checks.items()
+                                      if key.endswith("f32") for n in c if n != "against")}
+    return errs, t
 
 
 def phase_serve(torch, np, arch, counter):
@@ -1106,14 +1299,20 @@ def phase_lm_backward(torch, fa):
 
 def lm_train_launches(cfg, n_update: int, rounds: int = 1) -> dict:
     """The kernel launches one LM training round must make: every layer of
-    every replica and microbatch runs the flash forward (twice under remat:
-    the forward and its recompute in the backward pass) and the flash
-    backward once (three kernels); the fused update launches once per leaf
-    (tree) or dtype buffer (flat) per local step."""
+    every replica and microbatch runs its sequence mixer's forward (twice
+    under remat: the forward and its recompute in the backward pass) and its
+    backward once -- the flash forward and the flash backward's three
+    kernels (dense), or the scan's three kernels and its backward's four
+    (ssm); the fused update launches once per leaf (tree) or dtype buffer
+    (flat) per local step."""
     G, K = LM_TRAIN_LEVELS
     passes = rounds * LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * G * K * cfg.num_layers
-    return {"flash_attention": passes * (2 if cfg.remat else 1),
-            "flash_attention_bwd": 3 * passes,
+    forwards = passes * (2 if cfg.remat else 1)
+    ssm = cfg.arch_type == "ssm"
+    return {"flash_attention": 0 if ssm else forwards,
+            "flash_attention_bwd": 0 if ssm else 3 * passes,
+            "rwkv6_scan": 3 * forwards if ssm else 0,
+            "rwkv6_scan_bwd": 4 * passes if ssm else 0,
             "mtgc_update_flat": rounds * LM_TRAIN_E * LM_TRAIN_H * n_update,
             "mtgc_update": 0}
 
@@ -1335,27 +1534,30 @@ def replica_fingerprints(torch, fields, replicas) -> list:
 
 
 def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = "",
-                   spec_kw: dict | None = None) -> dict:
-    """Phases 16-17 and 19-21: HFL LM training at glm4-9b's full width (depth
-    cut to ``LM_TRAIN_LAYERS``) through ``build``/``pack_tokens``/``fit`` on
-    the sharded backend, fused, with the spec fields ``spec_kw`` (compressed
-    uploads, partial participation). ``rounds`` rounds after a warm-up
-    round; the launch counts are set to 0 just before them and read just
-    after."""
+                   spec_kw: dict | None = None, arch: str = LM_TRAIN_ARCH,
+                   layers: int = LM_TRAIN_LAYERS) -> dict:
+    """Phases 16-17, 19-21 and (v): HFL LM training at ``arch``'s full width
+    (glm4-9b's depth cut to ``LM_TRAIN_LAYERS``; rwkv6-1.6b's all 24)
+    through ``build``/``pack_tokens``/``fit`` on the sharded backend, fused,
+    with the spec fields ``spec_kw`` (compressed uploads, partial
+    participation). ``rounds`` rounds after a warm-up round; the launch
+    counts are set to 0 just before them and read just after. The check of
+    ``mtgc_update_flat`` on the trained state runs on glm4-9b's plain
+    phases (h) and (i)."""
     from repro_torch import api
     from repro_torch.configs import get_arch
     from repro_torch.core import compression as cmp
     from repro_torch.core.participation import sample_hfl_masks
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data.lm import make_lm_tokens
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mtgc_update as mu
     from repro_torch.kernels import ops
     from repro_torch.kernels import quantize as qz
     from repro_torch.models.transformer import build_model
 
-    cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH), num_layers=LM_TRAIN_LAYERS)
-    require(cfg.remat and cfg.param_dtype == "bfloat16", "glm4-9b trains in bf16 with remat")
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    require(cfg.remat and cfg.param_dtype == "bfloat16", f"{arch} trains in bf16 with remat")
     bundle = build_model(cfg)
     G, K = LM_TRAIN_LEVELS
     spec = api.ExperimentSpec(
@@ -1401,7 +1603,7 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
     warm_ms = (time.perf_counter() - t0) * 1e3
     warm_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     upd = uploads = threshold = topk_timing = None
-    if spec_kw is None:
+    if spec_kw is None and arch == LM_TRAIN_ARCH:
         upd = check_update_on_state(torch, mu, state, LM_TRAIN_LR, 1.0 / LM_TRAIN_A)
         log(f"mtgc_update_flat on the trained {layout} state (bf16, g_scale 1/{LM_TRAIN_A}, "
             f"in place, with and without a mask): {upd['slices']} column slices within one "
@@ -1455,11 +1657,7 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
     round_ms = (time.perf_counter() - t0) * 1e3 / rounds
     # Peak over init, the warm-up and the timed rounds (not the checks).
     timed_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    got = {"flash_attention": fa.flash_attention.launches,
-           "flash_attention_bwd": fa.flash_attention_bwd.launches,
-           "mtgc_update_flat": mu.mtgc_update_flat.launches,
-           "mtgc_update": mu.mtgc_update.launches,
-           "int8_roundtrip": qz.int8_roundtrip.launches, "topk_mask": qz.topk_mask.launches}
+    got = all_launches()
     want = dict(lm_train_launches(cfg, n_update, rounds),
                 **{k: v * rounds for k, v in quant.items()})
     require(got == want, f"LM training ({tag or layout}) launched {got}, expected {want}")
@@ -1497,9 +1695,11 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
     for t in tree_leaves(state.params):
         require(finite_and_nonzero(torch, t)[0], f"LM training ({tag}): params not finite")
     tokens = G * K * LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * LM_TRAIN_BATCH * LM_TRAIN_SEQ
-    out = {"phase": tag, "arch": LM_TRAIN_ARCH, "layers": cfg.num_layers, "layout": layout,
+    out = {"phase": tag, "arch": arch, "layers": cfg.num_layers, "layout": layout,
            "spec": {k: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
                     for k, v in (spec_kw or {}).items()},
+           "state_buffers": ({k: [tuple(b.shape), str(b.dtype)] for k, b in state.params.bufs.items()}
+                             if layout == "flat" else None),
            "params": n_params, "state_gb": state_gb, "warmup_round_ms": warm_ms,
            "round_ms": round_ms, "tokens_per_round": tokens,
            "tokens_per_s": tokens / round_ms * 1e3, "peak_gb": peak_gb, "launches": got,
@@ -1511,7 +1711,7 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
            "losses": [float(x) for x in losses], "data_s": data_s,
            "grad_norm": float(hz.metrics.grad_norm[-1]), "z_norm": float(hz.metrics.z_norm[-1]),
            "y_norm": float(hz.metrics.y_norm[-1])}
-    log(f"({tag}) LM training {LM_TRAIN_ARCH} ({cfg.num_layers} of 40 layers, full width, "
+    log(f"({tag}) LM training {arch} ({cfg.num_layers} of {full.num_layers} layers, full width, "
         f"{n_params / 1e9:.3f} B params, bf16, remat), {layout} + fused, {G}x{K} clients, "
         f"{json.dumps(out['spec'])}, "
         f"E={LM_TRAIN_E} H={LM_TRAIN_H} A={LM_TRAIN_A}, {LM_TRAIN_BATCH}x{LM_TRAIN_SEQ} tokens a "
@@ -1524,7 +1724,10 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
         f"z_norm {out['z_norm']:.4g} y_norm {out['y_norm']:.4g}; comm_bytes {comm} (wire "
         f"model {wire}); residuals {residuals}; frozen replicas {frozen} kept their bits")
     if trace:
-        tr = profile_round(torch, lambda: api.fit(engine, data, 1, state=state))
+        # rwkv6's round makes about 283,000 launches: its trace records the
+        # device alone, as the busy share and the time by kernel need.
+        tr = profile_round(torch, lambda: api.fit(engine, data, 1, state=state),
+                           host=cfg.arch_type != "ssm")
         out["busy_share"] = tr["busy"] / tr["wall_us"] if tr else None
         log_trace(f"  ({tag}) LM training round ({layout}, traced)", tr, top_n=20)
         if tr:
@@ -1534,12 +1737,19 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
 
             gemm = busy_ms(lambda name: name.startswith("nvjet") or "gemm" in name.lower())
             bwd = busy_ms(lambda name: "flash_bwd" in name)
+            scan_f = busy_ms(lambda name: "rwkv6_" in name and "rwkv6_bwd" not in name)
+            scan_b = busy_ms(lambda name: "rwkv6_bwd" in name)
             quant = busy_ms(lambda name: "int8_kernel" in name or "topk_kernel" in name)
             topk = busy_ms(lambda name: "topk_kernel" not in name and any(
                 w in name for w in ("TopK", "topk", "radix", "Sort", "sort", "KthValue")))
             busy = tr["busy"] / 1e3
             out["gemm_share"], out["flash_bwd_share"] = gemm / busy, bwd / busy
             out["quantize_share"], out["threshold_share"] = quant / busy, topk / busy
+            out["scan_share"], out["scan_bwd_share"] = scan_f / busy, scan_b / busy
+            if cfg.arch_type == "ssm":
+                log(f"  the scan's forward kernels (both passes under remat): {scan_f:.1f} ms, "
+                    f"{out['scan_share']:.3f} of busy; its backward's four kernels: "
+                    f"{scan_b:.1f} ms, {out['scan_bwd_share']:.3f} of busy")
             log(f"  cuBLAS products (nvjet/gemm kernels): {gemm:.1f} ms, "
                 f"{out['gemm_share']:.3f} of busy; the attention backward's three kernels: "
                 f"{bwd:.1f} ms, {out['flash_bwd_share']:.3f} of busy; the quantize kernels: "
@@ -1550,17 +1760,20 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
     return out
 
 
-def phase_lm_train_card_vs_cpu(torch, np, convert):
-    """Phase 18: one sharded round of the reduced glm4-9b (float32, remat,
-    T = 1100 > 1024 so every layer runs the flash kernels forward and
-    backward) on the card against the same round on the CPU (the plain
-    versions), tree + fused; and the fused step against the unfused one on
-    the card."""
+def phase_lm_train_card_vs_cpu(torch, np, convert, arch: str = LM_TRAIN_ARCH) -> dict:
+    """Phases 21 and (v3): one sharded round of the reduced ``arch``
+    (float32, remat, T = 1100: glm4-9b's layers run the flash kernels
+    forward and backward (T > 1024), rwkv6's the scan's at chunk 64 with a
+    ragged last chunk) on the card against the same round on the CPU (the
+    plain versions), tree + fused; the fused step against the unfused one
+    on the card; and, for glm4-9b, two async windows card against CPU."""
     from repro_torch import api
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import build_model
 
-    bundle = build_model(get_arch(LM_TRAIN_ARCH).reduced(remat=True, attn_block=128))
+    dense = arch == LM_TRAIN_ARCH
+    bundle = build_model(get_arch(arch).reduced(remat=True, **(
+        dict(attn_block=128) if dense else dict(rwkv_chunk=64))))
     params = bundle.init(0, device="cpu")
     rs = np.random.default_rng(18)
     batch = {k: torch.from_numpy(rs.integers(0, 256, (1, 1, 2, 2, 2, 1, 1100)).astype(np.int32))
@@ -1579,6 +1792,9 @@ def phase_lm_train_card_vs_cpu(torch, np, convert):
                                                                   dev)),
                                {k: v.to(dev) for k, v in batch.items()})
         outs[(dev, fusion)] = (convert.to_numpy(st), met.loss.cpu().numpy())
+    if not dense:
+        torch.use_deterministic_algorithms(False)
+        return lm_round_card_vs_cpu(np, outs, arch)
     # Two async windows (group_rounds (2, 1), delay-compensated, flat + fused)
     # of the same data: the window t = 1 merges group 1's stale report.
     abatch = {k: v[0, 0][:, None, None].contiguous() for k, v in batch.items()}
@@ -1606,6 +1822,13 @@ def phase_lm_train_card_vs_cpu(torch, np, convert):
     log(f"card vs CPU, reduced glm4-9b (f32, remat) async sharded windows, flat + fused, "
         f"group_rounds (2, 1), delay_compensated, T=1100: params, z, y, snap, glob within rtol "
         f"1e-4 (worst {worst_async:.2e})")
+    return dict(lm_round_card_vs_cpu(np, outs, arch), worst_async=worst_async)
+
+
+def lm_round_card_vs_cpu(np, outs: dict, arch: str) -> dict:
+    """The reduced sharded round's checks: card against CPU (losses within
+    rtol 1e-5, params within rtol 1e-4 / atol 1e-5, z and y atol 1e-4) and
+    the fused step against the unfused one on the card, bit for bit."""
     worst = 0.0
     card, cpu = outs[("cuda", "fused")], outs[("cpu", "fused")]
     require(np.allclose(card[1], cpu[1], rtol=1e-5), f"losses differ: {card[1]} vs {cpu[1]}")
@@ -1618,9 +1841,11 @@ def phase_lm_train_card_vs_cpu(torch, np, convert):
     for name in ("params", "z", "y"):
         for (path, g), (_, u) in zip(_leaf_paths(card[0][name]), _leaf_paths(unf[name])):
             require(np.array_equal(g, u), f"fused and unfused LM steps differ in {name}{path}")
-    log(f"card vs CPU, reduced glm4-9b (f32, remat) sharded round, 2x2, A=2, T=1100: losses "
+    log(f"card vs CPU, reduced {arch} (f32, remat) sharded round, 2x2, A=2, T=1100: losses "
         f"{card[1].reshape(-1).tolist()}; params within rtol 1e-4 (worst {worst:.2e}); fused "
         f"and unfused steps on the card bit-identical")
+    return {"arch": arch, "losses": card[1].reshape(-1).tolist(), "worst_rel": worst,
+            "fused_equals_unfused": True}
 
 
 def _leaf_paths(tree, prefix=""):
@@ -1867,10 +2092,7 @@ def phase_lm_train_faults(torch, np) -> dict:
     from repro_torch.core.faults import DefensePlan, FaultMasks, FaultPlan
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data.lm import make_lm_tokens
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import mtgc_update as mu
     from repro_torch.kernels import ops
-    from repro_torch.kernels import quantize as qz
     from repro_torch.models.transformer import build_model
 
     meminfo = {line.split(":")[0]: int(line.split()[1]) * 1024
@@ -1950,11 +2172,7 @@ def phase_lm_train_faults(torch, np) -> dict:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         round_peak = torch.cuda.max_memory_allocated() / 1e9
-        got = {"flash_attention": fa.flash_attention.launches,
-               "flash_attention_bwd": fa.flash_attention_bwd.launches,
-               "mtgc_update_flat": mu.mtgc_update_flat.launches,
-               "mtgc_update": mu.mtgc_update.launches,
-               "int8_roundtrip": qz.int8_roundtrip.launches, "topk_mask": qz.topk_mask.launches}
+        got = all_launches()
         require(got == want, f"(n) round {r + 1} launched {got}, expected {want}")
         screened = float(hz.metrics.screened[0])
         require(screened == LM_TRAIN_E, f"(n) round {r + 1} screened {screened}, expected "
@@ -2218,10 +2436,7 @@ def phase_lm_train_async(torch, np, tag: str, layout: str, spec_kw: dict, draws:
     from repro_torch.configs import get_arch
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data.lm import make_lm_tokens
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import mtgc_update as mu
     from repro_torch.kernels import ops
-    from repro_torch.kernels import quantize as qz
     from repro_torch.models.transformer import build_model
 
     cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH), num_layers=LM_TRAIN_LAYERS)
@@ -2292,11 +2507,7 @@ def phase_lm_train_async(torch, np, tag: str, layout: str, spec_kw: dict, draws:
     torch.cuda.synchronize()
     round_ms = (time.perf_counter() - t0) * 1e3
     timed_peak = torch.cuda.max_memory_allocated() / 1e9
-    got = {"flash_attention": fa.flash_attention.launches,
-           "flash_attention_bwd": fa.flash_attention_bwd.launches,
-           "mtgc_update_flat": mu.mtgc_update_flat.launches,
-           "mtgc_update": mu.mtgc_update.launches,
-           "int8_roundtrip": qz.int8_roundtrip.launches, "topk_mask": qz.topk_mask.launches}
+    got = all_launches()
     want = dict(lm_train_launches(cfg, n_update, 1), int8_roundtrip=0, topk_mask=0)
     require(got == want, f"({tag}) launched {got}, expected {want}")
     require(all(a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
@@ -2757,7 +2968,6 @@ def phase_lm_population(torch, np, peak_i_gb: float) -> dict:
     from repro_torch.core.population import CohortBuffers, draw_cohort
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data.lm import make_lm_tokens
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import build_model
 
@@ -2864,9 +3074,8 @@ def phase_lm_population(torch, np, peak_i_gb: float) -> dict:
     finally:
         cls.extract = extract
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    got = {"flash_attention": fa.flash_attention.launches,
-           "flash_attention_bwd": fa.flash_attention_bwd.launches, **update_launches()}
-    want = {k: v for k, v in lm_train_launches(cfg, n_update, LM_POP_ROUNDS).items()}
+    want = lm_train_launches(cfg, n_update, LM_POP_ROUNDS)
+    got = {k: v for k, v in all_launches().items() if k in want}
     require(got == want, f"(s) launched {got}, expected {want}")
     finite_metrics(np, hz)
     for t in tree_leaves(state.params):
@@ -2912,7 +3121,7 @@ def all_launches() -> dict:
             "int8_roundtrip": qz.int8_roundtrip.launches, "topk_mask": qz.topk_mask.launches,
             "flash_attention": fa.flash_attention.launches,
             "flash_attention_bwd": fa.flash_attention_bwd.launches,
-            "rwkv6_scan": rw.rwkv6_scan.launches}
+            "rwkv6_scan": rw.rwkv6_scan.launches, "rwkv6_scan_bwd": rw.rwkv6_scan_bwd.launches}
 
 
 def phase_multilevel_hfl(torch, np, api, train, p0, loss_fn) -> dict:
@@ -3527,6 +3736,8 @@ def main() -> int:
     del acc, p0, ds, train, test
     torch.cuda.empty_cache()
     lm_errs, lm_t = phase_lm_kernels(torch, fa, rw)
+    # --- 12b. the scan's backward at the training shape -----------------
+    sb_errs, sb_t = phase_scan_backward(torch, rw, built["log"])
 
     # --- 13. LM serving at full width -----------------------------------
     qwen = phase_serve(torch, np, "qwen3-14b", lambda: fa.flash_attention.launches)
@@ -3598,6 +3809,19 @@ def main() -> int:
     # --- 21. LM training: card against CPU, reduced -----------------------
     phase_lm_train_card_vs_cpu(torch, np, convert)
 
+    # --- 23. (v) rwkv6-1.6b training at full width and depth ---------------
+    lm_v = [phase_lm_train(torch, np, layout, rounds=1, trace=True, tag=tag, arch=SSM_TRAIN_ARCH,
+                           layers=SSM_TRAIN_LAYERS)
+            for tag, layout in (("v1", "flat"), ("v2", "tree"))]
+    passes = LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * math.prod(LM_TRAIN_LEVELS) * SSM_TRAIN_LAYERS
+    for run, n_update in zip(lm_v, (2, 19)):
+        want = {"rwkv6_scan": 3 * 2 * passes, "rwkv6_scan_bwd": 4 * passes,
+                "mtgc_update_flat": LM_TRAIN_E * LM_TRAIN_H * n_update}
+        require({k: run["launches"][k] for k in want} == want,
+                f"({run['phase']}) launched {run['launches']}: 768 passes of the scan and its "
+                f"backward, the fused step on {n_update} buffers or leaves, expected {want}")
+    lm_v3 = phase_lm_train_card_vs_cpu(torch, np, convert, arch=SSM_TRAIN_ARCH)
+
     # --- 22. results -----------------------------------------------------
     kernels = [
         {"name": "mtgc_update_flat", "route": "cuda",
@@ -3657,6 +3881,20 @@ def main() -> int:
                  f"[{LM_TRAIN_BATCH},{LM_TRAIN_SEQ},2,128], causal (one glm4-9b training layer)",
         "forward_at_this_shape_ms": bwd_t["fwd_train_ms"],
         "forward_with_statistics_ms": bwd_t["fwd_train_stats_ms"]})
+    kernels.append({
+        "name": "rwkv6_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+        "replaces": "src/repro/models/rwkv6.py:72",
+        "launches": lm_v[0]["launches"]["rwkv6_scan_bwd"],
+        "max_abs_err": sb_errs["rwkv6_scan_bwd"], "max_abs_err_f32": sb_errs["rwkv6_scan_bwd/f32"],
+        "ms": sb_t["ms"], "plain_ms": sb_t["plain_ms"], "bound_ms": sb_t["bound_ms"],
+        "bound_by": sb_t["bound_by"], "library_ms": None, "bound_share": sb_t["bound_share"],
+        "f32_operations_ms": sb_t["f32_operations_ms"], "pass_ms": sb_t["pass_ms"],
+        "ptxas": sb_t["ptxas"], "checks": sb_t["checks"],
+        "forward_at_this_shape_ms": sb_t["fwd_ms"],
+        "shape": f"r/k/v and dr/dk/dv [{LM_TRAIN_BATCH},{LM_TRAIN_SEQ},32,64] bf16, logw/do/dlogw "
+                 "f32, C=64, on the forward's saved chunk states (one rwkv6-1.6b training "
+                 "layer)"})
     by_name = {k["name"]: k for k in kernels}
     by_name["flash_attention"]["training_launches"] = lm_tree["launches"]["flash_attention"]
     by_name["flash_attention"]["statistics_on_ms"] = lm_t["flash_attention"]["stats_ms"]
@@ -3690,6 +3928,8 @@ def main() -> int:
         # Phase (u)'s timed runs: the multilevel backend runs no kernel.
         for run, counts in hfl_u["launches"].items():
             k["training_launches"][run] = counts[name]
+        for run in lm_v:
+            k["training_launches"][run["phase"]] = run["launches"].get(name, 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": [qwen, rwkv]}))
     print(json.dumps({"training": [lm_tree, lm_flat]}))
@@ -3702,6 +3942,9 @@ def main() -> int:
     print(json.dumps({"population_r": hfl_r}))
     print(json.dumps({"checkpoint_t": hfl_t}))
     print(json.dumps({"multilevel_u": hfl_u}))
+    for run in lm_v:
+        print(json.dumps({f"training_{run['phase']}": run}))
+    print(json.dumps({"training_v3": lm_v3}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("mtgc_update", "quantize", "flash_attention", "flash_attention_bwd", "rwkv6_scan")
+SOURCES = ("mtgc_update", "quantize", "flash_attention", "flash_attention_bwd", "rwkv6_scan",
+           "rwkv6_scan_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -159,3 +160,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.rwkv6_scan_launch.restype = i32
         lib.rwkv6_scan_smem_bytes.argtypes = [i32]
         lib.rwkv6_scan_smem_bytes.restype = i32
+    elif name == "rwkv6_scan_bwd":
+        lib.rwkv6_scan_bwd_launch.argtypes = [p] * 18 + [i32] * 5 + [i64] * 3 + [i32, p]
+        lib.rwkv6_scan_bwd_launch.restype = i32
+        lib.rwkv6_scan_bwd_smem_bytes.argtypes = [i32]
+        lib.rwkv6_scan_bwd_smem_bytes.restype = i32

@@ -6,10 +6,14 @@ R^{Dk x Dv}, float32)::
     o_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
     S_t = diag(w_t) S_{t-1} + k_t v_t^T        with  w_t = exp(-exp(x_w(t)))
 
-* :func:`rwkv6_chunked` -- prefill: the chunked parallel form, through
-  ``kernels/rwkv6_scan.py::rwkv6_scan_bthd`` (the CUDA kernel on a CUDA
-  tensor, its plain version on a CPU tensor), which reads the projections
-  in their [B, T, H, Dh] layout and pads a ragged T itself.
+* :func:`rwkv6_chunked` -- training and prefill: the chunked parallel
+  form, through ``kernels/rwkv6_scan.py::rwkv6_scan_bthd`` (the CUDA kernel
+  on a CUDA tensor, its plain version on a CPU tensor), which reads the
+  projections in their [B, T, H, Dh] layout and pads a ragged T itself.
+  With grad enabled on a CUDA tensor it goes through ``RWKV6Scan``, whose
+  backward is the scan's backward kernel; on a CPU tensor autograd
+  differentiates the plain version (the reference's ``chunk_fn``
+  arithmetic, which ``jax.vjp`` differentiates the same way).
 * :func:`rwkv6_step` -- decode: the O(1) one-token update, plain PyTorch
   (the reference has no kernel for it).
 """
@@ -18,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bthd
+from repro_torch.kernels.rwkv6_scan import RWKV6Scan, rwkv6_scan_bthd
 from repro_torch.models.layers import init_linear, init_rms, linear, rms_norm
 
 
@@ -66,8 +70,11 @@ def rwkv6_chunked(p, x, x_prev, state, *, n_heads, chunk=64):
     Returns (out [B, T, D], last x [B, D], new state)."""
     B, T, D = x.shape
     r, k, v, logw, g = _proj(p, x, x_prev, n_heads)
-    o, state = rwkv6_scan_bthd(r, k, v, logw, p["u"].to(torch.float32),
-                               state.to(torch.float32).contiguous(), chunk=chunk)
+    args = (r, k, v, logw, p["u"].to(torch.float32), state.to(torch.float32).contiguous())
+    if torch.is_grad_enabled() and x.device.type == "cuda":
+        o, state = RWKV6Scan.apply(*args, chunk)
+    else:
+        o, state = rwkv6_scan_bthd(*args, chunk=chunk)
     o = rms_norm(o.reshape(B, T, D).to(x.dtype), p["ln_out"])
     return linear(p["wo"], o * g), x[:, -1], state
 

@@ -5,8 +5,8 @@ Port of ``src/repro/models/transformer.py`` for two families:
   dense -- pre-RMSNorm GQA attention + SwiGLU (qwen3: per-head qk-RMSNorm)
   ssm   -- RWKV6 time mix + RWKV channel mix (attention-free)
 
-The other families raise ``NotImplementedError`` naming the slice of the
-port that brings them. The params tree is the reference's: the layers'
+Both families train, serve and decode; the others raise
+``NotImplementedError`` naming the slice of the port that brings them. The params tree is the reference's: the layers'
 leaves are stacked on axis 0, so ``convert.params_from_numpy`` carries the
 JAX package's weights across unchanged. A Python loop over the layer index
 takes the place of the reference's ``lax.scan``.
@@ -19,12 +19,12 @@ Every bundle provides:
   prefill(params, batch, cache)    -> (last-position logits [B, V], cache)
   decode_step(params, batch, cache) -> (logits [B, V], cache)
 ``prefill`` and ``decode_step`` update the cache IN PLACE and return it
-(the reference returns a new one). ``loss`` is the training path (dense
-family; the ssm family's needs a backward of ``rwkv6_scan``, a later
-slice): with ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
+(the reference returns a new one). ``loss`` is the training path: with
+``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
 (non-reentrant), as the reference wraps its scanned layer in
-``jax.checkpoint``, and the cross-entropy goes through
-:func:`chunked_xent`.
+``jax.checkpoint`` -- on the card the attention kernels and the RWKV scan
+(forward and backward kernels) run again in the backward pass -- and the
+cross-entropy goes through :func:`chunked_xent`.
 """
 from __future__ import annotations
 
@@ -42,7 +42,6 @@ from repro_torch.models import rwkv6 as RWKV
 from repro_torch.models.config import ArchConfig
 
 FAMILIES = ("dense", "ssm")
-SSM_TRAINING_SLICE = "the ssm-training slice of the port (a backward for rwkv6_scan)"
 _LATER = {
     "moe": "the moe slice of the port",
     "hybrid": "the hybrid (models/ssm.py) slice of the port",
@@ -262,8 +261,6 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
     def loss(p, batch):
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["targets"]`` ([B, T] each), float32."""
-        if cfg.arch_type == "ssm":
-            raise NotImplementedError(f"training the ssm family needs {SSM_TRAINING_SLICE}")
         x = L.embed(p["embed"], batch["tokens"]).to(dt)
         x = _run_layers(p, x, mode="train")
         x = L.rms_norm(x, p["ln_f"])

@@ -2,13 +2,17 @@
 PyTorch versions (the element-wise kernels bit-exact in float32 and
 bfloat16; the attention and RWKV kernels, which reorder sums, within
 float32 rounding), small rounds of the engine on the card against the same
-rounds on the CPU, and reduced LM serving on the card against the CPU.
+rounds on the CPU, reduced LM serving on the card against the CPU, and the
+RWKV scan's backward kernel against its plain version and the float64
+definition of its gradients.
 
 Every test here needs a card and skips without one. The module imports no
 JAX, so it runs on a GPU host that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -512,6 +516,146 @@ def test_scan_kernel_strong_decays(cuda, T, dtype):
     assert torch.isfinite(got_o).all() and torch.isfinite(got_s).all()
     torch.testing.assert_close(got_o, want_o, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got_s, want_s, rtol=1e-4, atol=1e-4)
+
+
+def _bwd_inputs(gen, B, T, H, Dh, dtype, cuda, strong=False, d_final=True):
+    r, k, v, do = (torch.randn(B, T, H, Dh, generator=gen, device=cuda) for _ in range(4))
+    r, k, v = (a.to(dtype) for a in (r, k, v))
+    x = torch.randn(B, T, H, Dh, generator=gen, device=cuda)
+    logw = (-20.0 * torch.rand(B, T, H, Dh, generator=gen, device=cuda) if strong
+            else -torch.exp(-1.0 + torch.tanh(x)))
+    u = torch.randn(H, Dh, generator=gen, device=cuda)
+    s0 = torch.randn(B, H, Dh, Dh, generator=gen, device=cuda)
+    dfin = torch.randn(B, H, Dh, Dh, generator=gen, device=cuda) if d_final else None
+    return r, k, v, logw, u, s0, do, dfin
+
+
+def _assert_bwd_close(got, want, dtype, ulps=1.0):
+    """Each gradient within 5e-6 of its largest entry (dlogw 2e-5: its
+    per-chunk suffix sums cancel; tests/test_torch_ssm_train.py), plus, for
+    bf16 dr/dk/dv, ``ulps`` bf16 ulps of the largest entry (each side rounds
+    its own float32 value: one ulp between two roundings, half against an
+    exact value)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = w.double().abs().max().item()
+        allow = (2e-5 if i == 3 else 5e-6) * scale
+        if dtype == torch.bfloat16 and i < 3:
+            allow += ulps * math.ldexp(1.0, math.frexp(scale)[1] - 8)
+        err = (g.double() - w.double()).abs().max().item()
+        assert err <= allow, (i, err, allow, scale)
+
+
+@pytest.mark.parametrize("B,T,H,Dh,C,d_final", [(2, 37, 2, 8, 16, True),
+                                                (1, 2048, 32, 64, 64, False),
+                                                (2, 45, 3, 20, 16, True),   # element loads
+                                                (1, 130, 2, 64, 64, True),
+                                                (2, 7, 1, 32, 64, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bwd_kernel_matches_plain(cuda, B, T, H, Dh, C, d_final, dtype):
+    """``csrc/rwkv6_scan_bwd.cu`` on the forward kernel's saved chunk
+    states against ``rwkv6_scan_bwd_ref``: the training shape
+    [1, 2048, 32, 64], ragged T, Dh % 8 != 0, a nonzero final-state
+    gradient; four launches a call; a second call gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(B + T + H + Dh + C)
+    r, k, v, logw, u, s0, do, dfin = _bwd_inputs(gen, B, T, H, Dh, dtype, cuda, d_final=d_final)
+    _, s_fin, states = rs._launch(r, k, v, logw, u, s0, C, B, H, T, Dh, 0)
+    before = rs.rwkv6_scan_bwd.launches
+    got = rs.rwkv6_scan_bwd(r, k, v, logw, u, s0, do, dfin, chunk=C, saved=(states, s_fin))
+    again = rs.rwkv6_scan_bwd(r, k, v, logw, u, s0, do, dfin, chunk=C, saved=(states, s_fin))
+    torch.cuda.synchronize()
+    assert rs.rwkv6_scan_bwd.launches == before + 8
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = rs.rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, do, dfin, chunk=C)
+    assert [g.dtype for g in got] == [w.dtype for w in want]
+    _assert_bwd_close(got, want, dtype)
+
+
+def _bwd_oracle(r, k, v, logw, u, s0, do, d_final):
+    """The gradients' definition token by token in float64 (see
+    tests/test_torch_ssm_train.py::_oracle)."""
+    r, k, v, logw, u, s0, do, G = (a.double().cpu() for a in (r, k, v, logw, u, s0, do, d_final))
+    B, T, H, Dh = r.shape
+    out = [torch.zeros_like(r) for _ in range(4)] + [torch.zeros_like(u), torch.zeros_like(s0)]
+    for b in range(B):
+        for h in range(H):
+            S, before = s0[b, h].clone(), []
+            for t in range(T):
+                before.append(S)
+                S = torch.exp(logw[b, t, h])[:, None] * S + torch.outer(k[b, t, h], v[b, t, h])
+            g = G[b, h].clone()
+            for t in reversed(range(T)):
+                rt, kt, vt, dt_ = r[b, t, h], k[b, t, h], v[b, t, h], do[b, t, h]
+                wt, vd = torch.exp(logw[b, t, h]), vt @ dt_
+                out[0][b, t, h] = before[t] @ dt_ + u[h] * kt * vd
+                out[1][b, t, h] = g @ vt + u[h] * rt * vd
+                out[2][b, t, h] = g.T @ kt + (rt @ (u[h] * kt)) * dt_
+                out[3][b, t, h] = wt * (before[t] * g).sum(1)
+                out[4][h] += rt * kt * vd
+                g = torch.outer(rt, dt_) + wt[:, None] * g
+            out[5][b, h] = g
+    return out
+
+
+def test_scan_bwd_kernel_strong_decays(cuda):
+    """logw down to -20 against the float64 definition: every exponent of
+    the kernel is <= 0, and it holds the oracle as its plain version does."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    args = _bwd_inputs(gen, 1, 140, 2, 16, torch.float32, cuda, strong=True)
+    got = rs.rwkv6_scan_bwd(*args, chunk=64)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _assert_bwd_close([g.cpu() for g in got], _bwd_oracle(*args), torch.float32, 0.5)
+
+
+def test_scan_function_on_card_matches_cpu(cuda):
+    """``RWKV6Scan`` on the card (the scan kernel, its saved states, the
+    backward kernel) against the same Function on the CPU (the plain
+    versions), bf16 r/k/v, the final state used."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    r, k, v, logw, u, s0, do, dfin = _bwd_inputs(gen, 2, 100, 4, 64, torch.bfloat16, cuda)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        ins = [t.to(dev).clone().requires_grad_() for t in (r, k, v, logw, u, s0)]
+        o, s = rs.RWKV6Scan.apply(*ins, 64)
+        loss = (o * do.to(dev)).sum() + (s * dfin.to(dev)).sum()
+        grads[dev.type] = [g.cpu() for g in torch.autograd.grad(loss, ins)]
+    _assert_bwd_close(grads["cuda"], grads["cpu"], torch.bfloat16)
+
+
+def test_reduced_rwkv6_sharded_round_on_card_matches_cpu(cuda):
+    """Reduced rwkv6 (float32, remat, chunk 64) through one sharded round
+    (2 x 2, A = 2, T = 1100: 17 full chunks and a ragged one) on the card
+    against the CPU, at the reduced glm4-9b round's tolerances; the scan
+    launches three kernels forward twice a layer (remat) and the backward
+    four, on every replica and microbatch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+
+    bundle = build_model(get_arch("rwkv6-1.6b").reduced(remat=True, rwkv_chunk=64))
+    params = bundle.init(0, device="cpu")
+    rs_ = np.random.default_rng(6)
+    batch = {k: torch.from_numpy(rs_.integers(0, 256, (1, 1, 2, 2, 2, 1, 1100)).astype(np.int32))
+             for k in ("tokens", "targets")}
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        spec = api.ExperimentSpec(levels=(2, 2), backend="sharded", lr=0.05, fusion="fused",
+                                  state_layout="tree", schedule=api.RoundSchedule(
+                                      group_rounds=1, local_steps=1, microbatches=2))
+        eng = api.build(spec, bundle.loss, device=dev)
+        ops.reset_launch_counts()
+        st, met = eng.round_fn(eng.init(convert.params_from_numpy(convert.to_numpy(params), dev)),
+                               {k: v.to(dev) for k, v in batch.items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            passes = 2 * 4 * 2          # layers x replicas x microbatches
+            assert rs.rwkv6_scan.launches == 3 * 2 * passes
+            assert rs.rwkv6_scan_bwd.launches == 4 * passes
+        outs[dev.type] = (convert.to_numpy(st), met.loss.cpu().numpy())
+    np.testing.assert_allclose(outs["cuda"][1], outs["cpu"][1], rtol=1e-5)
+    for name, atol in (("params", 1e-5), ("z", 1e-4), ("y", 1e-4)):
+        card, cpu = _leaves(outs["cuda"][0][name]), _leaves(outs["cpu"][0][name])
+        for (path, g), (_, c) in zip(card, cpu):
+            np.testing.assert_allclose(g, c, rtol=1e-4, atol=atol, err_msg=f"{name}{path}")
 
 
 def test_scan_wrapper_rejects_bad_operands(cuda):

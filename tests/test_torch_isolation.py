@@ -45,7 +45,7 @@ def test_port_files_exist():
             "core/staleness.py", "core/faults.py", "core/compression.py",
             "core/population.py", "checkpoint/__init__.py", "checkpoint/checkpoint.py",
             "core/multilevel.py"} <= names
-    for src in ("mtgc_update", "quantize", "flash_attention", "rwkv6_scan"):
+    for src in ("mtgc_update", "quantize", "flash_attention", "rwkv6_scan", "rwkv6_scan_bwd"):
         assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file()
     assert (ROOT / "chip_smoke.py").is_file()
 

@@ -4,9 +4,10 @@
   the differentiable ``FlashAttention`` against ``jax.vjp`` of the model's
   ``flash_jnp.blocked_attention_flash`` (the reference's custom VJP), with
   the forward's row statistics against ``flash_jnp._fwd``'s;
-* ``chunked_xent``, and the reduced glm4-9b and qwen3-14b ``loss`` with
-  every gradient leaf against ``jax.value_and_grad(bundle.loss)`` at
-  T > 1024 (the blocked attention path); remat on == off;
+* ``chunked_xent``, and the reduced glm4-9b, qwen3-14b and rwkv6-1.6b
+  ``loss`` with every gradient leaf against
+  ``jax.value_and_grad(bundle.loss)`` at T > 1024 (the blocked attention
+  path); remat on == off (rwkv6's training: ``test_torch_ssm_train.py``);
 * ``make_lm_tokens``/``lm_batches``/``pack_lm_shards`` draw for draw;
 * one full sharded LM round (reduced glm4-9b, 2 x 2 clients, E = H = A = 2)
   against the reference's ``build(spec, bundle.loss)``, and the trainer's
@@ -142,10 +143,12 @@ def _grads(tb, tp, batch):
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "qwen3-14b", "rwkv6-1.6b"])
 def test_loss_and_every_gradient_match_reference(arch):
-    """T = 1088 > 1024: every layer takes the blocked (flash) path, forward
-    and backward, under remat as in the full configs."""
+    """T = 1088 > 1024: every attention layer takes the blocked (flash)
+    path, forward and backward, under remat as in the full configs; the
+    rwkv6 layers run the chunked scan (272 chunks of the reduced config's
+    4 tokens)."""
     jb, jp, tb, tp = _pair(arch, attn_block=128, remat=True)
     rng = np.random.default_rng(5)
     batch = {k: rng.integers(0, 256, size=(1, 1088)).astype(np.int32)
@@ -171,13 +174,6 @@ def test_remat_on_equals_off():
     assert torch.equal(l_on, l_off)
     for a, b in zip(g_on, g_off):
         assert torch.equal(a, b)
-
-
-def test_ssm_loss_names_its_slice():
-    tb = TT.build_model(tconfigs.get_arch("rwkv6-1.6b").reduced())
-    with pytest.raises(NotImplementedError, match="ssm-training slice"):
-        tb.loss(tb.init(0, device="cpu"), {"tokens": torch.zeros(1, 8, dtype=torch.int32),
-                                           "targets": torch.zeros(1, 8, dtype=torch.int32)})
 
 
 # ------------------------------------------------------------- data
