@@ -32,7 +32,9 @@ final line):
     backward's wgmma kernels must not spill), the dynamic shared memory of
     the LM kernels, and the HGMMA (wgmma) and UTMALDG (TMA load)
     instructions in the built forward and backward flash libraries
-    (``cuobjdump -sass``), both required to be present;
+    (``cuobjdump -sass``), both required to be present, and the HMMA
+    (mma.sync) and LDGSTS (cp.async) instructions of the scan backward's
+    library, a tensor-core and an asynchronous-load instruction required;
  2. kernels against their plain versions on the card: bit-exact in
     float32 at [10, 10, 2156490] (unmasked and masked) and on every CNN
     leaf shape; bfloat16 within one bfloat16 ulp; a ragged N; NaN rows;
@@ -150,9 +152,13 @@ final line):
     ulp more); T = 1100 with a nonzero final-state gradient and state
     likewise; logw down to -20 against the float64 definition of the
     gradients (kernel and plain version, half an ulp for bf16); every case
-    called twice, bit for bit; then kernel, plain and bound times (and the
-    float32-operations time), the forward at this shape, registers and
-    spills (none allowed) and a trace of three calls by kernel;
+    called twice, bit for bit; then kernel, plain and bound times, and in
+    the log line alone (reckoned, not measured) the float32-operations
+    time, the bytes the design's four passes move and its products' time
+    in 3xTF32 at the TF32 peak; each pass's resident blocks an SM (C' must
+    keep two in bf16) and traced time, the forward at this shape, registers
+    and spills (none allowed), the library's tag, flags and the ``nvcc
+    --version`` that built it, and a trace of 200 calls by kernel;
 13. LM serving at full width through ``repro_torch.launch.serve.generate``:
     qwen3-14b (40 layers, d 5120, bf16, 14.77 B params) and rwkv6-1.6b (24
     layers, d 2048), each from random params (seed 0), 4 prompts of 2048
@@ -280,6 +286,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, float32 outside tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12      # H100 SXM data sheet, TF32 tensor cores, dense
 FLOPS_PER_ELEMENT = 5          # g*gs, +z, +y, lr*d, x-...
 INT8_FLOPS = 6                 # u/s, +noise, floor, two clip compares, q*s
 TOPK_FLOPS = 2                 # |u|, compare
@@ -297,6 +304,9 @@ LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_TOKENS = 1, 2048, 400_000
 # Phase (v): rwkv6-1.6b at its published widths and full depth (24 layers),
 # trained as glm4-9b is above.
 SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS = "rwkv6-1.6b", 24
+# The scan backward's four kernels, in launch order (passes A', B', C', D').
+SCAN_BWD_PASSES = ("rwkv6_bwd_chunk_grad_kernel", "rwkv6_bwd_state_scan_kernel",
+                   "rwkv6_bwd_chunk_out_kernel", "rwkv6_bwd_du_kernel")
 # Phases 19-21 ((j)-(l)): the same training, with compressed uploads and
 # partial participation (client_participation 0.5, fixed masks); top-k keeps
 # 1% of a row. Recorded column slices of an upload block are 2^16 wide.
@@ -377,9 +387,10 @@ def ptxas_entries(text: str) -> list:
 
 
 def sass_counts(path: Path, build) -> dict:
-    """Counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions in a
-    built library's SASS, from ``cuobjdump -sass`` of the toolkit that built
-    it (else the one Triton ships)."""
+    """Counts of HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA load) and
+    LDGSTS (cp.async) instructions in a built library's SASS, from
+    ``cuobjdump -sass`` of the toolkit that built it (else the one Triton
+    ships)."""
     tools = [Path(build.nvcc_path()).parent / "cuobjdump"]
     try:
         import triton
@@ -390,15 +401,18 @@ def sass_counts(path: Path, build) -> dict:
     require(tool is not None, f"no cuobjdump found (looked at {[str(t) for t in tools]})")
     sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    return {op: sum(1 for line in sass.splitlines() if op in line) for op in ("HGMMA", "UTMALDG")}
+    return {op: sum(1 for line in sass.splitlines() if op in line)
+            for op in ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")}
 
 
 def log_kernel_resources(build, logs: dict) -> None:
     """Registers at launch, spills (ptxas) and dynamic shared memory of the
-    LM kernels as launched on the main path, and the wgmma/TMA instructions
-    in the two flash libraries; both counts must be > 0, and the backward's
-    wgmma kernels must not spill (``logs``: the build's ptxas output, empty
-    for a library that was already built)."""
+    LM kernels as launched on the main path, the wgmma/TMA instructions in
+    the two flash libraries (both counts must be > 0; the backward's wgmma
+    kernels must not spill), and the scan backward's resident blocks an SM
+    per pass and its tensor-core (HMMA or HGMMA) and asynchronous-load
+    (LDGSTS or UTMALDG) instructions, both required (``logs``: the build's
+    ptxas output, empty for a library that was already built)."""
     fl, sc = build.load("flash_attention"), build.load("rwkv6_scan")
     log(f"  flash_fwd_wgmma_kernel<128>: {fl.flash_attention_smem_bytes(128)} B of dynamic "
         f"shared memory, 384 threads (registers: 24 producer / 240 consumer after setmaxnreg)")
@@ -406,9 +420,11 @@ def log_kernel_resources(build, logs: dict) -> None:
                               "rwkv6_chunk_out_kernel")):
         log(f"  {name}: {sc.rwkv6_scan_smem_bytes(i)} B of dynamic shared memory")
     sb = build.load("rwkv6_scan_bwd")
-    for i, name in enumerate(("rwkv6_bwd_chunk_grad_kernel", "rwkv6_bwd_state_scan_kernel",
-                              "rwkv6_bwd_chunk_out_kernel", "rwkv6_bwd_du_kernel")):
-        log(f"  {name}: {sb.rwkv6_scan_bwd_smem_bytes(i)} B of dynamic shared memory")
+    for i, name in enumerate(SCAN_BWD_PASSES):
+        log(f"  {name}: {sb.rwkv6_scan_bwd_smem_bytes(i, 1)} B (bf16) / "
+            f"{sb.rwkv6_scan_bwd_smem_bytes(i, 0)} B (float32) of dynamic shared memory, "
+            f"{sb.rwkv6_scan_bwd_blocks_per_sm(i, 1)} / {sb.rwkv6_scan_bwd_blocks_per_sm(i, 0)} "
+            f"blocks an SM")
     bw = build.load("flash_attention_bwd")
     log(f"  flash_bwd_dq_wgmma_kernel<128>, flash_bwd_dkdv_wgmma_kernel<128> (bf16): "
         f"{bw.flash_attention_bwd_smem_bytes(2, 128)} B of dynamic shared memory each, 384 "
@@ -424,6 +440,11 @@ def log_kernel_resources(build, logs: dict) -> None:
                 f"{entry} spills registers: {spills}")
     if not wg:
         log("  flash_attention_bwd was built before this run: its ptxas report is not here")
+    counts = sass_counts(build.library_path("rwkv6_scan_bwd"), build)
+    log(f"  rwkv6_scan_bwd SASS: {counts['HMMA']} HMMA, {counts['HGMMA']} HGMMA, "
+        f"{counts['LDGSTS']} LDGSTS, {counts['UTMALDG']} UTMALDG")
+    require(counts["HMMA"] + counts["HGMMA"] > 0 and counts["LDGSTS"] + counts["UTMALDG"] > 0,
+            "the built rwkv6_scan_bwd library holds no tensor-core product or no asynchronous load")
     for name in ("flash_attention", "flash_attention_bwd"):
         counts = sass_counts(build.library_path(name), build)
         log(f"  {name} SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
@@ -964,6 +985,23 @@ def scan_bwd_errors(got, want, dtype, ulps: float) -> dict:
     return out
 
 
+def scan_bwd_pass_bytes(B: int, T: int, H: int, Dh: int, C: int, elt: int,
+                        d_final: bool) -> dict:
+    """Bytes each pass of ``csrc/rwkv6_scan_bwd.cu`` moves, each array it
+    reads or writes counted once a pass (``elt``: bytes of an r/k/v
+    element): A' reads r, do, logw and writes dG and the log-decays; B'
+    reads them (and d_final) and writes Gend over dG and dstate; C' reads
+    r, k, v, logw, do, u and three states a chunk (S_c, Gend, Send) and
+    writes dr, dk, dv, dlogw and the du partials; D' sums those."""
+    nc = -(-T // C)
+    n, st, per = B * T * H * Dh, nc * B * H * Dh * Dh * 4, nc * B * H * Dh * 4
+    state = B * H * Dh * Dh * 4
+    return {"A'": n * elt + 2 * n * 4 + st + per,
+            "B'": st + per + (state if d_final else 0) + st + state,
+            "C'": 3 * n * elt + 2 * n * 4 + H * Dh * 4 + 3 * st + 3 * n * elt + n * 4 + per,
+            "D'": per + H * Dh * 4}
+
+
 def phase_scan_backward(torch, rs, logs: dict):
     """Phase 12b: the scan's backward kernel (``csrc/rwkv6_scan_bwd.cu``) on
     the forward kernel's saved chunk states, at rwkv6-1.6b's training shape
@@ -971,7 +1009,7 @@ def phase_scan_backward(torch, rs, logs: dict):
     ``rwkv6_scan_bwd_ref``, the final state's gradient None as in training;
     a ragged T (1100) with a nonzero final-state gradient and state; strong
     decays (logw down to -20) against the float64 definition; a second call
-    bit for bit; then kernel, plain and bound times and a trace of three
+    bit for bit; then kernel, plain and bound times and a trace of 200
     calls (each of its four kernels)."""
     dev = torch.device("cuda")
     B, T, H, Dh, C = LM_TRAIN_BATCH, LM_TRAIN_SEQ, 32, 64, 64
@@ -1038,14 +1076,31 @@ def phase_scan_backward(torch, rs, logs: dict):
     flops = B * H * nc * (8 * C * Dh * Dh + 10 * C * C * Dh)
     t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
     t["f32_operations_ms"] = flops / F32_FLOPS_PER_S * 1e3
+    t["tf32x3_operations_ms"] = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    t["pass_bytes"] = scan_bwd_pass_bytes(B, T, H, Dh, C, 2, False)
+    t["design_bytes"] = sum(t["pass_bytes"].values())
+    t["design_bytes_ms"] = t["design_bytes"] / HBM_BYTES_PER_S * 1e3
+    from repro_torch.kernels import build
+    sb = build.load("rwkv6_scan_bwd")
+    t["blocks_per_sm"] = {name: {"bf16": sb.rwkv6_scan_bwd_blocks_per_sm(i, 1),
+                                 "float32": sb.rwkv6_scan_bwd_blocks_per_sm(i, 0)}
+                          for i, name in enumerate(SCAN_BWD_PASSES)}
+    require(t["blocks_per_sm"]["rwkv6_bwd_chunk_out_kernel"]["bf16"] >= 2,
+            f"rwkv6_bwd_chunk_out_kernel keeps fewer than two blocks an SM: {t['blocks_per_sm']}")
     t["bound_share"] = t["bound_ms"] / t["ms"]
     t.update(bytes=nbytes, flops=flops, library_ms=None, checks=checks,
-             ptxas=[[e, rg, sp] for e, rg, sp in ptxas_entries(logs.get("rwkv6_scan_bwd", ""))])
+             ptxas=[[e, rg, sp] for e, rg, sp in ptxas_entries(logs.get("rwkv6_scan_bwd", ""))],
+             library=build.library_path("rwkv6_scan_bwd").name, toolkit=build.toolkit_version(),
+             flags=" ".join(build.nvcc_flags("rwkv6_scan_bwd")))
     for e, rg, sp in t["ptxas"]:
         require("0 bytes spill stores" in sp and "0 bytes spill loads" in sp,
                 f"{e} spills registers: {sp}")
-    trace = profile_round(torch, lambda: [run(args, (states, s_fin)) for _ in range(3)])
-    t["pass_ms"] = {re.search(r"rwkv6_bwd_\w+", name).group(0): nn["summed"] / 3e3
+    # A trace of a few milliseconds this late in the script comes back without
+    # device events (phase 12's three calls do); 200 calls take about 50 ms.
+    n_traced = 200
+    trace = profile_round(torch, lambda: [run(args, (states, s_fin)) for _ in range(n_traced)],
+                          host=False)
+    t["pass_ms"] = {re.search(r"rwkv6_bwd_\w+", name).group(0): nn["summed"] / n_traced / 1e3
                     for name, nn in trace.get("by_name", {}).items() if "rwkv6_bwd" in name}
     t["fwd_ms"] = cuda_ms(torch, lambda: rs._launch(r, k, v, logw, u, s0, C, B, H, T, Dh, 0),
                           iters=20)
@@ -1053,9 +1108,14 @@ def phase_scan_backward(torch, rs, logs: dict):
         f"{t['ms_readings']}, plain {t['plain_ms']:.4f} ms {t['plain_ms_readings']}, bound "
         f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {nbytes} bytes, {flops:.4g} FLOP; float32 "
         f"operations alone {t['f32_operations_ms']:.4f} ms; bound share {t['bound_share']:.3f}); "
-        f"library none; traced per call {t['pass_ms'] or 'not measured'}; the forward kernel at "
-        f"this shape {t['fwd_ms']:.4f} ms; registers {[(e, rg, sp) for e, rg, sp in t['ptxas']]}")
-    log_trace("  rwkv6_scan_bwd, three calls (traced)", trace, top_n=4)
+        f"the design's passes move {t['design_bytes']} bytes ({t['design_bytes_ms']:.4f} ms at "
+        f"HBM rate; by pass {t['pass_bytes']}); its products in 3xTF32 "
+        f"{t['tf32x3_operations_ms']:.4f} ms at the TF32 peak; library none; traced per "
+        f"call {t['pass_ms'] or 'not measured'}; blocks an SM {t['blocks_per_sm']}; the forward "
+        f"kernel at this shape {t['fwd_ms']:.4f} ms; registers "
+        f"{[(e, rg, sp) for e, rg, sp in t['ptxas']]}; library {t['library']} built by "
+        f"{t['toolkit']} with {t['flags']}")
+    log_trace(f"  rwkv6_scan_bwd, {n_traced} calls (traced)", trace, top_n=4)
     del args, r, k, v, logw, u, s0, do, states, s_fin
     torch.cuda.empty_cache()
     errs = {"rwkv6_scan_bwd": max(c[n]["max_abs_err"] for key, c in checks.items()
@@ -1746,10 +1806,14 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
             out["gemm_share"], out["flash_bwd_share"] = gemm / busy, bwd / busy
             out["quantize_share"], out["threshold_share"] = quant / busy, topk / busy
             out["scan_share"], out["scan_bwd_share"] = scan_f / busy, scan_b / busy
+            out["busy_ms"] = busy
             if cfg.arch_type == "ssm":
+                out["scan_bwd_pass_ms"] = {p: busy_ms(lambda name, p=p: p in name)
+                                           for p in SCAN_BWD_PASSES}
                 log(f"  the scan's forward kernels (both passes under remat): {scan_f:.1f} ms, "
                     f"{out['scan_share']:.3f} of busy; its backward's four kernels: "
-                    f"{scan_b:.1f} ms, {out['scan_bwd_share']:.3f} of busy")
+                    f"{scan_b:.1f} ms, {out['scan_bwd_share']:.3f} of busy (by pass, ms: "
+                    f"{out['scan_bwd_pass_ms']})")
             log(f"  cuBLAS products (nvjet/gemm kernels): {gemm:.1f} ms, "
                 f"{out['gemm_share']:.3f} of busy; the attention backward's three kernels: "
                 f"{bwd:.1f} ms, {out['flash_bwd_share']:.3f} of busy; the quantize kernels: "
@@ -3889,8 +3953,9 @@ def main() -> int:
         "max_abs_err": sb_errs["rwkv6_scan_bwd"], "max_abs_err_f32": sb_errs["rwkv6_scan_bwd/f32"],
         "ms": sb_t["ms"], "plain_ms": sb_t["plain_ms"], "bound_ms": sb_t["bound_ms"],
         "bound_by": sb_t["bound_by"], "library_ms": None, "bound_share": sb_t["bound_share"],
-        "f32_operations_ms": sb_t["f32_operations_ms"], "pass_ms": sb_t["pass_ms"],
-        "ptxas": sb_t["ptxas"], "checks": sb_t["checks"],
+        "pass_ms": sb_t["pass_ms"], "blocks_per_sm": sb_t["blocks_per_sm"],
+        "library": sb_t["library"], "toolkit": sb_t["toolkit"], "ptxas": sb_t["ptxas"],
+        "checks": sb_t["checks"],
         "forward_at_this_shape_ms": sb_t["fwd_ms"],
         "shape": f"r/k/v and dr/dk/dv [{LM_TRAIN_BATCH},{LM_TRAIN_SEQ},32,64] bf16, logw/do/dlogw "
                  "f32, C=64, on the forward's saved chunk states (one rwkv6-1.6b training "

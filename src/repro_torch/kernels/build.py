@@ -32,16 +32,27 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# The element-wise kernels are bit-exact against their plain versions: every
+# Flags of single libraries, after NVCC_FLAGS. The element-wise kernels
+# (mtgc_update, quantize) are bit-exact against their plain versions: every
 # rounding is explicit in their sources, and nvcc must not contract any
 # remaining a * b + c into an FMA. The attention and scan kernels reorder
-# their sums anyway and write their FMAs out.
-NO_FMAD = ("mtgc_update", "quantize")
+# their sums anyway and write their FMAs out. ptxas of CUDA 12.9 at its
+# default -O3, and at -O2, compiles the scan backward's C' pass
+# (rwkv6_bwd_chunk_out_kernel) into code whose outputs come out NaN and
+# differ from call to call, where the same PTX through ptxas -O1 matches the
+# plain version to float32 rounding; the cause is not isolated.
+# tools/scan_bwd_ptxas_check.py builds and runs that library without the
+# flag beside this one, with the toolkit's version and both times.
+EXTRA_FLAGS = {
+    "mtgc_update": ("-fmad=false",),
+    "quantize": ("-fmad=false",),
+    "rwkv6_scan_bwd": ("-Xptxas", "-O1"),
+}
 
 
 def nvcc_flags(name: str) -> tuple:
     """The flags ``csrc/<name>.cu`` is compiled with."""
-    return NVCC_FLAGS + (("-fmad=false",) if name in NO_FMAD else ())
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
 def nvcc_path() -> str:
@@ -60,6 +71,14 @@ def nvcc_path() -> str:
     raise RuntimeError(
         "nvcc not found (checked $CUDA_HOME/bin, PATH, /usr/local/cuda/bin): "
         "the port's CUDA kernels cannot be built on this host")
+
+
+def toolkit_version() -> str:
+    """The last line of ``nvcc --version`` (the compiler's release and
+    build), for logs that tie a library to the toolkit that built it."""
+    out = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    return out.strip().splitlines()[-1]
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
@@ -163,5 +182,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "rwkv6_scan_bwd":
         lib.rwkv6_scan_bwd_launch.argtypes = [p] * 18 + [i32] * 5 + [i64] * 3 + [i32, p]
         lib.rwkv6_scan_bwd_launch.restype = i32
-        lib.rwkv6_scan_bwd_smem_bytes.argtypes = [i32]
+        lib.rwkv6_scan_bwd_smem_bytes.argtypes = [i32, i32]
         lib.rwkv6_scan_bwd_smem_bytes.restype = i32
+        lib.rwkv6_scan_bwd_blocks_per_sm.argtypes = [i32, i32]
+        lib.rwkv6_scan_bwd_blocks_per_sm.restype = i32

@@ -13,7 +13,7 @@
 //   dlogw_t[i] = w_t[i] sum_j S_{t-1}[i, j] G_t[i, j]
 //   du = sum_{b, t} (r_t * k_t)(v_t . do_t),  dstate = G_0.
 //
-// Design: the forward's three launches in reverse, plus a reduction.
+// Passes: the forward's three launches in reverse, plus a reduction.
 //   A' (grid: chunks x B*H): the chunk's share of G at its start,
 //     dG_c = (r * exp(cum_ex))^T do, into scratch, and its log-decay;
 //   B' (grid: B*H*Dh*Dh entries / 256): each thread owns one entry and runs
@@ -25,11 +25,13 @@
 //     scratch) and Gend_c;
 //   D' (grid: H*Dh / 256): du, the partials summed over b and the chunks in
 //     a fixed order -- no float atomics, so two calls give the same bits.
-// In C', per chunk, with the forward's sub-chunk anchors (lx, lc, tot; see
-// rwkv6_scan.cu), the factors fx = exp(lx), fc = exp(tot[q] - lc),
-// eg[p] = exp(totals before p), ex[q] = exp(totals after q) and
-// E[p, q] = exp(totals strictly between q and p), every exponent <= 0
-// wherever logw <= 0, and bm[t, i] = do_t . v_i, bd[t] = bm[t, t]:
+// In C', per chunk, with the forward's sub-chunk anchors (lc inclusive and
+// lx exclusive sums of logw from each sub-chunk's start, tot each
+// sub-chunk's total; lx[t] = lc[t - 1] inside a sub-chunk, 0 at its start),
+// the factors fx = exp(lx), fc = exp(tot[q] - lc), eg[p] = exp(totals
+// before p), ex[q] = exp(totals after q) and E[p, q] = exp(totals strictly
+// between q and p), every exponent <= 0 wherever logw <= 0, and
+// bm[t, i] = do_t . v_i, bd[t] = bm[t, t]:
 //   dr = fx (eg S_c do + sum_{q<p} E[p, q] bm (k fc)) + in_r + u k bd
 //   dk = fc (ex Gend v + sum_{p>q} E[p, q] bm^T (r fx)) + in_k + u r bd
 //   dv = att^T do + (k fc ex) Gend + (r . (u k)) do
@@ -51,29 +53,67 @@
 // bf16 r/k/v, float32 logw and do) the function reads r, k, v (25.2 MB),
 // logw and do (33.6 MB) and the forward's chunk states (16.8 MB) and writes
 // dr, dk, dv (25.2 MB) and dlogw (16.8 MB): 118.5 MB, 0.035 ms at 3.35 TB/s
-// on an H100 SXM. Its products are 4.83 GFLOP (per chunk 8 C Dh^2 for the
-// four state products and 10 C^2 Dh for the five intra-chunk ones); as in
-// the forward they are float32 FMAs on the CUDA cores (TF32 would miss the
-// 1e-4 contract), 0.072 ms at 67 TFLOP/s. This first version keeps the
-// forward's structure -- 256 threads a block, register tiles of 4 x 4 from
-// float4 shared-memory reads, every operand of C' in shared memory (180 KB:
-// one block an SM) -- and does not overlap its loads with its products: C'
-// takes most of its time (chip_smoke.py phase 12b and phase (v)'s trace).
+// on an H100 SXM. The four passes move about 245 MB (A' reads r, do and
+// logw and writes dG; B' reads and rewrites it; C' reads every input, S_c,
+// Gend and Send and writes the gradients), 0.073 ms. Its products are 4.83
+// GFLOP (per chunk 8 C Dh^2 for the four state products and 10 C^2 Dh for
+// the intra-chunk ones): 0.072 ms as float32 FMAs at 67 TFLOP/s, and
+// 0.029 ms on the tensor cores at 495 TFLOP/s with each product taken three
+// times (3xTF32).
+//
+// What bounds this design, and what it does about each:
+// * the products: every matrix product of A' and C' runs on the tensor
+//   cores (mma.sync m16n8k8 TF32) in 3xTF32 (tf32_mma.cuh), which holds the
+//   float32 contract (within 1e-6 of the largest entry) where one TF32
+//   product and a bf16 hi/lo split miss its 5e-6
+//   (tests/test_torch_ssm_train.py::test_3xtf32_split_holds_float32_accuracy);
+//   a bf16 input (v) is exact in TF32 and takes two products, not three.
+//   Each of the 8 warps owns a 16 x 32 tile of every 64 x 64 result: rows
+//   one sub-chunk, columns one half. att's six off-diagonal 16 x 16 blocks
+//   go one to each of warps 0-5, and the sub-chunk pairs of dr and dk are
+//   taken together (three pairs for every warp). The pairwise decays of
+//   the diagonal sub-chunk terms are not a product of two matrices and stay
+//   on the CUDA cores: one exponential per (t, i, d) for in_r and in_k
+//   together, and across the two halves of a sub-chunk the product of two
+//   per-token factors, each exponent <= 0;
+// * the bytes: the tiles arrive by cp.async, in two groups -- do, v, S_c and
+//   Gend, which the first products need, then r, k and logw, which land
+//   under those products; C' holds r, k, v in the inputs' type (a bf16
+//   tile is half a float32 one), keeps S_c's tile only until its product is
+//   taken and then holds bm (lower blocks) and att^T (upper blocks) in it,
+//   forms k fc, r fx and their decay factors from lc as each operand is
+//   loaded (no factor tiles), and reuses do's and Gend's tiles for dr' and
+//   dk'. That is 105 KB of shared memory in bf16 (two blocks, 16 warps an
+//   SM, at most 128 registers a thread), 129 KB in float32 (one block);
+// * the dependent phases: C' runs about ten of them between
+//   __syncthreads(), and a second resident block fills one block's barriers
+//   and load waits. At 16 warps an SM its phases stay latency bound
+//   (exponentials, shared-memory loads and products in chains), well above
+//   the bytes' and the products' times (PERF.md).
+// This source is compiled with ptxas -O1 (kernels/build.py, EXTRA_FLAGS):
+// ptxas 12.9 at -O2 and -O3 turns C' into code whose outputs are NaN and
+// differ from call to call. tools/scan_bwd_ptxas_check.py builds it without
+// the flag and runs both builds.
 //
 // Layout: r/k/v (float32 or bfloat16), logw and do (float32) are read, and
 // dr/dk/dv (the inputs' type) and dlogw (float32) written, through the
 // forward's (b, t, h) strides. u and du are [H, Dh]. A ragged last chunk is
 // padded with r = k = v = do = 0, logw = 0 inside the kernel; the pad
-// tokens add 0 to every sum and their gradients are not written.
+// tokens add 0 to every sum and their gradients are not written. With a.vec
+// (Dh and the strides multiples of 8 elements, every tensor 16-byte
+// aligned: the model's layout) tiles arrive by 16-byte cp.async copies,
+// else one element at a time through registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "rwkv6_tiles.cuh"  // constants, Tile, local_cumsums, run_sum, att_diagonal
+#include "rwkv6_tiles.cuh"  // constants, to_f32, local_cumsums
+#include "tf32_mma.cuh"     // tf32, mma8, cp_async16
 
 namespace {
 
 using namespace rwkv6;
+using namespace tf32x3;
 
 struct Args {
   const void* r;
@@ -96,139 +136,236 @@ struct Args {
   float* du_part;        // [nc, B*H, Dh]
   int B, H, T, Dh, C, nc, BH;
   int64_t sB, sT, sH;
-  int vec;  // 16-byte loads: see Tile
+  int vec;  // 16-byte copies: see Layout above
 };
 
-// One [kMaxDh, kMaxDh] state of `src` ([Dh, Dh], contiguous) into a tile,
-// zero outside Dh x Dh.
-__device__ __forceinline__ void load_state(float* dst, const float* src, int Dh) {
-  for (int idx = threadIdx.x; idx < kMaxDh * kMaxDh; idx += kThreads) {
-    const int d = idx / kMaxDh, e = idx % kMaxDh;
-    dst[d * kLd + e] = (d < Dh && e < Dh) ? src[d * Dh + e] : 0.f;
+// Row stride of an r/k/v tile in elements: float32 rows 68 floats apart (4
+// banks), bf16 rows 72 (144 bytes, 4 banks): the fragment loads below hit
+// distinct banks, and every row starts on 16 bytes for cp.async.
+template <typename T>
+struct TileLd {
+  static constexpr int value = kLd;
+};
+template <>
+struct TileLd<__nv_bfloat16> {
+  static constexpr int value = kMaxDh + 8;
+};
+
+// A TF32 split of x (see tf32_mma.cuh); kSplit false: x is exact in TF32.
+template <bool kSplit>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if (kSplit) {
+    hi = tf32(x);
+    lo = tf32(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
   }
 }
+
+// acc += A B over k in [k0, k1) (a multiple of 8 apart) for one warp's
+// 16 x 32 tile, in 3xTF32: fa(m, k) and fb(k, n) give A's and B's elements
+// (m < 16, n < 32 in the tile); n-tile j (columns 8j .. 8j + 7) only where
+// use(j). kA / kB false: that operand is exact in TF32 (a bf16 value), so
+// its lo product is skipped. acc[j][x] is the element at row g + 8 (x / 2),
+// column 8 j + 2 t4 + x % 2 of the tile, g = lane / 4, t4 = lane % 4 (the
+// mma's fragment layout).
+template <bool kA, bool kB, typename FA, typename FB, typename Use>
+__device__ __forceinline__ void warp_mma(float (&acc)[4][4], int k0, int k1, FA fa, FB fb,
+                                         Use use) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  for (int k = k0; k < k1; k += 8) {
+    uint32_t ah[4], al[4];
+    split<kA>(fa(g, k + t4), ah[0], al[0]);
+    split<kA>(fa(g + 8, k + t4), ah[1], al[1]);
+    split<kA>(fa(g, k + t4 + 4), ah[2], al[2]);
+    split<kA>(fa(g + 8, k + t4 + 4), ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!use(j)) continue;
+      uint32_t bh0, bl0, bh1, bl1;
+      split<kB>(fb(k + t4, 8 * j + g), bh0, bl0);
+      split<kB>(fb(k + t4 + 4, 8 * j + g), bh1, bl1);
+      if (kA) mma8(acc[j], al, bh0, bh1);
+      if (kB) mma8(acc[j], ah, bl0, bl1);
+      mma8(acc[j], ah, bh0, bh1);
+    }
+  }
+}
+
+struct AllTiles {
+  __device__ __forceinline__ bool operator()(int) const { return true; }
+};
+constexpr AllTiles all_tiles{};
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
-  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+// Four consecutive elements of a tile row as float (16-byte or 8-byte aligned).
+__device__ __forceinline__ float4 ld4f(const float* p) { return ld4(p); }
+__device__ __forceinline__ float4 ld4f(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&w.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&w.y);
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// acc[x][y] += s[x] * b4[y] for a 4 x 4 register tile.
-__device__ __forceinline__ void outer4(float (&acc)[4][4], const float (&s)[4], float4 b4) {
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    acc[x][0] = fmaf(s[x], b4.x, acc[x][0]);
-    acc[x][1] = fmaf(s[x], b4.y, acc[x][1]);
-    acc[x][2] = fmaf(s[x], b4.z, acc[x][2]);
-    acc[x][3] = fmaf(s[x], b4.w, acc[x][3]);
-  }
-}
-
-// Four consecutive elements of row t of an output with the inputs' strides.
 template <typename T>
-__device__ __forceinline__ void store4(T* dst, const float (&v)[4], int e0, int Dh, int vec);
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Elements e0, e0 + 1 of a row of an output with the inputs' strides (e0
+// even; with vec, Dh is a multiple of 8 and the pair lies inside it).
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float x0, float x1, int e0, int Dh, int vec);
 
 template <>
-__device__ __forceinline__ void store4<float>(float* dst, const float (&v)[4], int e0, int Dh,
-                                              int vec) {
+__device__ __forceinline__ void store2<float>(float* dst, float x0, float x1, int e0, int Dh,
+                                             int vec) {
   if (vec) {
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
     return;
   }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (e0 + j < Dh) dst[j] = v[j];
+  if (e0 < Dh) dst[0] = x0;
+  if (e0 + 1 < Dh) dst[1] = x1;
 }
 
 template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* dst, const float (&v)[4],
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst, float x0, float x1,
                                                       int e0, int Dh, int vec) {
   if (vec) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 w;
-    w.x = *reinterpret_cast<const uint32_t*>(&lo);
-    w.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(dst) = w;
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
     return;
   }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (e0 + j < Dh) dst[j] = __float2bfloat16(v[j]);
+  if (e0 < Dh) dst[0] = __float2bfloat16(x0);
+  if (e0 + 1 < Dh) dst[1] = __float2bfloat16(x1);
+}
+
+// Rows t < C of chunk c of (b, h) of a (b, t, h, d) tensor into a
+// [kMaxC, ld] tile of T, zero where t >= C, d >= Dh or the token lies past
+// T: 16-byte cp.async copies with a.vec (in the caller's open group), else
+// one element at a time.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, const Args& a,
+                                          int64_t base, int c0) {
+  if (a.vec) {
+    constexpr int kVec = 16 / sizeof(T), kRowVecs = kMaxDh / kVec;
+    for (int idx = threadIdx.x; idx < kMaxC * kRowVecs; idx += kThreads) {
+      const int t = idx / kRowVecs, d = (idx % kRowVecs) * kVec;
+      const bool ok = t < a.C && d < a.Dh && c0 + t < a.T;
+      cp_async16(dst + t * ld + d, ok ? src + base + (int64_t)(c0 + t) * a.sT + d : src, ok);
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < kMaxC * kMaxDh; idx += kThreads) {
+    const int t = idx / kMaxDh, d = idx % kMaxDh;
+    const bool ok = t < a.C && d < a.Dh && c0 + t < a.T;
+    dst[t * ld + d] = ok ? src[base + (int64_t)(c0 + t) * a.sT + d] : from_f32<T>(0.f);
+  }
+}
+
+// A [Dh, Dh] state (contiguous) into a [kMaxDh, kLd] float tile, zero
+// outside Dh x Dh; cp.async with a.vec.
+__device__ __forceinline__ void load_state(float* dst, const float* src, const Args& a) {
+  if (a.vec) {
+    for (int idx = threadIdx.x; idx < kMaxDh * kMaxDh / 4; idx += kThreads) {
+      const int d = idx / (kMaxDh / 4), e = (idx % (kMaxDh / 4)) * 4;
+      const bool ok = d < a.Dh && e < a.Dh;
+      cp_async16(dst + d * kLd + e, ok ? src + d * a.Dh + e : src, ok);
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < kMaxDh * kMaxDh; idx += kThreads) {
+    const int d = idx / kMaxDh, e = idx % kMaxDh;
+    dst[d * kLd + e] = (d < a.Dh && e < a.Dh) ? src[d * a.Dh + e] : 0.f;
+  }
+}
+
+// lx[t, d]: lc of the previous token of t's sub-chunk, 0 at its start (the
+// load stays in bounds either way).
+__device__ __forceinline__ float lx_at(const float* LC, int t, int d) {
+  const bool first = (t & (kSub - 1)) == 0;
+  const float prev = LC[(first ? t : t - 1) * kLd + d];
+  return first ? 0.f : prev;
+}
+
+// RUN[lo][hi][d] = tot[lo] + ... + tot[hi - 1] in that order (0 for
+// hi <= lo), lo, hi in 0 .. kMaxSub.
+constexpr int kRunN = kMaxSub + 1;
+__device__ __forceinline__ void run_sums(const float* TOT, float* RUN) {
+  for (int idx = threadIdx.x; idx < kRunN * kMaxDh; idx += kThreads) {
+    const int lo = idx / kMaxDh, d = idx % kMaxDh;
+    float* out = RUN + lo * kRunN * kMaxDh + d;
+    for (int hi = 0; hi <= lo; ++hi) out[hi * kMaxDh] = 0.f;
+    float acc = 0.f;
+    for (int hi = lo + 1; hi < kRunN; ++hi) {
+      acc += TOT[(hi - 1) * kMaxDh + d];
+      out[hi * kMaxDh] = acc;
+    }
+  }
 }
 
 // --------------------------------------------------------------- pass A'
 template <typename T>
+constexpr size_t grad_smem_bytes() {
+  return sizeof(T) * kMaxC * TileLd<T>::value +
+         sizeof(float) * (2 * kTile + kMaxSub * kMaxDh + kRunN * kRunN * kMaxDh);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rwkv6_bwd_chunk_grad_kernel(Args a) {
-  extern __shared__ float smem[];
-  float* R = smem;           // r, then r exp(cum_ex)
-  float* DO = R + kTile;
+  constexpr int ldT = TileLd<T>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* R = reinterpret_cast<T*>(smem_raw);
+  float* DO = reinterpret_cast<float*>(R + kMaxC * ldT);
   float* LC = DO + kTile;    // logw, then lc
-  float* LX = LC + kTile;
-  float* TOT = LX + kTile;   // [kMaxSub, kMaxDh]
-  float* EG = TOT + kMaxSub * kMaxDh;
+  float* TOT = LC + kTile;   // [kMaxSub, kMaxDh]
+  float* RUN = TOT + kMaxSub * kMaxDh;
 
   const int bh = blockIdx.x % a.BH, c = blockIdx.x / a.BH;  // neighbours share c
   const int b = bh / a.H, h = bh % a.H;
   const int64_t base = (int64_t)b * a.sB + (int64_t)h * a.sH;
   const int c0 = c * a.C;
-  const T* rp = static_cast<const T*>(a.r);
-  Tile<T, Args> tr_;
-  Tile<float, Args> tdo, tl;
-  tr_.fetch(rp, a, base, c0);
-  tdo.fetch(a.dout, a, base, c0);
-  tl.fetch(a.logw, a, base, c0);
-  tr_.store(R, rp, a, base, c0);
-  tdo.store(DO, a.dout, a, base, c0);
-  tl.store(LC, a.logw, a, base, c0);
+  const int warp = threadIdx.x >> 5, wp = warp >> 1, wc = (warp & 1) * 32;
+  load_rows<T>(R, ldT, static_cast<const T*>(a.r), a, base, c0);
+  load_rows<float>(DO, kLd, a.dout, a, base, c0);
+  load_rows<float>(LC, kLd, a.logw, a, base, c0);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  local_cumsums(LC, LX, TOT);
+  local_cumsums(LC, nullptr, TOT);
   __syncthreads();
-  const int nsub = (a.C + kSub - 1) / kSub;
-  {
-    const int q = threadIdx.x / kMaxDh, d = threadIdx.x % kMaxDh;
-    EG[threadIdx.x] = expf(run_sum(TOT, 0, q, d));
-    if (threadIdx.x < a.Dh)
-      a.log_decay[((int64_t)c * a.BH + bh) * a.Dh + threadIdx.x] =
-          run_sum(TOT, 0, nsub, threadIdx.x);
-  }
+  run_sums(TOT, RUN);
   __syncthreads();
-  // cum_ex[t] = (totals before t's sub-chunk p) + lx[t]: r exp(lx) eg[p].
-  for (int idx = threadIdx.x; idx < kMaxC * kMaxDh / 4; idx += kThreads) {
-    const int t = idx / (kMaxDh / 4), d = (idx % (kMaxDh / 4)) * 4, at = t * kLd + d;
-    const float4 x = ld4(LX + at), g = ld4(EG + (t / kSub) * kMaxDh + d);
-    float4 r = ld4(R + at);
-    r.x = r.x * __expf(x.x) * g.x;
-    r.y = r.y * __expf(x.y) * g.y;
-    r.z = r.z * __expf(x.z) * g.z;
-    r.w = r.w * __expf(x.w) * g.w;
-    *reinterpret_cast<float4*>(R + at) = r;
-  }
-  __syncthreads();
-  // dG[d, e] = sum_t R[t, d] DO[t, e]: rows d = 4 tr .., columns e = 4 tc ..
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  if (threadIdx.x < a.Dh)  // run(0, kMaxSub)
+    a.log_decay[((int64_t)c * a.BH + bh) * a.Dh + threadIdx.x] = RUN[kMaxSub * kMaxDh + threadIdx.x];
+  // dG[d, e] = sum_t (r exp(lx + totals before t's sub-chunk))[t, d] do[t, e]:
+  // the warp's rows d = 16 wp .., columns e = wc ...
   float acc[4][4] = {};
-  for (int t = 0; t < a.C; ++t) {
-    const float4 rd = ld4(R + t * kLd + 4 * tr);
-    const float s[4] = {rd.x, rd.y, rd.z, rd.w};
-    outer4(acc, s, ld4(DO + t * kLd + 4 * tc));
-  }
+  warp_mma<true, true>(
+      acc, 0, kMaxC,
+      [&](int m, int t) {
+        const int d = 16 * wp + m;
+        return to_f32(R[t * ldT + d]) *
+               __expf(lx_at(LC, t, d) + RUN[(t / kSub) * kMaxDh + d]);
+      },
+      [&](int t, int n) { return DO[t * kLd + wc + n]; }, all_tiles);
   float* dg = a.grads + ((int64_t)c * a.BH + bh) * a.Dh * a.Dh;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int d = 4 * tr + x, e = 4 * tc;
-    if (d >= a.Dh || e >= a.Dh) continue;
-    store4<float>(dg + d * a.Dh + e, acc[x], e, a.Dh, a.vec);
-  }
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int d = 16 * wp + g + 8 * hh, e = wc + 8 * j + 2 * t4;
+      if (d < a.Dh && e < a.Dh)
+        store2<float>(dg + d * a.Dh + e, acc[j][2 * hh], acc[j][2 * hh + 1], e, a.Dh, a.vec);
+    }
 }
 
 // --------------------------------------------------------------- pass B'
@@ -268,400 +405,357 @@ rwkv6_bwd_state_scan_kernel(Args a, int64_t n_states) {
 }
 
 // --------------------------------------------------------------- pass C'
-constexpr size_t kOutSmemFloats = 8 * kTile + 2 * kMaxC * kLdAtt + 3 * kMaxSub * kMaxDh +
-                                  kMaxSub * kMaxSub * kMaxDh + 4 * kMaxC + 2 * kMaxSub * kMaxDh;
+template <typename T>
+constexpr size_t out_smem_bytes() {
+  return sizeof(T) * 3 * kMaxC * TileLd<T>::value +
+         sizeof(float) * (4 * kTile + kRunN * kRunN * kMaxDh + 3 * kMaxSub * kMaxDh +
+                          3 * kMaxDh);
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
 rwkv6_bwd_chunk_out_kernel(Args a) {
-  extern __shared__ float smem[];
-  float* R = smem;            // r
-  float* K = R + kTile;       // k
-  float* V = K + kTile;       // v
-  float* DO = V + kTile;      // do
-  float* LX = DO + kTile;     // lx, then fx = exp(lx)
-  float* LC = LX + kTile;     // logw, then lc, then fc = exp(tot[q] - lc)
-  float* SC = LC + kTile;     // the chunk-start state S_c [kMaxDh, kLd]
-  float* GE = SC + kTile;     // Gend_c [kMaxDh, kLd]
-  float* BM = GE + kTile;     // [kMaxC, kLdAtt]: do_t . v_i (i <= t), then r dr'
-  float* ATT = BM + kMaxC * kLdAtt;  // the forward's att (i < t), then k dk' partial sums
-  float* TOT = ATT + kMaxC * kLdAtt;
-  float* EG = TOT + kMaxSub * kMaxDh;          // exp(totals before p)
-  float* EX = EG + kMaxSub * kMaxDh;           // exp(totals after q)
-  float* E = EX + kMaxSub * kMaxDh;            // [p, q]: exp(totals strictly between)
-  float* U = E + kMaxSub * kMaxSub * kMaxDh;
-  float* KC = U + kMaxC;                       // sum_j Send Gend, per row
-  float* BD = KC + kMaxC;                      // bm[t, t]
-  float* BONUS = BD + kMaxC;                   // r . (u k)
-  float* SUF = BONUS + kMaxC;                  // [q, d]: a sub-chunk's dlogw terms summed
-  float* DUQ = SUF + kMaxSub * kMaxDh;         // [q, d]: a sub-chunk's du terms summed
+  constexpr int ldT = TileLd<T>::value;
+  constexpr bool kSplitT = sizeof(T) == 4;  // a bf16 input is exact in TF32
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* R = reinterpret_cast<T*>(smem_raw);
+  T* K = R + kMaxC * ldT;
+  T* V = K + kMaxC * ldT;
+  float* DO = reinterpret_cast<float*>(V + kMaxC * ldT);  // do, then dr' less in_r
+  float* LC = DO + kTile;                                 // logw, then lc
+  float* BMT = LC + kTile;  // S_c, then bm[t][i] (i <= t blocks) and att[t][i] at [i][t] (t > i)
+  float* GE = BMT + kTile;  // Gend, then dk' less in_k
+  float* RUN = GE + kTile;  // [lo][hi][d]: see run_sums
+  float* TOT = RUN + kRunN * kRunN * kMaxDh;
+  float* SUF = TOT + kMaxSub * kMaxDh;  // [q, d]: a sub-chunk's dlogw terms summed
+  float* DUQ = SUF + kMaxSub * kMaxDh;  // [q, d]: a sub-chunk's du terms summed
+  float* U = DUQ + kMaxSub * kMaxDh;
+  float* KC = U + kMaxDh;     // sum_j Send Gend, per row
+  float* BONUS = KC + kMaxDh; // r . (u k), per token
+  float* DR = DO;
+  float* DK = GE;
 
   const int bh = blockIdx.x % a.BH, c = blockIdx.x / a.BH;  // neighbours share c
   const int b = bh / a.H, h = bh % a.H;
   const int64_t base = (int64_t)b * a.sB + (int64_t)h * a.sH;
   const int c0 = c * a.C;
-  const int tid = threadIdx.x;
-  const int nsub = (a.C + kSub - 1) / kSub;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  // The warp's 16 x 32 tile of every [64, 64] result: rows of sub-chunk wp,
+  // columns wc .. wc + 31.
+  const int warp = tid >> 5, wp = warp >> 1, wc = (warp & 1) * 32;
+  const int64_t dd = (int64_t)a.Dh * a.Dh;
+  const int64_t st_off = ((int64_t)c * a.BH + bh) * dd;
   const T* rp = static_cast<const T*>(a.r);
   const T* kp = static_cast<const T*>(a.k);
   const T* vp = static_cast<const T*>(a.v);
+  auto run = [&](int lo, int hi, int d) { return RUN[(lo * kRunN + hi) * kMaxDh + d]; };
+  // k fc (times exp(x)) and r fx (times exp(x)), formed as they are loaded.
+  auto kq = [&](int i, int d, float x) {
+    return to_f32(K[i * ldT + d]) * __expf(TOT[(i / kSub) * kMaxDh + d] - LC[i * kLd + d] + x);
+  };
+  auto rx = [&](int t, int d, float x) {
+    return to_f32(R[t * ldT + d]) * __expf(lx_at(LC, t, d) + x);
+  };
+
+  // Send (the state at the chunk's end) for KC: rows d = warp + 8 x, columns
+  // lane and lane + 32, into registers ahead of everything else.
+  float send[kMaxDh / 8][2];
   {
-    Tile<T, Args> tr_, tk, tv;
-    Tile<float, Args> tl;
-    tr_.fetch(rp, a, base, c0);
-    tk.fetch(kp, a, base, c0);
-    tv.fetch(vp, a, base, c0);
-    tl.fetch(a.logw, a, base, c0);
-    tr_.store(R, rp, a, base, c0);
-    tk.store(K, kp, a, base, c0);
-    tv.store(V, vp, a, base, c0);
-    tl.store(LC, a.logw, a, base, c0);
+    const float* sp = c + 1 < a.nc ? a.states + st_off + (int64_t)a.BH * dd
+                                   : a.s_final + (int64_t)bh * dd;
+#pragma unroll
+    for (int x = 0; x < kMaxDh / 8; ++x)
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        const int d = warp + 8 * x, e = lane + 32 * y;
+        send[x][y] = d < a.Dh && e < a.Dh ? sp[d * a.Dh + e] : 0.f;
+      }
   }
-  {
-    Tile<float, Args> tdo;
-    tdo.fetch(a.dout, a, base, c0);
-    tdo.store(DO, a.dout, a, base, c0);
-  }
-  const int64_t dd = (int64_t)a.Dh * a.Dh;
-  load_state(SC, a.states + ((int64_t)c * a.BH + bh) * dd, a.Dh);
-  load_state(GE, a.grads + ((int64_t)c * a.BH + bh) * dd, a.Dh);
+  // Loads: do, v, S_c and Gend first (the first products need them), then
+  // r, k and logw, which land under those products.
+  load_rows<float>(DO, kLd, a.dout, a, base, c0);
+  load_rows<T>(V, ldT, vp, a, base, c0);
+  load_state(BMT, a.states + st_off, a);
+  load_state(GE, a.grads + st_off, a);
+  cp_async_commit();
+  load_rows<T>(R, ldT, rp, a, base, c0);
+  load_rows<T>(K, ldT, kp, a, base, c0);
+  load_rows<float>(LC, kLd, a.logw, a, base, c0);
+  cp_async_commit();
   if (tid < kMaxDh) U[tid] = tid < a.Dh ? a.u[(int64_t)h * a.Dh + tid] : 0.f;
-  for (int idx = tid; idx < kMaxC * kLdAtt; idx += kThreads) ATT[idx] = 0.f;
+  cp_async_wait<1>();
   __syncthreads();
-  // KC[d] = sum_j Send[d, j] Gend[d, j]: four threads a row d, 16 columns each.
-  {
-    const float* send = c + 1 < a.nc ? a.states + ((int64_t)(c + 1) * a.BH + bh) * dd
-                                     : a.s_final + (int64_t)bh * dd;
-    const int d = tid / 4, j0 = (tid % 4) * 16;
-    float s = 0.f;
-    if (d < a.Dh)
-      for (int j = j0; j < j0 + 16 && j < a.Dh; ++j) s = fmaf(send[d * a.Dh + j], GE[d * kLd + j], s);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (tid % 4 == 0) KC[d] = s;
+  // KC[d] = sum_j Send[d, j] Gend[d, j]: one warp a row, summed across lanes.
+#pragma unroll
+  for (int x = 0; x < kMaxDh / 8; ++x) {
+    const int d = warp + 8 * x;
+    float s = fmaf(send[x][1], GE[d * kLd + lane + 32], send[x][0] * GE[d * kLd + lane]);
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+    if (lane == 0) KC[d] = s;
   }
-  local_cumsums(LC, LX, TOT);
-  __syncthreads();
+  // S_c do (dr's state term) and bm = do v^T, then bm over S_c's tile (its
+  // blocks above the diagonal are overwritten by att below).
+  float acc_r[4][4] = {};
+  warp_mma<true, true>(
+      acc_r, 0, kMaxDh, [&](int m, int e) { return DO[(16 * wp + m) * kLd + e]; },
+      [&](int e, int n) { return BMT[(wc + n) * kLd + e]; }, all_tiles);
   {
-    const int p = tid / kMaxDh, d = tid % kMaxDh;
-    EG[p * kMaxDh + d] = expf(run_sum(TOT, 0, p, d));
-    EX[p * kMaxDh + d] = expf(run_sum(TOT, p + 1, nsub, d));
-    for (int q = 0; q < p; ++q) E[(p * kMaxSub + q) * kMaxDh + d] = expf(run_sum(TOT, q + 1, p, d));
-  }
-  // bm[t, i] = do_t . v_i for the blocks with i <= t: rows t = 4 tr ..,
-  // columns i = 4 tc ...
-  const int tr = tid / 16, tc = tid % 16;
-  const int t0 = 4 * tr, c4 = 4 * tc;
-  if (tc <= tr) {
     float acc[4][4] = {};
-    for (int e = 0; e < a.Dh; e += 4) {
-      float4 dv4[4], vv[4];
+    warp_mma<true, kSplitT>(
+        acc, 0, kMaxDh, [&](int m, int e) { return DO[(16 * wp + m) * kLd + e]; },
+        [&](int e, int n) { return to_f32(V[(wc + n) * ldT + e]); }, all_tiles);
+    __syncthreads();  // every read of S_c is done
 #pragma unroll
-      for (int x = 0; x < 4; ++x) dv4[x] = ld4(DO + (t0 + x) * kLd + e);
+    for (int j = 0; j < 4; ++j) {
 #pragma unroll
-      for (int y = 0; y < 4; ++y) vv[y] = ld4(V + (c4 + y) * kLd + e);
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-#pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] = dot4(dv4[x], vv[y], acc[x][y]);
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(BMT + (16 * wp + g + 8 * hh) * kLd + wc + 8 * j + 2 * t4) =
+            make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
     }
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-      *reinterpret_cast<float4*>(BM + (t0 + x) * kLdAtt + c4) =
-          make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
   }
-  att_diagonal(R, K, LX, LC, ATT, nsub);
+  cp_async_wait<0>();
   __syncthreads();
-  // The pairs of one sub-chunk, decays pairwise, for the cells of this
-  // thread (rows t0 .. t0 + 3 of sub-chunk sp, channels c4 .. c4 + 3):
-  //   in_r[t, d] = sum_{i < t} bm[t, i] k[i, d] exp(lx[t, d] - lc[i, d])
-  //   in_k[i, d] = sum_{t > i} bm[t, i] r[t, d] exp(lx[t, d] - lc[i, d]).
-  const int sp = t0 / kSub, s0 = sp * kSub;
-  float g_r[4][4] = {}, g_k[4][4] = {};
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int t = t0 + x;
-    const float4 lxt = ld4(LX + t * kLd + c4);
-    for (int i = s0; i < t; ++i) {
-      const float bti = BM[t * kLdAtt + i];
-      const float4 ki = ld4(K + i * kLd + c4), ci = ld4(LC + i * kLd + c4);
-      g_r[x][0] = fmaf(bti * ki.x, __expf(lxt.x - ci.x), g_r[x][0]);
-      g_r[x][1] = fmaf(bti * ki.y, __expf(lxt.y - ci.y), g_r[x][1]);
-      g_r[x][2] = fmaf(bti * ki.z, __expf(lxt.z - ci.z), g_r[x][2]);
-      g_r[x][3] = fmaf(bti * ki.w, __expf(lxt.w - ci.w), g_r[x][3]);
-    }
-    const int i = t0 + x;
-    const float4 lci = ld4(LC + i * kLd + c4);
-    for (int t2 = i + 1; t2 < s0 + kSub; ++t2) {
-      const float bti = BM[t2 * kLdAtt + i];
-      const float4 rt = ld4(R + t2 * kLd + c4), xt = ld4(LX + t2 * kLd + c4);
-      g_k[x][0] = fmaf(bti * rt.x, __expf(xt.x - lci.x), g_k[x][0]);
-      g_k[x][1] = fmaf(bti * rt.y, __expf(xt.y - lci.y), g_k[x][1]);
-      g_k[x][2] = fmaf(bti * rt.z, __expf(xt.z - lci.z), g_k[x][2]);
-      g_k[x][3] = fmaf(bti * rt.w, __expf(xt.w - lci.w), g_k[x][3]);
-    }
-  }
-  // bd and the bonus r . (u k): four threads a row t, 16 channels each.
+  local_cumsums(LC, nullptr, TOT);
+  // bonus[t] = r_t . (u k_t): four threads a row t, 16 channels each.
   {
     const int t = tid / 4;
-    float bonus = 0.f;
+    float s = 0.f;
 #pragma unroll
-    for (int n = 0; n < kMaxDh / 16; ++n) {
-      const int d = (tid % 4) * 16 + 4 * n, at = t * kLd + d;
-      bonus = dot4(mul4(ld4(R + at), ld4(U + d)), ld4(K + at), bonus);
+    for (int n = 0; n < kMaxDh / 4; n += 4) {
+      const int d = (tid % 4) * 16 + n;
+      const float4 r4 = ld4f(R + t * ldT + d), k4 = ld4f(K + t * ldT + d), u4 = ld4(U + d);
+      s = fmaf(r4.x * u4.x, k4.x, s);
+      s = fmaf(r4.y * u4.y, k4.y, s);
+      s = fmaf(r4.z * u4.z, k4.z, s);
+      s = fmaf(r4.w * u4.w, k4.w, s);
     }
-    bonus += __shfl_xor_sync(0xffffffffu, bonus, 1);
-    bonus += __shfl_xor_sync(0xffffffffu, bonus, 2);
-    if (tid % 4 == 0) {
-      BONUS[t] = bonus;
-      BD[t] = BM[t * kLdAtt + t];
-    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (tid % 4 == 0) BONUS[t] = s;
   }
   __syncthreads();
-  // lx -> fx = exp(lx), lc -> fc = exp(tot[q] - lc), in place.
-  for (int idx = tid; idx < kMaxC * kMaxDh / 4; idx += kThreads) {
-    const int t = idx / (kMaxDh / 4), d = (idx % (kMaxDh / 4)) * 4, at = t * kLd + d;
-    const float4 x = ld4(LX + at), lc = ld4(LC + at), tq = ld4(TOT + (t / kSub) * kMaxDh + d);
-    *reinterpret_cast<float4*>(LX + at) =
-        make_float4(__expf(x.x), __expf(x.y), __expf(x.z), __expf(x.w));
-    *reinterpret_cast<float4*>(LC + at) = make_float4(
-        __expf(tq.x - lc.x), __expf(tq.y - lc.y), __expf(tq.z - lc.z), __expf(tq.w - lc.w));
-  }
+  run_sums(TOT, RUN);
   __syncthreads();
-  float* FX = LX;
-  float* FC = LC;
-  // The off-diagonal blocks of att, as in the forward:
-  // att[t, i] = sum_d (r fx)[t, d] E[p, q, d] (k fc)[i, d] for q < p, each
-  // thread two rows t by four columns i of one 16 x 16 block.
-  const int n_off = nsub * (nsub - 1) / 2;
-  for (int idx = tid; idx < n_off * 32; idx += kThreads) {
-    int blk = idx / 32, p = 1;
-    while (blk >= p) blk -= p++;
-    const int q = blk, w = idx % 32;
-    const int ta = p * kSub + (w / 4) * 2, i0 = q * kSub + (w % 4) * 4;
-    const float* ep = E + (p * kMaxSub + q) * kMaxDh;
-    float acc[2][4] = {};
-    for (int d = 0; d < kMaxDh; d += 4) {
-      const float4 e4 = ld4(ep + d);
-      float4 rr[2], kk[4];
-#pragma unroll
-      for (int x = 0; x < 2; ++x)
-        rr[x] = mul4(mul4(ld4(R + (ta + x) * kLd + d), ld4(FX + (ta + x) * kLd + d)), e4);
-#pragma unroll
-      for (int y = 0; y < 4; ++y) kk[y] = mul4(ld4(K + (i0 + y) * kLd + d), ld4(FC + (i0 + y) * kLd + d));
-#pragma unroll
-      for (int x = 0; x < 2; ++x)
-#pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] = dot4(rr[x], kk[y], acc[x][y]);
-    }
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
-      *reinterpret_cast<float4*>(ATT + (ta + x) * kLdAtt + i0) =
-          make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
-  }
-  __syncthreads();
-  // dr' = fx (eg S_c do + sum_{q<p} E[p, q] bm (k fc)) + in_r, into g_r.
-  {
+  // The off-diagonal blocks of att, one 16 x 16 block (t in sub-chunk p,
+  // i in an earlier q) to each of warps 0-5:
+  // att[t, i] = sum_d (r fx E[p, q])[t, d] (k fc)[i, d], written at [i][t].
+  if (warp < kMaxSub * (kMaxSub - 1) / 2) {
+    const int p = warp == 0 ? 1 : warp < 3 ? 2 : 3, q = warp - p * (p - 1) / 2;
     float acc[4][4] = {};
-    for (int e = 0; e < a.Dh; e += 4) {
-      float4 dv4[4], sv[4];
+    warp_mma<true, true>(
+        acc, 0, kMaxDh, [&](int m, int d) { return rx(16 * p + m, d, run(q + 1, p, d)); },
+        [&](int d, int n) { return kq(16 * q + n, d, 0.f); }, [](int j) { return j < 2; });
 #pragma unroll
-      for (int x = 0; x < 4; ++x) dv4[x] = ld4(DO + (t0 + x) * kLd + e);
-#pragma unroll
-      for (int y = 0; y < 4; ++y) sv[y] = ld4(SC + (c4 + y) * kLd + e);
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int x = 0; x < 4; ++x)
-#pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] = dot4(dv4[x], sv[y], acc[x][y]);
-    }
-    const float4 eg = ld4(EG + sp * kMaxDh + c4);
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      acc[x][0] *= eg.x;
-      acc[x][1] *= eg.y;
-      acc[x][2] *= eg.z;
-      acc[x][3] *= eg.w;
-    }
-    for (int q = 0; q < sp; ++q) {
-      float part[4][4] = {};
-      for (int i = q * kSub; i < (q + 1) * kSub; ++i) {
-        const float s[4] = {BM[t0 * kLdAtt + i], BM[(t0 + 1) * kLdAtt + i],
-                            BM[(t0 + 2) * kLdAtt + i], BM[(t0 + 3) * kLdAtt + i]};
-        outer4(part, s, mul4(ld4(K + i * kLd + c4), ld4(FC + i * kLd + c4)));
+        BMT[(16 * q + 8 * j + 2 * t4 + (x & 1)) * kLd + 16 * p + g + 8 * (x >> 1)] = acc[j][x];
+  }
+  // The diagonal blocks of att, pairwise decays, one thread a pair (t > i),
+  // written at [i][t] over bm's unused upper half of the block.
+  {
+    constexpr int kPairs = kSub * (kSub - 1) / 2;
+    for (int idx = tid; idx < kMaxSub * kPairs; idx += kThreads) {
+      const int q = idx / kPairs;
+      int pr = idx % kPairs, tl = 1;
+      while (pr >= tl) pr -= tl++;
+      const int t = q * kSub + tl, i = q * kSub + pr;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);  // four chains, summed at the end
+#pragma unroll 4
+      for (int d = 0; d < kMaxDh; d += 4) {
+        const float4 rt = ld4f(R + t * ldT + d), ki = ld4f(K + i * ldT + d);
+        const float4 xt = ld4(LC + (t - 1) * kLd + d), ci = ld4(LC + i * kLd + d);
+        acc.x = fmaf(rt.x * ki.x, __expf(xt.x - ci.x), acc.x);
+        acc.y = fmaf(rt.y * ki.y, __expf(xt.y - ci.y), acc.y);
+        acc.z = fmaf(rt.z * ki.z, __expf(xt.z - ci.z), acc.z);
+        acc.w = fmaf(rt.w * ki.w, __expf(xt.w - ci.w), acc.w);
       }
-      const float4 e4 = ld4(E + (sp * kMaxSub + q) * kMaxDh + c4);
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        acc[x][0] = fmaf(e4.x, part[x][0], acc[x][0]);
-        acc[x][1] = fmaf(e4.y, part[x][1], acc[x][1]);
-        acc[x][2] = fmaf(e4.z, part[x][2], acc[x][2]);
-        acc[x][3] = fmaf(e4.w, part[x][3], acc[x][3]);
-      }
-    }
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const float4 fx = ld4(FX + (t0 + x) * kLd + c4);
-      g_r[x][0] = fmaf(fx.x, acc[x][0], g_r[x][0]);
-      g_r[x][1] = fmaf(fx.y, acc[x][1], g_r[x][1]);
-      g_r[x][2] = fmaf(fx.z, acc[x][2], g_r[x][2]);
-      g_r[x][3] = fmaf(fx.w, acc[x][3], g_r[x][3]);
+      BMT[i * kLd + t] = (acc.x + acc.y) + (acc.z + acc.w);
     }
   }
-  // dk' = fc (ex Gend v + sum_{p>q} E[p, q] bm^T (r fx)) + in_k, into g_k
-  // (rows i = t0 .., sub-chunk sp).
+  // dr's state term times eg, plus sum_{q<p} E[p, q] bm (k fc); and dk's
+  // sum_{p>q} E[p, q] bm^T (r fx) (rows i of sub-chunk wp): three sub-chunk
+  // pairs for every warp.
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc_r[j][x] *= expf(run(0, wp, wc + 8 * j + 2 * t4 + (x & 1)));
+  for (int q = 0; q < wp; ++q)
+    warp_mma<true, true>(
+        acc_r, 0, kSub, [&](int m, int i) { return BMT[(16 * wp + m) * kLd + 16 * q + i]; },
+        [&](int i, int n) { return kq(16 * q + i, wc + n, run(q + 1, wp, wc + n)); }, all_tiles);
+  float acc_k[4][4] = {};
+  for (int s = wp + 1; s < kMaxSub; ++s)
+    warp_mma<true, true>(
+        acc_k, 0, kSub, [&](int m, int t) { return BMT[(16 * s + t) * kLd + 16 * wp + m]; },
+        [&](int t, int n) { return rx(16 * s + t, wc + n, run(wp + 1, s, wc + n)); }, all_tiles);
+  __syncthreads();  // att is complete
+  // dv = att^T do + (k fc ex) Gend + bonus do (rows i of sub-chunk wp).
   {
     float acc[4][4] = {};
-    for (int e = 0; e < a.Dh; e += 4) {
-      float4 vi[4], gv[4];
+    warp_mma<true, true>(
+        acc, 16 * wp, kMaxC,
+        [&](int m, int t) {
+          const int i = 16 * wp + m;
+          const float x = BMT[i * kLd + t];
+          return t > i ? x : 0.f;
+        },
+        [&](int t, int n) { return DO[t * kLd + wc + n]; }, all_tiles);
+    warp_mma<true, true>(
+        acc, 0, kMaxDh, [&](int m, int d) { return kq(16 * wp + m, d, run(wp + 1, kMaxSub, d)); },
+        [&](int d, int n) { return GE[d * kLd + wc + n]; }, all_tiles);
+    T* dvp = static_cast<T*>(a.dv) + base + (int64_t)c0 * a.sT;
 #pragma unroll
-      for (int x = 0; x < 4; ++x) vi[x] = ld4(V + (t0 + x) * kLd + e);
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int y = 0; y < 4; ++y) gv[y] = ld4(GE + (c4 + y) * kLd + e);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 16 * wp + g + 8 * hh, e = wc + 8 * j + 2 * t4;
+        const float bt = BONUS[i];
+        const float x0 = fmaf(bt, DO[i * kLd + e], acc[j][2 * hh]);
+        const float x1 = fmaf(bt, DO[i * kLd + e + 1], acc[j][2 * hh + 1]);
+        if (i < a.C && c0 + i < a.T && e < a.Dh)
+          store2<T>(dvp + (int64_t)i * a.sT + e, x0, x1, e, a.Dh, a.vec);
+      }
+  }
+  __syncthreads();  // every read of do is done
+  // dr' less in_r = fx (...), over do's tile.
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int t = 16 * wp + g + 8 * (x >> 1), d = wc + 8 * j + 2 * t4 + (x & 1);
+      DR[t * kLd + d] = acc_r[j][x] * __expf(lx_at(LC, t, d));
+    }
+  // dk' less in_k = fc (ex Gend v + the pairs above), over Gend's tile once
+  // every read of it is done.
+  {
+    float acc[4][4] = {};
+    warp_mma<kSplitT, true>(
+        acc, 0, kMaxDh, [&](int m, int e) { return to_f32(V[(16 * wp + m) * ldT + e]); },
+        [&](int e, int n) { return GE[(wc + n) * kLd + e]; }, all_tiles);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int x = 0; x < 4; ++x)
+        acc_k[j][x] = fmaf(expf(run(wp + 1, kMaxSub, wc + 8 * j + 2 * t4 + (x & 1))), acc[j][x],
+                           acc_k[j][x]);
+    __syncthreads();  // every read of Gend is done
 #pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] = dot4(vi[x], gv[y], acc[x][y]);
-    }
-    const float4 ex = ld4(EX + sp * kMaxDh + c4);
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      acc[x][0] *= ex.x;
-      acc[x][1] *= ex.y;
-      acc[x][2] *= ex.z;
-      acc[x][3] *= ex.w;
-    }
-    for (int p = sp + 1; p < nsub; ++p) {
-      float part[4][4] = {};
-      for (int t = p * kSub; t < (p + 1) * kSub; ++t) {
-        const float4 b4 = ld4(BM + t * kLdAtt + t0);
-        const float s[4] = {b4.x, b4.y, b4.z, b4.w};
-        outer4(part, s, mul4(ld4(R + t * kLd + c4), ld4(FX + t * kLd + c4)));
-      }
-      const float4 e4 = ld4(E + (p * kMaxSub + sp) * kMaxDh + c4);
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
-        acc[x][0] = fmaf(e4.x, part[x][0], acc[x][0]);
-        acc[x][1] = fmaf(e4.y, part[x][1], acc[x][1]);
-        acc[x][2] = fmaf(e4.z, part[x][2], acc[x][2]);
-        acc[x][3] = fmaf(e4.w, part[x][3], acc[x][3]);
+        const int i = 16 * wp + g + 8 * (x >> 1), d = wc + 8 * j + 2 * t4 + (x & 1);
+        DK[i * kLd + d] = acc_k[j][x] * __expf(TOT[wp * kMaxDh + d] - LC[i * kLd + d]);
       }
-    }
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const float4 fc = ld4(FC + (t0 + x) * kLd + c4);
-      g_k[x][0] = fmaf(fc.x, acc[x][0], g_k[x][0]);
-      g_k[x][1] = fmaf(fc.y, acc[x][1], g_k[x][1]);
-      g_k[x][2] = fmaf(fc.z, acc[x][2], g_k[x][2]);
-      g_k[x][3] = fmaf(fc.w, acc[x][3], g_k[x][3]);
-    }
   }
-  // dv[i, e] = sum_{t > i} att[t, i] do[t, e] + sum_d (k fc ex)[i, d]
-  // Gend[d, e] + bonus[i] do[i, e] (rows i = t0 .., columns e = c4 ..).
+  __syncthreads();
+  // One thread a (sub-chunk q, channel d), inside its warp's tile: the pairs
+  // of the sub-chunk, one decay each for both
+  //   in_r[t, d] = sum_{i < t} bm[t, i] k[i, d] exp(lx[t, d] - lc[i, d])
+  //   in_k[i, d] = sum_{t > i} bm[t, i] r[t, d] exp(lx[t, d] - lc[i, d]);
+  // a pair inside one half of the sub-chunk takes its own exponential, a
+  // pair across the halves (i < 8 <= t) the product of
+  // a[t] = exp(lx[t] - lc[7]) and b[i] = exp(lc[7] - lc[i]), both exponents
+  // <= 0 (72 exponentials a thread instead of 120). Then dr = dr' + u k bd
+  // and dk = dk' + u r bd written out, r dr' and k dk' left in the tiles for
+  // dlogw, and du's terms r k bd summed.
+  const int q = tid / kMaxDh, d = tid % kMaxDh, s0 = q * kSub;
   const int64_t grad_base = base + (int64_t)c0 * a.sT;
-  const bool row_ok[4] = {t0 < a.C && c0 + t0 < a.T, t0 + 1 < a.C && c0 + t0 + 1 < a.T,
-                          t0 + 2 < a.C && c0 + t0 + 2 < a.T, t0 + 3 < a.C && c0 + t0 + 3 < a.T};
   {
-    float acc[4][4] = {};
-    for (int t = t0; t < a.C; ++t) {  // att[t, i] is 0 for t <= i
-      const float4 at4 = ld4(ATT + t * kLdAtt + t0);
-      const float s[4] = {at4.x, at4.y, at4.z, at4.w};
-      outer4(acc, s, ld4(DO + t * kLd + c4));
+    T* drp = static_cast<T*>(a.dr) + grad_base + d;
+    T* dkp = static_cast<T*>(a.dk) + grad_base + d;
+    const float ud = U[d];
+    float kk[kSub], lc[kSub], ink[kSub];
+#pragma unroll
+    for (int x = 0; x < kSub; ++x) {
+      kk[x] = to_f32(K[(s0 + x) * ldT + d]);
+      lc[x] = LC[(s0 + x) * kLd + d];
+      ink[x] = 0.f;
     }
-    for (int d = 0; d < a.Dh; d += 4) {
-      const float4 x4 = ld4(EX + sp * kMaxDh + d);
-      float4 gv[4];
+    constexpr int kHalf = kSub / 2;
+    float kb[kHalf], bh[kHalf], inkc[kHalf];
 #pragma unroll
-      for (int y = 0; y < 4; ++y) gv[y] = ld4(GE + (d + y) * kLd + c4);
+    for (int x = 0; x < kHalf; ++x) {
+      bh[x] = __expf(lc[kHalf - 1] - lc[x]);
+      kb[x] = kk[x] * bh[x];
+      inkc[x] = 0.f;
+    }
+    float du = 0.f;
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const float4 kq = mul4(mul4(ld4(K + (t0 + x) * kLd + d), ld4(FC + (t0 + x) * kLd + d)), x4);
-        const float s[4] = {kq.x, kq.y, kq.z, kq.w};
+    for (int tl = 0; tl < kSub; ++tl) {
+      const int t = s0 + tl;
+      const float rt = to_f32(R[t * ldT + d]);
+      const float lxt = tl ? lc[tl - 1] : 0.f;
+      float inr = 0.f;
+      if (tl >= kHalf) {
+        const float at = __expf(lxt - lc[kHalf - 1]), rat = rt * at;
+        float cr = 0.f;
 #pragma unroll
-        for (int y = 0; y < 4; ++y) {
-          acc[x][0] = fmaf(s[y], gv[y].x, acc[x][0]);
-          acc[x][1] = fmaf(s[y], gv[y].y, acc[x][1]);
-          acc[x][2] = fmaf(s[y], gv[y].z, acc[x][2]);
-          acc[x][3] = fmaf(s[y], gv[y].w, acc[x][3]);
+        for (int il = 0; il < kHalf; ++il) {
+          const float bti = BMT[t * kLd + s0 + il];
+          cr = fmaf(bti, kb[il], cr);
+          inkc[il] = fmaf(bti, rat, inkc[il]);
         }
+        inr = at * cr;
       }
-    }
-    T* dvp = static_cast<T*>(a.dv) + grad_base;
 #pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      if (!row_ok[x] || c4 >= a.Dh) continue;
-      const float4 d4 = ld4(DO + (t0 + x) * kLd + c4);
-      const float bt = BONUS[t0 + x];
-      const float out[4] = {fmaf(bt, d4.x, acc[x][0]), fmaf(bt, d4.y, acc[x][1]),
-                            fmaf(bt, d4.z, acc[x][2]), fmaf(bt, d4.w, acc[x][3])};
-      store4<T>(dvp + (int64_t)(t0 + x) * a.sT + c4, out, c4, a.Dh, a.vec);
+      for (int il = tl >= kHalf ? kHalf : 0; il < tl; ++il) {
+        const float bti = BMT[t * kLd + s0 + il];
+        const float w = __expf(lxt - lc[il]);
+        inr = fmaf(bti * kk[il], w, inr);
+        ink[il] = fmaf(bti * rt, w, ink[il]);
+      }
+      const float bd = BMT[t * kLd + t];
+      const float drn = DR[t * kLd + d] + inr;
+      if (t < a.C && c0 + t < a.T && d < a.Dh)
+        drp[(int64_t)t * a.sT] = from_f32<T>(fmaf(ud * kk[tl], bd, drn));
+      DR[t * kLd + d] = rt * drn;
+      du = fmaf(rt * kk[tl], bd, du);
     }
-  }
-  // dr = dr' + u k bd and dk = dk' + u r bd, written out; then r dr' and
-  // k dk' into BM and ATT for dlogw.
-  {
-    T* drp = static_cast<T*>(a.dr) + grad_base;
-    T* dkp = static_cast<T*>(a.dk) + grad_base;
-    const float4 u4 = ld4(U + c4);
 #pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      if (!row_ok[x] || c4 >= a.Dh) continue;
-      const int t = t0 + x;
-      const float bt = BD[t];
-      const float4 r4 = ld4(R + t * kLd + c4), k4 = ld4(K + t * kLd + c4);
-      const float or_[4] = {fmaf(u4.x * k4.x, bt, g_r[x][0]), fmaf(u4.y * k4.y, bt, g_r[x][1]),
-                            fmaf(u4.z * k4.z, bt, g_r[x][2]), fmaf(u4.w * k4.w, bt, g_r[x][3])};
-      const float ok[4] = {fmaf(u4.x * r4.x, bt, g_k[x][0]), fmaf(u4.y * r4.y, bt, g_k[x][1]),
-                           fmaf(u4.z * r4.z, bt, g_k[x][2]), fmaf(u4.w * r4.w, bt, g_k[x][3])};
-      store4<T>(drp + (int64_t)t * a.sT + c4, or_, c4, a.Dh, a.vec);
-      store4<T>(dkp + (int64_t)t * a.sT + c4, ok, c4, a.Dh, a.vec);
-    }
-  }
-  __syncthreads();  // every read of BM and ATT is done
+    for (int il = 0; il < kHalf; ++il) ink[il] = fmaf(bh[il], inkc[il], ink[il]);
 #pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int t = t0 + x;
-    const float4 r4 = ld4(R + t * kLd + c4), k4 = ld4(K + t * kLd + c4);
-    *reinterpret_cast<float4*>(BM + t * kLdAtt + c4) =
-        make_float4(r4.x * g_r[x][0], r4.y * g_r[x][1], r4.z * g_r[x][2], r4.w * g_r[x][3]);
-    *reinterpret_cast<float4*>(ATT + t * kLdAtt + c4) =
-        make_float4(k4.x * g_k[x][0], k4.y * g_k[x][1], k4.z * g_k[x][2], k4.w * g_k[x][3]);
-  }
-  __syncthreads();
-  // dlogw: one thread a (sub-chunk q, channel d), its tokens last first:
-  // z[t] = (r dr')[t + 1] - (k dk')[t], summed from the chunk's end; each
-  // sub-chunk's own sums, then the later sub-chunks' totals and KC. And
-  // du's terms r k bd, summed per sub-chunk.
-  // (r dr')[t + 1] is carried from one step to the next: a guarded load of
-  // row t + 1 inside this loop was compiled (nvcc 12.9, sm_90a) with wrong
-  // shared-memory offsets in its unrolled copies.
-  {
-    const int q = tid / kMaxDh, d = tid % kMaxDh;
-    float acc = 0.f, du = 0.f;
-    float rn = q + 1 < kMaxSub ? BM[(q + 1) * kSub * kLdAtt + d] : 0.f;
-    for (int t = (q + 1) * kSub - 1; t >= q * kSub; --t) {
-      acc += rn - ATT[t * kLdAtt + d];
-      ATT[t * kLdAtt + d] = acc;
-      rn = BM[t * kLdAtt + d];
-      du = fmaf(R[t * kLd + d] * K[t * kLd + d], BD[t], du);
+    for (int il = 0; il < kSub; ++il) {
+      const int i = s0 + il;
+      const float bd = BMT[i * kLd + i];
+      const float dkn = DK[i * kLd + d] + ink[il];
+      const float x = fmaf(ud * to_f32(R[i * ldT + d]), bd, dkn);
+      if (i < a.C && c0 + i < a.T && d < a.Dh) dkp[(int64_t)i * a.sT] = from_f32<T>(x);
+      DK[i * kLd + d] = kk[il] * dkn;
     }
-    SUF[tid] = acc;
     DUQ[tid] = du;
   }
   __syncthreads();
+  // dlogw: z[t] = (r dr')[t + 1] - (k dk')[t] summed from the sub-chunk's
+  // end, then the later sub-chunks' totals and KC. (r dr')[t + 1] is
+  // carried from one step to the next: a guarded load of row t + 1 inside
+  // this loop was compiled (nvcc 12.9, sm_90a) with wrong shared-memory
+  // offsets in its unrolled copies.
   {
-    const int q = tid / kMaxDh, d = tid % kMaxDh;
-    if (d < a.Dh) {
-      float later = KC[d];
-      for (int j = nsub - 1; j > q; --j) later += SUF[j * kMaxDh + d];
-      float* dl = a.dlogw + grad_base + d;
-      for (int t = q * kSub; t < (q + 1) * kSub; ++t)
-        if (t < a.C && c0 + t < a.T) dl[(int64_t)t * a.sT] = ATT[t * kLdAtt + d] + later;
-      if (q == 0) {
-        float du = 0.f;
-        for (int j = 0; j < kMaxSub; ++j) du += DUQ[j * kMaxDh + d];
-        a.du_part[((int64_t)c * a.BH + bh) * a.Dh + d] = du;
-      }
+    float acc = 0.f;
+    float rn = DR[(q + 1 < kMaxSub ? (q + 1) * kSub : 0) * kLd + d] * (q + 1 < kMaxSub ? 1.f : 0.f);
+    for (int t = (q + 1) * kSub - 1; t >= s0; --t) {
+      acc += rn - DK[t * kLd + d];
+      DK[t * kLd + d] = acc;
+      rn = DR[t * kLd + d];
     }
+    SUF[tid] = acc;
+  }
+  __syncthreads();
+  {
+    float later = KC[d];
+    for (int j = kMaxSub - 1; j > q; --j) later += SUF[j * kMaxDh + d];
+    float* dl = a.dlogw + grad_base + d;
+#pragma unroll
+    for (int t = s0; t < s0 + kSub; ++t) {
+      const float x = DK[t * kLd + d] + later;
+      if (t < a.C && c0 + t < a.T && d < a.Dh) dl[(int64_t)t * a.sT] = x;
+    }
+    float du = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxSub; ++j) du += DUQ[j * kMaxDh + d];
+    if (q == 0 && d < a.Dh) a.du_part[((int64_t)c * a.BH + bh) * a.Dh + d] = du;
   }
 }
 
@@ -677,20 +771,31 @@ rwkv6_bwd_du_kernel(Args a) {
   a.du[idx] = s;
 }
 
-constexpr size_t kGradSmem = sizeof(float) * (4 * kTile + 2 * kMaxSub * kMaxDh);
-constexpr size_t kOutSmem = sizeof(float) * kOutSmemFloats;
+template <typename T>
+cudaError_t set_smem() {
+  cudaError_t err = cudaFuncSetAttribute(rwkv6_bwd_chunk_grad_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)grad_smem_bytes<T>());
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(rwkv6_bwd_chunk_out_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)out_smem_bytes<T>());
+  if (err != cudaSuccess) return err;
+  // All of the SM's unified L1 as shared memory, so two C' blocks fit.
+  err = cudaFuncSetAttribute(rwkv6_bwd_chunk_out_kernel<T>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(rwkv6_bwd_chunk_grad_kernel<T>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
 
 template <typename T>
 int launch(const Args& a, cudaStream_t st) {
   const unsigned chunk_blocks = (unsigned)(a.BH * a.nc);
-  cudaError_t err = cudaFuncSetAttribute(rwkv6_bwd_chunk_grad_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kGradSmem);
+  cudaError_t err = set_smem<T>();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(rwkv6_bwd_chunk_out_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kOutSmem);
-  if (err != cudaSuccess) return (int)err;
-  rwkv6_bwd_chunk_grad_kernel<T><<<chunk_blocks, kThreads, kGradSmem, st>>>(a);
+  rwkv6_bwd_chunk_grad_kernel<T><<<chunk_blocks, kThreads, grad_smem_bytes<T>(), st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t n_states = (int64_t)a.BH * a.Dh * a.Dh;
@@ -698,11 +803,30 @@ int launch(const Args& a, cudaStream_t st) {
                                 st>>>(a, n_states);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  rwkv6_bwd_chunk_out_kernel<T><<<chunk_blocks, kThreads, kOutSmem, st>>>(a);
+  rwkv6_bwd_chunk_out_kernel<T><<<chunk_blocks, kThreads, out_smem_bytes<T>(), st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   rwkv6_bwd_du_kernel<<<(unsigned)((a.H * a.Dh + kThreads - 1) / kThreads), kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int blocks_per_sm(int pass) {
+  if (set_smem<T>() != cudaSuccess) return -1;
+  int n = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (pass == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rwkv6_bwd_chunk_grad_kernel<T>,
+                                                        kThreads, grad_smem_bytes<T>());
+  else if (pass == 1)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rwkv6_bwd_state_scan_kernel,
+                                                        kThreads, 0);
+  else if (pass == 2)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rwkv6_bwd_chunk_out_kernel<T>,
+                                                        kThreads, out_smem_bytes<T>());
+  else if (pass == 3)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rwkv6_bwd_du_kernel, kThreads, 0);
+  return err == cudaSuccess ? n : -1;
 }
 
 }  // namespace
@@ -734,15 +858,24 @@ int rwkv6_scan_bwd_launch(const void* r, const void* k, const void* v, const voi
          static_cast<float*>(du_part), B, H, T_len, Dh, C, (T_len + C - 1) / C, B * H, sB, sT,
          sH, 0};
   a.vec = Dh % 8 == 0 && sB % 8 == 0 && sT % 8 == 0 && sH % 8 == 0;
-  const void* const ptrs[] = {r, k, v, logw, dout, dr, dk, dv, dlogw, grads};
+  const void* const ptrs[] = {r, k, v, logw, dout, dr, dk, dv, dlogw, grads, states};
   for (const void* ptr : ptrs) a.vec = a.vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<__nv_bfloat16>(a, st) : launch<float>(a, st);
 }
 
-// Dynamic shared memory of pass 0 (A'), 1 (B'), 2 (C') or 3 (D'), in bytes.
-int rwkv6_scan_bwd_smem_bytes(int pass) {
-  return pass == 0 ? (int)kGradSmem : pass == 2 ? (int)kOutSmem : 0;
+// Dynamic shared memory of pass 0 (A'), 1 (B'), 2 (C') or 3 (D') for
+// bfloat16 (bf16 != 0) or float32 r/k/v, in bytes.
+int rwkv6_scan_bwd_smem_bytes(int pass, int bf16) {
+  if (pass == 0) return (int)(bf16 ? grad_smem_bytes<__nv_bfloat16>() : grad_smem_bytes<float>());
+  if (pass == 2) return (int)(bf16 ? out_smem_bytes<__nv_bfloat16>() : out_smem_bytes<float>());
+  return 0;
+}
+
+// Blocks of pass 0-3 resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// at the launch's shared memory), or -1 on an error.
+int rwkv6_scan_bwd_blocks_per_sm(int pass, int bf16) {
+  return bf16 ? blocks_per_sm<__nv_bfloat16>(pass) : blocks_per_sm<float>(pass);
 }
 
 }  // extern "C"

@@ -31,7 +31,8 @@ reference's Pallas kernel asserts ``T % chunk == 0`` instead. As in the
 reference the chunk is ``min(chunk, T)``.
 
 The backward, :func:`rwkv6_scan_bwd`, is a second hand-written kernel
-(``csrc/rwkv6_scan_bwd.cu``: the forward's passes in reverse plus a fixed-
+(``csrc/rwkv6_scan_bwd.cu``: the forward's passes in reverse, their
+products on the tensor cores at float32 accuracy (3xTF32), plus a fixed-
 order reduction of du, four launches on ``rwkv6_scan_bwd.launches``); the
 reference has none and trains by JAX's autodiff of the chunk form.
 :func:`rwkv6_scan_bwd_ref` repeats its arithmetic. :class:`RWKV6Scan` is

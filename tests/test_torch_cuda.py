@@ -549,13 +549,22 @@ def _assert_bwd_close(got, want, dtype, ulps=1.0):
                                                 (1, 2048, 32, 64, 64, False),
                                                 (2, 45, 3, 20, 16, True),   # element loads
                                                 (1, 130, 2, 64, 64, True),
-                                                (2, 7, 1, 32, 64, False)])
+                                                (2, 7, 1, 32, 64, False),
+                                                (3, 130, 45, 64, 64, True),
+                                                (2, 50, 3, 64, 64, False),
+                                                (1, 64, 2, 64, 64, True),
+                                                (1, 77, 4, 64, 16, True),
+                                                (2, 77, 3, 64, 32, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_bwd_kernel_matches_plain(cuda, B, T, H, Dh, C, d_final, dtype):
     """``csrc/rwkv6_scan_bwd.cu`` on the forward kernel's saved chunk
     states against ``rwkv6_scan_bwd_ref``: the training shape
     [1, 2048, 32, 64], ragged T, Dh % 8 != 0, a nonzero final-state
-    gradient; four launches a call; a second call gives the same bits."""
+    gradient; 405 chunk blocks (B = 3, H = 45, T = 130: two full chunks and
+    a ragged one a head, past any multiple of two blocks on each of 132
+    SMs); a single chunk (T < C, T = C); C = 16 and C = 32 at Dh = 64 with a
+    ragged T (one and two sub-chunks a chunk). Four launches a call; a
+    second call gives the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(B + T + H + Dh + C)
     r, k, v, logw, u, s0, do, dfin = _bwd_inputs(gen, B, T, H, Dh, dtype, cuda, d_final=d_final)
     _, s_fin, states = rs._launch(r, k, v, logw, u, s0, C, B, H, T, Dh, 0)

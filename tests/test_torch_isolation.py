@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch/``, and not
-``chip_smoke.py``, imports JAX, ``ml_dtypes`` or anything of the JAX
-package."""
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and no script under ``tools/`` imports JAX, ``ml_dtypes``
+or anything of the JAX package."""
 import ast
 import os
 import subprocess
@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("*.py")))
     return [f for f in files if f.exists()]
 
 

@@ -8,6 +8,9 @@ against the recurrence's own definition, on the CPU.
   sequential oracle of the gradients' definition, strong decays included
   (ROADMAP queue 3 item 7); ``RWKV6Scan`` (the autograd Function the card
   trains through) on CPU tensors against autograd, with bf16 inputs;
+* the 3xTF32 split of the backward kernel's tensor-core products, replayed
+  on the bits, against float64: within float32 accuracy, where one TF32
+  product and a bf16 hi/lo split are not;
 * the time mix against ``jax.vjp`` of the reference's ``_rwkv6_chunked``:
   every leaf, x, x_prev and the state;
 * the reduced rwkv6's loss and every gradient against
@@ -177,6 +180,57 @@ def test_scan_bwd_against_sequential_oracle(decay, C):
                names=GRADS[:3] + GRADS[4:])
     else:
         _close(auto, want, 5e-6, f"autograd ({decay})")
+
+
+def _tf32_rna(x):
+    """x (float32) rounded to TF32 as ``cvt.rna.tf32.f32`` does, on the
+    bits: 10 mantissa bits, to nearest, ties away from zero."""
+    b = x.contiguous().view(torch.int32)
+    mag = ((b & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
+    return ((b & -0x80000000) | mag).view(torch.float32)
+
+
+def _split_product(a, b, how):
+    """a @ b in float32 the way a kernel on the tensor cores would take it:
+    ``tf32x3`` the backward kernel's split (csrc/tf32_mma.cuh: hi = tf32(x),
+    lo = tf32(x - hi), a_lo b_hi + a_hi b_lo + a_hi b_hi), ``tf32`` one
+    TF32 product, ``bf16x3`` the same three products of a bf16 hi/lo split
+    (the attention backward's, csrc/flash_attention_bwd.cu)."""
+    if how == "tf32":
+        return _tf32_rna(a) @ _tf32_rna(b)
+    rnd = _tf32_rna if how == "tf32x3" else (lambda x: x.bfloat16().float())
+    ah, bh = rnd(a), rnd(b)
+    al, bl = rnd(a - ah), rnd(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def test_3xtf32_split_holds_float32_accuracy():
+    """Why the scan backward's products split as they do: [64, 64] x
+    [64, 64] products at the scan's magnitudes (do against a chunk state,
+    decay-scaled r against do, decay-scaled k against a state), float32
+    sums, against float64. The 3xTF32 split stays within 1e-6 of the
+    largest entry (as a float32 product does); one TF32 product and the bf16
+    hi/lo split miss the kernel's 5e-6 contract."""
+    worst = {}
+    for seed in range(8):
+        rng = np.random.default_rng(seed)
+        r, k, v, do, x = _f32(*(rng.normal(size=(1, 192, 2, 64)) for _ in range(5)))
+        logw = -torch.exp(-1.0 + torch.tanh(x))
+        _, S = rs.rwkv6_chunked_ref(r, k, v, logw, torch.zeros(2, 64),
+                                    torch.zeros(1, 2, 64, 64), chunk=64)
+        cum = torch.cumsum(logw[0, :64, 0], 0)
+        rx = r[0, :64, 0] * torch.exp(cum - logw[0, :64, 0])
+        kq = k[0, :64, 0] * torch.exp(cum[-1] - cum)
+        d_o = do[0, :64, 0]
+        for a, b in ((d_o, S[0, 0].T), (rx.T, d_o), (kq, S[0, 1]), (d_o, S[0, 1].T)):
+            a, b = a.contiguous(), b.contiguous()
+            want = a.double() @ b.double()
+            for how in ("tf32x3", "tf32", "bf16x3"):
+                err = ((_split_product(a, b, how).double() - want).abs().max()
+                       / want.abs().max()).item()
+                worst[how] = max(worst.get(how, 0.0), err)
+    assert worst["tf32x3"] < 1e-6, worst
+    assert worst["tf32"] > 5e-6 and worst["bf16x3"] > 5e-6, worst
 
 
 def test_chunk_form_gradient_overflows_when_decays_grow():
