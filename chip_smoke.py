@@ -15,9 +15,10 @@ compressed uploads, under partial participation, under faults, with
 async group rounds, with virtual client populations, through
 checkpoints, and on the multilevel backend over a 4 x 5 x 5 tree. Depth is
 cut: E = 2
-group rounds of H = 5 local steps, 1 or 2 global rounds per path. After
-the serving phases it trains glm4-9b at full width (depth 2 of 40) on the
-sharded backend, plain, with compressed uploads, under partial
+group rounds of H = 5 local steps, 1 or 2 global rounds per path. The
+serving phases serve qwen3-14b, rwkv6-1.6b, qwen2.5-32b, gemma3-27b and
+hymba-1.5b at their full widths and depths. After them it trains glm4-9b
+at full width (depth 2 of 40) on the sharded backend, plain, with compressed uploads, under partial
 participation, under faults, with async group rounds and with a virtual
 client population; and rwkv6-1.6b at full width and full depth (24
 layers), through the scan's backward kernel. The CNN's learning rate is 0.01: at 0.1
@@ -29,7 +30,8 @@ Phases (any failure raises, so the script exits non-zero and prints no
 final line):
  1. device line (``nvidia-smi`` name and power limit) and kernel build:
     registers and spills of every kernel (``nvcc -Xptxas -v``; the
-    backward's wgmma kernels must not spill), the dynamic shared memory of
+    backward's wgmma kernels and the selective scan must not spill), the
+    dynamic shared memory of
     the LM kernels, and the HGMMA (wgmma) and UTMALDG (TMA load)
     instructions in the built forward and backward flash libraries
     (``cuobjdump -sass``), both required to be present, and the HMMA
@@ -143,7 +145,17 @@ final line):
     plain version's chunk-wide sums lose more than the tolerance there);
     then kernel, plain, bound (and the kernel's share of it) and, for
     attention, ``scaled_dot_product_attention`` times, and a trace of
-    three calls of each kernel (the scan's three launches apart);
+    three calls of each kernel (the scan's three launches apart); the
+    flash forward at the windowed serving shapes (gemma3-27b's local layers:
+    q [4, 2048, 32, 128], kv 16 heads; hymba-1.5b: q [4, 2048, 25, 64], kv
+    5 heads; window 1024) within half a bf16 ulp plus 5e-5, timed against
+    its plain version, its bound from the live pairs under the window and
+    SDPA with the window's boolean mask; ``selective_scan``
+    (``csrc/ssm_scan.cu``) against ``selective_scan_ref`` at hymba's
+    prefill shape (u [4, 2048, 3200] in bf16 and float32, S = 16) and at
+    ragged shapes (T 1, 37, 2049; Di 37, 33; S 5; weak decays), every case
+    from a nonzero state, within 1e-5 of max|y| and max|h|; a second call
+    bit for bit; kernel, plain and bound times and a trace of 100 calls;
 12b. the scan's backward (``csrc/rwkv6_scan_bwd.cu``, four launches) at
     rwkv6-1.6b's training shape (r/k/v [1, 2048, 32, 64], C = 64) on the
     forward kernel's saved chunk states, bf16 and float32, no final-state
@@ -160,15 +172,21 @@ final line):
     and spills (none allowed), the library's tag, flags and the ``nvcc
     --version`` that built it, and a trace of 200 calls by kernel;
 13. LM serving at full width through ``repro_torch.launch.serve.generate``:
-    qwen3-14b (40 layers, d 5120, bf16, 14.77 B params) and rwkv6-1.6b (24
-    layers, d 2048), each from random params (seed 0), 4 prompts of 2048
-    tokens, 32 generated tokens: ``flash_attention`` must launch 40 times in
-    the prefill and never in decode, ``rwkv6_scan`` 72 times in the
-    prefill (three kernels a layer); finite logits; prefill ms, decode ms per step, tokens/s, peak
-    memory;
-14. reduced qwen3-14b and rwkv6-1.6b (float32) from the same params on the
-    card and on the CPU: prefill logits within rtol/atol 1e-4, 8 greedy
-    tokens equal;
+    qwen3-14b (40 layers, d 5120, bf16, 14.77 B params), rwkv6-1.6b (24
+    layers, d 2048), qwen2.5-32b (64 layers, 32.76 B params, QKV bias),
+    gemma3-27b (62 layers, 27.01 B params, 52 layers at window 1024 and 10
+    global, tied 262,144-token embedding) and hymba-1.5b (32 layers of
+    windowed attention and the selective SSM in parallel), each from random
+    params (seed 0), 4 prompts of 2048 tokens, 32 generated tokens: in the
+    prefill ``flash_attention`` must launch once a layer (40, 64, 62, 32),
+    ``rwkv6_scan`` 72 times (three kernels a layer) and ``selective_scan``
+    32 times on hymba, and none of them in decode; finite logits, tokens in
+    range; init s, prefill ms, decode ms per step, tokens/s, the peak and
+    the memory held before the phase, busy shares and traces;
+14. reduced qwen3-14b, rwkv6-1.6b, qwen2.5-32b, gemma3-27b (7 layers: one
+    global) and hymba-1.5b (float32) from the same params on the card and
+    on the CPU: prefill logits within rtol/atol 1e-4, 8 greedy tokens
+    equal;
 15. the attention backward at glm4-9b's training shape (q [1, 2048, 32,
     128], k/v [1, 2048, 2, 128], causal) in float32 and bfloat16: dq, dk,
     dv against ``flash_attention_bwd_ref`` within 1e-5 of each gradient's
@@ -295,6 +313,9 @@ E, H, ROUNDS, GROUPS, CLIENTS, BATCH = 2, 5, 2, 10, 10, 50
 IMAGE = (32, 32, 3)
 LR = 0.01
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32      # the serving traffic of phase 13
+# Phase 13's archs after qwen3-14b and rwkv6-1.6b: the windowed dense archs
+# and the hybrid one (window 1024: gemma3's local layers, all of hymba's).
+WINDOW, HYMBA_DI, HYMBA_S = 1024, 3200, 16
 # LM training (phases 15-17): glm4-9b at full width, 2 of its 40 layers, the
 # reference trainer's 2 x 2 clients and lr, E = H = A = 2, 1 x 2048 tokens a
 # microbatch (every layer takes the flash path: T > 1024).
@@ -411,8 +432,9 @@ def log_kernel_resources(build, logs: dict) -> None:
     the two flash libraries (both counts must be > 0; the backward's wgmma
     kernels must not spill), and the scan backward's resident blocks an SM
     per pass and its tensor-core (HMMA or HGMMA) and asynchronous-load
-    (LDGSTS or UTMALDG) instructions, both required (``logs``: the build's
-    ptxas output, empty for a library that was already built)."""
+    (LDGSTS or UTMALDG) instructions, both required; the selective scan's
+    kernels must not spill (``logs``: the build's ptxas output, empty for a
+    library that was already built)."""
     fl, sc = build.load("flash_attention"), build.load("rwkv6_scan")
     log(f"  flash_fwd_wgmma_kernel<128>: {fl.flash_attention_smem_bytes(128)} B of dynamic "
         f"shared memory, 384 threads (registers: 24 producer / 240 consumer after setmaxnreg)")
@@ -440,6 +462,11 @@ def log_kernel_resources(build, logs: dict) -> None:
                 f"{entry} spills registers: {spills}")
     if not wg:
         log("  flash_attention_bwd was built before this run: its ptxas report is not here")
+    # The selective scan keeps its states and the next tokens' operands in
+    # registers (no shared memory): a spill would put them in local memory.
+    for entry, regs, spills in ptxas_entries(logs.get("ssm_scan", "")):
+        require("0 bytes spill stores" in spills and "0 bytes spill loads" in spills,
+                f"{entry} spills registers: {spills}")
     counts = sass_counts(build.library_path("rwkv6_scan_bwd"), build)
     log(f"  rwkv6_scan_bwd SASS: {counts['HMMA']} HMMA, {counts['HGMMA']} HGMMA, "
         f"{counts['LDGSTS']} LDGSTS, {counts['UTMALDG']} UTMALDG")
@@ -927,6 +954,167 @@ def phase_lm_kernels(torch, fa, rs):
     return errs, {"flash_attention": flash, "rwkv6_scan": scan}
 
 
+def window_pairs(T: int, S: int, window: int) -> int:
+    """Live (query, key) pairs of one causal head under a sliding window
+    (q_offset 0): query t sees keys max(0, t - window + 1) .. min(t, S - 1)."""
+    return sum(min(t + 1, window, S) for t in range(T))
+
+
+def phase_window_kernels(torch, fa):
+    """Phase 12 (cont.): the flash forward at the windowed serving shapes --
+    gemma3-27b's local layers (q [4, 2048, 32, 128], kv 16 heads) and
+    hymba-1.5b's layers (q [4, 2048, 25, 64], kv 5 heads), window 1024 --
+    against its plain version, with times, the bound from the live pairs
+    under the window, and SDPA with the equivalent boolean mask."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(121)
+    B, T, S, W = LM_BATCH, LM_PROMPT, LM_PROMPT + LM_GEN, WINDOW
+    out = {}
+    for arch, H, Kv, Dh in (("gemma3-27b", 32, 16, 128), ("hymba-1.5b", 25, 5, 64)):
+        q = torch.randn(B, T, H, Dh, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, S, Kv, Dh, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, S, Kv, Dh, generator=gen, device=dev).bfloat16()
+        k[:, T:] = 0.0
+        v[:, T:] = 0.0
+        got = fa.flash_attention(q, k, v, window=W).float()
+        want = fa.flash_attention_ref(q.float(), k.float(), v.float(), window=W)
+        err = (got - want).abs()
+        excess = (err - 2.0 ** -8 * want.abs()).max().item()
+        max_err = err.max().item()
+        log(f"flash_attention bf16 {arch} q [{B},{T},{H},{Dh}] kv [{B},{S},{Kv},{Dh}] window "
+            f"{W}: max |kernel - plain in f32| {max_err} (beyond half an ulp: {excess})")
+        require(excess < 5e-5, f"flash_attention at {arch}'s windowed shape is off by more than "
+                               f"half an ulp + 5e-5")
+        del got, want, err
+        t = timed(torch, lambda: fa.flash_attention(q, k, v, window=W),
+                  lambda: fa.flash_attention_ref(q, k, v, window=W), iters=10, plain_iters=3)
+        qpos = torch.arange(T, device=dev)[:, None]
+        kpos = torch.arange(S, device=dev)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - W)
+        qt = q.transpose(1, 2)
+        kt, vt = (fa._expand_kv(a, H).transpose(1, 2) for a in (k, v))
+        t["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), iters=10, warmup=2)
+        lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask).transpose(1, 2)
+        t["sdpa_max_abs_diff"] = (lib.float() - fa.flash_attention(q, k, v, window=W).float()
+                                  ).abs().max().item()
+        pairs = B * H * window_pairs(T, S, W)
+        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+        flops = 4 * Dh * pairs
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+        t.update(bytes=nbytes, flops=flops, pairs=pairs, max_abs_err=max_err,
+                 bound_share=t["bound_ms"] / t["ms"],
+                 shape=f"q [{B},{T},{H},{Dh}] bf16, k/v [{B},{S},{Kv},{Dh}], window {W}")
+        log(f"  kernel {t['ms']:.4f} ms {t['ms_readings']}, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {pairs} live pairs; share "
+            f"{t['bound_share']:.3f}), SDPA with the window's mask {t['library_ms']:.4f} ms "
+            f"(max abs diff {t['sdpa_max_abs_diff']})")
+        out[arch] = t
+        del q, k, v, qt, kt, vt, lib, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def scan_inputs(torch, gen, B, T, Di, S, udtype, dt_shift=0.0):
+    """Selective-scan operands as hymba's gates make them: u = silu(.) in
+    ``udtype``, dt = softplus(.) (``dt_shift`` < 0: weak decays, a long
+    memory), B and C normal, log_a the init's log(1..S) plus noise, d_skip
+    near 1, a nonzero state."""
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    u = F.silu(randn(B, T, Di)).to(udtype)
+    dt = F.softplus(randn(B, T, Di) + dt_shift)
+    Bm, Cm = randn(B, T, S), randn(B, T, S)
+    log_a = torch.log(torch.linspace(1.0, S, S, device="cuda"))[None] + 0.2 * randn(Di, S)
+    d_skip = 1.0 + 0.1 * randn(Di)
+    s0 = 0.5 * randn(B, Di, S)
+    return u, dt, Bm, Cm, log_a, d_skip, s0
+
+
+def phase_ssm_kernel(torch, ss):
+    """Phase 12 (cont.): ``selective_scan`` against ``selective_scan_ref`` at
+    hymba's prefill shape (u [4, 2048, 3200], S = 16) with u in bfloat16
+    (the model's dtype) and float32, and at small ragged shapes (T = 1, 37,
+    2049; Di = 37, not a multiple of a block's 32 chains; S = 5; weak
+    decays), each from a nonzero state. Tolerance: within 1e-5 of max|y|
+    for y and of max|h| for the final state (both compute the same float32
+    recurrence token by token; the kernel fuses h's update into an FMA and
+    takes its decays from ex2.approx).
+    Then a second call's bits, the kernel's time against its bound and its
+    plain version, and a trace of 100 calls."""
+    gen = torch.Generator(device="cuda").manual_seed(122)
+    Bh, Th, Di, S = LM_BATCH, LM_PROMPT, HYMBA_DI, HYMBA_S
+    worst = {}
+
+    def check(args, tag):
+        got = ss.selective_scan(*args)
+        want = ss.selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        rel = max((g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                  for g, w in zip(got, want))
+        key = "selective_scan" if args[0].dtype == torch.bfloat16 else "selective_scan/f32"
+        worst[key] = max(worst.get(key, 0.0), max((g - w).abs().max().item()
+                                                  for g, w in zip(got, want)))
+        require(all(g.dtype == torch.float32 and g.shape == w.shape for g, w in zip(got, want)),
+                f"selective_scan {tag}: outputs' dtype or shape")
+        require(rel <= 1e-5, f"selective_scan differs from its plain version at {tag}: "
+                             f"{rel} of the largest entry")
+        return rel, got
+
+    for udtype in (torch.bfloat16, torch.float32):
+        args = scan_inputs(torch, gen, Bh, Th, Di, S, udtype)
+        rel, got = check(args, f"hymba's prefill shape, u {udtype}")
+        log(f"selective_scan u {udtype} [{Bh},{Th},{Di}] S {S}, nonzero state: within "
+            f"{rel:.3g} of the largest entry (max|y| {got[0].abs().max().item():.3g}, max|h| "
+            f"{got[1].abs().max().item():.3g})")
+    for B, T, Dr, Sr, shift in ((2, 1, 37, 16, 0.0), (2, 37, 37, 16, 0.0),
+                                (1, 2049, 37, 16, -3.0), (3, 50, 33, 5, 0.0),
+                                (2, 300, 64, 16, -6.0)):
+        for udtype in (torch.bfloat16, torch.float32):
+            check(scan_inputs(torch, gen, B, T, Dr, Sr, udtype, shift),
+                  f"[{B},{T},{Dr}] S {Sr}, dt shift {shift}, u {udtype}")
+    log("selective_scan ragged shapes (T 1, 37, 2049; Di 37, 33, 64; S 16 and 5; weak "
+        "decays), u bf16 and f32, nonzero states: within 1e-5 of the largest entry")
+
+    args = scan_inputs(torch, gen, Bh, Th, Di, S, torch.bfloat16)
+    first = ss.selective_scan(*args)
+    again = ss.selective_scan(*args)
+    require(all(torch.equal(a, b) for a, b in zip(first, again)),
+            "selective_scan: two calls on the same inputs give different bits")
+    del first, again
+    t = timed(torch, lambda: ss.selective_scan(*args), lambda: ss.selective_scan_ref(*args),
+              iters=20, plain_iters=1)
+    u = args[0]
+    elems = u.numel()
+    # u read (bf16), dt read, y written per (b, t, di); B and C per (b, t);
+    # log_a, d_skip; the state in and out.
+    nbytes = (elems * (2 + 4 + 4) + 2 * Bh * Th * S * 4 + Di * S * 4 + Di * 4
+              + 2 * Bh * Di * S * 4)
+    # dt * A, exp, (dt u) B, h's multiply-add, y's multiply-add per state;
+    # dt * u and the skip's multiply-add per (b, t, di).
+    flops = elems * S * 7 + elems * 3
+    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    t.update(bytes=nbytes, flops=flops, exps=elems * S, library_ms=None,
+             bound_share=t["bound_ms"] / t["ms"])
+    # A trace of a few milliseconds this late in the script may come back
+    # without device events (phase 12b's note): 100 calls take about 45 ms.
+    trace = profile_round(torch, lambda: [ss.selective_scan(*args) for _ in range(100)])
+    log(f"selective_scan [{Bh},{Th},{Di}] S {S}, u bf16: kernel {t['ms']:.4f} ms "
+        f"{t['ms_readings']}, plain {t['plain_ms']:.4f} ms {t['plain_ms_readings']}, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {nbytes} bytes, {flops:.4g} FLOP, "
+        f"{t['exps']} exponentials; bound share {t['bound_share']:.3f}); library: none "
+        f"(no one PyTorch call computes the scan)")
+    log_trace("  selective_scan, 100 calls (traced)", trace, top_n=4)
+    del args, u
+    torch.cuda.empty_cache()
+    return worst, t
+
+
 def scan_bwd_oracle(torch, r, k, v, logw, u, s0, do, d_final):
     """The scan's gradients by their definition, token by token in float64
     on the card, over all (b, h) at once: with G_t the gradient of the state
@@ -1125,10 +1313,19 @@ def phase_scan_backward(torch, rs, logs: dict):
     return errs, t
 
 
+def serve_launches(fa, rw, ss) -> dict:
+    """The LM kernels' launch counters, by kernel."""
+    return {"flash_attention": fa.flash_attention.launches,
+            "rwkv6_scan": rw.rwkv6_scan.launches,
+            "selective_scan": ss.selective_scan.launches}
+
+
 def phase_serve(torch, np, arch, counter):
     """Phase 13: serve the full-width ``arch`` through ``generate``: warm-up
     with 2 tokens, then the main path (counts set to 0 just before, read
-    just after), with the launches of the prefill recorded apart."""
+    just after), with the launches of the prefill recorded apart.
+    ``counter()`` returns the launch counts by kernel; the device memory
+    held when the phase starts is logged beside the peak."""
     from repro_torch.configs import get_arch
     from repro_torch.core.tree import tree_leaves
     from repro_torch.kernels import ops
@@ -1137,11 +1334,14 @@ def phase_serve(torch, np, arch, counter):
 
     cfg = get_arch(arch)
     bundle = build_model(cfg)
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = bundle.init(0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(t.numel() for t in tree_leaves(params))
     toks = torch.from_numpy(np.random.default_rng(13).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).cuda()
@@ -1180,15 +1380,17 @@ def phase_serve(torch, np, arch, counter):
            "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / res.prefill_ms * 1e3,
            "decode_tokens_per_s": LM_BATCH / step_ms * 1e3,
            "tokens_per_s": LM_BATCH * LM_GEN / (res.prefill_ms + res.decode_ms) * 1e3,
-           "peak_gb": peak_gb, "launches": launches, "prefill_launches": prefill_launches,
+           "peak_gb": peak_gb, "init_peak_gb": init_peak_gb, "held_gb": held_gb,
+           "launches": launches, "prefill_launches": prefill_launches,
            "prefill_busy_share": pre["busy"] / pre["wall_us"] if pre else None,
            "decode_busy_share": dec["busy"] / dec["wall_us"] if dec else None,
            "sample": tok[0, :8].tolist()}
     log(f"serve {arch} ({n_params / 1e9:.2f} B params, init {init_s:.1f} s): batch {LM_BATCH} x "
         f"prompt {LM_PROMPT}, {LM_GEN} generated: prefill {res.prefill_ms:.1f} ms, decode "
         f"{step_ms:.2f} ms/step, {out['tokens_per_s']:.1f} generated tokens/s end to end, "
-        f"peak memory {peak_gb:.2f} GB; kernel launches {launches} ({prefill_launches} in the "
-        f"prefill); tokens[0] {out['sample']}")
+        f"peak memory {peak_gb:.2f} GB (init {init_peak_gb:.2f} GB; {held_gb:.2f} GB held "
+        f"before the phase); kernel launches {launches} ({prefill_launches} in the prefill); "
+        f"tokens[0] {out['sample']}")
     log_trace(f"  {arch} prefill (traced)", pre)
     log_trace(f"  {arch} decode step (traced)", dec)
     del params, res
@@ -1204,8 +1406,10 @@ def phase_lm_card_vs_cpu(torch, np, convert):
     from repro_torch.models.transformer import build_model
 
     worst = 0.0
-    for arch in ("qwen3-14b", "rwkv6-1.6b"):
-        bundle = build_model(get_arch(arch).reduced())
+    archs = (("qwen3-14b", {}), ("rwkv6-1.6b", {}), ("qwen2.5-32b", {}),
+             ("gemma3-27b", dict(num_layers=7)), ("hymba-1.5b", {}))
+    for arch, over in archs:
+        bundle = build_model(get_arch(arch).reduced(**over))
         params = bundle.init(0, device="cpu")
         toks = torch.from_numpy(np.random.default_rng(14).integers(
             0, 256, (2, 37)).astype(np.int32))
@@ -1218,8 +1422,9 @@ def phase_lm_card_vs_cpu(torch, np, convert):
                 f"reduced {arch}: prefill logits differ between card and CPU")
         require(torch.equal(card.tokens.cpu(), cpu.tokens),
                 f"reduced {arch}: greedy tokens differ between card and CPU")
-    log(f"card vs CPU, reduced qwen3-14b and rwkv6-1.6b (f32, 37 prompt tokens): prefill logits "
-        f"within rtol/atol 1e-4 (max abs diff {worst:.3g}), 8 greedy tokens equal")
+    log(f"card vs CPU, reduced {', '.join(a for a, _ in archs)} (f32, gemma3 at 7 layers, one "
+        f"global; 37 prompt tokens, past the reduced window of 16): prefill logits within "
+        f"rtol/atol 1e-4 (max abs diff {worst:.3g}), 8 greedy tokens equal")
 
 
 def phase_lm_backward(torch, fa):
@@ -1374,7 +1579,7 @@ def lm_train_launches(cfg, n_update: int, rounds: int = 1) -> dict:
             "rwkv6_scan": 3 * forwards if ssm else 0,
             "rwkv6_scan_bwd": 4 * passes if ssm else 0,
             "mtgc_update_flat": rounds * LM_TRAIN_E * LM_TRAIN_H * n_update,
-            "mtgc_update": 0}
+            "mtgc_update": 0, "selective_scan": 0}
 
 
 def check_update_on_state(torch, mu, state, lr: float, g_scale: float) -> dict:
@@ -3179,13 +3384,15 @@ def all_launches() -> dict:
     from repro_torch.kernels import mtgc_update as mu
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.kernels import ssm_scan as ss
 
     return {"mtgc_update_flat": mu.mtgc_update_flat.launches,
             "mtgc_update": mu.mtgc_update.launches,
             "int8_roundtrip": qz.int8_roundtrip.launches, "topk_mask": qz.topk_mask.launches,
             "flash_attention": fa.flash_attention.launches,
             "flash_attention_bwd": fa.flash_attention_bwd.launches,
-            "rwkv6_scan": rw.rwkv6_scan.launches, "rwkv6_scan_bwd": rw.rwkv6_scan_bwd.launches}
+            "rwkv6_scan": rw.rwkv6_scan.launches, "rwkv6_scan_bwd": rw.rwkv6_scan_bwd.launches,
+            "selective_scan": ss.selective_scan.launches}
 
 
 def phase_multilevel_hfl(torch, np, api, train, p0, loss_fn) -> dict:
@@ -3428,6 +3635,7 @@ def main() -> int:
     from repro_torch.kernels import mtgc_update as mu
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.kernels import ssm_scan as ss
     from repro_torch.models import small
 
     torch.backends.cudnn.allow_tf32 = False
@@ -3800,21 +4008,28 @@ def main() -> int:
     del acc, p0, ds, train, test
     torch.cuda.empty_cache()
     lm_errs, lm_t = phase_lm_kernels(torch, fa, rw)
+    win_t = phase_window_kernels(torch, fa)
+    ss_errs, ss_t = phase_ssm_kernel(torch, ss)
     # --- 12b. the scan's backward at the training shape -----------------
     sb_errs, sb_t = phase_scan_backward(torch, rw, built["log"])
 
     # --- 13. LM serving at full width -----------------------------------
-    qwen = phase_serve(torch, np, "qwen3-14b", lambda: fa.flash_attention.launches)
-    require(qwen["prefill_launches"] == 40 and qwen["launches"] == 40,
-            f"flash_attention launched {qwen['prefill_launches']} times in the prefill and "
-            f"{qwen['launches']} in all; expected 40 (one per layer) and none in decode")
-    require(rw.rwkv6_scan.launches == 0, "the dense model launched rwkv6_scan")
-    rwkv = phase_serve(torch, np, "rwkv6-1.6b", lambda: rw.rwkv6_scan.launches)
-    require(rwkv["prefill_launches"] == 72 and rwkv["launches"] == 72,
-            f"rwkv6_scan launched {rwkv['prefill_launches']} times in the prefill and "
-            f"{rwkv['launches']} in all; expected 72 (three kernels a layer) and none in "
-            f"decode")
-    require(fa.flash_attention.launches == 0, "the RWKV model launched flash_attention")
+    # Launches reckoned for one served batch, all in the prefill: flash one
+    # a layer (qwen3 40, qwen2.5 64, gemma3 62 -- 52 windowed, 10 global --,
+    # hymba 32, windowed), rwkv6_scan three a layer (24 layers), hymba's
+    # selective scan one a layer; decode runs none of them.
+    served = []
+    for arch, want in (("qwen3-14b", {"flash_attention": 40}), ("rwkv6-1.6b", {"rwkv6_scan": 72}),
+                       ("qwen2.5-32b", {"flash_attention": 64}),
+                       ("gemma3-27b", {"flash_attention": 62}),
+                       ("hymba-1.5b", {"flash_attention": 32, "selective_scan": 32})):
+        run = phase_serve(torch, np, arch, lambda: serve_launches(fa, rw, ss))
+        want = {k: want.get(k, 0) for k in run["launches"]}
+        require(run["prefill_launches"] == want and run["launches"] == want,
+                f"{arch} launched {run['prefill_launches']} in the prefill and "
+                f"{run['launches']} in all; expected {want}, none in decode")
+        served.append(run)
+    qwen, rwkv, hymba = served[0], served[1], served[4]
 
     # --- 14. LM: card against CPU, reduced ------------------------------
     phase_lm_card_vs_cpu(torch, np, convert)
@@ -3927,7 +4142,8 @@ def main() -> int:
         t = lm_t[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "launches": run["launches"], "max_abs_err": lm_errs[name],
+            "replaces": replaces, "launches": run["launches"][name],
+            "max_abs_err": lm_errs[name],
             "max_abs_err_f32": lm_errs[f"{name}/f32"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": shape})
@@ -3960,7 +4176,26 @@ def main() -> int:
         "shape": f"r/k/v and dr/dk/dv [{LM_TRAIN_BATCH},{LM_TRAIN_SEQ},32,64] bf16, logw/do/dlogw "
                  "f32, C=64, on the forward's saved chunk states (one rwkv6-1.6b training "
                  "layer)"})
+    kernels.append({
+        "name": "selective_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/models/ssm.py:80",
+        "launches": hymba["launches"]["selective_scan"],
+        "max_abs_err": ss_errs["selective_scan"], "max_abs_err_f32": ss_errs["selective_scan/f32"],
+        "ms": ss_t["ms"], "plain_ms": ss_t["plain_ms"], "bound_ms": ss_t["bound_ms"],
+        "bound_by": ss_t["bound_by"], "library_ms": None, "bound_share": ss_t["bound_share"],
+        "shape": f"u [{LM_BATCH},{LM_PROMPT},{HYMBA_DI}] bf16, dt [{LM_BATCH},{LM_PROMPT},"
+                 f"{HYMBA_DI}] f32, B/C [{LM_BATCH},{LM_PROMPT},{HYMBA_S}] f32, nonzero state "
+                 "(one hymba-1.5b prefill layer)"})
     by_name = {k["name"]: k for k in kernels}
+    # The flash forward's launches on each served arch, and its times at the
+    # windowed serving shapes (gemma3's local layers, hymba's layers).
+    by_name["flash_attention"]["serving_launches"] = {
+        run["arch"]: run["launches"]["flash_attention"] for run in served}
+    by_name["flash_attention"]["windowed"] = {
+        arch: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                 "max_abs_err", "bound_share", "shape")}
+        for arch, t in win_t.items()}
     by_name["flash_attention"]["training_launches"] = lm_tree["launches"]["flash_attention"]
     by_name["flash_attention"]["statistics_on_ms"] = lm_t["flash_attention"]["stats_ms"]
     by_name["mtgc_update_flat"]["training_launches"] = {
@@ -3996,7 +4231,7 @@ def main() -> int:
         for run in lm_v:
             k["training_launches"][run["phase"]] = run["launches"].get(name, 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"serving": [qwen, rwkv]}))
+    print(json.dumps({"serving": served}))
     print(json.dumps({"training": [lm_tree, lm_flat]}))
     for run in (lm_j, lm_k, lm_l, lm_n):
         print(json.dumps({f"training_{run['phase']}": run}))

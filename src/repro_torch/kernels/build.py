@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("mtgc_update", "quantize", "flash_attention", "flash_attention_bwd", "rwkv6_scan",
-           "rwkv6_scan_bwd")
+           "rwkv6_scan_bwd", "ssm_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -186,3 +186,6 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.rwkv6_scan_bwd_smem_bytes.restype = i32
         lib.rwkv6_scan_bwd_blocks_per_sm.argtypes = [i32, i32]
         lib.rwkv6_scan_bwd_blocks_per_sm.restype = i32
+    elif name == "ssm_scan":
+        lib.selective_scan_launch.argtypes = [p] * 9 + [i32] * 5 + [p]
+        lib.selective_scan_launch.restype = i32

@@ -1,12 +1,18 @@
 """The LM stack's decoder, for the families the port serves so far.
 
-Port of ``src/repro/models/transformer.py`` for two families:
+Port of ``src/repro/models/transformer.py`` for three families:
 
-  dense -- pre-RMSNorm GQA attention + SwiGLU (qwen3: per-head qk-RMSNorm)
-  ssm   -- RWKV6 time mix + RWKV channel mix (attention-free)
+  dense  -- pre-RMSNorm GQA attention + SwiGLU (qwen3: per-head qk-RMSNorm;
+            qwen2.5: QKV bias; gemma3: 5 windowed layers to 1 global, tied
+            embeddings)
+  ssm    -- RWKV6 time mix + RWKV channel mix (attention-free)
+  hybrid -- windowed attention and selective-SSM heads in parallel on the
+            same input, mean-fused (hymba; ``models/ssm.py``)
 
-Both families train, serve and decode; the others raise
-``NotImplementedError`` naming the slice of the port that brings them. The params tree is the reference's: the layers'
+dense and ssm train, serve and decode; hybrid serves and decodes, and its
+``loss`` raises ``NotImplementedError`` naming the hybrid-training slice.
+The other families raise ``NotImplementedError`` naming the slice of the
+port that brings them. The params tree is the reference's: the layers'
 leaves are stacked on axis 0, so ``convert.params_from_numpy`` carries the
 JAX package's weights across unchanged. A Python loop over the layer index
 takes the place of the reference's ``lax.scan``.
@@ -39,12 +45,12 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as RWKV
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "hybrid")
 _LATER = {
     "moe": "the moe slice of the port",
-    "hybrid": "the hybrid (models/ssm.py) slice of the port",
     "audio": "the audio slice of the port",
     "vlm": "the vlm slice of the port",
 }
@@ -95,6 +101,8 @@ def _init_decoder_layer(cfg: ArchConfig, gen, device) -> dict:
         gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.d_head, dt, device,
         qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
     )
+    if cfg.arch_type == "hybrid":
+        p["ssm"] = SSM.init_ssm(gen, d, cfg.ssm_d_inner or d, cfg.ssm_state, dt, device)
     p["mlp"] = L.init_swiglu(gen, d, cfg.d_ff, dt, device)
     return p
 
@@ -117,6 +125,7 @@ def _apply_decoder_layer(cfg: ArchConfig, p: dict, x, *, window, cache=None,
     cache (per-layer slice) keys by family:
       attention: k, v           [B, S, Kv, Dh]  (written in place)
       ssm:       state, x_prev, ffn_prev
+      hybrid:    k, v, sstate    (sstate [B, Di, S] float32)
     """
     B, T, D = x.shape
     new_cache = {}
@@ -160,6 +169,18 @@ def _apply_decoder_layer(cfg: ArchConfig, p: dict, x, *, window, cache=None,
     )
     if kvc is not None:
         new_cache.update(kvc)
+
+    if cfg.arch_type == "hybrid":
+        if mode == "decode":
+            sout, st = SSM.ssm_step(p["ssm"], h[:, 0], cache["sstate"])
+            sout = sout[:, None]
+        else:
+            st0 = (torch.zeros((B, cfg.ssm_d_inner or D, cfg.ssm_state), dtype=torch.float32,
+                               device=x.device) if cache is None else cache["sstate"])
+            sout, st = SSM.ssm_parallel(p["ssm"], h, st0)
+        new_cache["sstate"] = st
+        # Hymba: parallel heads, mean-fused.
+        attn_out = 0.5 * (attn_out + sout.to(attn_out.dtype))
     x = x + attn_out
     h = L.rms_norm(x, p["ln2"])
     x = x + L.swiglu(p["mlp"], h)
@@ -261,6 +282,10 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
     def loss(p, batch):
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["targets"]`` ([B, T] each), float32."""
+        if cfg.arch_type == "hybrid":
+            raise NotImplementedError(
+                "training the hybrid family is not ported yet: it needs the hybrid-training "
+                "slice of the port (the selective scan's backward kernel)")
         x = L.embed(p["embed"], batch["tokens"]).to(dt)
         x = _run_layers(p, x, mode="train")
         x = L.rms_norm(x, p["ln_f"])
@@ -278,8 +303,12 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
                 "ffn_prev": torch.zeros((Lh, B, cfg.d_model), dtype=dt, device=dev),
             }
         shape = (Lh, B, S, cfg.num_kv_heads, cfg.d_head)
-        return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev)}
+        c = {"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+        if cfg.arch_type == "hybrid":
+            c["sstate"] = torch.zeros((Lh, B, cfg.ssm_d_inner or cfg.d_model, cfg.ssm_state),
+                                      dtype=torch.float32, device=dev)
+        return c
 
     def prefill(p, batch, cache):
         """Forward the prompt ``batch["tokens"]`` [B, T], writing the cache

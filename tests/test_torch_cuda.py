@@ -2,9 +2,10 @@
 PyTorch versions (the element-wise kernels bit-exact in float32 and
 bfloat16; the attention and RWKV kernels, which reorder sums, within
 float32 rounding), small rounds of the engine on the card against the same
-rounds on the CPU, reduced LM serving on the card against the CPU, and the
+rounds on the CPU, reduced LM serving on the card against the CPU, the
 RWKV scan's backward kernel against its plain version and the float64
-definition of its gradients.
+definition of its gradients, and the hybrid family's selective scan
+against its plain sequential loop.
 
 Every test here needs a card and skips without one. The module imports no
 JAX, so it runs on a GPU host that has only PyTorch:
@@ -27,6 +28,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rs  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.models import small  # noqa: E402
 
 
@@ -685,25 +687,39 @@ def test_scan_wrapper_rejects_bad_operands(cuda):
         rs.rwkv6_scan(r, r, r, r, u.cpu(), s)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-1.6b"])
+# Kernel launches of one reduced prefill: a flash launch a layer (gemma3 at
+# 7 layers, one of them global), rwkv6_scan three a layer, hymba's
+# selective scan one a layer beside its attention.
+SERVE_LAUNCHES = {
+    "qwen3-14b": {"flash_attention": 2}, "rwkv6-1.6b": {"rwkv6_scan": 6},
+    "qwen2.5-32b": {"flash_attention": 2}, "gemma3-27b": {"flash_attention": 7},
+    "hymba-1.5b": {"flash_attention": 2, "selective_scan": 2},
+}
+
+
+@pytest.mark.parametrize("arch", list(SERVE_LAUNCHES))
 def test_reduced_serve_on_card_matches_cpu(cuda, arch):
     """Reduced float32 models from the same params: prefill logits on the
     card (kernels) and on the CPU (plain versions) agree within rtol 1e-4 /
-    atol 1e-4, and 8 greedy tokens are equal."""
+    atol 1e-4, and 8 greedy tokens are equal. 21 prompt tokens exceed the
+    reduced window (16) of gemma3 and hymba."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import generate
     from repro_torch.models.transformer import build_model
 
-    bundle = build_model(get_arch(arch).reduced())
+    over = dict(num_layers=7) if arch == "gemma3-27b" else {}
+    bundle = build_model(get_arch(arch).reduced(**over))
     params = bundle.init(0, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 21)).astype(np.int32))
     ops.reset_launch_counts()
     card = generate(bundle, convert.params_from_numpy(convert.to_numpy(params), cuda),
                     toks.to(cuda), 8)
     cpu = generate(bundle, params, toks, 8)
-    launched = fa.flash_attention.launches if arch == "qwen3-14b" else rs.rwkv6_scan.launches
-    # one prefill, two layers; rwkv6_scan is three kernels a call
-    assert launched == (2 if arch == "qwen3-14b" else 6)
+    counters = {"flash_attention": fa.flash_attention, "rwkv6_scan": rs.rwkv6_scan,
+                "selective_scan": ss.selective_scan}
+    # All in the one prefill: decode runs none of them.
+    assert {k: f.launches for k, f in counters.items()} == {
+        k: SERVE_LAUNCHES[arch].get(k, 0) for k in counters}
     torch.testing.assert_close(card.prefill_logits.cpu(), cpu.prefill_logits,
                                rtol=1e-4, atol=1e-4)
     assert torch.equal(card.tokens.cpu(), cpu.tokens)
@@ -1272,3 +1288,91 @@ def test_multilevel_round_on_card_matches_cpu(cuda, layout, participation):
             for leaf in want[name]:
                 np.testing.assert_allclose(got[name][leaf], want[name][leaf], rtol=1e-4,
                                            atol=1e-5, err_msg=f"{name}/{leaf}")
+
+
+# ------------------------------------------------ selective scan (hybrid serving)
+# The kernel runs the plain version's sequential recurrence with an FMA for
+# h and the approximate unit's 2^x (about 2^-22 relative) for the decays;
+# both are float32 throughout, so they agree to float32 rounding: within
+# 1e-5 of max|y| for y and of max|h| for the state.
+
+
+def _scan_inputs(cuda, B, T, Di, S, udtype, seed, dt_shift=0.0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+
+    u = torch.nn.functional.silu(randn(B, T, Di)).to(udtype)
+    dt = torch.nn.functional.softplus(randn(B, T, Di) + dt_shift)
+    Bm, Cm = randn(B, T, S), randn(B, T, S)
+    log_a = torch.log(torch.linspace(1.0, S, S, device=cuda))[None] + 0.2 * randn(Di, S)
+    d_skip = 1.0 + 0.1 * randn(Di)
+    s0 = randn(B, Di, S)
+    return u, dt, Bm, Cm, log_a, d_skip, s0
+
+
+def _assert_scan_close(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("B,T,Di,S,dt_shift", [
+    (1, 1, 8, 16, 0.0),          # one token
+    (2, 37, 37, 16, 0.0),        # Di not a multiple of a block's 32 chains
+    (2, 64, 96, 16, -6.0),       # weak decays: a memory of hundreds of tokens
+    (1, 2049, 40, 16, -3.0),     # T past the reference's chunk of 2048
+    (3, 50, 33, 5, 0.0),         # S < 16: the scalar loads
+    (4, 300, 3200, 16, 0.0),     # hymba's Di
+])
+@pytest.mark.parametrize("udtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_matches_plain(cuda, B, T, Di, S, dt_shift, udtype):
+    args = _scan_inputs(cuda, B, T, Di, S, udtype, B + T + Di + S, dt_shift)
+    before = ss.selective_scan.launches
+    got = ss.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.launches == before + 1
+    _assert_scan_close(got, ss.selective_scan_ref(*args))
+    again = ss.selective_scan(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))      # bit-identical
+
+
+def test_selective_scan_model_call_on_card_matches_cpu(cuda):
+    """``ssm_parallel`` and ``ssm_step`` with the same float32 params on the
+    card (the kernel) and on the CPU (the plain loop)."""
+    from repro_torch.models import ssm as S_
+
+    p = S_.init_ssm(torch.Generator().manual_seed(0), 32, 48, 16, torch.float32, "cpu")
+    pc = convert.params_from_numpy(convert.to_numpy(p), cuda)
+    x = torch.randn(2, 45, 32, generator=torch.Generator().manual_seed(1))
+    s0 = torch.randn(2, 48, 16, generator=torch.Generator().manual_seed(2))
+    oc, sc = S_.ssm_parallel(pc, x.to(cuda), s0.to(cuda))
+    o, s = S_.ssm_parallel(p, x, s0)
+    torch.testing.assert_close(oc.cpu(), o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sc.cpu(), s, rtol=1e-4, atol=1e-4)
+    oc, sc = S_.ssm_step(pc, x[:, 0].to(cuda), sc)
+    o, s = S_.ssm_step(p, x[:, 0], s)
+    torch.testing.assert_close(oc.cpu(), o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sc.cpu(), s, rtol=1e-4, atol=1e-4)
+
+
+def test_selective_scan_wrapper_rejects_bad_operands(cuda):
+    u, dt, Bm, Cm, log_a, d_skip, s0 = _scan_inputs(cuda, 2, 8, 12, 16, torch.float32, 0)
+    with pytest.raises(TypeError, match="dtype"):
+        ss.selective_scan(u, dt.bfloat16(), Bm, Cm, log_a, d_skip, s0)
+    with pytest.raises(TypeError, match="dtype"):
+        ss.selective_scan(u.half(), dt, Bm, Cm, log_a, d_skip, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.selective_scan(u, dt.transpose(0, 1).contiguous().transpose(0, 1), Bm, Cm, log_a,
+                          d_skip, s0)
+    with pytest.raises(ValueError, match="shape"):            # C's S is not B's
+        ss.selective_scan(u, dt, Bm, Cm[..., :8].contiguous(), log_a, d_skip, s0)
+    with pytest.raises(ValueError, match="shape"):            # log_a's S is not B's
+        ss.selective_scan(u, dt, Bm, Cm, log_a[:, :8].contiguous(), d_skip, s0)
+    with pytest.raises(ValueError, match="state size"):
+        big = torch.zeros(2, 8, 17, device=cuda)
+        ss.selective_scan(u, dt, big, big, torch.zeros(12, 17, device=cuda), d_skip,
+                          torch.zeros(2, 12, 17, device=cuda))
+    with pytest.raises(ValueError, match="expected cuda"):
+        ss.selective_scan(u, dt, Bm, Cm, log_a.cpu(), d_skip, s0)

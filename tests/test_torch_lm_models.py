@@ -1,9 +1,13 @@
 """The port's LM stack (``repro_torch.models``) against the JAX package on
 the CPU: the layers one by one, then ``forward``/``prefill``/``decode_step``
-of reduced ``qwen3-14b`` and ``rwkv6-1.6b`` (2 layers, width 128, float32,
-``attn_block=16``, ``rwkv_chunk=4``, so every call crosses several blocks
-and chunks). Params come from the reference's ``init`` and cross through
-``repro_torch.convert``; inputs come from numpy seeds.
+of the reduced archs (2 layers, width 128, float32, ``attn_block=16``,
+``rwkv_chunk=4``, so every call crosses several blocks and chunks):
+glm4-9b, qwen3-14b, rwkv6-1.6b, qwen2.5-32b (QKV biases), gemma3-27b at 7
+layers (six windowed at the reduced window of 16 and one global, tied
+embeddings) and hymba-1.5b (windowed attention and the selective SSM in
+parallel; its ``sstate`` cache leaf). The windowed archs take prompts
+longer than their window. Params come from the reference's ``init`` and
+cross through ``repro_torch.convert``; inputs come from numpy seeds.
 
 Tolerances: float32 at rtol 1e-4 / atol 1e-5 (the two packages sum their
 products in another order); cache leaves and the RWKV state at atol 1e-4,
@@ -39,8 +43,12 @@ from repro_torch.models import rwkv6 as TR  # noqa: E402
 from repro_torch.models.config import ArchConfig  # noqa: E402
 from repro_torch.models.transformer import build_model as tbuild  # noqa: E402
 
-ARCHS = ("glm4-9b", "qwen3-14b", "rwkv6-1.6b")
+ARCHS = ("glm4-9b", "qwen3-14b", "rwkv6-1.6b", "qwen2.5-32b", "gemma3-27b", "hymba-1.5b")
 RTOL, ATOL = 1e-4, 1e-5
+# gemma3 at 7 layers: its 6th is global (every (5 + 1)-th), the others windowed.
+OVER = {"gemma3-27b": dict(num_layers=7)}
+# Prompt lengths: longer than the reduced window (16) where the arch has one.
+WINDOWED = ("gemma3-27b", "hymba-1.5b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -74,6 +82,7 @@ def _close(got, want, rtol=RTOL, atol=ATOL, tag=""):
 
 def _pair(arch, seed=0, **over):
     """(jax bundle, jax params, port bundle, port params) of the reduced arch."""
+    over = {**OVER.get(arch, {}), **over}
     jcfg = jget_arch(arch).reduced(**over)
     jb = jbuild(jcfg)
     jp = jb.init(jax.random.PRNGKey(seed))
@@ -99,14 +108,55 @@ def test_configs_are_the_reference_numbers(arch):
 def test_other_archs_name_their_slice():
     from repro.configs import ARCH_IDS
     assert tconfigs.ARCH_IDS == ARCH_IDS
-    for arch in set(ARCH_IDS) - set(ARCHS):
+    missing = set(ARCH_IDS) - set(ARCHS)
+    assert missing == {"internvl2-26b", "mixtral-8x22b", "whisper-medium",
+                       "granite-moe-1b-a400m"}
+    for arch in missing:
         with pytest.raises(ValueError, match="slice"):
             tconfigs.get_arch(arch)
     with pytest.raises(KeyError):
         tconfigs.get_arch("gpt-9")
-    moe = tconfigs.get_arch("qwen3-14b").reduced(arch_type="moe")
-    with pytest.raises(NotImplementedError, match="moe slice"):
-        tbuild(moe)
+    for family in ("moe", "audio", "vlm"):
+        cfg = tconfigs.get_arch("qwen3-14b").reduced(arch_type=family)
+        with pytest.raises(NotImplementedError, match=f"{family} slice"):
+            tbuild(cfg)
+
+
+def test_hybrid_loss_names_its_slice():
+    """hymba serves, but its training waits for the selective scan's
+    backward kernel."""
+    tb = tbuild(tconfigs.get_arch("hymba-1.5b").reduced())
+    tp = tb.init(0, device="cpu")
+    toks = torch.from_numpy(_tokens(0, 1, 8))
+    with pytest.raises(NotImplementedError, match="hybrid-training slice"):
+        tb.loss(tp, {"tokens": toks, "targets": toks})
+
+
+def test_gemma3_layer_pattern():
+    """tests/test_models.py::test_gemma3_layer_pattern on the port."""
+    from repro_torch.models.transformer import _layer_windows
+    w = _layer_windows(tconfigs.get_arch("gemma3-27b"))
+    assert len(w) == 62
+    assert (w == 0).sum() == 10          # every 6th layer is global
+    assert (w[:5] == 1024).all() and w[5] == 0
+    assert (_layer_windows(tconfigs.get_arch("hymba-1.5b")) == 1024).all()
+
+
+def test_sliding_window_limits_attention():
+    """tests/test_models.py::test_sliding_window_limits_attention on a
+    one-layer gemma3 at window 4: a token beyond the window cannot move the
+    last position's logits."""
+    tb = tbuild(tconfigs.get_arch("gemma3-27b").reduced(sliding_window=4, num_layers=1))
+    tp = tb.init(2, device="cpu")
+    toks = np.random.default_rng(2).integers(0, 256, (1, 24))
+    toks2 = toks.copy()
+    toks2[0, 0] = (toks2[0, 0] + 7) % 256        # mutate a far-past token
+    l1 = tb.forward(tp, {"tokens": torch.from_numpy(toks)})[:, -1]
+    l2 = tb.forward(tp, {"tokens": torch.from_numpy(toks2)})[:, -1]
+    np.testing.assert_allclose(l1.numpy(), l2.numpy(), atol=1e-5)
+    toks2[0, -4] = (toks2[0, -4] + 7) % 256      # a token inside the window does
+    l3 = tb.forward(tp, {"tokens": torch.from_numpy(toks2)})[:, -1]
+    assert (l3 - l1).abs().max().item() > 1e-3
 
 
 # ------------------------------------------------------------------ layers
@@ -243,12 +293,14 @@ def test_forward_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_reference(arch):
-    """Prefill 13 prompt tokens into a 20-position cache, then 4 decode
-    steps: logits and every cache leaf after each call."""
+    """Prefill 13 prompt tokens (21 where the arch has a window) into a
+    cache of 7 more positions, then 4 decode steps: logits and every cache
+    leaf (hymba's ``sstate`` included) after each call."""
     jb, jp, tb, tp = _pair(arch, seed=2)
-    toks = _tokens(2, 2, 13)
-    jc = jb.init_cache(2, 20)
-    tc = tb.init_cache(2, 20, device="cpu")
+    T = 21 if arch in WINDOWED else 13
+    toks = _tokens(2, 2, T)
+    jc = jb.init_cache(2, T + 7)
+    tc = tb.init_cache(2, T + 7, device="cpu")
     _close(tc, _np(jc), tag="init_cache")
     jl, jc = jb.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
     tl, tc = tb.prefill(tp, {"tokens": torch.from_numpy(toks)}, tc)
@@ -258,8 +310,8 @@ def test_prefill_and_decode_match_reference(arch):
     for i in range(4):
         tok = nxt[:, i:i + 1]
         jl, jc = jb.decode_step(jp, {"token": jnp.asarray(tok),
-                                     "index": jnp.asarray(13 + i, jnp.int32)}, jc)
-        tl, tc = tb.decode_step(tp, {"token": torch.from_numpy(tok), "index": 13 + i}, tc)
+                                     "index": jnp.asarray(T + i, jnp.int32)}, jc)
+        tl, tc = tb.decode_step(tp, {"token": torch.from_numpy(tok), "index": T + i}, tc)
         _close(tl, jl, tag=f"decode {i} logits")
         _close(tc, _np(jc), atol=1e-4, tag=f"decode {i} cache")
 
@@ -282,26 +334,46 @@ def test_bf16_prefill_and_decode_match_reference(arch):
     over = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
     jb, jp, tb, tp = _pair(arch, seed=4, **over)
     assert tp["layers"]["ln1"].dtype == torch.bfloat16
-    toks = _tokens(4, 2, 13)
-    jc, tc = jb.init_cache(2, 16), tb.init_cache(2, 16, device="cpu")
+    T = 21 if arch in WINDOWED else 13
+    toks = _tokens(4, 2, T)
+    jc, tc = jb.init_cache(2, T + 3), tb.init_cache(2, T + 3, device="cpu")
     jl, jc = jb.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
     tl, tc = tb.prefill(tp, {"tokens": torch.from_numpy(toks)}, tc)
     _close_bf16(tl, jl, "prefill logits")
     jl, jc = jb.decode_step(jp, {"token": jnp.asarray(toks[:, :1]),
-                                 "index": jnp.asarray(13, jnp.int32)}, jc)
-    tl, tc = tb.decode_step(tp, {"token": torch.from_numpy(toks[:, :1]), "index": 13}, tc)
+                                 "index": jnp.asarray(T, jnp.int32)}, jc)
+    tl, tc = tb.decode_step(tp, {"token": torch.from_numpy(toks[:, :1]), "index": T}, tc)
     _close_bf16(tl, jl, "decode logits")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
     """The port alone (as tests/test_models.py:56): prefill T - 1 tokens and
-    decode the last one; its logits equal the full forward's last row."""
-    tb = tbuild(tconfigs.get_arch(arch).reduced())
+    decode the last one; its logits equal the full forward's last row (T
+    = 16, 24 where the arch has a window)."""
+    tb = tbuild(tconfigs.get_arch(arch).reduced(**OVER.get(arch, {})))
     tp = tb.init(1, device="cpu")
-    toks = torch.from_numpy(_tokens(1, 2, 16))
+    T = 24 if arch in WINDOWED else 16
+    toks = torch.from_numpy(_tokens(1, 2, T))
     full = tb.forward(tp, {"tokens": toks})[:, -1]
-    cache = tb.init_cache(2, 16, device="cpu")
+    cache = tb.init_cache(2, T, device="cpu")
     _, cache = tb.prefill(tp, {"tokens": toks[:, :-1]}, cache)
-    lg, _ = tb.decode_step(tp, {"token": toks[:, -1:], "index": 15}, cache)
+    lg, _ = tb.decode_step(tp, {"token": toks[:, -1:], "index": T - 1}, cache)
     assert (full - lg).abs().max().item() < 5e-4
+
+
+def test_hybrid_cache_crosses_from_reference():
+    """A reference prefill's cache (k, v and hymba's ``sstate``) crosses
+    through ``params_from_numpy`` and the port decodes from it as the
+    reference does; ``to_numpy`` brings the cache back."""
+    jb, jp, tb, tp = _pair("hymba-1.5b", seed=5)
+    toks = _tokens(5, 2, 19)
+    jl, jc = jb.prefill(jp, {"tokens": jnp.asarray(toks)}, jb.init_cache(2, 22))
+    tc = convert.params_from_numpy(_np(jc), "cpu")
+    assert sorted(tc) == ["k", "sstate", "v"] and tc["sstate"].dtype == torch.float32
+    tok = toks[:, -1:]
+    jl, jc = jb.decode_step(jp, {"token": jnp.asarray(tok), "index": jnp.asarray(19, jnp.int32)},
+                            jc)
+    tl, tc = tb.decode_step(tp, {"token": torch.from_numpy(tok), "index": 19}, tc)
+    _close(tl, jl)
+    _close(tc, _np(jc), atol=1e-4)

@@ -4,8 +4,10 @@
   the differentiable ``FlashAttention`` against ``jax.vjp`` of the model's
   ``flash_jnp.blocked_attention_flash`` (the reference's custom VJP), with
   the forward's row statistics against ``flash_jnp._fwd``'s;
-* ``chunked_xent``, and the reduced glm4-9b, qwen3-14b and rwkv6-1.6b
-  ``loss`` with every gradient leaf against
+* ``chunked_xent``, and the reduced glm4-9b, qwen3-14b, rwkv6-1.6b,
+  qwen2.5-32b (the QKV biases' gradients) and gemma3-27b (7 layers: six
+  windowed, one global, so the windows run in the backward; tied
+  embeddings) ``loss`` with every gradient leaf against
   ``jax.value_and_grad(bundle.loss)`` at T > 1024 (the blocked attention
   path); remat on == off (rwkv6's training: ``test_torch_ssm_train.py``);
 * ``make_lm_tokens``/``lm_batches``/``pack_lm_shards`` draw for draw;
@@ -143,13 +145,15 @@ def _grads(tb, tp, batch):
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "qwen3-14b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "qwen3-14b", "rwkv6-1.6b", "qwen2.5-32b",
+                                  "gemma3-27b"])
 def test_loss_and_every_gradient_match_reference(arch):
     """T = 1088 > 1024: every attention layer takes the blocked (flash)
     path, forward and backward, under remat as in the full configs; the
     rwkv6 layers run the chunked scan (272 chunks of the reduced config's
-    4 tokens)."""
-    jb, jp, tb, tp = _pair(arch, attn_block=128, remat=True)
+    4 tokens); gemma3's windowed layers (window 16) and its global one."""
+    over = dict(num_layers=7) if arch == "gemma3-27b" else {}
+    jb, jp, tb, tp = _pair(arch, attn_block=128, remat=True, **over)
     rng = np.random.default_rng(5)
     batch = {k: rng.integers(0, 256, size=(1, 1088)).astype(np.int32)
              for k in ("tokens", "targets")}

@@ -1,7 +1,9 @@
 """Greedy serving in the port (``repro_torch.launch.serve``) against the
 JAX package's greedy loop (``src/repro/launch/serve.py:66-81``) on the CPU:
 from the same reduced float32 params and prompts, both generate the same
-tokens (argmax over all ``vocab_padded`` columns)."""
+tokens (argmax over all ``vocab_padded`` columns). gemma3-27b runs at 7
+layers (one global), and the windowed archs' prompts of 19 tokens exceed
+their reduced window of 16."""
 import numpy as np
 import pytest
 
@@ -44,13 +46,15 @@ def _jax_greedy(bundle, params, toks, gen):
     return np.asarray(jnp.concatenate(out, 1))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-1.6b", "qwen2.5-32b", "gemma3-27b",
+                                  "hymba-1.5b"])
 def test_greedy_tokens_match_reference(arch):
-    jb = jbuild(jget_arch(arch).reduced())
+    over = dict(num_layers=7) if arch == "gemma3-27b" else {}
+    jb = jbuild(jget_arch(arch).reduced(**over))
     jp = jb.init(jax.random.PRNGKey(0))
     toks = np.random.default_rng(0).integers(0, 256, (3, 19)).astype(np.int32)
     want = _jax_greedy(jb, jp, jnp.asarray(toks), 10)
-    tb = build_model(get_arch(arch).reduced())
+    tb = build_model(get_arch(arch).reduced(**over))
     tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     got = serve.generate(tb, tp, torch.from_numpy(toks), 10)
     assert got.tokens.dtype == torch.int32 and tuple(got.tokens.shape) == (3, 10)
@@ -73,3 +77,10 @@ def test_serve_steps_and_cli(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(["--arch", "rwkv6-1.6b", "--smoke"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "gemma3-27b", "hymba-1.5b"])
+def test_cli_serves_the_windowed_and_hybrid_archs(arch, capsys):
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                "--prompt-len", "20", "--gen", "3"])
+    assert f"arch={arch} device=cpu generated (2, 3)" in capsys.readouterr().out
