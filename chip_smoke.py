@@ -16,14 +16,17 @@ async group rounds, with virtual client populations, through
 checkpoints, and on the multilevel backend over a 4 x 5 x 5 tree. Depth is
 cut: E = 2
 group rounds of H = 5 local steps, 1 or 2 global rounds per path. The
-serving phases serve qwen3-14b, rwkv6-1.6b, qwen2.5-32b, gemma3-27b and
-hymba-1.5b at their full widths and depths. After them it trains glm4-9b
+serving phases serve qwen3-14b, rwkv6-1.6b, qwen2.5-32b, gemma3-27b,
+hymba-1.5b and granite-moe-1b-a400m at their full widths and depths.
+After them it trains glm4-9b
 at full width (depth 2 of 40) on the sharded backend, plain, with compressed uploads, under partial
 participation, under faults, with async group rounds and with a virtual
-client population; and rwkv6-1.6b at full width and full depth (24
-layers), through the scan's backward kernel. The CNN's learning rate is 0.01: at 0.1
-the loss of this CNN on the synthetic images spikes into the thousands and
-then settles at chance (ln 10) in both packages
+client population; rwkv6-1.6b at full width and full depth (24
+layers), through the scan's backward kernel; and granite-moe-1b-a400m at
+full width and full depth (24 layers), through the moe dispatch kernels.
+The CNN's learning rate is 0.01: at 0.1 the loss of this CNN on the
+synthetic images spikes into the thousands and then settles at chance (ln
+10) in both packages
 (``tests/test_torch_driver.py::test_cifar_cnn_loss_spike_tracks_reference``).
 
 Phases (any failure raises, so the script exits non-zero and prints no
@@ -171,20 +174,36 @@ final line):
     keep two in bf16) and traced time, the forward at this shape, registers
     and spills (none allowed), the library's tag, flags and the ``nvcc
     --version`` that built it, and a trace of 200 calls by kernel;
+12c. the moe family's dispatch (``moe_gather``), combine (``moe_combine``)
+    and gate gradient (``moe_gate_grad``; ``csrc/moe_dispatch.cu``) against
+    the reference's one-hot einsums at granite-moe-1b-a400m's training
+    shape (S 2048, k 8, E 32, C 640, D 1024), a ragged shape with heavy
+    drops (S 300, C 40) and the scalar path (D 100, k 3), bf16 and float32:
+    dispatch bit for bit, the combine and the gate gradient within a
+    float32 rounding a term of the sum of magnitudes plus one rounding of
+    the output, a second call bit for bit, no spills; kernel, plain, bound
+    and one-call library (``index_select``, ``embedding_bag``) times at the
+    training shape, and the kernels alone at serving's prefill shape (S
+    8192, C 2560);
 13. LM serving at full width through ``repro_torch.launch.serve.generate``:
     qwen3-14b (40 layers, d 5120, bf16, 14.77 B params), rwkv6-1.6b (24
     layers, d 2048), qwen2.5-32b (64 layers, 32.76 B params, QKV bias),
     gemma3-27b (62 layers, 27.01 B params, 52 layers at window 1024 and 10
-    global, tied 262,144-token embedding) and hymba-1.5b (32 layers of
-    windowed attention and the selective SSM in parallel), each from random
-    params (seed 0), 4 prompts of 2048 tokens, 32 generated tokens: in the
-    prefill ``flash_attention`` must launch once a layer (40, 64, 62, 32),
-    ``rwkv6_scan`` 72 times (three kernels a layer) and ``selective_scan``
-    32 times on hymba, and none of them in decode; finite logits, tokens in
+    global, tied 262,144-token embedding), hymba-1.5b (32 layers of
+    windowed attention and the selective SSM in parallel) and (f4)
+    granite-moe-1b-a400m (24 layers, 32 experts, top 8; 1.386 B params),
+    each from random params (seed 0), 4 prompts of 2048 tokens, 32
+    generated tokens: in the prefill ``flash_attention`` must launch once a
+    layer (40, 64, 62, 32, 24), ``rwkv6_scan`` 72 times (three kernels a
+    layer) and ``selective_scan`` 32 times on hymba, and none of them in
+    decode; granite's ``moe_gather`` and ``moe_combine`` once a layer in
+    the prefill (8192 tokens: capacity 2560) and in each decode step
+    (dropless), 768 each in all; finite logits, tokens in
     range; init s, prefill ms, decode ms per step, tokens/s, the peak and
     the memory held before the phase, busy shares and traces;
 14. reduced qwen3-14b, rwkv6-1.6b, qwen2.5-32b, gemma3-27b (7 layers: one
-    global) and hymba-1.5b (float32) from the same params on the card and
+    global), hymba-1.5b and granite-moe-1b-a400m (float32) from the same
+    params on the card and
     on the CPU: prefill logits within rtol/atol 1e-4, 8 greedy tokens
     equal;
 15. the attention backward at glm4-9b's training shape (q [1, 2048, 32,
@@ -272,18 +291,28 @@ final line):
     layers (1.678 B params, bf16, remat, random params from seed 0),
     trained as (h)/(i) are (2 x 2 clients, E = H = A = 2, lr 0.05, 1 x 2048
     tokens a microbatch): (v1) flat + fused (two state buffers: bf16 and
-    the float32 ``u``/``decay_base``), (v2) tree + fused; a warm-up, a timed
-    and a traced round each (the trace records the device alone: the round
-    makes about 283,000 launches); launches required as reckoned
+    the float32 ``u``/``decay_base``), (v2) tree + fused; a warm-up and a
+    timed round each, and a traced round of (v1) (the trace records the
+    device alone: the round makes about 283,000 launches); launches required as reckoned
     (``rwkv6_scan`` 4608 and its backward 3072 over 768 layer passes,
     ``mtgc_update_flat`` 8 on (v1), 76 leaf launches on (v2)); finite
     losses and params, round ms, tokens/s, peak, busy share and the scan's
     shares; (v3) a reduced rwkv6 round (float32, remat, chunk 64, T = 1100)
     on the card against the CPU and fused against unfused, as phase 21;
+24. phase (w), moe training: granite-moe-1b-a400m at its published widths
+    and all 24 layers (1.386 B params, bf16, remat), trained as (v) is:
+    (w1) flat + fused, (w2) tree + fused, a warm-up and a timed round each
+    and a traced one (the device alone) of (w1); launches required as
+    reckoned (768
+    layer passes: ``moe_gather`` and ``moe_combine`` 2304 each -- two
+    forwards and one backward a pass --, ``moe_gate_grad`` 768, flash 1536
+    forward and 2304 backward); (w3) a reduced granite round (float32,
+    remat, T = 1100, capacity routing) on the card against the CPU and
+    fused against unfused, as phase 21;
 22. a JSON line of the serving and training runs, one per phase of 18-20,
     (n), (p), (q) and (s), one of (m), one of (o), one of (r), one of (t),
-    one of (u), one each of (v1), (v2) and (v3), and one per kernel, then
-    ``{"ok": true, "device": {...}}`` last.
+    one of (u), one each of (v1), (v2), (v3), (w1), (w2) and (w3), and one
+    per kernel, then ``{"ok": true, "device": {...}}`` last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``) for the whole run, so every
@@ -325,6 +354,10 @@ LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_TOKENS = 1, 2048, 400_000
 # Phase (v): rwkv6-1.6b at its published widths and full depth (24 layers),
 # trained as glm4-9b is above.
 SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS = "rwkv6-1.6b", 24
+# Phases (f4) and (w): granite-moe-1b-a400m at its published widths and full
+# depth, served at phase 13's traffic and trained as rwkv6-1.6b is; its
+# dispatch kernels are held at the training shape (one microbatch's tokens).
+MOE_ARCH, MOE_LAYERS, MOE_TRAIN_TOKENS = "granite-moe-1b-a400m", 24, LM_TRAIN_BATCH * LM_TRAIN_SEQ
 # The scan backward's four kernels, in launch order (passes A', B', C', D').
 SCAN_BWD_PASSES = ("rwkv6_bwd_chunk_grad_kernel", "rwkv6_bwd_state_scan_kernel",
                    "rwkv6_bwd_chunk_out_kernel", "rwkv6_bwd_du_kernel")
@@ -1115,6 +1148,191 @@ def phase_ssm_kernel(torch, ss):
     return worst, t
 
 
+def moe_case(torch, md, gen, S, k, E, C, D, dtype):
+    """Random routing of S tokens to k distinct experts of E, positions by
+    the reference's cumulative sum (later tokens dropped past C), and
+    operands: (routing, x [S, D], y [E, C, D], dout [S, D], w [S, k])."""
+    dev = torch.device("cuda")
+    idx = torch.rand(S, E, generator=gen, device=dev).argsort(-1)[:, :k]
+    flat = torch.nn.functional.one_hot(idx, E).reshape(S * k, E)
+    pos = ((torch.cumsum(flat, 0) - 1) * flat).sum(-1).reshape(S, k)
+    r = md.make_routing(idx, pos, pos < C, E, C)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    w = torch.softmax(torch.randn(S, k, generator=gen, device=dev), -1).to(dtype)
+    return r, randn(S, D), randn(E, C, D), randn(S, D), w
+
+
+def moe_errors(torch, md, r, x, y, dout, w) -> dict:
+    """The three kernels against their plain versions: dispatch bit for
+    bit; the scaled gather within one rounding of each output; combine (k
+    float32 terms in j order against the einsum's (e, c) order) and the
+    gate gradient (a float32 dot over D) within one float32 rounding a term
+    of the sum of magnitudes plus one rounding of the output; a second call
+    of each bit for bit. Returns the largest absolute errors."""
+    dtype, D, k = x.dtype, x.shape[1], r.gate_idx.shape[1]
+    bits = 7 if dtype == torch.bfloat16 else 23
+
+    def ulps(t):
+        return torch.exp2(torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -126))) - bits)
+
+    got = {"gather": md.moe_gather(x, r), "gather_scaled": md.moe_gather(dout, r, w),
+           "combine": md.moe_combine(y, r, w), "combine_unit": md.moe_combine(y, r),
+           "gate_grad": md.moe_gate_grad(dout, y, r)}
+    want = {"gather": md.moe_gather_ref(x, r), "gather_scaled": md.moe_gather_ref(dout, r, w),
+            "combine": md.moe_combine_ref(y, r, w), "combine_unit": md.moe_combine_ref(y, r),
+            "gate_grad": md.moe_gate_grad_ref(dout, y, r)}
+    yabs = y.float().abs()
+    bound = {"gather": torch.zeros_like(want["gather"], dtype=torch.float32),
+             "gather_scaled": ulps(want["gather_scaled"]),
+             "combine": k * 2.0 ** -23 * md.moe_combine_ref(yabs, r, w.float().abs())
+             + ulps(want["combine"]),
+             "combine_unit": k * 2.0 ** -23 * md.moe_combine_ref(yabs, r)
+             + ulps(want["combine_unit"]),
+             "gate_grad": D * 2.0 ** -23 * md.moe_gate_grad_ref(dout.float().abs(), yabs, r)
+             + ulps(want["gate_grad"])}
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g in got.items():
+        diff = (g.float() - want[name].float()).abs()
+        require(g.dtype == dtype and g.shape == want[name].shape, f"moe {name}: dtype or shape")
+        require(bool((diff <= bound[name]).all()),
+                f"moe {name} differs from its plain version beyond its bound at S {x.shape[0]}, "
+                f"C {r.capacity}, D {D}, {dtype}: max {diff.max().item():.3g}")
+        errs[name] = diff.max().item()
+    require(bool((got["gate_grad"][~r.keep] == 0).all()), "moe_gate_grad: a dropped choice's "
+            "gradient is not 0")
+    again = {"gather": md.moe_gather(x, r), "gather_scaled": md.moe_gather(dout, r, w),
+             "combine": md.moe_combine(y, r, w), "combine_unit": md.moe_combine(y, r),
+             "gate_grad": md.moe_gate_grad(dout, y, r)}
+    require(all(torch.equal(got[n], again[n]) for n in got),
+            "moe kernels: two calls on the same inputs give different bits")
+    return errs
+
+
+def moe_bytes(r, D: int, elt: int) -> dict:
+    """Bytes each kernel must move at this routing: each input read once
+    (the combine and the gate gradient read only the kept rows of y), each
+    output written once, the index maps as int32."""
+    S, k = r.gate_idx.shape
+    n_slots, kept = r.num_experts * r.capacity, int(r.keep.sum())
+    return {"moe_gather": S * D * elt + n_slots * 4 + n_slots * D * elt,
+            "moe_gather_scaled": S * D * elt + n_slots * 4 + S * k * elt + n_slots * D * elt,
+            "moe_combine": kept * D * elt + S * k * (4 + elt) + S * D * elt,
+            "moe_gate_grad": S * D * elt + kept * D * elt + S * k * 4 + S * k * elt}
+
+
+def phase_moe_kernels(torch, md, logs: dict):
+    """Phase 12c: the moe family's dispatch, combine and gate-gradient
+    kernels (``csrc/moe_dispatch.cu``) against their plain versions (the
+    reference's one-hot einsums) at granite-moe-1b-a400m's training shape
+    (S 2048, k 8, E 32, C 640, D 1024) in bf16 and float32, at a ragged
+    shape with heavy drops (S 300, C 40) and at the scalar path's width (D
+    100, k 3): ``moe_errors``' checks and a second call bit for bit; no
+    spills. Then kernel, plain and bound times at the training shape, with
+    one PyTorch call of the same function where there is one
+    (``index_select`` of the slots' token rows for the dispatch -- it
+    leaves no zero rows for empty slots --, ``embedding_bag`` with
+    per-sample weights for the combine), the kernels alone at serving's
+    prefill shape (S 8192, C 2560), where the plain version would build a
+    10.7 GB one-hot a layer and is not run, and the routing's cumulative
+    sum for the positions in two layouts."""
+    for entry, regs, spills in ptxas_entries(logs.get("moe_dispatch", "")):
+        log(f"  moe_dispatch: {entry}: {regs}; {spills}")
+        require("0 bytes spill stores" in spills and "0 bytes spill loads" in spills,
+                f"{entry} spills registers: {spills}")
+    gen = torch.Generator(device="cuda").manual_seed(126)
+    worst = {}
+    for S, k, E, C, D in ((MOE_TRAIN_TOKENS, 8, 32, 640, 1024), (300, 8, 32, 40, 1024),
+                          (37, 3, 5, 9, 100)):
+        for dtype in (torch.bfloat16, torch.float32):
+            case = moe_case(torch, md, gen, S, k, E, C, D, dtype)
+            errs = moe_errors(torch, md, *case)
+            key = "" if dtype == torch.bfloat16 else "/f32"
+            for name, e in errs.items():
+                worst[name + key] = max(worst.get(name + key, 0.0), e)
+            log(f"moe kernels S {S} k {k} E {E} C {C} D {D} {dtype}: {int(case[0].keep.sum())} "
+                f"of {S * k} choices kept; dispatch bit for bit, max abs errors "
+                f"{ {n: float(f'{e:.3g}') for n, e in errs.items()} }, two calls bit for bit")
+    r, x, y, dout, w = moe_case(torch, md, gen, MOE_TRAIN_TOKENS, 8, 32, 640, 1024,
+                                torch.bfloat16)
+    tok = (r.slot.long() // 8).clamp_min(0)
+    bag = r.row.long().clamp_min(0)
+    yflat = y.reshape(-1, 1024)
+    wk = w * r.keep.to(w.dtype)
+    nbytes = moe_bytes(r, 1024, 2)
+    plain = {"moe_gather": lambda: md.moe_gather_ref(x, r),
+             "moe_combine": lambda: md.moe_combine_ref(y, r, w),
+             "moe_gate_grad": lambda: md.moe_gate_grad_ref(dout, y, r)}
+    kern = {"moe_gather": lambda: md.moe_gather(x, r),
+            "moe_combine": lambda: md.moe_combine(y, r, w),
+            "moe_gate_grad": lambda: md.moe_gate_grad(dout, y, r)}
+    library = {"moe_gather": lambda: torch.index_select(x, 0, tok),
+               "moe_combine": lambda: torch.nn.functional.embedding_bag(
+                   bag, yflat, mode="sum", per_sample_weights=wk),
+               "moe_gate_grad": None}
+    times = {}
+    for name in kern:
+        t = timed(torch, kern[name], plain[name], iters=50, plain_iters=5)
+        flops = {"moe_gather": 0, "moe_combine": 2 * int(r.keep.sum()) * 1024,
+                 "moe_gate_grad": 2 * int(r.keep.sum()) * 1024}[name]
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes[name], flops, F32_FLOPS_PER_S)
+        t["library_ms"] = cuda_ms(torch, library[name], 50) if library[name] else None
+        t.update(bytes=nbytes[name], bound_share=t["bound_ms"] / t["ms"])
+        times[name] = t
+        log(f"{name} S {MOE_TRAIN_TOKENS} k 8 E 32 C 640 D 1024 bf16: kernel {t['ms']:.4f} ms "
+            f"{t['ms_readings']}, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}; {nbytes[name]} bytes; bound share {t['bound_share']:.3f}), "
+            f"library {t['library_ms']}")
+    t = cuda_ms(torch, lambda: md.moe_gather(dout, r, w), 50)
+    times["moe_gather"]["scaled_ms"] = t
+    times["moe_gather"]["scaled_bound_ms"] = nbytes["moe_gather_scaled"] / HBM_BYTES_PER_S * 1e3
+    log(f"moe_gather with the gates as the scale (the combine's backward): {t:.4f} ms, bound "
+        f"{times['moe_gather']['scaled_bound_ms']:.4f} ms")
+    del r, x, y, dout, w, tok, bag, yflat, wk
+    # Serving's prefill shape: the kernels alone (the plain one-hot would be
+    # 10.7 GB a layer).
+    r, x, y, dout, w = moe_case(torch, md, gen, LM_BATCH * LM_PROMPT, 8, 32, 2560, 1024,
+                                torch.bfloat16)
+    nbytes = moe_bytes(r, 1024, 2)
+    got = md.moe_gather(x, r)
+    filled = r.slot >= 0
+    require(torch.equal(got.reshape(-1, 1024)[filled],
+                        x[(r.slot[filled].long() // 8)]) and
+            bool((got.reshape(-1, 1024)[~filled] == 0).all()),
+            "moe_gather at the prefill shape: a slot does not hold its token's row")
+    del got
+    for name, fn in (("moe_gather", lambda: md.moe_gather(x, r)),
+                     ("moe_combine", lambda: md.moe_combine(y, r, w))):
+        ms = cuda_ms(torch, fn, 50)
+        bms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        times[name]["prefill_shape"] = {"ms": ms, "bound_ms": bms, "bytes": nbytes[name],
+                                        "bound_share": bms / ms}
+        log(f"{name} at the prefill shape (S {LM_BATCH * LM_PROMPT}, C 2560, bf16): "
+            f"{ms:.4f} ms, bound {bms:.4f} ms ({nbytes[name]} bytes; share {bms / ms:.3f})")
+    del r, x, y, dout, w
+    # The routing's positions (``models/moe.py::route``): PyTorch's
+    # cumulative sum along the outer dim of the reference's [S k, E]
+    # one-hot, against the last dim of the [E, S k] copy the port scans.
+    scans = {}
+    for S in (MOE_TRAIN_TOKENS, LM_BATCH * LM_PROMPT):
+        idx = torch.rand(S, 32, generator=gen, device="cuda").argsort(-1)[:, :8]
+        flat = torch.nn.functional.one_hot(idx.reshape(-1), 32)
+        scans[S] = {"outer_dim_ms": cuda_ms(torch, lambda: torch.cumsum(flat, 0), 10),
+                    "last_dim_with_copy_ms": cuda_ms(
+                        torch, lambda: torch.cumsum(flat.t().contiguous(), 1), 10)}
+    times["moe_gather"]["positions_scan"] = scans
+    log(f"routing positions, cumulative sum of the int64 one-hot of S x 8 choices over 32 "
+        f"experts (S: ms): along the outer dim of [S 8, 32] "
+        f"{ {S: round(v['outer_dim_ms'], 4) for S, v in scans.items()} }, along the last dim "
+        f"of an [32, S 8] copy (copy included) "
+        f"{ {S: round(v['last_dim_with_copy_ms'], 4) for S, v in scans.items()} }")
+    torch.cuda.empty_cache()
+    return worst, times
+
+
 def scan_bwd_oracle(torch, r, k, v, logw, u, s0, do, d_final):
     """The scan's gradients by their definition, token by token in float64
     on the card, over all (b, h) at once: with G_t the gradient of the state
@@ -1313,11 +1531,13 @@ def phase_scan_backward(torch, rs, logs: dict):
     return errs, t
 
 
-def serve_launches(fa, rw, ss) -> dict:
+def serve_launches(fa, rw, ss, md) -> dict:
     """The LM kernels' launch counters, by kernel."""
     return {"flash_attention": fa.flash_attention.launches,
             "rwkv6_scan": rw.rwkv6_scan.launches,
-            "selective_scan": ss.selective_scan.launches}
+            "selective_scan": ss.selective_scan.launches,
+            "moe_gather": md.moe_gather.launches, "moe_combine": md.moe_combine.launches,
+            "moe_gate_grad": md.moe_gate_grad.launches}
 
 
 def phase_serve(torch, np, arch, counter):
@@ -1407,7 +1627,7 @@ def phase_lm_card_vs_cpu(torch, np, convert):
 
     worst = 0.0
     archs = (("qwen3-14b", {}), ("rwkv6-1.6b", {}), ("qwen2.5-32b", {}),
-             ("gemma3-27b", dict(num_layers=7)), ("hymba-1.5b", {}))
+             ("gemma3-27b", dict(num_layers=7)), ("hymba-1.5b", {}), (MOE_ARCH, {}))
     for arch, over in archs:
         bundle = build_model(get_arch(arch).reduced(**over))
         params = bundle.init(0, device="cpu")
@@ -1567,19 +1787,25 @@ def lm_train_launches(cfg, n_update: int, rounds: int = 1) -> dict:
     every replica and microbatch runs its sequence mixer's forward (twice
     under remat: the forward and its recompute in the backward pass) and its
     backward once -- the flash forward and the flash backward's three
-    kernels (dense), or the scan's three kernels and its backward's four
-    (ssm); the fused update launches once per leaf (tree) or dtype buffer
-    (flat) per local step."""
+    kernels (dense, moe), or the scan's three kernels and its backward's four
+    (ssm); a moe layer's dispatch (``moe_gather``) and combine
+    (``moe_combine``) run in each forward, and its backward runs the
+    combine's two (``moe_gather`` for the experts' rows, ``moe_gate_grad``)
+    and the dispatch's (``moe_combine``); the fused update launches once per
+    leaf (tree) or dtype buffer (flat) per local step."""
     G, K = LM_TRAIN_LEVELS
     passes = rounds * LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * G * K * cfg.num_layers
     forwards = passes * (2 if cfg.remat else 1)
-    ssm = cfg.arch_type == "ssm"
+    ssm, moe = cfg.arch_type == "ssm", cfg.arch_type == "moe"
     return {"flash_attention": 0 if ssm else forwards,
             "flash_attention_bwd": 0 if ssm else 3 * passes,
             "rwkv6_scan": 3 * forwards if ssm else 0,
             "rwkv6_scan_bwd": 4 * passes if ssm else 0,
             "mtgc_update_flat": rounds * LM_TRAIN_E * LM_TRAIN_H * n_update,
-            "mtgc_update": 0, "selective_scan": 0}
+            "mtgc_update": 0, "selective_scan": 0,
+            "moe_gather": forwards + passes if moe else 0,
+            "moe_combine": forwards + passes if moe else 0,
+            "moe_gate_grad": passes if moe else 0}
 
 
 def check_update_on_state(torch, mu, state, lr: float, g_scale: float) -> dict:
@@ -1989,10 +2215,11 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
         f"z_norm {out['z_norm']:.4g} y_norm {out['y_norm']:.4g}; comm_bytes {comm} (wire "
         f"model {wire}); residuals {residuals}; frozen replicas {frozen} kept their bits")
     if trace:
-        # rwkv6's round makes about 283,000 launches: its trace records the
-        # device alone, as the busy share and the time by kernel need.
+        # rwkv6's round makes about 283,000 launches, granite's a like
+        # number: their traces record the device alone, as the busy share
+        # and the time by kernel need.
         tr = profile_round(torch, lambda: api.fit(engine, data, 1, state=state),
-                           host=cfg.arch_type != "ssm")
+                           host=cfg.arch_type not in ("ssm", "moe"))
         out["busy_share"] = tr["busy"] / tr["wall_us"] if tr else None
         log_trace(f"  ({tag}) LM training round ({layout}, traced)", tr, top_n=20)
         if tr:
@@ -2012,6 +2239,12 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
             out["quantize_share"], out["threshold_share"] = quant / busy, topk / busy
             out["scan_share"], out["scan_bwd_share"] = scan_f / busy, scan_b / busy
             out["busy_ms"] = busy
+            if cfg.arch_type == "moe":
+                moe = {n: busy_ms(lambda name, n=n: f"{n}_kernel" in name)
+                       for n in ("moe_gather", "moe_combine", "moe_gate_grad")}
+                out["moe_ms"] = moe
+                out["moe_share"] = sum(moe.values()) / busy
+                log(f"  the moe kernels: {moe} ms, {out['moe_share']:.3f} of busy")
             if cfg.arch_type == "ssm":
                 out["scan_bwd_pass_ms"] = {p: busy_ms(lambda name, p=p: p in name)
                                            for p in SCAN_BWD_PASSES}
@@ -2030,19 +2263,20 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
 
 
 def phase_lm_train_card_vs_cpu(torch, np, convert, arch: str = LM_TRAIN_ARCH) -> dict:
-    """Phases 21 and (v3): one sharded round of the reduced ``arch``
-    (float32, remat, T = 1100: glm4-9b's layers run the flash kernels
-    forward and backward (T > 1024), rwkv6's the scan's at chunk 64 with a
-    ragged last chunk) on the card against the same round on the CPU (the
-    plain versions), tree + fused; the fused step against the unfused one
-    on the card; and, for glm4-9b, two async windows card against CPU."""
+    """Phases 21, (v3) and (w3): one sharded round of the reduced ``arch``
+    (float32, remat, T = 1100: glm4-9b's and granite's layers run the flash
+    kernels forward and backward (T > 1024), granite's the moe kernels with
+    capacity routing, rwkv6's the scan's at chunk 64 with a ragged last
+    chunk) on the card against the same round on the CPU (the plain
+    versions), tree + fused; the fused step against the unfused one on the
+    card; and, for glm4-9b, two async windows card against CPU."""
     from repro_torch import api
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import build_model
 
     dense = arch == LM_TRAIN_ARCH
     bundle = build_model(get_arch(arch).reduced(remat=True, **(
-        dict(attn_block=128) if dense else dict(rwkv_chunk=64))))
+        dict(rwkv_chunk=64) if arch == SSM_TRAIN_ARCH else dict(attn_block=128))))
     params = bundle.init(0, device="cpu")
     rs = np.random.default_rng(18)
     batch = {k: torch.from_numpy(rs.integers(0, 256, (1, 1, 2, 2, 2, 1, 1100)).astype(np.int32))
@@ -3381,6 +3615,7 @@ ML_AGREE = 1e-4           # (u2) against (u1), and the card against the CPU: rel
 def all_launches() -> dict:
     """Every kernel wrapper's launch count."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import mtgc_update as mu
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rwkv6_scan as rw
@@ -3392,7 +3627,9 @@ def all_launches() -> dict:
             "flash_attention": fa.flash_attention.launches,
             "flash_attention_bwd": fa.flash_attention_bwd.launches,
             "rwkv6_scan": rw.rwkv6_scan.launches, "rwkv6_scan_bwd": rw.rwkv6_scan_bwd.launches,
-            "selective_scan": ss.selective_scan.launches}
+            "selective_scan": ss.selective_scan.launches,
+            "moe_gather": md.moe_gather.launches, "moe_combine": md.moe_combine.launches,
+            "moe_gate_grad": md.moe_gate_grad.launches}
 
 
 def phase_multilevel_hfl(torch, np, api, train, p0, loss_fn) -> dict:
@@ -3632,6 +3869,7 @@ def main() -> int:
     from repro_torch.data import make_classification, partition, train_test_split
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import mtgc_update as mu
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rwkv6_scan as rw
@@ -4012,24 +4250,33 @@ def main() -> int:
     ss_errs, ss_t = phase_ssm_kernel(torch, ss)
     # --- 12b. the scan's backward at the training shape -----------------
     sb_errs, sb_t = phase_scan_backward(torch, rw, built["log"])
+    # --- 12c. the moe dispatch kernels ------------------------------------
+    moe_errs, moe_t = phase_moe_kernels(torch, md, built["log"])
 
     # --- 13. LM serving at full width -----------------------------------
     # Launches reckoned for one served batch, all in the prefill: flash one
     # a layer (qwen3 40, qwen2.5 64, gemma3 62 -- 52 windowed, 10 global --,
     # hymba 32, windowed), rwkv6_scan three a layer (24 layers), hymba's
-    # selective scan one a layer; decode runs none of them.
+    # selective scan one a layer; decode runs none of them. (f4) granite:
+    # flash and the moe dispatch and combine once a layer in the prefill,
+    # and the dispatch and combine once a layer in each of the 31 decode
+    # steps (dropless, 4 tokens).
     served = []
+    moe_serve = {"moe_gather": MOE_LAYERS, "moe_combine": MOE_LAYERS}
     for arch, want in (("qwen3-14b", {"flash_attention": 40}), ("rwkv6-1.6b", {"rwkv6_scan": 72}),
                        ("qwen2.5-32b", {"flash_attention": 64}),
                        ("gemma3-27b", {"flash_attention": 62}),
-                       ("hymba-1.5b", {"flash_attention": 32, "selective_scan": 32})):
-        run = phase_serve(torch, np, arch, lambda: serve_launches(fa, rw, ss))
+                       ("hymba-1.5b", {"flash_attention": 32, "selective_scan": 32}),
+                       (MOE_ARCH, {"flash_attention": MOE_LAYERS, **moe_serve})):
+        run = phase_serve(torch, np, arch, lambda: serve_launches(fa, rw, ss, md))
         want = {k: want.get(k, 0) for k in run["launches"]}
-        require(run["prefill_launches"] == want and run["launches"] == want,
+        total = dict(want, **{k: v * LM_GEN for k, v in want.items() if k in moe_serve})
+        require(run["prefill_launches"] == want and run["launches"] == total,
                 f"{arch} launched {run['prefill_launches']} in the prefill and "
-                f"{run['launches']} in all; expected {want}, none in decode")
+                f"{run['launches']} in all; expected {want} and {total} (the moe dispatch "
+                f"and combine in decode)")
         served.append(run)
-    qwen, rwkv, hymba = served[0], served[1], served[4]
+    qwen, rwkv, hymba, granite = served[0], served[1], served[4], served[5]
 
     # --- 14. LM: card against CPU, reduced ------------------------------
     phase_lm_card_vs_cpu(torch, np, convert)
@@ -4089,8 +4336,10 @@ def main() -> int:
     phase_lm_train_card_vs_cpu(torch, np, convert)
 
     # --- 23. (v) rwkv6-1.6b training at full width and depth ---------------
-    lm_v = [phase_lm_train(torch, np, layout, rounds=1, trace=True, tag=tag, arch=SSM_TRAIN_ARCH,
-                           layers=SSM_TRAIN_LAYERS)
+    # Only (v1) is traced: (v2) is the same model on the tree layout, and
+    # the phases (w) added after it share the script's time limit.
+    lm_v = [phase_lm_train(torch, np, layout, rounds=1, trace=tag == "v1", tag=tag,
+                           arch=SSM_TRAIN_ARCH, layers=SSM_TRAIN_LAYERS)
             for tag, layout in (("v1", "flat"), ("v2", "tree"))]
     passes = LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * math.prod(LM_TRAIN_LEVELS) * SSM_TRAIN_LAYERS
     for run, n_update in zip(lm_v, (2, 19)):
@@ -4100,6 +4349,22 @@ def main() -> int:
                 f"({run['phase']}) launched {run['launches']}: 768 passes of the scan and its "
                 f"backward, the fused step on {n_update} buffers or leaves, expected {want}")
     lm_v3 = phase_lm_train_card_vs_cpu(torch, np, convert, arch=SSM_TRAIN_ARCH)
+
+    # --- 24. (w) granite-moe-1b-a400m training at full width and depth ----
+    # (w2) is not traced: its round is (w1)'s on the tree layout, and the
+    # script's time limit is shared by every phase.
+    lm_w = [phase_lm_train(torch, np, layout, rounds=1, trace=tag == "w1", tag=tag,
+                           arch=MOE_ARCH, layers=MOE_LAYERS)
+            for tag, layout in (("w1", "flat"), ("w2", "tree"))]
+    passes = LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * math.prod(LM_TRAIN_LEVELS) * MOE_LAYERS
+    for run in lm_w:
+        # Under remat: two forwards and a backward a layer pass.
+        want = {"moe_gather": 3 * passes, "moe_combine": 3 * passes, "moe_gate_grad": passes,
+                "flash_attention": 2 * passes, "flash_attention_bwd": 3 * passes}
+        require({k: run["launches"][k] for k in want} == want,
+                f"({run['phase']}) launched {run['launches']}: {passes} layer passes, "
+                f"expected {want}")
+    lm_w3 = phase_lm_train_card_vs_cpu(torch, np, convert, arch=MOE_ARCH)
 
     # --- 22. results -----------------------------------------------------
     kernels = [
@@ -4187,6 +4452,22 @@ def main() -> int:
         "shape": f"u [{LM_BATCH},{LM_PROMPT},{HYMBA_DI}] bf16, dt [{LM_BATCH},{LM_PROMPT},"
                  f"{HYMBA_DI}] f32, B/C [{LM_BATCH},{LM_PROMPT},{HYMBA_S}] f32, nonzero state "
                  "(one hymba-1.5b prefill layer)"})
+    for name, replaces in (("moe_gather", 92), ("moe_combine", 99), ("moe_gate_grad", 98)):
+        t = moe_t[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+            "replaces": f"src/repro/models/moe.py:{replaces}",
+            "launches": lm_w[0]["launches"][name],
+            "max_abs_err": moe_errs[name.removeprefix("moe_")],
+            "max_abs_err_f32": moe_errs[name.removeprefix("moe_") + "/f32"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "bound_share": t["bound_share"], "bytes": t["bytes"],
+            "serving_launches": granite["launches"][name],
+            **{k: t[k] for k in ("prefill_shape", "scaled_ms", "scaled_bound_ms",
+                                 "positions_scan") if k in t},
+            "shape": f"S {MOE_TRAIN_TOKENS}, k 8, E 32, C 640, D 1024, bf16 (one granite-moe "
+                     "training layer's microbatch)"})
     by_name = {k["name"]: k for k in kernels}
     # The flash forward's launches on each served arch, and its times at the
     # windowed serving shapes (gemma3's local layers, hymba's layers).
@@ -4228,7 +4509,7 @@ def main() -> int:
         # Phase (u)'s timed runs: the multilevel backend runs no kernel.
         for run, counts in hfl_u["launches"].items():
             k["training_launches"][run] = counts[name]
-        for run in lm_v:
+        for run in lm_v + lm_w:
             k["training_launches"][run["phase"]] = run["launches"].get(name, 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": served}))
@@ -4245,6 +4526,9 @@ def main() -> int:
     for run in lm_v:
         print(json.dumps({f"training_{run['phase']}": run}))
     print(json.dumps({"training_v3": lm_v3}))
+    for run in lm_w:
+        print(json.dumps({f"training_{run['phase']}": run}))
+    print(json.dumps({"training_w3": lm_w3}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

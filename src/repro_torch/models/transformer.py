@@ -1,25 +1,30 @@
 """The LM stack's decoder, for the families the port serves so far.
 
-Port of ``src/repro/models/transformer.py`` for three families:
+Port of ``src/repro/models/transformer.py`` for four families:
 
   dense  -- pre-RMSNorm GQA attention + SwiGLU (qwen3: per-head qk-RMSNorm;
             qwen2.5: QKV bias; gemma3: 5 windowed layers to 1 global, tied
             embeddings)
+  moe    -- attention + a top-k mixture-of-experts FFN (granite:
+            ``models/moe.py``); serving routes dropless when the batch holds
+            at most 4096 tokens, and ``loss`` adds 0.01 times the layers'
+            summed load-balance loss to the cross-entropy
   ssm    -- RWKV6 time mix + RWKV channel mix (attention-free)
   hybrid -- windowed attention and selective-SSM heads in parallel on the
             same input, mean-fused (hymba; ``models/ssm.py``)
 
-dense and ssm train, serve and decode; hybrid serves and decodes, and its
-``loss`` raises ``NotImplementedError`` naming the hybrid-training slice.
-The other families raise ``NotImplementedError`` naming the slice of the
-port that brings them. The params tree is the reference's: the layers'
-leaves are stacked on axis 0, so ``convert.params_from_numpy`` carries the
-JAX package's weights across unchanged. A Python loop over the layer index
-takes the place of the reference's ``lax.scan``.
+dense, moe and ssm train, serve and decode; hybrid serves and decodes, and
+its ``loss`` raises ``NotImplementedError`` naming the hybrid-training
+slice. The other families (audio, vlm) raise ``NotImplementedError`` naming
+the slice of the port that brings them. The params tree is the reference's:
+the layers' leaves are stacked on axis 0, so ``convert.params_from_numpy``
+carries the JAX package's weights across unchanged. A Python loop over the
+layer index takes the place of the reference's ``lax.scan``.
 
 Every bundle provides:
   init(seed, device=None)          -> params (on the CUDA card by default)
   loss(params, batch)              -> scalar mean next-token cross-entropy
+                                      (+ 0.01 * aux for moe)
   forward(params, batch)           -> logits [B, T, vocab_padded]
   init_cache(batch, seq, device=None) -> cache
   prefill(params, batch, cache)    -> (last-position logits [B, V], cache)
@@ -28,9 +33,10 @@ Every bundle provides:
 (the reference returns a new one). ``loss`` is the training path: with
 ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
 (non-reentrant), as the reference wraps its scanned layer in
-``jax.checkpoint`` -- on the card the attention kernels and the RWKV scan
-(forward and backward kernels) run again in the backward pass -- and the
-cross-entropy goes through :func:`chunked_xent`.
+``jax.checkpoint`` -- on the card the attention kernels, the RWKV scan
+(forward and backward kernels) and the moe dispatch and combine run again in
+the backward pass -- and the cross-entropy goes through
+:func:`chunked_xent`.
 """
 from __future__ import annotations
 
@@ -44,13 +50,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import tree_map
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as RWKV
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _LATER = {
-    "moe": "the moe slice of the port",
     "audio": "the audio slice of the port",
     "vlm": "the vlm slice of the port",
 }
@@ -103,7 +109,10 @@ def _init_decoder_layer(cfg: ArchConfig, gen, device) -> dict:
     )
     if cfg.arch_type == "hybrid":
         p["ssm"] = SSM.init_ssm(gen, d, cfg.ssm_d_inner or d, cfg.ssm_state, dt, device)
-    p["mlp"] = L.init_swiglu(gen, d, cfg.d_ff, dt, device)
+    if cfg.arch_type == "moe":
+        p["moe"] = MOE.init_moe(gen, d, cfg.d_ff, cfg.num_experts, dt, device)
+    else:
+        p["mlp"] = L.init_swiglu(gen, d, cfg.d_ff, dt, device)
     return p
 
 
@@ -120,7 +129,8 @@ def _rwkv_cmix(p, x, x_prev):
 
 def _apply_decoder_layer(cfg: ArchConfig, p: dict, x, *, window, cache=None,
                          cache_index=None, mode: str = "train"):
-    """One decoder layer. Returns (x, new_cache).
+    """One decoder layer. Returns (x, new_cache, aux): aux is the moe
+    layer's load-balance loss (a float32 scalar), 0.0 for the others.
 
     cache (per-layer slice) keys by family:
       attention: k, v           [B, S, Kv, Dh]  (written in place)
@@ -153,7 +163,7 @@ def _apply_decoder_layer(cfg: ArchConfig, p: dict, x, *, window, cache=None,
             else torch.zeros((B, D), dtype=x.dtype, device=x.device)
         x = x + _rwkv_cmix(p["cmix"], h, fp)
         new_cache["ffn_prev"] = h[:, -1]
-        return x, new_cache
+        return x, new_cache, 0.0
 
     h = L.rms_norm(x, p["ln1"])
     kv_cache = None
@@ -183,8 +193,18 @@ def _apply_decoder_layer(cfg: ArchConfig, p: dict, x, *, window, cache=None,
         attn_out = 0.5 * (attn_out + sout.to(attn_out.dtype))
     x = x + attn_out
     h = L.rms_norm(x, p["ln2"])
+    if cfg.arch_type == "moe":
+        # Serving routes dropless while the [E, S, D] buffers stay modest;
+        # training keeps the dispatch buffers small, serving prefers fewer,
+        # larger chunks (the reference's settings).
+        mo, aux = MOE.moe_block(
+            p["moe"], h, num_experts=cfg.num_experts, top_k=cfg.top_k,
+            dropless=(mode != "train" and B * T <= 4096),
+            chunk_tokens=4096 if mode == "train" else 16384,
+            sequential=(mode == "train"))
+        return x + mo, new_cache, aux
     x = x + L.swiglu(p["mlp"], h)
-    return x, new_cache
+    return x, new_cache, 0.0
 
 
 # ------------------------------------------------------------------ model
@@ -252,44 +272,52 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         return L.linear(p["unembed"], hidden)
 
     def _run_layers(p, x, cache=None, cache_index=None, mode="train"):
+        """(x after the layers, the moe layers' summed aux loss: a float32
+        scalar, 0.0 for the other families)."""
         remat = cfg.remat and mode == "train"
         # One unbind of the stacked leaves: its backward stacks the layers'
         # gradients once (indexing layer by layer would build a zero-filled
         # stacked gradient per layer and sum them).
         per_layer = tree_map(lambda t: t.unbind(0), p["layers"])
+        aux = 0.0
         for i in range(cfg.num_layers):
             cl = None if cache is None else {k: v[i] for k, v in cache.items()}
             lp = tree_map(lambda t: t[i], per_layer)
             if remat:
                 # Only the layer's input is kept; its activations are
                 # recomputed in the backward pass (jax.checkpoint's role).
-                x = checkpoint(lambda h, lp=lp, w=windows[i]: _apply_decoder_layer(
-                    cfg, lp, h, window=w, mode=mode)[0], x, use_reentrant=False)
+                # The checkpointed function returns (x, aux).
+                x, a = checkpoint(lambda h, lp=lp, w=windows[i]: _apply_decoder_layer(
+                    cfg, lp, h, window=w, mode=mode)[::2], x, use_reentrant=False)
+                aux = aux + a
                 continue
-            x, nc = _apply_decoder_layer(cfg, lp, x, window=windows[i],
-                                         cache=cl, cache_index=cache_index, mode=mode)
+            x, nc, a = _apply_decoder_layer(cfg, lp, x, window=windows[i],
+                                            cache=cl, cache_index=cache_index, mode=mode)
+            aux = aux + a
             if cache is not None:
                 for k, v in nc.items():
                     if v is not cl[k]:  # k/v were written in place already
                         cache[k][i].copy_(v)
-        return x
+        return x, aux
 
     def forward(p, batch):
         x = L.embed(p["embed"], batch["tokens"]).to(dt)
-        x = _run_layers(p, x, mode="eval")
+        x, _ = _run_layers(p, x, mode="eval")
         return _logits(p, L.rms_norm(x, p["ln_f"]))
 
     def loss(p, batch):
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
-        ``batch["targets"]`` ([B, T] each), float32."""
+        ``batch["targets"]`` ([B, T] each), float32; the moe family adds
+        0.01 times its layers' summed load-balance loss."""
         if cfg.arch_type == "hybrid":
             raise NotImplementedError(
                 "training the hybrid family is not ported yet: it needs the hybrid-training "
                 "slice of the port (the selective scan's backward kernel)")
         x = L.embed(p["embed"], batch["tokens"]).to(dt)
-        x = _run_layers(p, x, mode="train")
+        x, aux = _run_layers(p, x, mode="train")
         x = L.rms_norm(x, p["ln_f"])
-        return chunked_xent(lambda h: _logits(p, h), x, batch["targets"])
+        ce = chunked_xent(lambda h: _logits(p, h), x, batch["targets"])
+        return ce + 0.01 * aux if cfg.arch_type == "moe" else ce
 
     def init_cache(batch_size: int, seq: int, device=None) -> dict:
         dev = resolve_device(device)
@@ -314,14 +342,15 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         """Forward the prompt ``batch["tokens"]`` [B, T], writing the cache
         from position 0; returns the last position's logits."""
         x = L.embed(p["embed"], batch["tokens"]).to(dt)
-        x = _run_layers(p, x, cache=cache, cache_index=0, mode="prefill")
+        x, _ = _run_layers(p, x, cache=cache, cache_index=0, mode="prefill")
         x = L.rms_norm(x[:, -1:], p["ln_f"])
         return _logits(p, x)[:, 0], cache
 
     def decode_step(p, batch, cache):
         """One-token decode. batch: {'token': [B, 1], 'index': position}."""
         x = L.embed(p["embed"], batch["token"]).to(dt)
-        x = _run_layers(p, x, cache=cache, cache_index=int(batch["index"]), mode="decode")
+        x, _ = _run_layers(p, x, cache=cache, cache_index=int(batch["index"]),
+                           mode="decode")
         x = L.rms_norm(x, p["ln_f"])
         return _logits(p, x)[:, 0], cache
 

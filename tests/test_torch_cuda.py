@@ -4,8 +4,9 @@ bfloat16; the attention and RWKV kernels, which reorder sums, within
 float32 rounding), small rounds of the engine on the card against the same
 rounds on the CPU, reduced LM serving on the card against the CPU, the
 RWKV scan's backward kernel against its plain version and the float64
-definition of its gradients, and the hybrid family's selective scan
-against its plain sequential loop.
+definition of its gradients, the hybrid family's selective scan
+against its plain sequential loop, and the moe family's dispatch, combine
+and gate-gradient kernels against their one-hot einsum forms.
 
 Every test here needs a card and skips without one. The module imports no
 JAX, so it runs on a GPU host that has only PyTorch:
@@ -26,6 +27,7 @@ from repro_torch.core.participation import ParticipationMasks  # noqa: E402
 from repro_torch.kernels import mtgc_update as mu  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rs  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
@@ -687,13 +689,16 @@ def test_scan_wrapper_rejects_bad_operands(cuda):
         rs.rwkv6_scan(r, r, r, r, u.cpu(), s)
 
 
-# Kernel launches of one reduced prefill: a flash launch a layer (gemma3 at
-# 7 layers, one of them global), rwkv6_scan three a layer, hymba's
-# selective scan one a layer beside its attention.
+# Kernel launches of one reduced prefill and 7 decode steps: a flash launch
+# a layer (gemma3 at 7 layers, one of them global), rwkv6_scan three a layer,
+# hymba's selective scan one a layer beside its attention, all in the
+# prefill; granite's moe dispatch and combine once a layer in the prefill
+# and in each decode step (2 x 8).
 SERVE_LAUNCHES = {
     "qwen3-14b": {"flash_attention": 2}, "rwkv6-1.6b": {"rwkv6_scan": 6},
     "qwen2.5-32b": {"flash_attention": 2}, "gemma3-27b": {"flash_attention": 7},
     "hymba-1.5b": {"flash_attention": 2, "selective_scan": 2},
+    "granite-moe-1b-a400m": {"flash_attention": 2, "moe_gather": 16, "moe_combine": 16},
 }
 
 
@@ -716,8 +721,8 @@ def test_reduced_serve_on_card_matches_cpu(cuda, arch):
                     toks.to(cuda), 8)
     cpu = generate(bundle, params, toks, 8)
     counters = {"flash_attention": fa.flash_attention, "rwkv6_scan": rs.rwkv6_scan,
-                "selective_scan": ss.selective_scan}
-    # All in the one prefill: decode runs none of them.
+                "selective_scan": ss.selective_scan, "moe_gather": md.moe_gather,
+                "moe_combine": md.moe_combine, "moe_gate_grad": md.moe_gate_grad}
     assert {k: f.launches for k, f in counters.items()} == {
         k: SERVE_LAUNCHES[arch].get(k, 0) for k in counters}
     torch.testing.assert_close(card.prefill_logits.cpu(), cpu.prefill_logits,
@@ -892,10 +897,25 @@ def test_reduced_lm_sharded_round_on_card_matches_cpu(cuda):
     atol 1e-5 and z/y within rtol 1e-4 / atol 1e-4 (their quotient; ROADMAP
     queue 3 item 2). The flash kernels launch on every layer of every
     replica and microbatch (twice forward under remat)."""
+    _reduced_round_on_card_matches_cpu(cuda, "glm4-9b", {
+        fa.flash_attention: 2 * 2 * 4 * 2, fa.flash_attention_bwd: 3 * 2 * 4 * 2})
+
+
+def test_reduced_moe_sharded_round_on_card_matches_cpu(cuda):
+    """The same round of the reduced granite-moe-1b-a400m (4 experts, top 2,
+    1100 tokens a microbatch routed with capacity 687): the moe dispatch and
+    combine launch twice forward and once backward on each of the 16 layer
+    passes, the gate gradient once."""
+    _reduced_round_on_card_matches_cpu(cuda, "granite-moe-1b-a400m", {
+        fa.flash_attention: 2 * 16, fa.flash_attention_bwd: 3 * 16, md.moe_gather: 3 * 16,
+        md.moe_combine: 3 * 16, md.moe_gate_grad: 16})
+
+
+def _reduced_round_on_card_matches_cpu(cuda, arch, launches):
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import build_model
 
-    bundle = build_model(get_arch("glm4-9b").reduced(remat=True, attn_block=128))
+    bundle = build_model(get_arch(arch).reduced(remat=True, attn_block=128))
     params = bundle.init(0, device="cpu")
     rs_ = np.random.default_rng(4)
     batch = {k: torch.from_numpy(rs_.integers(0, 256, (1, 1, 2, 2, 2, 1, 1100)).astype(np.int32))
@@ -911,8 +931,8 @@ def test_reduced_lm_sharded_round_on_card_matches_cpu(cuda):
                                {k: v.to(dev) for k, v in batch.items()})
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert fa.flash_attention.launches == 2 * 2 * 4 * 2
-            assert fa.flash_attention_bwd.launches == 3 * 2 * 4 * 2
+            assert {f.__name__: f.launches for f in launches} == {
+                f.__name__: n for f, n in launches.items()}
         outs[dev.type] = (convert.to_numpy(st), met.loss.cpu().numpy())
     np.testing.assert_allclose(outs["cuda"][1], outs["cpu"][1], rtol=1e-5)
     for name, atol in (("params", 1e-5), ("z", 1e-4), ("y", 1e-4)):
@@ -1376,3 +1396,112 @@ def test_selective_scan_wrapper_rejects_bad_operands(cuda):
                           torch.zeros(2, 12, 17, device=cuda))
     with pytest.raises(ValueError, match="expected cuda"):
         ss.selective_scan(u, dt, Bm, Cm, log_a.cpu(), d_skip, s0)
+
+
+# ------------------------------------------------------------------ moe
+
+
+def _moe_case(cuda, S, k, E, C, D, dtype, seed):
+    """Random routing of S tokens to k distinct experts of E with the
+    reference's positions (later tokens dropped past C), and operands."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    idx = torch.rand(S, E, generator=gen, device=cuda).argsort(-1)[:, :k]
+    flat = torch.nn.functional.one_hot(idx, E).reshape(S * k, E)
+    pos = ((torch.cumsum(flat, 0) - 1) * flat).sum(-1).reshape(S, k)
+    r = md.make_routing(idx, pos, pos < C, E, C)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+
+    w = torch.softmax(torch.randn(S, k, generator=gen, device=cuda), -1).to(dtype)
+    return r, randn(S, D), randn(E, C, D), randn(S, D), w
+
+
+def _ulps_of(want, dtype):
+    """One rounding step of ``dtype`` at each |want| (float32: 2^-23 rel)."""
+    bits = 7 if dtype == torch.bfloat16 else 23
+    mag = want.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - bits)
+
+
+@pytest.mark.parametrize("S,k,E,C,D", [
+    (2048, 8, 32, 640, 1024),     # granite's training shape (capacity 1.25)
+    (300, 8, 32, 40, 1024),       # heavy drops, empty experts unlikely
+    (50, 2, 4, 50, 128),          # dropless (C = S), the reduced config
+    (37, 3, 5, 9, 100),           # D not a multiple of 8: the scalar path
+    (17, 1, 3, 4, 36),            # k = 1, float32 vectors but not bf16 ones
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_kernels_match_plain(cuda, S, k, E, C, D, dtype):
+    """Dispatch bit for bit against the one-hot einsum; the scaled gather
+    (one product a slot) within one rounding; combine (k terms summed in
+    float32 in j order, the plain version over (e, c)) and the gate gradient
+    (a float32 dot over D) within a few float32 roundings of the sum's
+    magnitude, plus one rounding to bf16; two calls of each bit for bit."""
+    r, x, y, dout, w = _moe_case(cuda, S, k, E, C, D, dtype, S + k + D)
+    counts = (md.moe_gather.launches, md.moe_combine.launches, md.moe_gate_grad.launches)
+    disp = md.moe_gather(x, r)
+    scaled = md.moe_gather(dout, r, w)
+    comb = md.moe_combine(y, r, w)
+    unit = md.moe_combine(y, r)
+    dg = md.moe_gate_grad(dout, y, r)
+    torch.cuda.synchronize()
+    assert (md.moe_gather.launches, md.moe_combine.launches, md.moe_gate_grad.launches) == (
+        counts[0] + 2, counts[1] + 2, counts[2] + 1)
+    assert torch.equal(disp, md.moe_gather_ref(x, r))
+    want = md.moe_gather_ref(dout, r, w)
+    assert ((scaled.float() - want.float()).abs() <= _ulps_of(want, dtype)).all()
+    # Sums: |error| <= (terms) float32 roundings of the sum of magnitudes,
+    # then the output's own rounding.
+    yabs = y.float().abs()
+    for got, want, weights in ((comb, md.moe_combine_ref(y, r, w), w),
+                               (unit, md.moe_combine_ref(y, r), None)):
+        mag = md.moe_combine_ref(yabs, r, None if weights is None else weights.float().abs())
+        bound = k * 2.0 ** -23 * mag + _ulps_of(want, dtype)
+        assert ((got.float() - want.float()).abs() <= bound).all()
+    want = md.moe_gate_grad_ref(dout, y, r)
+    mag = md.moe_gate_grad_ref(dout.float().abs(), yabs, r)
+    assert ((dg.float() - want.float()).abs() <= D * 2.0 ** -23 * mag
+            + _ulps_of(want, dtype)).all()
+    assert (dg[~r.keep] == 0).all()
+    for fn in (lambda: md.moe_gather(x, r), lambda: md.moe_gather(dout, r, w),
+               lambda: md.moe_combine(y, r, w), lambda: md.moe_gate_grad(dout, y, r)):
+        assert torch.equal(fn(), fn())
+
+
+def test_moe_block_on_card_matches_cpu(cuda):
+    """``moe_block`` forward and backward (float32, capacity drops, the
+    chunked branch) on the card (the kernels) against the CPU (the plain
+    versions), from the same params and inputs."""
+    from repro_torch.models import moe as M
+
+    p = M.init_moe(torch.Generator().manual_seed(0), 64, 96, 8, torch.float32, "cpu")
+    x = torch.randn(2, 48, 64, generator=torch.Generator().manual_seed(1))
+    outs = []
+    for dev in ("cpu", cuda):
+        pd = convert.params_from_numpy(convert.to_numpy(p), dev)
+        leaves = [pd["router"]["w"], pd["wi"], pd["wg"], pd["wo"]]
+        xd = x.to(dev).requires_grad_(True)
+        for t in leaves:
+            t.requires_grad_(True)
+        out, aux = M.moe_block(pd, xd, num_experts=8, top_k=3, chunk_tokens=32)
+        loss = (out * out).sum() + aux
+        grads = torch.autograd.grad(loss, [xd] + leaves)
+        outs.append([out.detach(), aux.detach()] + [g.detach() for g in grads])
+    for c, g in zip(*outs):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5)
+
+
+def test_moe_wrappers_reject_bad_operands(cuda):
+    r, x, y, dout, w = _moe_case(cuda, 20, 2, 4, 8, 64, torch.float32, 0)
+    with pytest.raises(TypeError, match="dtype"):
+        md.moe_gather(x, r, w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        md.moe_gather(x.t().contiguous().t(), r)
+    with pytest.raises(ValueError, match="shape"):
+        md.moe_combine(y[:, :4].contiguous(), r)
+    with pytest.raises(ValueError, match="expected cuda"):
+        md.moe_combine(y, r._replace(row=r.row.cpu()))
+    with pytest.raises(ValueError, match="top_k"):
+        big = _moe_case(cuda, 4, 33, 40, 4, 64, torch.float32, 1)[0]
+        md.moe_gate_grad(dout[:4].contiguous(), torch.zeros(40, 4, 64, device=cuda), big)

@@ -47,7 +47,7 @@ def _jax_greedy(bundle, params, toks, gen):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-1.6b", "qwen2.5-32b", "gemma3-27b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "granite-moe-1b-a400m"])
 def test_greedy_tokens_match_reference(arch):
     over = dict(num_layers=7) if arch == "gemma3-27b" else {}
     jb = jbuild(jget_arch(arch).reduced(**over))
