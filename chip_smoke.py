@@ -177,14 +177,17 @@ final line):
 12c. the moe family's dispatch (``moe_gather``), combine (``moe_combine``)
     and gate gradient (``moe_gate_grad``; ``csrc/moe_dispatch.cu``) against
     the reference's one-hot einsums at granite-moe-1b-a400m's training
-    shape (S 2048, k 8, E 32, C 640, D 1024), a ragged shape with heavy
-    drops (S 300, C 40) and the scalar path (D 100, k 3), bf16 and float32:
-    dispatch bit for bit, the combine and the gate gradient within a
-    float32 rounding a term of the sum of magnitudes plus one rounding of
-    the output, a second call bit for bit, no spills; kernel, plain, bound
-    and one-call library (``index_select``, ``embedding_bag``) times at the
-    training shape, and the kernels alone at serving's prefill shape (S
-    8192, C 2560);
+    shape (S 2048, k 8, E 32, C 640, D 1024), serving's prefill (S 8192, C
+    2560) and decode (S 4, C 4) shapes, a ragged shape with heavy drops (S
+    300, C 40) and the scalar path (D 100, k 3), bf16 and float32: dispatch
+    bit for bit, the combine and the gate gradient within a float32
+    rounding a term of the sum of magnitudes plus one rounding of the
+    output, a second call bit for bit, no spills; each launch's grid and
+    warps an SM; kernel, bound and one-call library (``index_select``,
+    ``embedding_bag``) times at the three shapes, each from a CUDA graph of
+    calls over operand sets that do not fit in L2 (``graph_ms``, the
+    kernels line's ``graph_ms``; ``ms`` the wrappers called eagerly, as for
+    every kernel), plain times at the training shape;
 13. LM serving at full width through ``repro_torch.launch.serve.generate``:
     qwen3-14b (40 layers, d 5120, bf16, 14.77 B params), rwkv6-1.6b (24
     layers, d 2048), qwen2.5-32b (64 layers, 32.76 B params, QKV bias),
@@ -394,6 +397,58 @@ def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def l2_bytes(torch) -> int:
+    """The card's L2 cache in bytes (50 MiB on an H100 SXM)."""
+    return int(getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 * 2 ** 20))
+
+
+def cold_copies(torch, tensors: tuple, nbytes: int) -> list:
+    """``tensors`` and enough clones of them that one call on each set, of
+    ``nbytes`` bytes a call, moves at least four times the L2 cache: timed
+    in turns (``graph_ms``), each call finds its operands in HBM."""
+    n = max(2, -(-4 * l2_bytes(torch) // max(int(nbytes), 1)))
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def graph_ms(torch, fns, iters=50, replays=4) -> float:
+    """Mean device milliseconds per call from a CUDA graph: the callables
+    ``fns`` called in turn, at least ``iters`` calls (whole turns) captured
+    after one warm-up turn, the graph replayed ``replays`` times between
+    CUDA events. No host work runs between the launches, so a kernel of a
+    few microseconds is timed by the card and not by the host's dispatch of
+    its wrapper. Each call's result is held until its callable runs again,
+    so no output buffer is written twice in a turn. With each callable on
+    its own operands and a turn that moves several times the L2 cache
+    (``cold_copies``), every call reads its inputs from HBM and its writes
+    reach HBM; a single callable on the same operands finds them in L2 as
+    far as they fit, and can run faster than HBM allows."""
+    n = len(fns)
+    calls = n * -(-iters // n)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    held = [None] * n
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            held[i % n] = fns[i % n]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph, held
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def timed(torch, kernel, plain, iters=20, plain_iters=20) -> dict:
     """Kernel and plain times in turns (kernel, plain, plain, kernel); each
     is the mean of its two readings, and the spread of the kernel's two is
@@ -442,9 +497,15 @@ def ptxas_entries(text: str) -> list:
 
 def sass_counts(path: Path, build) -> dict:
     """Counts of HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA load) and
-    LDGSTS (cp.async) instructions in a built library's SASS, from
-    ``cuobjdump -sass`` of the toolkit that built it (else the one Triton
-    ships)."""
+    LDGSTS (cp.async) instructions in a built library's SASS."""
+    sass = sass_text(path, build)
+    return {op: sum(1 for line in sass.splitlines() if op in line)
+            for op in ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")}
+
+
+def sass_text(path: Path, build) -> str:
+    """A built library's SASS, from ``cuobjdump -sass`` of the toolkit that
+    built it (else the one Triton ships)."""
     tools = [Path(build.nvcc_path()).parent / "cuobjdump"]
     try:
         import triton
@@ -453,10 +514,8 @@ def sass_counts(path: Path, build) -> dict:
         pass
     tool = next((t for t in tools if t.is_file()), None)
     require(tool is not None, f"no cuobjdump found (looked at {[str(t) for t in tools]})")
-    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+    return subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    return {op: sum(1 for line in sass.splitlines() if op in line)
-            for op in ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")}
 
 
 def log_kernel_resources(build, logs: dict) -> None:
@@ -1224,29 +1283,66 @@ def moe_bytes(r, D: int, elt: int) -> dict:
             "moe_gate_grad": S * D * elt + kept * D * elt + S * k * 4 + S * k * elt}
 
 
+# The moe kernels' shapes at granite-moe-1b-a400m's widths (S tokens, k, E,
+# C, D): a training layer's microbatch, the serving prefill of phase 13
+# (capacity 2560, past the dropless limit) and one decode step (4 tokens,
+# dropless).
+MOE_SHAPES = {"training": (MOE_TRAIN_TOKENS, 8, 32, 640, 1024),
+              "prefill": (LM_BATCH * LM_PROMPT, 8, 32, 2560, 1024),
+              "decode": (LM_BATCH, 8, 32, LM_BATCH, 1024)}
+
+
+def moe_library(torch, r, x, y, w) -> dict:
+    """One PyTorch call of each kernel's function at this routing (unused by
+    the port): ``index_select`` of the slots' token rows for the dispatch
+    (it leaves no zero rows for empty slots) and ``embedding_bag`` with
+    per-sample weights for the combine."""
+    k = r.gate_idx.shape[1]
+    tok = (r.slot.long() // k).clamp_min(0)
+    bag = r.row.long().clamp_min(0)
+    yflat = y.reshape(-1, y.shape[-1])
+    wk = w * r.keep.to(w.dtype)
+    return {"moe_gather": lambda: torch.index_select(x, 0, tok),
+            "moe_combine": lambda: torch.nn.functional.embedding_bag(
+                bag, yflat, mode="sum", per_sample_weights=wk)}
+
+
+def moe_plans(md, S, k, E, C, D, dtype) -> dict:
+    """The grids the dispatch, the scaled gather and the combine launch at a
+    shape, each logged with its warps an SM."""
+    plans = {}
+    for name, rows in (("gather", E * C), ("gather_scaled", E * C), ("combine", S)):
+        p = md.launch_plan(name, rows, D, k, dtype)
+        plans[name] = p
+        what = "warps a token" if name == "combine" else "warp a slot row"
+        log(f"  moe {name} launch at S {S} C {C}: {p['blocks']} blocks of {md.WARPS} warps "
+            f"({p['warps_per_sm']:.2f} warps an SM of {p['sms']}; at most {p['blocks_per_sm']} "
+            f"blocks fit on one), {p['tasks']} warp tasks, {p['per']} {what}")
+    return plans
+
+
 def phase_moe_kernels(torch, md, logs: dict):
     """Phase 12c: the moe family's dispatch, combine and gate-gradient
     kernels (``csrc/moe_dispatch.cu``) against their plain versions (the
-    reference's one-hot einsums) at granite-moe-1b-a400m's training shape
-    (S 2048, k 8, E 32, C 640, D 1024) in bf16 and float32, at a ragged
-    shape with heavy drops (S 300, C 40) and at the scalar path's width (D
-    100, k 3): ``moe_errors``' checks and a second call bit for bit; no
-    spills. Then kernel, plain and bound times at the training shape, with
-    one PyTorch call of the same function where there is one
-    (``index_select`` of the slots' token rows for the dispatch -- it
-    leaves no zero rows for empty slots --, ``embedding_bag`` with
-    per-sample weights for the combine), the kernels alone at serving's
-    prefill shape (S 8192, C 2560), where the plain version would build a
-    10.7 GB one-hot a layer and is not run, and the routing's cumulative
-    sum for the positions in two layouts."""
+    reference's one-hot einsums) at granite-moe-1b-a400m's training, prefill
+    and decode shapes (``MOE_SHAPES``), at a ragged shape with heavy drops
+    (S 300, C 40) and at the scalar path's width (D 100, k 3), in bf16 and
+    float32: ``moe_errors``' checks and a second call bit for bit; no
+    spills. Then, in bf16, each launch's grid and warps an SM, and at each
+    of the three shapes the kernels' times, bounds and one PyTorch call of
+    the same function (``moe_library``), from CUDA graphs over operand sets
+    that together move four times the L2 cache (``graph_ms``,
+    ``cold_copies``) and called eagerly; at the training shape also the
+    plain versions' times and the gate gradient's (at the prefill shape the
+    plain one-hot would be 10.7 GB a layer and is not timed), and the
+    routing's cumulative sum for the positions in two layouts."""
     for entry, regs, spills in ptxas_entries(logs.get("moe_dispatch", "")):
         log(f"  moe_dispatch: {entry}: {regs}; {spills}")
         require("0 bytes spill stores" in spills and "0 bytes spill loads" in spills,
                 f"{entry} spills registers: {spills}")
     gen = torch.Generator(device="cuda").manual_seed(126)
     worst = {}
-    for S, k, E, C, D in ((MOE_TRAIN_TOKENS, 8, 32, 640, 1024), (300, 8, 32, 40, 1024),
-                          (37, 3, 5, 9, 100)):
+    for S, k, E, C, D in (*MOE_SHAPES.values(), (300, 8, 32, 40, 1024), (37, 3, 5, 9, 100)):
         for dtype in (torch.bfloat16, torch.float32):
             case = moe_case(torch, md, gen, S, k, E, C, D, dtype)
             errs = moe_errors(torch, md, *case)
@@ -1256,63 +1352,74 @@ def phase_moe_kernels(torch, md, logs: dict):
             log(f"moe kernels S {S} k {k} E {E} C {C} D {D} {dtype}: {int(case[0].keep.sum())} "
                 f"of {S * k} choices kept; dispatch bit for bit, max abs errors "
                 f"{ {n: float(f'{e:.3g}') for n, e in errs.items()} }, two calls bit for bit")
-    r, x, y, dout, w = moe_case(torch, md, gen, MOE_TRAIN_TOKENS, 8, 32, 640, 1024,
-                                torch.bfloat16)
-    tok = (r.slot.long() // 8).clamp_min(0)
-    bag = r.row.long().clamp_min(0)
-    yflat = y.reshape(-1, 1024)
-    wk = w * r.keep.to(w.dtype)
-    nbytes = moe_bytes(r, 1024, 2)
-    plain = {"moe_gather": lambda: md.moe_gather_ref(x, r),
-             "moe_combine": lambda: md.moe_combine_ref(y, r, w),
-             "moe_gate_grad": lambda: md.moe_gate_grad_ref(dout, y, r)}
-    kern = {"moe_gather": lambda: md.moe_gather(x, r),
-            "moe_combine": lambda: md.moe_combine(y, r, w),
-            "moe_gate_grad": lambda: md.moe_gate_grad(dout, y, r)}
-    library = {"moe_gather": lambda: torch.index_select(x, 0, tok),
-               "moe_combine": lambda: torch.nn.functional.embedding_bag(
-                   bag, yflat, mode="sum", per_sample_weights=wk),
-               "moe_gate_grad": None}
-    times = {}
-    for name in kern:
-        t = timed(torch, kern[name], plain[name], iters=50, plain_iters=5)
-        flops = {"moe_gather": 0, "moe_combine": 2 * int(r.keep.sum()) * 1024,
-                 "moe_gate_grad": 2 * int(r.keep.sum()) * 1024}[name]
-        t["bound_ms"], t["bound_by"] = bound_ms(nbytes[name], flops, F32_FLOPS_PER_S)
-        t["library_ms"] = cuda_ms(torch, library[name], 50) if library[name] else None
-        t.update(bytes=nbytes[name], bound_share=t["bound_ms"] / t["ms"])
-        times[name] = t
-        log(f"{name} S {MOE_TRAIN_TOKENS} k 8 E 32 C 640 D 1024 bf16: kernel {t['ms']:.4f} ms "
-            f"{t['ms_readings']}, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}; {nbytes[name]} bytes; bound share {t['bound_share']:.3f}), "
-            f"library {t['library_ms']}")
-    t = cuda_ms(torch, lambda: md.moe_gather(dout, r, w), 50)
-    times["moe_gather"]["scaled_ms"] = t
-    times["moe_gather"]["scaled_bound_ms"] = nbytes["moe_gather_scaled"] / HBM_BYTES_PER_S * 1e3
-    log(f"moe_gather with the gates as the scale (the combine's backward): {t:.4f} ms, bound "
-        f"{times['moe_gather']['scaled_bound_ms']:.4f} ms")
-    del r, x, y, dout, w, tok, bag, yflat, wk
-    # Serving's prefill shape: the kernels alone (the plain one-hot would be
-    # 10.7 GB a layer).
-    r, x, y, dout, w = moe_case(torch, md, gen, LM_BATCH * LM_PROMPT, 8, 32, 2560, 1024,
-                                torch.bfloat16)
-    nbytes = moe_bytes(r, 1024, 2)
-    got = md.moe_gather(x, r)
-    filled = r.slot >= 0
-    require(torch.equal(got.reshape(-1, 1024)[filled],
-                        x[(r.slot[filled].long() // 8)]) and
-            bool((got.reshape(-1, 1024)[~filled] == 0).all()),
-            "moe_gather at the prefill shape: a slot does not hold its token's row")
-    del got
-    for name, fn in (("moe_gather", lambda: md.moe_gather(x, r)),
-                     ("moe_combine", lambda: md.moe_combine(y, r, w))):
-        ms = cuda_ms(torch, fn, 50)
-        bms = nbytes[name] / HBM_BYTES_PER_S * 1e3
-        times[name]["prefill_shape"] = {"ms": ms, "bound_ms": bms, "bytes": nbytes[name],
-                                        "bound_share": bms / ms}
-        log(f"{name} at the prefill shape (S {LM_BATCH * LM_PROMPT}, C 2560, bf16): "
-            f"{ms:.4f} ms, bound {bms:.4f} ms ({nbytes[name]} bytes; share {bms / ms:.3f})")
-    del r, x, y, dout, w
+            del case
+            torch.cuda.empty_cache()
+    times = {"moe_gather": {}, "moe_combine": {}, "moe_gate_grad": {}}
+    for shape, (S, k, E, C, D) in MOE_SHAPES.items():
+        r, x, y, dout, w = moe_case(torch, md, gen, S, k, E, C, D, torch.bfloat16)
+        plans = moe_plans(md, S, k, E, C, D, torch.bfloat16)
+        nbytes = moe_bytes(r, D, 2)
+        # Operand sets for timing from HBM: the routing maps (at most 80 KB)
+        # are shared and stay in L2, as they do after the routing's kernels.
+        sets = cold_copies(torch, (x, y, dout, w), min(nbytes.values()))
+        flops = {"moe_gather": 0, "moe_combine": 2 * int(r.keep.sum()) * D,
+                 "moe_gate_grad": 2 * int(r.keep.sum()) * D}
+        kern = {"moe_gather": lambda x, y, dout, w: md.moe_gather(x, r),
+                "moe_combine": lambda x, y, dout, w: md.moe_combine(y, r, w),
+                "moe_gate_grad": lambda x, y, dout, w: md.moe_gate_grad(dout, y, r)}
+        library = [moe_library(torch, r, op[0], op[1], op[3]) for op in sets]
+        for name, call in kern.items():
+            if name == "moe_gate_grad" and shape != "training":
+                continue
+            fns = [lambda op=op: call(*op) for op in sets]
+            lib_fns = [lib[name] for lib in library] if name in library[0] else None
+            # The kernel's device time: calls replayed from a CUDA graph over
+            # operand sets that do not fit in L2, in turns with the library
+            # call. Beside it the wrapper called eagerly (``ms``), whose host
+            # dispatch (checks, allocation, the stream) outlasts a kernel of
+            # a few tens of microseconds.
+            g = [graph_ms(torch, fns)]
+            lg = [graph_ms(torch, lib_fns), graph_ms(torch, lib_fns)] if lib_fns else []
+            g.append(graph_ms(torch, fns))
+            t = {"graph_ms": sum(g) / 2, "graph_ms_readings": g, "cold_sets": len(sets),
+                 "library_graph_ms": sum(lg) / 2 if lg else None,
+                 "library_graph_ms_readings": lg}
+            if shape == "training":
+                plain = {"moe_gather": lambda: md.moe_gather_ref(x, r),
+                         "moe_combine": lambda: md.moe_combine_ref(y, r, w),
+                         "moe_gate_grad": lambda: md.moe_gate_grad_ref(dout, y, r)}[name]
+                t.update(timed(torch, fns[0], plain, iters=50, plain_iters=5))
+            else:
+                e = [cuda_ms(torch, fns[0], 50), cuda_ms(torch, fns[0], 50)]
+                t.update(ms=sum(e) / 2, ms_readings=e)
+            t["library_ms"] = cuda_ms(torch, lib_fns[0], 50) if lib_fns else None
+            t["bound_ms"], t["bound_by"] = bound_ms(nbytes[name], flops[name], F32_FLOPS_PER_S)
+            t.update(bytes=nbytes[name], bound_share=t["bound_ms"] / t["ms"],
+                     graph_bound_share=t["bound_ms"] / t["graph_ms"],
+                     plan=plans.get(name.removeprefix("moe_")))
+            if shape == "training":
+                times[name].update(t)
+            else:
+                times[name][f"{shape}_shape"] = t
+            log(f"{name} at the {shape} shape (S {S} k {k} E {E} C {C} D {D} bf16): kernel "
+                f"{t['graph_ms']:.4f} ms from a graph over {len(sets)} operand sets "
+                f"{t['graph_ms_readings']} ({t['ms']:.4f} called eagerly), plain "
+                f"{t.get('plain_ms', 'not timed')}, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}; {nbytes[name]} bytes; bound share "
+                f"{t['graph_bound_share']:.3f} from the graph), library "
+                f"{t['library_graph_ms']} from a graph ({t['library_ms']} eagerly)")
+        if shape == "training":
+            scaled = [lambda op=op: md.moe_gather(op[2], r, op[3]) for op in sets]
+            g = times["moe_gather"]
+            g["scaled_graph_ms"] = (graph_ms(torch, scaled) + graph_ms(torch, scaled)) / 2
+            g["scaled_ms"] = cuda_ms(torch, scaled[0], 50)
+            g["scaled_bound_ms"] = nbytes["moe_gather_scaled"] / HBM_BYTES_PER_S * 1e3
+            g["scaled_plan"] = plans["gather_scaled"]
+            log(f"moe_gather with the gates as the scale (the combine's backward): "
+                f"{g['scaled_graph_ms']:.4f} ms from a graph ({g['scaled_ms']:.4f} eagerly), "
+                f"bound {g['scaled_bound_ms']:.4f} ms")
+        del r, x, y, dout, w, library, kern, sets
+        torch.cuda.empty_cache()
     # The routing's positions (``models/moe.py::route``): PyTorch's
     # cumulative sum along the outer dim of the reference's [S k, E]
     # one-hot, against the last dim of the [E, S k] copy the port scans.
@@ -4464,8 +4571,11 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "bound_share": t["bound_share"], "bytes": t["bytes"],
             "serving_launches": granite["launches"][name],
-            **{k: t[k] for k in ("prefill_shape", "scaled_ms", "scaled_bound_ms",
-                                 "positions_scan") if k in t},
+            **{k: t[k] for k in ("graph_ms", "library_graph_ms", "graph_bound_share",
+                                 "cold_sets", "prefill_shape", "decode_shape", "scaled_ms",
+                                 "scaled_graph_ms", "scaled_bound_ms", "plan",
+                                 "scaled_plan", "positions_scan")
+               if k in t},
             "shape": f"S {MOE_TRAIN_TOKENS}, k 8, E 32, C 640, D 1024, bf16 (one granite-moe "
                      "training layer's microbatch)"})
     by_name = {k["name"]: k for k in kernels}

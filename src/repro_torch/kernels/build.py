@@ -193,3 +193,5 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         for fn in (lib.moe_gather_launch, lib.moe_combine_launch, lib.moe_gate_grad_launch):
             fn.argtypes = [p] * 4 + [i64, i32, i32, i32, p]
             fn.restype = i32
+        lib.moe_launch_plan.argtypes = [i32, i64, i32, i32, i32, i32, p]
+        lib.moe_launch_plan.restype = i32

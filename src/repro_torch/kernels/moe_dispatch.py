@@ -40,6 +40,7 @@ every kernel sums in a fixed order).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -49,6 +50,7 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.mtgc_update import _check, _raise_on, _stream
 
 MAX_K = 32                     # csrc/moe_dispatch.cu kMaxK
+WARPS = 8                      # csrc/moe_dispatch.cu kWarps: warps a block
 _DTYPES = (torch.float32, torch.bfloat16)
 _I32 = (torch.int32,)
 
@@ -206,6 +208,28 @@ def moe_gate_grad(dout, y, r: Routing):
 moe_gather.launches = 0
 moe_combine.launches = 0
 moe_gate_grad.launches = 0
+
+_PLAN_KERNELS = {"gather": 0, "gather_scaled": 1, "combine": 2}
+
+
+def launch_plan(kernel: str, rows: int, D: int, k: int, dtype) -> dict:
+    """The grid that ``moe_gather`` (``kernel`` "gather", or "gather_scaled"
+    with a scale) or ``moe_combine`` ("combine") launches on the current
+    card for ``rows`` slot rows or tokens of width D in ``dtype``, on the
+    16-byte vector path where D allows it: ``blocks``, ``blocks_per_sm``
+    (the most that fit), ``sms``, ``per`` (1 for the gather, a warp a slot
+    row; the combine's warps a token), ``tasks`` (a warp each) and
+    ``warps_per_sm`` (the grid's warps over the SMs). Needs the card; does
+    not launch."""
+    out = (ctypes.c_int * 4)()
+    vec = int(D % (16 // torch.empty((), dtype=dtype).element_size()) == 0)
+    err = load("moe_dispatch").moe_launch_plan(
+        _PLAN_KERNELS[kernel], rows, D, k, int(dtype == torch.bfloat16), vec, out)
+    _raise_on(err, "moe_launch_plan")
+    blocks, per_sm, sms, per = out
+    tasks = rows * per
+    return {"blocks": blocks, "blocks_per_sm": per_sm, "sms": sms, "per": per, "tasks": tasks,
+            "warps_per_sm": blocks * WARPS / sms}
 
 
 def reset_launch_counts() -> None:

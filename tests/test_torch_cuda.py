@@ -1426,6 +1426,8 @@ def _ulps_of(want, dtype):
 
 @pytest.mark.parametrize("S,k,E,C,D", [
     (2048, 8, 32, 640, 1024),     # granite's training shape (capacity 1.25)
+    (8192, 8, 32, 2560, 1024),    # granite's serving prefill (4 x 2048 tokens, capacity 2560)
+    (4, 8, 32, 4, 1024),          # granite's decode step (4 tokens, dropless)
     (300, 8, 32, 40, 1024),       # heavy drops, empty experts unlikely
     (50, 2, 4, 50, 128),          # dropless (C = S), the reduced config
     (37, 3, 5, 9, 100),           # D not a multiple of 8: the scalar path

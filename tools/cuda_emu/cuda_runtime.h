@@ -6,7 +6,10 @@
 // thread on a fresh heap allocation of exactly its dynamic shared memory,
 // filled with 0xff bytes (NaN as float32) so a read before a write shows.
 // __syncthreads is a std::barrier of the block, __syncwarp one of the warp;
-// a shuffle goes through a per-warp array between two warp barriers.
+// a shuffle goes through a per-warp array between two warp barriers. The
+// device has emu::kSms SMs (2) and one block of any kernel fits on each, so
+// a persistent grid of the moe kernels has at most 2 blocks and its
+// grid-stride loops run several times on small inputs.
 #pragma once
 
 #include <barrier>
@@ -51,6 +54,10 @@ template <typename T>
 inline T __ldg(const T* p) {
   return *p;
 }
+template <typename T>
+inline void __stcs(T* p, T v) {
+  *p = v;
+}
 inline float __expf(float x) { return std::exp(x); }
 inline float __uint_as_float(uint32_t u) {
   float f;
@@ -75,17 +82,24 @@ template <typename K>
 inline cudaError_t cudaFuncSetAttribute(K, int, int) {
   return cudaSuccess;
 }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 template <typename K>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
   *n = 1;
   return cudaSuccess;
 }
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 namespace emu {
+constexpr int kSms = 2;
 inline std::barrier<>* block_bar;
 inline std::barrier<>* warp_bar[32];
 inline float shfl[32][32];
+inline uint64_t shfl_bits[32][32];
 inline uint32_t frag_a[32][32][4], frag_b[32][32][2];
 inline int warp_of() { return threadIdx.x / 32; }
 }  // namespace emu
@@ -99,6 +113,24 @@ inline float __shfl_xor_sync(unsigned, float v, int m) {
   const float r = emu::shfl[w][l ^ m];
   __syncwarp();
   return r;
+}
+
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src) {
+  static_assert(sizeof(T) <= sizeof(uint64_t));
+  const int w = emu::warp_of(), l = threadIdx.x & 31;
+  std::memcpy(&emu::shfl_bits[w][l], &v, sizeof(T));
+  __syncwarp();
+  T r;
+  std::memcpy(&r, &emu::shfl_bits[w][src & 31], sizeof(T));
+  __syncwarp();
+  return r;
+}
+
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr attr, int) {
+  if (attr != cudaDevAttrMultiProcessorCount) return cudaErrorInvalidValue;
+  *v = emu::kSms;
+  return cudaSuccess;
 }
 
 inline unsigned char* emu_smem;
