@@ -23,7 +23,9 @@ at full width (depth 2 of 40) on the sharded backend, plain, with compressed upl
 participation, under faults, with async group rounds and with a virtual
 client population; rwkv6-1.6b at full width and full depth (24
 layers), through the scan's backward kernel; and granite-moe-1b-a400m at
-full width and full depth (24 layers), through the moe dispatch kernels.
+full width and full depth (24 layers), through the moe dispatch kernels;
+and hymba-1.5b at full width and full depth (32 layers), through the
+selective scan's forward and backward kernels.
 The CNN's learning rate is 0.01: at 0.1 the loss of this CNN on the
 synthetic images spikes into the thousands and then settles at chance (ln
 10) in both packages
@@ -39,7 +41,9 @@ final line):
     instructions in the built forward and backward flash libraries
     (``cuobjdump -sass``), both required to be present, and the HMMA
     (mma.sync) and LDGSTS (cp.async) instructions of the scan backward's
-    library, a tensor-core and an asynchronous-load instruction required;
+    library, a tensor-core and an asynchronous-load instruction required,
+    and the LDGSTS and MUFU.EX2 instructions of the selective scan's two
+    libraries, both required in each;
  2. kernels against their plain versions on the card: bit-exact in
     float32 at [10, 10, 2156490] (unmasked and masked) and on every CNN
     leaf shape; bfloat16 within one bfloat16 ulp; a ragged N; NaN rows;
@@ -157,8 +161,14 @@ final line):
     (``csrc/ssm_scan.cu``) against ``selective_scan_ref`` at hymba's
     prefill shape (u [4, 2048, 3200] in bf16 and float32, S = 16) and at
     ragged shapes (T 1, 37, 2049; Di 37, 33; S 5; weak decays), every case
-    from a nonzero state, within 1e-5 of max|y| and max|h|; a second call
-    bit for bit; kernel, plain and bound times and a trace of 100 calls;
+    from a nonzero state, within 1e-5 of max|y| and max|h|; at hymba's
+    training shape (u [1, 2048, 3200]) likewise, and with its chunk-start
+    states (the same y and final state bit for bit; each state within 1e-5
+    of max|h| of the plain loop's h at its token); a second call bit for
+    bit; kernel, plain and bound times (the SFU's floor for the
+    exponentials beside the bound) and a trace of 100 calls; at the
+    training shape the kernel also from a CUDA graph over operand sets that
+    do not fit in L2;
 12b. the scan's backward (``csrc/rwkv6_scan_bwd.cu``, four launches) at
     rwkv6-1.6b's training shape (r/k/v [1, 2048, 32, 64], C = 64) on the
     forward kernel's saved chunk states, bf16 and float32, no final-state
@@ -188,6 +198,16 @@ final line):
     calls over operand sets that do not fit in L2 (``graph_ms``, the
     kernels line's ``graph_ms``; ``ms`` the wrappers called eagerly, as for
     every kernel), plain times at the training shape;
+12d. the selective scan's backward (``csrc/ssm_scan_bwd.cu``, two launches)
+    on the forward kernel's chunk states at hymba's training shape, bf16
+    without a final-state gradient and float32 with one, and at ragged
+    shapes (a partial block of chains, a ragged last chunk, S 5, strong and
+    weak decays), from nonzero states, against ``selective_scan_bwd_ref``:
+    each gradient within 1e-5 of its largest entry, the sums over channels
+    or tokens (dB, dC, dlog_a, dd_skip) within 1e-5 of the largest sum of
+    their terms' magnitudes, a bf16 du one bf16 ulp more; every case called
+    twice, bit for bit; kernel, plain and bound times, the SFU's floor, each
+    kernel's traced time, shared memory, registers and spills (none);
 13. LM serving at full width through ``repro_torch.launch.serve.generate``:
     qwen3-14b (40 layers, d 5120, bf16, 14.77 B params), rwkv6-1.6b (24
     layers, d 2048), qwen2.5-32b (64 layers, 32.76 B params, QKV bias),
@@ -312,10 +332,21 @@ final line):
     forward and 2304 backward); (w3) a reduced granite round (float32,
     remat, T = 1100, capacity routing) on the card against the CPU and
     fused against unfused, as phase 21;
+25. phase (y), hybrid training: hymba-1.5b at its published widths and all
+    32 layers (d 1600, Di 3200, S 16, 25 / 5 heads of 64, window 1024; bf16,
+    remat), trained as (v) is: (y1) flat + fused, (y2) tree + fused, a
+    warm-up and a timed round each and a traced one (the device alone) of
+    (y1); launches required as reckoned (1024 layer passes: the selective
+    scan 2048 -- two forwards a pass --, its backward 2048 -- two kernels a
+    pass --, flash 2048 forward and 3072 backward); (y3) a reduced hymba
+    round (float32, remat, T = 1100: windowed flash and the selective scan
+    forward and backward) on the card against the CPU and fused against
+    unfused, as phase 21;
 22. a JSON line of the serving and training runs, one per phase of 18-20,
     (n), (p), (q) and (s), one of (m), one of (o), one of (r), one of (t),
-    one of (u), one each of (v1), (v2), (v3), (w1), (w2) and (w3), and one
-    per kernel, then ``{"ok": true, "device": {...}}`` last.
+    one of (u), one each of (v1), (v2), (v3), (w1), (w2), (w3), (y1), (y2)
+    and (y3), and one per kernel, then ``{"ok": true, "device": {...}}``
+    last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``) for the whole run, so every
@@ -361,6 +392,16 @@ SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS = "rwkv6-1.6b", 24
 # depth, served at phase 13's traffic and trained as rwkv6-1.6b is; its
 # dispatch kernels are held at the training shape (one microbatch's tokens).
 MOE_ARCH, MOE_LAYERS, MOE_TRAIN_TOKENS = "granite-moe-1b-a400m", 24, LM_TRAIN_BATCH * LM_TRAIN_SEQ
+# Phase (y): hymba-1.5b at its published widths and full depth (32 layers),
+# trained as rwkv6-1.6b is; its selective scan and the scan's backward are
+# held at the training shape (one microbatch's tokens).
+HYBRID_TRAIN_ARCH, HYBRID_TRAIN_LAYERS = "hymba-1.5b", 32
+# The special-function unit's 2^x: 16 results a clock on each of the H100
+# SXM's 132 SMs (the CUDA programming guide's throughput table for compute
+# capability 9.0) at its 1.98 GHz boost clock, as tools/sfu_rate.cu measures
+# it (4.185e12 a second); the selective scan forms one decay a (b, t, di, s)
+# on it, its backward two.
+SFU_EXP2_PER_S = 16 * 132 * 1.98e9
 # The scan backward's four kernels, in launch order (passes A', B', C', D').
 SCAN_BWD_PASSES = ("rwkv6_bwd_chunk_grad_kernel", "rwkv6_bwd_state_scan_kernel",
                    "rwkv6_bwd_chunk_out_kernel", "rwkv6_bwd_du_kernel")
@@ -554,11 +595,19 @@ def log_kernel_resources(build, logs: dict) -> None:
                 f"{entry} spills registers: {spills}")
     if not wg:
         log("  flash_attention_bwd was built before this run: its ptxas report is not here")
-    # The selective scan keeps its states and the next tokens' operands in
-    # registers (no shared memory): a spill would put them in local memory.
-    for entry, regs, spills in ptxas_entries(logs.get("ssm_scan", "")):
-        require("0 bytes spill stores" in spills and "0 bytes spill loads" in spills,
-                f"{entry} spills registers: {spills}")
+    # The selective scan keeps its states and its decays in registers: a
+    # spill would put them in local memory. Both of its libraries stage their
+    # operands by cp.async (LDGSTS) and form their decays on the SFU.
+    for name in ("ssm_scan", "ssm_scan_bwd"):
+        for entry, regs, spills in ptxas_entries(logs.get(name, "")):
+            require("0 bytes spill stores" in spills and "0 bytes spill loads" in spills,
+                    f"{entry} spills registers: {spills}")
+        sass = sass_text(build.library_path(name), build)
+        counts = {op: sum(1 for line in sass.splitlines() if op in line)
+                  for op in ("LDGSTS", "MUFU.EX2")}
+        log(f"  {name} SASS: {counts['LDGSTS']} LDGSTS, {counts['MUFU.EX2']} MUFU.EX2")
+        require(counts["LDGSTS"] > 0 and counts["MUFU.EX2"] > 0,
+                f"the built {name} library holds no cp.async or no ex2")
     counts = sass_counts(build.library_path("rwkv6_scan_bwd"), build)
     log(f"  rwkv6_scan_bwd SASS: {counts['HMMA']} HMMA, {counts['HGMMA']} HGMMA, "
         f"{counts['LDGSTS']} LDGSTS, {counts['UTMALDG']} UTMALDG")
@@ -1172,6 +1221,22 @@ def phase_ssm_kernel(torch, ss):
                   f"[{B},{T},{Dr}] S {Sr}, dt shift {shift}, u {udtype}")
     log("selective_scan ragged shapes (T 1, 37, 2049; Di 37, 33, 64; S 16 and 5; weak "
         "decays), u bf16 and f32, nonzero states: within 1e-5 of the largest entry")
+    # The training shape (one microbatch), with the chunk-start states the
+    # backward starts from, each against the plain loop's h at its token.
+    Bt, Tt = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    for udtype in (torch.bfloat16, torch.float32):
+        args = scan_inputs(torch, gen, Bt, Tt, Di, S, udtype)
+        rel, got = check(args, f"hymba's training shape, u {udtype}")
+        y, s_out, states = ss.selective_scan(*args, keep_states=True)
+        require(torch.equal(y, got[0]) and torch.equal(s_out, got[1]),
+                "selective_scan with its chunk states differs from the call without them")
+        worst_states = chunk_states_error(torch, ss, args, states)
+        require(worst_states <= 1e-5, f"selective_scan's chunk states differ from the plain "
+                                      f"loop's h: {worst_states} of max|h|")
+        log(f"selective_scan u {udtype} [{Bt},{Tt},{Di}] S {S} (training), nonzero state: "
+            f"within {rel:.3g} of the largest entry; its {states.shape[1]} chunk-start states "
+            f"within {worst_states:.3g} of max|h| of the plain loop's h at those tokens")
+        del args, got, y, s_out, states
 
     args = scan_inputs(torch, gen, Bh, Th, Di, S, torch.bfloat16)
     first = ss.selective_scan(*args)
@@ -1192,17 +1257,188 @@ def phase_ssm_kernel(torch, ss):
     flops = elems * S * 7 + elems * 3
     t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
     t.update(bytes=nbytes, flops=flops, exps=elems * S, library_ms=None,
-             bound_share=t["bound_ms"] / t["ms"])
+             bound_share=t["bound_ms"] / t["ms"], sfu_floor_ms=elems * S / SFU_EXP2_PER_S * 1e3)
     # A trace of a few milliseconds this late in the script may come back
     # without device events (phase 12b's note): 100 calls take about 45 ms.
     trace = profile_round(torch, lambda: [ss.selective_scan(*args) for _ in range(100)])
     log(f"selective_scan [{Bh},{Th},{Di}] S {S}, u bf16: kernel {t['ms']:.4f} ms "
         f"{t['ms_readings']}, plain {t['plain_ms']:.4f} ms {t['plain_ms_readings']}, bound "
         f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {nbytes} bytes, {flops:.4g} FLOP, "
-        f"{t['exps']} exponentials; bound share {t['bound_share']:.3f}); library: none "
-        f"(no one PyTorch call computes the scan)")
+        f"{t['exps']} exponentials; bound share {t['bound_share']:.3f}); the SFU's floor for "
+        f"the exponentials {t['sfu_floor_ms']:.4f} ms (16 a clock an SM at 1.98 GHz); "
+        f"library: none (no one PyTorch call computes the scan)")
     log_trace("  selective_scan, 100 calls (traced)", trace, top_n=4)
     del args, u
+    # The training shape: the kernel from a CUDA graph over operand sets that
+    # move four times the L2 cache (its 65 MB a call would otherwise partly
+    # stay in the 50 MB L2), beside eager calls and the plain loop.
+    args = scan_inputs(torch, gen, Bt, Tt, Di, S, torch.bfloat16)
+    elems = args[0].numel()
+    nbytes = (elems * (2 + 4 + 4) + 2 * Bt * Tt * S * 4 + Di * S * 4 + Di * 4
+              + 2 * Bt * Di * S * 4)
+    sets = cold_copies(torch, args, nbytes)
+    tt = timed(torch, lambda: ss.selective_scan(*args), lambda: ss.selective_scan_ref(*args),
+               iters=20, plain_iters=1)
+    tt["graph_ms"] = graph_ms(torch, [lambda a=a: ss.selective_scan(*a) for a in sets])
+    tt["bound_ms"], tt["bound_by"] = bound_ms(nbytes, elems * S * 7 + elems * 3,
+                                              F32_FLOPS_PER_S)
+    tt.update(bytes=nbytes, exps=elems * S, cold_sets=len(sets),
+              sfu_floor_ms=elems * S / SFU_EXP2_PER_S * 1e3,
+              bound_share=tt["bound_ms"] / tt["graph_ms"])
+    t["training"] = tt
+    log(f"selective_scan [{Bt},{Tt},{Di}] S {S} (training), u bf16: kernel {tt['graph_ms']:.4f} "
+        f"ms from a CUDA graph over {len(sets)} operand sets ({tt['ms']:.4f} ms called eagerly "
+        f"{tt['ms_readings']}), plain {tt['plain_ms']:.4f} ms, bound {tt['bound_ms']:.4f} ms "
+        f"({tt['bound_by']}; share {tt['bound_share']:.3f}), the SFU's floor "
+        f"{tt['sfu_floor_ms']:.4f} ms")
+    del args, sets
+    torch.cuda.empty_cache()
+    return worst, t
+
+
+def chunk_states_error(torch, ss, args, states) -> float:
+    """The largest difference of the forward's chunk-start states from the
+    plain loop's h at those tokens, over max|h| there (chunk 0 must be the
+    initial state itself)."""
+    u, dt, Bm, _, log_a, _, h = args
+    require(torch.equal(states[:, 0], h), "the first chunk state is not the initial state")
+    A = -torch.exp(log_a)
+    worst = 0.0
+    for t in range(u.shape[1]):
+        if t and t % ss.CHUNK == 0:
+            worst = max(worst, (states[:, t // ss.CHUNK] - h).abs().max().item()
+                        / h.abs().max().item())
+        h = torch.exp(dt[:, t, :, None] * A) * h + (dt[:, t] * u[:, t].float())[:, :, None] \
+            * Bm[:, t, None]
+    return worst
+
+
+def ssm_bwd_scales(ss, args, dy, dfin) -> dict:
+    """The sums' scales: the largest sum of their terms' magnitudes (dB, dC
+    over Di; dlog_a, dd_skip over (b, t)), from the plain backward on the
+    operands' absolute values (decays stay positive, so its h and g bound
+    the true ones term by term)."""
+    ab = [a.float().abs() for a in args[:4]] + [args[4], args[5].abs(), args[6].abs()]
+    mags = ss.selective_scan_bwd_ref(*ab, dy.abs(), None if dfin is None else dfin.abs())
+    return {"dB": mags[2].max().item(), "dC": mags[3].max().item(),
+            "dlog_a": mags[4].abs().max().item(), "dd_skip": mags[5].max().item()}
+
+
+SSM_GRADS = ("du", "ddt", "dB", "dC", "dlog_a", "dd_skip", "dstate0")
+
+
+def ssm_bwd_errors(torch, got, want, scales, udtype) -> dict:
+    """Each gradient's largest error over its bound's scale (its largest
+    entry; a sum's largest sum of terms' magnitudes), a bf16 du less one bf16
+    ulp of its largest entry (each side rounds once from float32)."""
+    out = {}
+    for name, g, w in zip(SSM_GRADS, got, want):
+        require(g.dtype == w.dtype and g.shape == w.shape, f"selective_scan_bwd {name}: "
+                                                          f"dtype or shape")
+        top = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        if name == "du" and udtype == torch.bfloat16:
+            err = max(0.0, err - 2.0 ** (math.floor(math.log2(top)) - 7))
+        out[name] = {"abs": (g.float() - w.float()).abs().max().item(),
+                     "of_scale": err / max(scales.get(name, top), 1e-30)}
+    return out
+
+
+def phase_ssm_backward(torch, ss, logs: dict):
+    """Phase 12d: the selective scan's backward (``csrc/ssm_scan_bwd.cu``,
+    two launches) on the forward kernel's chunk-start states, against
+    ``selective_scan_bwd_ref`` (a float32 reverse loop on the card): at
+    hymba's training shape (u [1, 2048, 3200], S = 16) in bf16 without a
+    final-state gradient (training's case) and in float32 with one; at
+    ragged shapes (a partial block of chains and a ragged last chunk; S = 5
+    with Di not 16-byte pieces; strong decays; weak decays), every case from
+    a nonzero state. Each gradient within 1e-5 of its largest entry; dB, dC,
+    dlog_a and dd_skip within 1e-5 of the largest sum of their terms'
+    magnitudes (``ssm_bwd_scales``); a bf16 du one bf16 ulp more. A second
+    call gives the same bits. Then kernel, plain and bound times, each
+    kernel's traced time, registers and spills (none allowed) and shared
+    memory."""
+    from repro_torch.kernels import build
+
+    bwd_lib = build.load("ssm_scan_bwd")
+    gen = torch.Generator(device="cuda").manual_seed(124)
+    Bt, Tt, Di, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ, HYMBA_DI, HYMBA_S
+    worst = {}
+
+    def check(B, T, D, Sr, udtype, d_final, shift, tag):
+        args = scan_inputs(torch, gen, B, T, D, Sr, udtype, shift)
+        dy = torch.randn(B, T, D, generator=gen, device="cuda")
+        dfin = torch.randn(B, D, Sr, generator=gen, device="cuda") if d_final else None
+        _, _, states = ss.selective_scan(*args, keep_states=True)
+        got = ss.selective_scan_bwd(*args, dy, dfin, states=states)
+        want = ss.selective_scan_bwd_ref(*args, dy, dfin)
+        torch.cuda.synchronize()
+        errs = ssm_bwd_errors(torch, got, want, ssm_bwd_scales(ss, args, dy, dfin), udtype)
+        bad = {n: e["of_scale"] for n, e in errs.items() if not e["of_scale"] <= 1e-5}
+        require(not bad, f"selective_scan_bwd differs from its plain version at {tag}: {bad}")
+        again = ss.selective_scan_bwd(*args, dy, dfin, states=states)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"selective_scan_bwd at {tag}: two calls give different bits")
+        key = "bf16" if udtype == torch.bfloat16 else "f32"
+        for n, e in errs.items():
+            worst.setdefault(key, {})[n] = max(worst.get(key, {}).get(n, 0.0), e["abs"])
+        return errs
+
+    for udtype, d_final in ((torch.bfloat16, False), (torch.float32, True)):
+        errs = check(Bt, Tt, Di, S, udtype, d_final, 0.0, f"the training shape, u {udtype}")
+        share = {n: float(f"{e['of_scale']:.3g}") for n, e in errs.items()}
+        log(f"selective_scan_bwd u {udtype} [{Bt},{Tt},{Di}] S {S} (training), nonzero state, "
+            f"{'a' if d_final else 'no'} final-state gradient: error over scale {share}; a "
+            f"second call bit for bit")
+    for B, T, D, Sr, shift, d_final in ((2, 130, 40, 16, 0.0, True), (3, 50, 33, 5, 0.0, True),
+                                        (2, 300, 64, 16, 3.0, True), (1, 700, 96, 16, -4.0, False)):
+        for udtype in (torch.bfloat16, torch.float32):
+            check(B, T, D, Sr, udtype, d_final, shift, f"[{B},{T},{D}] S {Sr}, dt shift {shift}")
+    log("selective_scan_bwd ragged shapes (a partial block and a ragged chunk; S 5, Di 33; "
+        "strong and weak decays), u bf16 and f32, nonzero states: within 1e-5 of each "
+        "gradient's scale, a second call bit for bit")
+
+    args = scan_inputs(torch, gen, Bt, Tt, Di, S, torch.bfloat16)
+    dy = torch.randn(Bt, Tt, Di, generator=gen, device="cuda")
+    _, _, states = ss.selective_scan(*args, keep_states=True)
+    t = timed(torch, lambda: ss.selective_scan_bwd(*args, dy, states=states),
+              lambda: ss.selective_scan_bwd_ref(*args, dy), iters=20, plain_iters=1)
+    elems = args[0].numel()
+    nc = states.shape[1]
+    # Read: u (bf16), dt, dy per (b, t, di); B, C per (b, t); log_a, d_skip;
+    # the states. Written: du (bf16), ddt; dB, dC; dlog_a, d_skip; dstate0.
+    nbytes = (elems * (2 + 4 + 4) + 2 * Bt * Tt * S * 4 + Di * S * 4 + Di * 4
+              + Bt * nc * Di * S * 4 + elems * (2 + 4) + 2 * Bt * Tt * S * 4 + Di * S * 4
+              + Di * 4 + Bt * Di * S * 4)
+    # Per (b, t, di, s): the recompute's dt * a and (dt u) B and h's FMA, the
+    # sweep's dt * a, g's FMA, the carry, dec h, dlog_a's FMA and its
+    # product, du's and ddt's terms and their sums, dB's and dC's terms and
+    # their sums: about 20 float32 operations, and two exponentials.
+    flops = elems * S * 20
+    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    t.update(bytes=nbytes, flops=flops, exps=2 * elems * S, library_ms=None,
+             sfu_floor_ms=2 * elems * S / SFU_EXP2_PER_S * 1e3,
+             bound_share=t["bound_ms"] / t["ms"],
+             smem_bytes={"bf16": bwd_lib.selective_scan_bwd_smem_bytes(1),
+                         "f32": bwd_lib.selective_scan_bwd_smem_bytes(0)})
+    trace = profile_round(torch, lambda: [ss.selective_scan_bwd(*args, dy, states=states)
+                                          for _ in range(50)])
+    t["kernel_ms"] = ({name: n["attributed"] / 1e3 / 50 for name, n in trace["by_name"].items()
+                       if "ssm_bwd" in name} if trace else None)
+    entries = ptxas_entries(logs.get("ssm_scan_bwd", ""))
+    for entry, regs, spills in entries:
+        require("0 bytes spill stores" in spills and "0 bytes spill loads" in spills,
+                f"{entry} spills registers: {spills}")
+    t["ptxas"] = [f"{e}: {r}; {sp}" for e, r, sp in entries] or None
+    log(f"selective_scan_bwd [{Bt},{Tt},{Di}] S {S}, u bf16, no final-state gradient: kernel "
+        f"{t['ms']:.4f} ms {t['ms_readings']} (traced, by kernel: {t['kernel_ms']}), plain "
+        f"{t['plain_ms']:.4f} ms {t['plain_ms_readings']}, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}; {nbytes} bytes, {flops:.4g} FLOP; share {t['bound_share']:.3f}); "
+        f"the SFU's floor for its {t['exps']} exponentials {t['sfu_floor_ms']:.4f} ms; the "
+        f"chunk kernel's dynamic shared memory {t['smem_bytes']}; registers {t['ptxas']}; "
+        f"library: none")
+    log_trace("  selective_scan_bwd, 50 calls (traced)", trace, top_n=4)
+    del args, dy, states
     torch.cuda.empty_cache()
     return worst, t
 
@@ -1899,17 +2135,21 @@ def lm_train_launches(cfg, n_update: int, rounds: int = 1) -> dict:
     (``moe_combine``) run in each forward, and its backward runs the
     combine's two (``moe_gather`` for the experts' rows, ``moe_gate_grad``)
     and the dispatch's (``moe_combine``); the fused update launches once per
-    leaf (tree) or dtype buffer (flat) per local step."""
+    leaf (tree) or dtype buffer (flat) per local step; a hybrid layer runs
+    the selective scan's forward beside the flash forward and its backward's
+    two kernels beside the flash backward's three."""
     G, K = LM_TRAIN_LEVELS
     passes = rounds * LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * G * K * cfg.num_layers
     forwards = passes * (2 if cfg.remat else 1)
     ssm, moe = cfg.arch_type == "ssm", cfg.arch_type == "moe"
+    hybrid = cfg.arch_type == "hybrid"
     return {"flash_attention": 0 if ssm else forwards,
             "flash_attention_bwd": 0 if ssm else 3 * passes,
             "rwkv6_scan": 3 * forwards if ssm else 0,
             "rwkv6_scan_bwd": 4 * passes if ssm else 0,
             "mtgc_update_flat": rounds * LM_TRAIN_E * LM_TRAIN_H * n_update,
-            "mtgc_update": 0, "selective_scan": 0,
+            "mtgc_update": 0, "selective_scan": forwards if hybrid else 0,
+            "selective_scan_bwd": 2 * passes if hybrid else 0,
             "moe_gather": forwards + passes if moe else 0,
             "moe_combine": forwards + passes if moe else 0,
             "moe_gate_grad": passes if moe else 0}
@@ -2134,8 +2374,9 @@ def replica_fingerprints(torch, fields, replicas) -> list:
 def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = "",
                    spec_kw: dict | None = None, arch: str = LM_TRAIN_ARCH,
                    layers: int = LM_TRAIN_LAYERS) -> dict:
-    """Phases 16-17, 19-21 and (v): HFL LM training at ``arch``'s full width
-    (glm4-9b's depth cut to ``LM_TRAIN_LAYERS``; rwkv6-1.6b's all 24)
+    """Phases 16-17, 19-21, (v), (w) and (y): HFL LM training at ``arch``'s
+    full width (glm4-9b's depth cut to ``LM_TRAIN_LAYERS``; rwkv6-1.6b's and
+    granite's all 24, hymba's all 32)
     through ``build``/``pack_tokens``/``fit`` on the sharded backend, fused,
     with the spec fields ``spec_kw`` (compressed uploads, partial
     participation). ``rounds`` rounds after a warm-up round; the launch
@@ -2322,11 +2563,11 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
         f"z_norm {out['z_norm']:.4g} y_norm {out['y_norm']:.4g}; comm_bytes {comm} (wire "
         f"model {wire}); residuals {residuals}; frozen replicas {frozen} kept their bits")
     if trace:
-        # rwkv6's round makes about 283,000 launches, granite's a like
-        # number: their traces record the device alone, as the busy share
-        # and the time by kernel need.
+        # rwkv6's round makes about 283,000 launches, granite's and hymba's
+        # like numbers: their traces record the device alone, as the busy
+        # share and the time by kernel need.
         tr = profile_round(torch, lambda: api.fit(engine, data, 1, state=state),
-                           host=cfg.arch_type not in ("ssm", "moe"))
+                           host=cfg.arch_type not in ("ssm", "moe", "hybrid"))
         out["busy_share"] = tr["busy"] / tr["wall_us"] if tr else None
         log_trace(f"  ({tag}) LM training round ({layout}, traced)", tr, top_n=20)
         if tr:
@@ -2352,6 +2593,13 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
                 out["moe_ms"] = moe
                 out["moe_share"] = sum(moe.values()) / busy
                 log(f"  the moe kernels: {moe} ms, {out['moe_share']:.3f} of busy")
+            if cfg.arch_type == "hybrid":
+                sel = {"forward": busy_ms(lambda name: "selective_scan_kernel" in name),
+                       "backward": busy_ms(lambda name: "ssm_bwd" in name)}
+                out["selective_scan_ms"] = sel
+                out["selective_scan_share"] = sum(sel.values()) / busy
+                log(f"  the selective scan's forward (both passes under remat) and backward "
+                    f"kernels: {sel} ms, {out['selective_scan_share']:.3f} of busy")
             if cfg.arch_type == "ssm":
                 out["scan_bwd_pass_ms"] = {p: busy_ms(lambda name, p=p: p in name)
                                            for p in SCAN_BWD_PASSES}
@@ -2370,10 +2618,11 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
 
 
 def phase_lm_train_card_vs_cpu(torch, np, convert, arch: str = LM_TRAIN_ARCH) -> dict:
-    """Phases 21, (v3) and (w3): one sharded round of the reduced ``arch``
-    (float32, remat, T = 1100: glm4-9b's and granite's layers run the flash
-    kernels forward and backward (T > 1024), granite's the moe kernels with
-    capacity routing, rwkv6's the scan's at chunk 64 with a ragged last
+    """Phases 21, (v3), (w3) and (y3): one sharded round of the reduced
+    ``arch`` (float32, remat, T = 1100: glm4-9b's, granite's and hymba's
+    layers run the flash kernels forward and backward (T > 1024), granite's
+    the moe kernels with capacity routing, hymba's the selective scan
+    forward and backward, rwkv6's the scan's at chunk 64 with a ragged last
     chunk) on the card against the same round on the CPU (the plain
     versions), tree + fused; the fused step against the unfused one on the
     card; and, for glm4-9b, two async windows card against CPU."""
@@ -3735,6 +3984,7 @@ def all_launches() -> dict:
             "flash_attention_bwd": fa.flash_attention_bwd.launches,
             "rwkv6_scan": rw.rwkv6_scan.launches, "rwkv6_scan_bwd": rw.rwkv6_scan_bwd.launches,
             "selective_scan": ss.selective_scan.launches,
+            "selective_scan_bwd": ss.selective_scan_bwd.launches,
             "moe_gather": md.moe_gather.launches, "moe_combine": md.moe_combine.launches,
             "moe_gate_grad": md.moe_gate_grad.launches}
 
@@ -4359,6 +4609,8 @@ def main() -> int:
     sb_errs, sb_t = phase_scan_backward(torch, rw, built["log"])
     # --- 12c. the moe dispatch kernels ------------------------------------
     moe_errs, moe_t = phase_moe_kernels(torch, md, built["log"])
+    # --- 12d. the selective scan's backward at the training shape --------
+    ssb_errs, ssb_t = phase_ssm_backward(torch, ss, built["log"])
 
     # --- 13. LM serving at full width -----------------------------------
     # Launches reckoned for one served batch, all in the prefill: flash one
@@ -4472,6 +4724,21 @@ def main() -> int:
                 f"({run['phase']}) launched {run['launches']}: {passes} layer passes, "
                 f"expected {want}")
     lm_w3 = phase_lm_train_card_vs_cpu(torch, np, convert, arch=MOE_ARCH)
+    # --- 25. (y) hymba-1.5b training at full width and depth ---------------
+    # (y2) is not traced: its round is (y1)'s on the tree layout.
+    lm_y = [phase_lm_train(torch, np, layout, rounds=1, trace=tag == "y1", tag=tag,
+                           arch=HYBRID_TRAIN_ARCH, layers=HYBRID_TRAIN_LAYERS)
+            for tag, layout in (("y1", "flat"), ("y2", "tree"))]
+    passes = (LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * math.prod(LM_TRAIN_LEVELS)
+              * HYBRID_TRAIN_LAYERS)
+    for run in lm_y:
+        # Under remat: two forwards and a backward a layer pass.
+        want = {"selective_scan": 2 * passes, "selective_scan_bwd": 2 * passes,
+                "flash_attention": 2 * passes, "flash_attention_bwd": 3 * passes}
+        require({k: run["launches"][k] for k in want} == want,
+                f"({run['phase']}) launched {run['launches']}: {passes} layer passes, "
+                f"expected {want}")
+    lm_y3 = phase_lm_train_card_vs_cpu(torch, np, convert, arch=HYBRID_TRAIN_ARCH)
 
     # --- 22. results -----------------------------------------------------
     kernels = [
@@ -4556,9 +4823,30 @@ def main() -> int:
         "max_abs_err": ss_errs["selective_scan"], "max_abs_err_f32": ss_errs["selective_scan/f32"],
         "ms": ss_t["ms"], "plain_ms": ss_t["plain_ms"], "bound_ms": ss_t["bound_ms"],
         "bound_by": ss_t["bound_by"], "library_ms": None, "bound_share": ss_t["bound_share"],
+        "sfu_floor_ms": ss_t["sfu_floor_ms"], "ms_readings": ss_t["ms_readings"],
+        "training_launches": {run["phase"]: run["launches"]["selective_scan"] for run in lm_y},
+        "training_shape": {k: ss_t["training"][k] for k in (
+            "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "sfu_floor_ms",
+            "cold_sets")},
         "shape": f"u [{LM_BATCH},{LM_PROMPT},{HYMBA_DI}] bf16, dt [{LM_BATCH},{LM_PROMPT},"
                  f"{HYMBA_DI}] f32, B/C [{LM_BATCH},{LM_PROMPT},{HYMBA_S}] f32, nonzero state "
                  "(one hymba-1.5b prefill layer)"})
+    kernels.append({
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:80",
+        "launches": lm_y[0]["launches"]["selective_scan_bwd"],
+        "max_abs_err": max(ssb_errs["bf16"].values()),
+        "max_abs_err_f32": max(ssb_errs["f32"].values()),
+        "errors_by_gradient": ssb_errs,
+        "ms": ssb_t["ms"], "plain_ms": ssb_t["plain_ms"], "bound_ms": ssb_t["bound_ms"],
+        "bound_by": ssb_t["bound_by"], "library_ms": None, "bound_share": ssb_t["bound_share"],
+        "sfu_floor_ms": ssb_t["sfu_floor_ms"], "ms_readings": ssb_t["ms_readings"],
+        "kernel_ms": ssb_t["kernel_ms"], "smem_bytes": ssb_t["smem_bytes"],
+        "ptxas": ssb_t["ptxas"],
+        "shape": f"u/du [{LM_TRAIN_BATCH},{LM_TRAIN_SEQ},{HYMBA_DI}] bf16, dt/dy/ddt f32, "
+                 f"B/C [{LM_TRAIN_BATCH},{LM_TRAIN_SEQ},{HYMBA_S}] f32, on the forward's chunk "
+                 "states, no final-state gradient (one hymba-1.5b training layer)"})
     for name, replaces in (("moe_gather", 92), ("moe_combine", 99), ("moe_gate_grad", 98)):
         t = moe_t[name]
         kernels.append({
@@ -4619,7 +4907,7 @@ def main() -> int:
         # Phase (u)'s timed runs: the multilevel backend runs no kernel.
         for run, counts in hfl_u["launches"].items():
             k["training_launches"][run] = counts[name]
-        for run in lm_v + lm_w:
+        for run in lm_v + lm_w + lm_y:
             k["training_launches"][run["phase"]] = run["launches"].get(name, 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": served}))
@@ -4639,6 +4927,9 @@ def main() -> int:
     for run in lm_w:
         print(json.dumps({f"training_{run['phase']}": run}))
     print(json.dumps({"training_w3": lm_w3}))
+    for run in lm_y:
+        print(json.dumps({f"training_{run['phase']}": run}))
+    print(json.dumps({"training_y3": lm_y3}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("mtgc_update", "quantize", "flash_attention", "flash_attention_bwd", "rwkv6_scan",
-           "rwkv6_scan_bwd", "ssm_scan", "moe_dispatch")
+           "rwkv6_scan_bwd", "ssm_scan", "ssm_scan_bwd", "moe_dispatch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -189,6 +189,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "ssm_scan":
         lib.selective_scan_launch.argtypes = [p] * 9 + [i32] * 5 + [p]
         lib.selective_scan_launch.restype = i32
+        lib.selective_scan_states_launch.argtypes = [p] * 10 + [i32] * 5 + [p]
+        lib.selective_scan_states_launch.restype = i32
+        lib.selective_scan_chunk.argtypes = []
+        lib.selective_scan_chunk.restype = i32
+    elif name == "ssm_scan_bwd":
+        lib.selective_scan_bwd_launch.argtypes = [p] * 19 + [i32] * 5 + [p]
+        lib.selective_scan_bwd_launch.restype = i32
+        lib.selective_scan_bwd_smem_bytes.argtypes = [i32]
+        lib.selective_scan_bwd_smem_bytes.restype = i32
     elif name == "moe_dispatch":
         for fn in (lib.moe_gather_launch, lib.moe_combine_launch, lib.moe_gate_grad_launch):
             fn.argtypes = [p] * 4 + [i64, i32, i32, i32, p]

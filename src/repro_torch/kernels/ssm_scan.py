@@ -7,21 +7,28 @@ Per (b, di) and state s, with ``A = -exp(log_a)``::
 
 from ``h_{-1} = state0``. This is the recurrence that ``ssm_parallel``
 evaluates with ``jax.lax.associative_scan`` in the reference
-(``src/repro/models/ssm.py:80``; jnp, no Pallas call). The reference
-materialises ``decay`` and ``drive`` as ``[B, T, Di, S]`` float32 arrays;
-the kernel, hand-written CUDA for Hopper (``csrc/ssm_scan.cu``; the note
-at its top says what bounds it and what its design does about that), forms
-them token by token in registers and never writes them out.
+(``src/repro/models/ssm.py:80``; jnp, no Pallas call), and trains through
+JAX's autodiff of it. The reference materialises ``decay`` and ``drive`` as
+``[B, T, Di, S]`` float32 arrays; the kernels, hand-written CUDA for Hopper
+(``csrc/ssm_scan.cu`` forward, ``csrc/ssm_scan_bwd.cu`` backward; the note
+at the top of each says what bounds it and what its design does about
+that), form them token by token and never write them out.
 
-:func:`selective_scan_ref` is the plain version: a sequential float32 loop
-over T with the same formula. The reference's chunks of 2048 tokens,
-padded with decay 1 and drive 0, give the same recurrence, so both loop
-over all of T, whatever its length.
-
-Dispatch is by device: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel (building it on first use) or raises.
-``selective_scan.launches`` counts the kernel's launches, one a call.
-There is no backward kernel yet: serving comes first.
+* :func:`selective_scan_ref` -- the forward's plain version: a sequential
+  float32 loop over T with the same formula. The reference's chunks of 2048
+  tokens, padded with decay 1 and drive 0, give the same recurrence, so both
+  loop over all of T, whatever its length.
+* :func:`selective_scan_bwd_ref` -- the backward's plain version: h
+  recomputed forward, then a sequential float32 reverse loop (the gradients
+  in ``csrc/ssm_scan_bwd.cu``'s note).
+* :func:`selective_scan` / :func:`selective_scan_bwd` -- dispatch by device:
+  a CPU tensor takes the plain version, a CUDA tensor launches the kernel
+  (building it on first use) or raises. ``selective_scan.launches`` counts
+  one a forward call; ``selective_scan_bwd.launches`` two a backward call
+  (the chunk kernel and the fixed-order reduction).
+* :class:`SelectiveScan` -- the differentiable scan that training runs: on
+  the card its forward keeps h at the start of every chunk of
+  :data:`CHUNK` tokens, from which the backward kernel recomputes h.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.mtgc_update import _check, _raise_on, _stream
 
 MAX_STATE = 16                 # csrc/ssm_scan.cu kMaxS
+CHUNK = 64                     # csrc/ssm_scan.cu kChunk: tokens between saved states
+_BWD_CHAINS = 32               # csrc/ssm_scan_bwd.cu kChains: chains a block
 _U_DTYPES = (torch.float32, torch.bfloat16)
 _F32 = (torch.float32,)
 
@@ -55,6 +64,37 @@ def selective_scan_ref(u, dt, Bm, Cm, log_a, d_skip, state0):
     return torch.stack(ys, dim=1), h
 
 
+def selective_scan_bwd_ref(u, dt, Bm, Cm, log_a, d_skip, state0, dy, d_final=None):
+    """The backward's plain version: the forward's operands, ``dy`` [B, T,
+    Di] and the final state's gradient ``d_final`` [B, Di, S] (None: zero).
+    Returns (du in u's dtype, rounded once from float32; ddt [B, T, Di]; dB,
+    dC [B, T, S]; dlog_a [Di, S]; dd_skip [Di]; dstate0 [B, Di, S]), all but
+    du float32."""
+    f32 = torch.float32
+    u32, dt32, B32, C32, dy32 = (a.to(f32) for a in (u, dt, Bm, Cm, dy))
+    A = -torch.exp(log_a.to(f32))
+    T = u.shape[1]
+    hs = [state0.to(f32)]
+    for t in range(T):
+        decay = torch.exp(dt32[:, t, :, None] * A)
+        hs.append(decay * hs[-1] + (dt32[:, t] * u32[:, t])[:, :, None] * B32[:, t, None, :])
+    carry = torch.zeros_like(hs[0]) if d_final is None else d_final.to(f32).clone()
+    du, ddt = torch.empty_like(u32), torch.empty_like(u32)
+    dB, dC = torch.empty_like(B32), torch.empty_like(C32)
+    dla = torch.zeros_like(A)
+    for t in range(T - 1, -1, -1):
+        decay = torch.exp(dt32[:, t, :, None] * A)
+        g = C32[:, t, None, :] * dy32[:, t, :, None] + carry          # [B, Di, S]
+        hd = decay * hs[t]
+        dC[:, t] = torch.einsum("bd,bds->bs", dy32[:, t], hs[t + 1])
+        dB[:, t] = torch.einsum("bds,bd->bs", g, dt32[:, t] * u32[:, t])
+        du[:, t] = (g * B32[:, t, None, :]).sum(-1) * dt32[:, t] + d_skip.to(f32) * dy32[:, t]
+        ddt[:, t] = (g * (A * hd + u32[:, t, :, None] * B32[:, t, None, :])).sum(-1)
+        dla += (g * hd * dt32[:, t, :, None]).sum(0)
+        carry = decay * g
+    return (du.to(u.dtype), ddt, dB, dC, A * dla, (dy32 * u32).sum((0, 1)), carry)
+
+
 def _check_operands(u, dt, Bm, Cm, log_a, d_skip, state0):
     """The kernel's operand rules; returns (B, T, Di, S)."""
     if u.dim() != 3 or Bm.dim() != 3:
@@ -75,33 +115,139 @@ def _check_operands(u, dt, Bm, Cm, log_a, d_skip, state0):
     return B, T, Di, S
 
 
-def selective_scan(u, dt, Bm, Cm, log_a, d_skip, state0):
+def _launch(u, dt, Bm, Cm, log_a, d_skip, state0, keep_states):
+    """Check, launch the forward kernel, count it. Returns (y, final state,
+    chunk-start states [B, ceil(T / CHUNK), Di, S] or None)."""
+    B, T, Di, S = _check_operands(u, dt, Bm, Cm, log_a, d_skip, state0)
+    y = torch.empty((B, T, Di), dtype=torch.float32, device=u.device)
+    states = (torch.empty((B, -(-T // CHUNK), Di, S), dtype=torch.float32, device=u.device)
+              if keep_states else None)
+    if y.numel() == 0:
+        if states is not None and states.numel():
+            states.copy_(state0[:, None])
+        return y, state0.clone(), states
+    s_out = torch.empty_like(state0)
+    lib = load("ssm_scan")
+    args = (u.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), log_a.data_ptr(),
+            d_skip.data_ptr(), state0.data_ptr(), y.data_ptr(), s_out.data_ptr())
+    tail = (B, T, Di, S, int(u.dtype == torch.bfloat16), _stream(u.device))
+    if keep_states:
+        err = lib.selective_scan_states_launch(*args, states.data_ptr(), *tail)
+    else:
+        err = lib.selective_scan_launch(*args, *tail)
+    _raise_on(err, "selective_scan")
+    selective_scan.launches += 1
+    return y, s_out, states
+
+
+def _device(u, name):
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, got {u.device}")
+    return u.device.type
+
+
+def selective_scan(u, dt, Bm, Cm, log_a, d_skip, state0, *, keep_states=False):
     """The scan (see the module docstring). u [B, T, Di] float32 or
     bfloat16; dt [B, T, Di], Bm and Cm [B, T, S], log_a [Di, S], d_skip
     [Di] and state0 [B, Di, S] float32; on a CUDA tensor all contiguous on
     one card, S at most 16. Returns (y [B, T, Di] float32, final state
-    [B, Di, S] float32, a new tensor)."""
-    if u.device.type == "cpu":
+    [B, Di, S] float32, a new tensor); with ``keep_states`` (CUDA tensors
+    only) also h at the start of every chunk of :data:`CHUNK` tokens, [B,
+    ceil(T / CHUNK), Di, S] float32 (chunk 0: state0)."""
+    if _device(u, "selective_scan") == "cpu":
+        if keep_states:
+            raise ValueError("keep_states: the plain version keeps no chunk states")
         return selective_scan_ref(u, dt, Bm, Cm, log_a, d_skip, state0)
-    if u.device.type != "cuda":
-        raise ValueError(f"selective_scan runs on cpu or cuda, got {u.device}")
+    y, s_out, states = _launch(u, dt, Bm, Cm, log_a, d_skip, state0, keep_states)
+    return (y, s_out, states) if keep_states else (y, s_out)
+
+
+def selective_scan_bwd(u, dt, Bm, Cm, log_a, d_skip, state0, dy, d_final=None, *,
+                       states=None):
+    """The backward of :func:`selective_scan` (no Pallas counterpart: it
+    replaces JAX's autodiff of src/repro/models/ssm.py:80). Takes the
+    forward's operands, ``dy`` [B, T, Di] float32 and ``d_final`` [B, Di, S]
+    float32 (None: zero). Returns (du in u's dtype, ddt [B, T, Di], dB, dC
+    [B, T, S], dlog_a [Di, S], dd_skip [Di], dstate0 [B, Di, S]), float32
+    but du.
+
+    A CPU tensor takes :func:`selective_scan_bwd_ref`. A CUDA tensor
+    launches ``csrc/ssm_scan_bwd.cu`` (two kernels, counted on
+    ``selective_scan_bwd.launches``) on ``states``, the chunk-start states
+    the forward kernel kept, or, when ``states`` is None, on those of a
+    forward launch made here."""
+    if _device(u, "selective_scan_bwd") == "cpu":
+        return selective_scan_bwd_ref(u, dt, Bm, Cm, log_a, d_skip, state0, dy, d_final)
     B, T, Di, S = _check_operands(u, dt, Bm, Cm, log_a, d_skip, state0)
-    y = torch.empty((B, T, Di), dtype=torch.float32, device=u.device)
-    if y.numel() == 0:
-        return y, state0.clone()
-    s_out = torch.empty_like(state0)
-    err = load("ssm_scan").selective_scan_launch(
+    dev = u.device
+    _check("dy", dy, dev, _F32, (B, T, Di))
+    if d_final is not None:
+        _check("d_final", d_final, dev, _F32, (B, Di, S))
+    if states is None:
+        states = selective_scan(u, dt, Bm, Cm, log_a, d_skip, state0, keep_states=True)[2]
+    _check("states", states, dev, _F32, (B, -(-T // CHUNK), Di, S))
+    du, ddt = torch.empty_like(u), torch.empty_like(dt)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    dlog_a, dd_skip, dstate0 = (torch.empty_like(a) for a in (log_a, d_skip, state0))
+    if u.numel() == 0:
+        for t in (du, ddt, dB, dC, dlog_a, dd_skip):
+            t.zero_()
+        dstate0.copy_(d_final if d_final is not None else torch.zeros_like(state0))
+        return du, ddt, dB, dC, dlog_a, dd_skip, dstate0
+    part = torch.empty(-(-Di // _BWD_CHAINS) * B * T * 2 * MAX_STATE, dtype=torch.float32,
+                       device=dev)
+    dla_part = torch.empty(B * Di * S, dtype=torch.float32, device=dev)
+    dds_part = torch.empty(B * Di, dtype=torch.float32, device=dev)
+    err = load("ssm_scan_bwd").selective_scan_bwd_launch(
         u.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), log_a.data_ptr(),
-        d_skip.data_ptr(), state0.data_ptr(), y.data_ptr(), s_out.data_ptr(), B, T, Di, S,
-        int(u.dtype == torch.bfloat16), _stream(u.device))
-    _raise_on(err, "selective_scan")
-    selective_scan.launches += 1
-    return y, s_out
+        d_skip.data_ptr(), dy.data_ptr(), None if d_final is None else d_final.data_ptr(),
+        states.data_ptr(), du.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dlog_a.data_ptr(), dd_skip.data_ptr(), dstate0.data_ptr(), part.data_ptr(),
+        dla_part.data_ptr(), dds_part.data_ptr(), B, T, Di, S,
+        int(u.dtype == torch.bfloat16), _stream(dev))
+    _raise_on(err, "selective_scan_bwd")
+    selective_scan_bwd.launches += 2   # the chunk kernel, the reduction
+    return du, ddt, dB, dC, dlog_a, dd_skip, dstate0
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The differentiable scan (the arguments and results of
+    :func:`selective_scan`). On a CUDA tensor the forward launches the
+    kernel and keeps its chunk-start states for the backward kernel
+    (:func:`selective_scan_bwd`); on a CPU tensor both take their plain
+    versions. Under ``torch.utils.checkpoint`` the forward runs again in the
+    backward pass and the states live only until its backward. A gradient
+    that is not asked for (``None``: the final state unused, or y) counts as
+    zero."""
+
+    @staticmethod
+    def forward(ctx, u, dt, Bm, Cm, log_a, d_skip, state0):
+        if _device(u, "SelectiveScan") == "cuda":
+            y, s_final, states = selective_scan(u, dt, Bm, Cm, log_a, d_skip, state0,
+                                                keep_states=True)
+            ctx.save_for_backward(u, dt, Bm, Cm, log_a, d_skip, state0, states)
+        else:
+            y, s_final = selective_scan_ref(u, dt, Bm, Cm, log_a, d_skip, state0)
+            ctx.save_for_backward(u, dt, Bm, Cm, log_a, d_skip, state0)
+        ctx.set_materialize_grads(False)
+        return y, s_final
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        u, dt, Bm, Cm, log_a, d_skip, state0, *saved = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+        grads = selective_scan_bwd(u, dt, Bm, Cm, log_a, d_skip, state0, dy.contiguous(),
+                                   None if d_final is None else d_final.contiguous(),
+                                   states=saved[0] if saved else None)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 
 selective_scan.launches = 0
+selective_scan_bwd.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set the wrapper's ``launches`` counter to 0."""
+    """Set the wrappers' ``launches`` counters to 0."""
     selective_scan.launches = 0
+    selective_scan_bwd.launches = 0

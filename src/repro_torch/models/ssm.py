@@ -12,7 +12,11 @@ with input-dependent dt_t, B_t, C_t (the "selective" part).
   through ``kernels/ssm_scan.py::selective_scan`` (the CUDA kernel on a
   CUDA tensor, its plain sequential loop on a CPU tensor), which forms
   ``decay`` and ``drive`` token by token: the ``[B, T, Di, S]`` arrays the
-  reference's ``associative_scan`` materialises never exist here.
+  reference's ``associative_scan`` materialises never exist here. When a
+  gradient is wanted it goes through ``SelectiveScan`` instead, whose
+  backward is the CUDA backward kernel on the card and the plain reverse
+  loop on the CPU (the reference differentiates its scan with JAX's
+  autodiff).
 * :func:`ssm_step` -- decode: the O(1) one-token update, plain PyTorch (the
   reference has no kernel for it).
 """
@@ -21,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssm_scan import selective_scan
+from repro_torch.kernels.ssm_scan import SelectiveScan, selective_scan
 from repro_torch.models.layers import init_linear, linear
 
 
@@ -60,7 +64,11 @@ def ssm_parallel(p, x, state, chunk: int = 2048):
     arrays of its associative scan. The scan here materialises none, so
     one call covers all T (the padded chunks give the same recurrence)."""
     u, dt, Bm, Cm = _gates(p, x)
-    y, state = selective_scan(u, dt, Bm, Cm, p["log_a"], p["d_skip"], state.to(torch.float32))
+    args = (u, dt, Bm, Cm, p["log_a"], p["d_skip"], state.to(torch.float32))
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        y, state = SelectiveScan.apply(*args)
+    else:
+        y, state = selective_scan(*args)
     return linear(p["wout"], y.to(x.dtype)), state
 
 

@@ -13,13 +13,12 @@ Port of ``src/repro/models/transformer.py`` for four families:
   hybrid -- windowed attention and selective-SSM heads in parallel on the
             same input, mean-fused (hymba; ``models/ssm.py``)
 
-dense, moe and ssm train, serve and decode; hybrid serves and decodes, and
-its ``loss`` raises ``NotImplementedError`` naming the hybrid-training
-slice. The other families (audio, vlm) raise ``NotImplementedError`` naming
-the slice of the port that brings them. The params tree is the reference's:
-the layers' leaves are stacked on axis 0, so ``convert.params_from_numpy``
-carries the JAX package's weights across unchanged. A Python loop over the
-layer index takes the place of the reference's ``lax.scan``.
+All four train, serve and decode. The other families (audio, vlm) raise
+``NotImplementedError`` naming the slice of the port that brings them. The
+params tree is the reference's: the layers' leaves are stacked on axis 0, so
+``convert.params_from_numpy`` carries the JAX package's weights across
+unchanged. A Python loop over the layer index takes the place of the
+reference's ``lax.scan``.
 
 Every bundle provides:
   init(seed, device=None)          -> params (on the CUDA card by default)
@@ -309,10 +308,6 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["targets"]`` ([B, T] each), float32; the moe family adds
         0.01 times its layers' summed load-balance loss."""
-        if cfg.arch_type == "hybrid":
-            raise NotImplementedError(
-                "training the hybrid family is not ported yet: it needs the hybrid-training "
-                "slice of the port (the selective scan's backward kernel)")
         x = L.embed(p["embed"], batch["tokens"]).to(dt)
         x, aux = _run_layers(p, x, mode="train")
         x = L.rms_norm(x, p["ln_f"])

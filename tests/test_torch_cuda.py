@@ -5,7 +5,8 @@ float32 rounding), small rounds of the engine on the card against the same
 rounds on the CPU, reduced LM serving on the card against the CPU, the
 RWKV scan's backward kernel against its plain version and the float64
 definition of its gradients, the hybrid family's selective scan
-against its plain sequential loop, and the moe family's dispatch, combine
+against its plain sequential loop and its backward against the plain
+reverse loop, and the moe family's dispatch, combine
 and gate-gradient kernels against their one-hot einsum forms.
 
 Every test here needs a card and skips without one. The module imports no
@@ -901,6 +902,17 @@ def test_reduced_lm_sharded_round_on_card_matches_cpu(cuda):
         fa.flash_attention: 2 * 2 * 4 * 2, fa.flash_attention_bwd: 3 * 2 * 4 * 2})
 
 
+def test_reduced_hybrid_sharded_round_on_card_matches_cpu(cuda):
+    """The same round of the reduced hymba-1.5b (windowed attention at 16
+    and the selective SSM, 1100 tokens a microbatch): on each of the 16
+    layer passes the flash forward and the selective scan launch twice
+    (remat), the attention backward's three kernels and the scan backward's
+    two once."""
+    _reduced_round_on_card_matches_cpu(cuda, "hymba-1.5b", {
+        fa.flash_attention: 2 * 16, fa.flash_attention_bwd: 3 * 16,
+        ss.selective_scan: 2 * 16, ss.selective_scan_bwd: 2 * 16})
+
+
 def test_reduced_moe_sharded_round_on_card_matches_cpu(cuda):
     """The same round of the reduced granite-moe-1b-a400m (4 experts, top 2,
     1100 tokens a microbatch routed with capacity 687): the moe dispatch and
@@ -1356,6 +1368,103 @@ def test_selective_scan_kernel_matches_plain(cuda, B, T, Di, S, dt_shift, udtype
     _assert_scan_close(got, ss.selective_scan_ref(*args))
     again = ss.selective_scan(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))      # bit-identical
+
+
+@pytest.mark.parametrize("B,T,Di,S,dt_shift", [
+    (1, 2048, 3200, 16, 0.0),    # hymba's training shape: one microbatch
+    (2, 130, 40, 16, -3.0),      # three chunks, the last ragged; a partial block
+    (3, 50, 33, 5, 0.0),         # S < 16: the plain-load ring
+])
+@pytest.mark.parametrize("udtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_chunk_states(cuda, B, T, Di, S, dt_shift, udtype):
+    """The forward with its chunk-start states (training): y and the final
+    state as without them, bit for bit; each chunk's state within 1e-5 of
+    max|h| of the plain loop's h at that token (chunk 0: the initial state
+    itself)."""
+    args = _scan_inputs(cuda, B, T, Di, S, udtype, B + T + Di, dt_shift)
+    before = ss.selective_scan.launches
+    y, s_out, states = ss.selective_scan(*args, keep_states=True)
+    assert ss.selective_scan.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip((y, s_out), ss.selective_scan(*args)))
+    nc = -(-T // ss.CHUNK)
+    assert tuple(states.shape) == (B, nc, Di, S)
+    assert torch.equal(states[:, 0], args[-1])
+    u, dt, Bm, _, log_a, _, h = args
+    A = -torch.exp(log_a)
+    for t in range(T):           # the plain loop's recurrence, h kept at chunk starts
+        if t and t % ss.CHUNK == 0:
+            got = states[:, t // ss.CHUNK]
+            assert (got - h).abs().max().item() <= 1e-5 * h.abs().max().item(), t
+        h = torch.exp(dt[:, t, :, None] * A) * h + (dt[:, t] * u[:, t].float())[:, :, None] \
+            * Bm[:, t, None]
+
+
+# The backward kernel against its plain version (a float32 reverse loop on
+# the card): each gradient within 1e-5 of its largest entry; dB and dC (sums
+# over Di), dlog_a and dd_skip (over (b, t)) within 1e-5 of the largest sum
+# of their terms' magnitudes (tests/test_torch_hybrid_train.py), taken from
+# the plain backward on the operands' absolute values. A bf16 du adds one
+# bf16 ulp of its largest entry (each side rounds once from float32).
+def _bwd_scales(args, dy, dfin):
+    ab = [a.float().abs() for a in args[:4]] + [args[4], args[5].abs(), args[6].abs()]
+    mags = ss.selective_scan_bwd_ref(*ab, dy.abs(), None if dfin is None else dfin.abs())
+    return {"dB": mags[2].max().item(), "dC": mags[3].max().item(),
+            "dlog_a": mags[4].abs().max().item(), "dd_skip": mags[5].max().item()}
+
+
+def _assert_ssm_bwd_close(got, want, scales, udtype):
+    names = ("du", "ddt", "dB", "dC", "dlog_a", "dd_skip", "dstate0")
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        top = w.float().abs().max().item()
+        allow = 1e-5 * scales.get(name, top)
+        if name == "du" and udtype == torch.bfloat16:
+            allow += 2.0 ** (math.floor(math.log2(top)) - 7)
+        assert (g.float() - w.float()).abs().max().item() <= allow, name
+
+
+@pytest.mark.parametrize("B,T,Di,S,dt_shift,d_final", [
+    (1, 2048, 3200, 16, 0.0, False),  # hymba's training shape, as the model calls it
+    (2, 130, 40, 16, 0.0, True),      # ragged last chunk, a partial block of chains
+    (3, 50, 33, 5, 0.0, True),        # S < 16, Di not 16-byte pieces: plain loads
+    (2, 300, 64, 16, 3.0, True),      # strong decays
+    (1, 700, 96, 16, -4.0, False),    # weak decays: a memory of about a hundred tokens
+])
+@pytest.mark.parametrize("udtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_kernel_matches_plain(cuda, B, T, Di, S, dt_shift, d_final, udtype):
+    args = _scan_inputs(cuda, B, T, Di, S, udtype, B + T + Di + S, dt_shift)
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    dy = torch.randn(B, T, Di, generator=gen, device=cuda)
+    dfin = torch.randn(B, Di, S, generator=gen, device=cuda) if d_final else None
+    _, _, states = ss.selective_scan(*args, keep_states=True)
+    before = ss.selective_scan_bwd.launches
+    got = ss.selective_scan_bwd(*args, dy, dfin, states=states)
+    torch.cuda.synchronize()
+    assert ss.selective_scan_bwd.launches == before + 2
+    _assert_ssm_bwd_close(got, ss.selective_scan_bwd_ref(*args, dy, dfin),
+                          _bwd_scales(args, dy, dfin), udtype)
+    again = ss.selective_scan_bwd(*args, dy, dfin)        # states from its own forward
+    assert all(torch.equal(a, b) for a, b in zip(got, again))      # bit-identical
+
+
+def test_selective_scan_function_on_card_matches_cpu(cuda):
+    """``SelectiveScan`` on the card (both kernels) against the same Function
+    on the CPU (both plain versions), u in bf16, the final state's gradient
+    absent (as in training) and present."""
+    args = _scan_inputs(cuda, 2, 150, 48, 16, torch.bfloat16, 5)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    dy = torch.randn(2, 150, 48, generator=gen, device=cuda)
+    dfin = torch.randn(2, 48, 16, generator=gen, device=cuda)
+    for with_final in (False, True):
+        grads = {}
+        for dev in (cuda, torch.device("cpu")):
+            ins = [a.to(dev).clone().requires_grad_() for a in args]
+            y, s = ss.SelectiveScan.apply(*ins)
+            loss = (y * dy.to(dev)).sum() + ((s * dfin.to(dev)).sum() if with_final else 0)
+            grads[dev.type] = [g.cpu() for g in torch.autograd.grad(loss, ins)]
+        _assert_ssm_bwd_close(grads["cuda"], grads["cpu"], _bwd_scales(
+            [a.cpu() for a in args], dy.cpu(), dfin.cpu() if with_final else None),
+            torch.bfloat16)
 
 
 def test_selective_scan_model_call_on_card_matches_cpu(cuda):

@@ -133,16 +133,6 @@ def test_other_archs_name_their_slice():
     assert tbuild(tconfigs.get_arch("granite-moe-1b-a400m").reduced()).cfg.arch_type == "moe"
 
 
-def test_hybrid_loss_names_its_slice():
-    """hymba serves, but its training waits for the selective scan's
-    backward kernel."""
-    tb = tbuild(tconfigs.get_arch("hymba-1.5b").reduced())
-    tp = tb.init(0, device="cpu")
-    toks = torch.from_numpy(_tokens(0, 1, 8))
-    with pytest.raises(NotImplementedError, match="hybrid-training slice"):
-        tb.loss(tp, {"tokens": toks, "targets": toks})
-
-
 def test_gemma3_layer_pattern():
     """tests/test_models.py::test_gemma3_layer_pattern on the port."""
     from repro_torch.models.transformer import _layer_windows

@@ -5,11 +5,13 @@
   ``flash_jnp.blocked_attention_flash`` (the reference's custom VJP), with
   the forward's row statistics against ``flash_jnp._fwd``'s;
 * ``chunked_xent``, and the reduced glm4-9b, qwen3-14b, rwkv6-1.6b,
-  qwen2.5-32b (the QKV biases' gradients) and gemma3-27b (7 layers: six
+  qwen2.5-32b (the QKV biases' gradients), gemma3-27b (7 layers: six
   windowed, one global, so the windows run in the backward; tied
-  embeddings) ``loss`` with every gradient leaf against
+  embeddings) and hymba-1.5b (windowed attention and the selective SSM)
+  ``loss`` with every gradient leaf against
   ``jax.value_and_grad(bundle.loss)`` at T > 1024 (the blocked attention
-  path); remat on == off (rwkv6's training: ``test_torch_ssm_train.py``);
+  path); remat on == off (rwkv6's training: ``test_torch_ssm_train.py``;
+  hymba's: ``test_torch_hybrid_train.py``);
 * ``make_lm_tokens``/``lm_batches``/``pack_lm_shards`` draw for draw;
 * one full sharded LM round (reduced glm4-9b, 2 x 2 clients, E = H = A = 2)
   against the reference's ``build(spec, bundle.loss)``, and the trainer's
@@ -146,12 +148,14 @@ def _grads(tb, tp, batch):
 
 
 @pytest.mark.parametrize("arch", ["glm4-9b", "qwen3-14b", "rwkv6-1.6b", "qwen2.5-32b",
-                                  "gemma3-27b"])
+                                  "gemma3-27b", "hymba-1.5b"])
 def test_loss_and_every_gradient_match_reference(arch):
     """T = 1088 > 1024: every attention layer takes the blocked (flash)
     path, forward and backward, under remat as in the full configs; the
     rwkv6 layers run the chunked scan (272 chunks of the reduced config's
-    4 tokens); gemma3's windowed layers (window 16) and its global one."""
+    4 tokens); gemma3's windowed layers (window 16) and its global one;
+    hymba's windowed attention (window 16) beside its selective SSM, whose
+    backward is ``SelectiveScan``'s."""
     over = dict(num_layers=7) if arch == "gemma3-27b" else {}
     jb, jp, tb, tp = _pair(arch, attn_block=128, remat=True, **over)
     rng = np.random.default_rng(5)

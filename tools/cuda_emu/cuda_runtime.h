@@ -1,7 +1,8 @@
 // A CPU stand-in for the parts of the CUDA runtime and device language that
-// src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu and moe_dispatch.cu use, so
-// that g++ can build and run those sources on the host
-// (tools/scan_bwd_emulate.py, tests/test_torch_moe_emulated.py). A launch
+// src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu, moe_dispatch.cu,
+// ssm_scan.cu and ssm_scan_bwd.cu use, so that g++ can build and run those
+// sources on the host (tools/scan_bwd_emulate.py, tools/ssm_emulate.py,
+// tests/test_torch_moe_emulated.py). A launch
 // runs its blocks one after another; a block runs one std::thread per CUDA
 // thread on a fresh heap allocation of exactly its dynamic shared memory,
 // filled with 0xff bytes (NaN as float32) so a read before a write shows.

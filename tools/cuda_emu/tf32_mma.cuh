@@ -1,6 +1,6 @@
 // The helpers of src/repro_torch/kernels/csrc/tf32_mma.cuh on the CPU, for
-// tools/scan_bwd_emulate.py (it puts this file where the source's
-// #include "tf32_mma.cuh" finds it).
+// tools/scan_bwd_emulate.py and tools/ssm_emulate.py (they put this file
+// where the sources' #include "tf32_mma.cuh" finds it).
 //
 // tf32: cvt.rna.tf32.f32 on the bits (round half away from zero to 10
 // mantissa bits). mma8: the warp's fragments are exchanged through a
