@@ -198,16 +198,20 @@ final line):
     calls over operand sets that do not fit in L2 (``graph_ms``, the
     kernels line's ``graph_ms``; ``ms`` the wrappers called eagerly, as for
     every kernel), plain times at the training shape;
-12d. the selective scan's backward (``csrc/ssm_scan_bwd.cu``, two launches)
-    on the forward kernel's chunk states at hymba's training shape, bf16
-    without a final-state gradient and float32 with one, and at ragged
-    shapes (a partial block of chains, a ragged last chunk, S 5, strong and
-    weak decays), from nonzero states, against ``selective_scan_bwd_ref``:
+12d. the selective scan's backward (``csrc/ssm_scan_bwd.cu``, four
+    launches: carry pass, fold, chunk pass, reduction) on the forward
+    kernel's chunk states at hymba's training shape, bf16 and float32, each
+    with and without a final-state gradient, and at ragged shapes (a partial
+    block of chains, a ragged last chunk, S 5, strong and weak decays, T 1,
+    64, 65 and 4096), from nonzero states, against ``selective_scan_bwd_ref``:
     each gradient within 1e-5 of its largest entry, the sums over channels
     or tokens (dB, dC, dlog_a, dd_skip) within 1e-5 of the largest sum of
     their terms' magnitudes, a bf16 du one bf16 ulp more; every case called
-    twice, bit for bit; kernel, plain and bound times, the SFU's floor, each
-    kernel's traced time, shared memory, registers and spills (none);
+    twice, bit for bit; kernel (eager and from a CUDA graph over operands in
+    HBM), plain and bound times (the bound and the SFU's floor from what the
+    gradients need; the bytes and ex2 of the design's passes reckoned in the
+    log), each kernel's traced time, grid, blocks an SM, shared memory,
+    registers and spills (none);
 13. LM serving at full width through ``repro_torch.launch.serve.generate``:
     qwen3-14b (40 layers, d 5120, bf16, 14.77 B params), rwkv6-1.6b (24
     layers, d 2048), qwen2.5-32b (64 layers, 32.76 B params, QKV bias),
@@ -337,8 +341,8 @@ final line):
     remat), trained as (v) is: (y1) flat + fused, (y2) tree + fused, a
     warm-up and a timed round each and a traced one (the device alone) of
     (y1); launches required as reckoned (1024 layer passes: the selective
-    scan 2048 -- two forwards a pass --, its backward 2048 -- two kernels a
-    pass --, flash 2048 forward and 3072 backward); (y3) a reduced hymba
+    scan 2048 -- two forwards a pass --, its backward 4096 -- four kernels
+    a pass --, flash 2048 forward and 3072 backward); (y3) a reduced hymba
     round (float32, remat, T = 1100: windowed flash and the selective scan
     forward and backward) on the card against the CPU and fused against
     unfused, as phase 21;
@@ -1325,6 +1329,18 @@ def ssm_bwd_scales(ss, args, dy, dfin) -> dict:
 
 
 SSM_GRADS = ("du", "ddt", "dB", "dC", "dlog_a", "dd_skip", "dstate0")
+# The selective scan backward's four kernels, in launch order.
+SSM_BWD_PASSES = ("ssm_bwd_carry_kernel", "ssm_bwd_fold_kernel", "ssm_bwd_chunk_kernel",
+                  "ssm_bwd_reduce_kernel")
+# Phase 12d's ragged cases (B, T, Di, S, dt shift, d_final): a ragged last
+# chunk over a partial block of chains; S 5 with Di not 16-byte pieces;
+# strong decays (every chunk's decay product underflows to 0); weak decays;
+# one token; one whole chunk; a chunk of one token after a whole one; 64
+# chunks (the fold's longest carry here).
+SSM_BWD_RAGGED = ((2, 130, 40, 16, 0.0, True), (3, 50, 33, 5, 0.0, True),
+                  (2, 300, 64, 16, 3.0, True), (1, 700, 96, 16, -4.0, False),
+                  (1, 1, 40, 16, 0.0, True), (1, 64, 32, 16, 0.0, True),
+                  (1, 65, 40, 16, 0.0, True), (1, 4096, 64, 16, -2.0, False))
 
 
 def ssm_bwd_errors(torch, got, want, scales, udtype) -> dict:
@@ -1346,21 +1362,29 @@ def ssm_bwd_errors(torch, got, want, scales, udtype) -> dict:
 
 def phase_ssm_backward(torch, ss, logs: dict):
     """Phase 12d: the selective scan's backward (``csrc/ssm_scan_bwd.cu``,
-    two launches) on the forward kernel's chunk-start states, against
+    four launches: the carry pass, the fold, the chunk pass, the reduction)
+    on the forward kernel's chunk-start states, against
     ``selective_scan_bwd_ref`` (a float32 reverse loop on the card): at
-    hymba's training shape (u [1, 2048, 3200], S = 16) in bf16 without a
-    final-state gradient (training's case) and in float32 with one; at
+    hymba's training shape (u [1, 2048, 3200], S = 16) in bf16 and float32,
+    each without a final-state gradient (training's case) and with one; at
     ragged shapes (a partial block of chains and a ragged last chunk; S = 5
-    with Di not 16-byte pieces; strong decays; weak decays), every case from
-    a nonzero state. Each gradient within 1e-5 of its largest entry; dB, dC,
-    dlog_a and dd_skip within 1e-5 of the largest sum of their terms'
-    magnitudes (``ssm_bwd_scales``); a bf16 du one bf16 ulp more. A second
-    call gives the same bits. Then kernel, plain and bound times, each
-    kernel's traced time, registers and spills (none allowed) and shared
-    memory."""
+    with Di not 16-byte pieces; strong decays, where every chunk's decay
+    product underflows to 0; weak decays; one token; one whole chunk; 65
+    tokens; 64 chunks), every case from a nonzero state. Each gradient within
+    1e-5 of its largest entry; dB, dC, dlog_a and dd_skip within 1e-5 of the
+    largest sum of their terms' magnitudes (``ssm_bwd_scales``); a bf16 du
+    one bf16 ulp more. A second call gives the same bits. Then kernel (eager
+    and from a CUDA graph over operand sets that move four times the L2),
+    plain and bound times (the bound from what the gradients need, not from
+    what the design moves), the SFU's floor, the bytes and ex2 the design's
+    passes are reckoned to move and form (logged), and each kernel's traced
+    time, grid, blocks an SM, shared memory, registers and spills (none
+    allowed)."""
     from repro_torch.kernels import build
 
     bwd_lib = build.load("ssm_scan_bwd")
+    require(bwd_lib.selective_scan_bwd_state_interval() == ss.CHUNK,
+            "the backward reads states at another interval than the forward keeps them")
     gen = torch.Generator(device="cuda").manual_seed(124)
     Bt, Tt, Di, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ, HYMBA_DI, HYMBA_S
     worst = {}
@@ -1370,7 +1394,11 @@ def phase_ssm_backward(torch, ss, logs: dict):
         dy = torch.randn(B, T, D, generator=gen, device="cuda")
         dfin = torch.randn(B, D, Sr, generator=gen, device="cuda") if d_final else None
         _, _, states = ss.selective_scan(*args, keep_states=True)
+        before = ss.selective_scan_bwd.launches
         got = ss.selective_scan_bwd(*args, dy, dfin, states=states)
+        require(ss.selective_scan_bwd.launches == before + ss.BWD_LAUNCHES,
+                f"selective_scan_bwd at {tag}: {ss.selective_scan_bwd.launches - before} "
+                f"launches counted, expected {ss.BWD_LAUNCHES}")
         want = ss.selective_scan_bwd_ref(*args, dy, dfin)
         torch.cuda.synchronize()
         errs = ssm_bwd_errors(torch, got, want, ssm_bwd_scales(ss, args, dy, dfin), udtype)
@@ -1384,19 +1412,21 @@ def phase_ssm_backward(torch, ss, logs: dict):
             worst.setdefault(key, {})[n] = max(worst.get(key, {}).get(n, 0.0), e["abs"])
         return errs
 
-    for udtype, d_final in ((torch.bfloat16, False), (torch.float32, True)):
-        errs = check(Bt, Tt, Di, S, udtype, d_final, 0.0, f"the training shape, u {udtype}")
-        share = {n: float(f"{e['of_scale']:.3g}") for n, e in errs.items()}
-        log(f"selective_scan_bwd u {udtype} [{Bt},{Tt},{Di}] S {S} (training), nonzero state, "
-            f"{'a' if d_final else 'no'} final-state gradient: error over scale {share}; a "
-            f"second call bit for bit")
-    for B, T, D, Sr, shift, d_final in ((2, 130, 40, 16, 0.0, True), (3, 50, 33, 5, 0.0, True),
-                                        (2, 300, 64, 16, 3.0, True), (1, 700, 96, 16, -4.0, False)):
+    for udtype in (torch.bfloat16, torch.float32):
+        for d_final in (False, True):
+            errs = check(Bt, Tt, Di, S, udtype, d_final, 0.0,
+                         f"the training shape, u {udtype}, d_final {d_final}")
+            share = {n: float(f"{e['of_scale']:.3g}") for n, e in errs.items()}
+            log(f"selective_scan_bwd u {udtype} [{Bt},{Tt},{Di}] S {S} (training), nonzero "
+                f"state, {'a' if d_final else 'no'} final-state gradient: error over scale "
+                f"{share}; a second call bit for bit")
+    for B, T, D, Sr, shift, d_final in SSM_BWD_RAGGED:
         for udtype in (torch.bfloat16, torch.float32):
             check(B, T, D, Sr, udtype, d_final, shift, f"[{B},{T},{D}] S {Sr}, dt shift {shift}")
-    log("selective_scan_bwd ragged shapes (a partial block and a ragged chunk; S 5, Di 33; "
-        "strong and weak decays), u bf16 and f32, nonzero states: within 1e-5 of each "
-        "gradient's scale, a second call bit for bit")
+    log(f"selective_scan_bwd ragged shapes {[c[:4] for c in SSM_BWD_RAGGED]} (a partial block "
+        f"and a ragged chunk; S 5, Di 33; strong and weak decays; T 1, 64, 65, 4096), u bf16 "
+        f"and f32, nonzero states: within 1e-5 of each gradient's scale, a second call bit "
+        f"for bit")
 
     args = scan_inputs(torch, gen, Bt, Tt, Di, S, torch.bfloat16)
     dy = torch.randn(Bt, Tt, Di, generator=gen, device="cuda")
@@ -1404,23 +1434,44 @@ def phase_ssm_backward(torch, ss, logs: dict):
     t = timed(torch, lambda: ss.selective_scan_bwd(*args, dy, states=states),
               lambda: ss.selective_scan_bwd_ref(*args, dy), iters=20, plain_iters=1)
     elems = args[0].numel()
-    nc = states.shape[1]
-    # Read: u (bf16), dt, dy per (b, t, di); B, C per (b, t); log_a, d_skip;
-    # the states. Written: du (bf16), ddt; dB, dC; dlog_a, d_skip; dstate0.
-    nbytes = (elems * (2 + 4 + 4) + 2 * Bt * Tt * S * 4 + Di * S * 4 + Di * 4
-              + Bt * nc * Di * S * 4 + elems * (2 + 4) + 2 * Bt * Tt * S * 4 + Di * S * 4
-              + Di * 4 + Bt * Di * S * 4)
+    rows = 2 * Bt * Tt * S * 4                                   # B and C, or dB and dC
+    # The bound's bytes are what the gradients need, whatever the design:
+    # u (bf16), dt, dy, B, C, log_a, d_skip and state0 read; du (bf16), ddt,
+    # dB, dC, dlog_a, dd_skip and dstate0 written. The states the forward
+    # keeps for the recompute are a design's, and are not counted.
+    nbytes = (elems * (2 + 4 + 4) + rows + Di * S * 4 + Di * 4 + Bt * Di * S * 4
+              + elems * (2 + 4) + rows + Di * S * 4 + Di * 4 + Bt * Di * S * 4)
     # Per (b, t, di, s): the recompute's dt * a and (dt u) B and h's FMA, the
     # sweep's dt * a, g's FMA, the carry, dec h, dlog_a's FMA and its
     # product, du's and ddt's terms and their sums, dB's and dC's terms and
     # their sums: about 20 float32 operations, and two exponentials.
     flops = elems * S * 20
     t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    # Reckoned for this design from the library's own queries, not measured:
+    # the bound's bytes with the kept states in place of state0, the carry
+    # pass's second read of dt, dy and C, and each scratch float written and
+    # read once; the ex2 its passes form.
+    scratch = [bwd_lib.selective_scan_bwd_scratch_floats(i, Bt, Tt, Di, S) for i in range(3)]
+    design = (nbytes - Bt * Di * S * 4 + states.numel() * 4 + elems * 8 + rows // 2
+              + 2 * 4 * sum(scratch))
+    design_exps = bwd_lib.selective_scan_bwd_exp2_count(Bt, Tt, Di, S)
+    sets = cold_copies(torch, (*args, dy, states), design)
+    t["graph_ms"] = graph_ms(torch, [lambda a=a: ss.selective_scan_bwd(*a[:7], a[7], states=a[8])
+                                     for a in sets])
+    smem = {n: {"bf16": bwd_lib.selective_scan_bwd_smem_bytes(i, 1),
+                "f32": bwd_lib.selective_scan_bwd_smem_bytes(i, 0)}
+            for i, n in enumerate(SSM_BWD_PASSES)}
+    per_sm = {n: {"bf16": bwd_lib.selective_scan_bwd_blocks_per_sm(i, 1),
+                  "f32": bwd_lib.selective_scan_bwd_blocks_per_sm(i, 0)}
+              for i, n in enumerate(SSM_BWD_PASSES)}
+    grid = {n: bwd_lib.selective_scan_bwd_grid(i, Bt, Tt, Di, S)
+            for i, n in enumerate(SSM_BWD_PASSES)}
     t.update(bytes=nbytes, flops=flops, exps=2 * elems * S, library_ms=None,
              sfu_floor_ms=2 * elems * S / SFU_EXP2_PER_S * 1e3,
-             bound_share=t["bound_ms"] / t["ms"],
-             smem_bytes={"bf16": bwd_lib.selective_scan_bwd_smem_bytes(1),
-                         "f32": bwd_lib.selective_scan_bwd_smem_bytes(0)})
+             reckoned_design_bytes=design, reckoned_design_exps=design_exps,
+             bound_share=t["bound_ms"] / t["ms"], graph_bound_share=t["bound_ms"] / t["graph_ms"],
+             cold_sets=len(sets), smem_bytes=smem, blocks_per_sm=per_sm, grid=grid)
+    del sets
     trace = profile_round(torch, lambda: [ss.selective_scan_bwd(*args, dy, states=states)
                                           for _ in range(50)])
     t["kernel_ms"] = ({name: n["attributed"] / 1e3 / 50 for name, n in trace["by_name"].items()
@@ -1431,12 +1482,17 @@ def phase_ssm_backward(torch, ss, logs: dict):
                 f"{entry} spills registers: {spills}")
     t["ptxas"] = [f"{e}: {r}; {sp}" for e, r, sp in entries] or None
     log(f"selective_scan_bwd [{Bt},{Tt},{Di}] S {S}, u bf16, no final-state gradient: kernel "
-        f"{t['ms']:.4f} ms {t['ms_readings']} (traced, by kernel: {t['kernel_ms']}), plain "
-        f"{t['plain_ms']:.4f} ms {t['plain_ms_readings']}, bound {t['bound_ms']:.4f} ms "
-        f"({t['bound_by']}; {nbytes} bytes, {flops:.4g} FLOP; share {t['bound_share']:.3f}); "
-        f"the SFU's floor for its {t['exps']} exponentials {t['sfu_floor_ms']:.4f} ms; the "
-        f"chunk kernel's dynamic shared memory {t['smem_bytes']}; registers {t['ptxas']}; "
-        f"library: none")
+        f"{t['graph_ms']:.4f} ms from a CUDA graph over {t['cold_sets']} operand sets, "
+        f"{t['ms']:.4f} ms called eagerly {t['ms_readings']} (traced, by kernel: "
+        f"{t['kernel_ms']}), plain {t['plain_ms']:.4f} ms {t['plain_ms_readings']}, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {nbytes} bytes, {flops:.4g} FLOP; share "
+        f"{t['graph_bound_share']:.3f} of the graph time, {t['bound_share']:.3f} of the eager "
+        f"one); the SFU's floor for the gradients' {t['exps']} exponentials "
+        f"{t['sfu_floor_ms']:.4f} ms; reckoned, not measured: this design's passes move "
+        f"{design} bytes ({design / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s) and form "
+        f"{design_exps} exponentials ({design_exps / SFU_EXP2_PER_S * 1e3:.4f} ms); grid "
+        f"{grid} blocks, blocks an SM {per_sm}, dynamic shared memory {smem}; registers "
+        f"{t['ptxas']}; library: none")
     log_trace("  selective_scan_bwd, 50 calls (traced)", trace, top_n=4)
     del args, dy, states
     torch.cuda.empty_cache()
@@ -2137,7 +2193,9 @@ def lm_train_launches(cfg, n_update: int, rounds: int = 1) -> dict:
     and the dispatch's (``moe_combine``); the fused update launches once per
     leaf (tree) or dtype buffer (flat) per local step; a hybrid layer runs
     the selective scan's forward beside the flash forward and its backward's
-    two kernels beside the flash backward's three."""
+    four kernels beside the flash backward's three."""
+    from repro_torch.kernels import ssm_scan as ss
+
     G, K = LM_TRAIN_LEVELS
     passes = rounds * LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * G * K * cfg.num_layers
     forwards = passes * (2 if cfg.remat else 1)
@@ -2149,7 +2207,7 @@ def lm_train_launches(cfg, n_update: int, rounds: int = 1) -> dict:
             "rwkv6_scan_bwd": 4 * passes if ssm else 0,
             "mtgc_update_flat": rounds * LM_TRAIN_E * LM_TRAIN_H * n_update,
             "mtgc_update": 0, "selective_scan": forwards if hybrid else 0,
-            "selective_scan_bwd": 2 * passes if hybrid else 0,
+            "selective_scan_bwd": ss.BWD_LAUNCHES * passes if hybrid else 0,
             "moe_gather": forwards + passes if moe else 0,
             "moe_combine": forwards + passes if moe else 0,
             "moe_gate_grad": passes if moe else 0}
@@ -4733,7 +4791,7 @@ def main() -> int:
               * HYBRID_TRAIN_LAYERS)
     for run in lm_y:
         # Under remat: two forwards and a backward a layer pass.
-        want = {"selective_scan": 2 * passes, "selective_scan_bwd": 2 * passes,
+        want = {"selective_scan": 2 * passes, "selective_scan_bwd": ss.BWD_LAUNCHES * passes,
                 "flash_attention": 2 * passes, "flash_attention_bwd": 3 * passes}
         require({k: run["launches"][k] for k in want} == want,
                 f"({run['phase']}) launched {run['launches']}: {passes} layer passes, "
@@ -4843,7 +4901,9 @@ def main() -> int:
         "bound_by": ssb_t["bound_by"], "library_ms": None, "bound_share": ssb_t["bound_share"],
         "sfu_floor_ms": ssb_t["sfu_floor_ms"], "ms_readings": ssb_t["ms_readings"],
         "kernel_ms": ssb_t["kernel_ms"], "smem_bytes": ssb_t["smem_bytes"],
-        "ptxas": ssb_t["ptxas"],
+        "ptxas": ssb_t["ptxas"], "graph_ms": ssb_t["graph_ms"],
+        "graph_bound_share": ssb_t["graph_bound_share"], "grid": ssb_t["grid"],
+        "blocks_per_sm": ssb_t["blocks_per_sm"],
         "shape": f"u/du [{LM_TRAIN_BATCH},{LM_TRAIN_SEQ},{HYMBA_DI}] bf16, dt/dy/ddt f32, "
                  f"B/C [{LM_TRAIN_BATCH},{LM_TRAIN_SEQ},{HYMBA_S}] f32, on the forward's chunk "
                  "states, no final-state gradient (one hymba-1.5b training layer)"})

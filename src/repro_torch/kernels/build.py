@@ -196,8 +196,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "ssm_scan_bwd":
         lib.selective_scan_bwd_launch.argtypes = [p] * 19 + [i32] * 5 + [p]
         lib.selective_scan_bwd_launch.restype = i32
-        lib.selective_scan_bwd_smem_bytes.argtypes = [i32]
+        lib.selective_scan_bwd_smem_bytes.argtypes = [i32, i32]
         lib.selective_scan_bwd_smem_bytes.restype = i32
+        lib.selective_scan_bwd_blocks_per_sm.argtypes = [i32, i32]
+        lib.selective_scan_bwd_blocks_per_sm.restype = i32
+        lib.selective_scan_bwd_state_interval.argtypes = []
+        lib.selective_scan_bwd_state_interval.restype = i32
+        for fn in (lib.selective_scan_bwd_scratch_floats, lib.selective_scan_bwd_grid):
+            fn.argtypes, fn.restype = [i32] * 5, i64
+        lib.selective_scan_bwd_exp2_count.argtypes = [i32] * 4
+        lib.selective_scan_bwd_exp2_count.restype = i64
     elif name == "moe_dispatch":
         for fn in (lib.moe_gather_launch, lib.moe_combine_launch, lib.moe_gate_grad_launch):
             fn.argtypes = [p] * 4 + [i64, i32, i32, i32, p]

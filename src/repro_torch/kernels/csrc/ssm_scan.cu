@@ -85,7 +85,8 @@ constexpr int kChains = kThreads / kLanes;  // chains a block
 constexpr int kTile = 16;                   // tokens a ring stage
 constexpr int kStages = 4;                  // ring stages (kStages - 1 tiles ahead)
 constexpr int kGroup = 8;                   // tokens whose decays are formed together
-constexpr int kChunk = 64;                  // tokens between saved states
+constexpr int kChunk = 16;                  // tokens between saved states (ssm_scan_bwd.cu
+                                            // recomputes h that many at a time)
 static_assert((kLanes == 4 || kLanes == 2) && kPer % kQuad == 0, "whole quads a thread");
 static_assert(kTile % kGroup == 0 && kGroup % kLanes == 0 && kChunk % kTile == 0, "tiling");
 

@@ -24,11 +24,26 @@ that), form them token by token and never write them out.
 * :func:`selective_scan` / :func:`selective_scan_bwd` -- dispatch by device:
   a CPU tensor takes the plain version, a CUDA tensor launches the kernel
   (building it on first use) or raises. ``selective_scan.launches`` counts
-  one a forward call; ``selective_scan_bwd.launches`` two a backward call
-  (the chunk kernel and the fixed-order reduction).
+  one a forward call; ``selective_scan_bwd.launches`` :data:`BWD_LAUNCHES`
+  a backward call.
 * :class:`SelectiveScan` -- the differentiable scan that training runs: on
   the card its forward keeps h at the start of every chunk of
   :data:`CHUNK` tokens, from which the backward kernel recomputes h.
+
+The backward on an H100 80GB HBM3 at a 700 W limit. At hymba's training
+shape (u [1, 2048, 3200] bf16, S = 16) the gradients need 106.2 MB moved
+(their operands with state0 read once, their results written once: 0.0317
+ms at 3.35 TB/s) and 209.7 M decays formed on the special-function unit
+(0.050 ms). With B = 1 the work splits only over channels and T. The first design
+(commit 5b5dfe8) swept each channel's whole T in one block (100 blocks of
+16 warps, a thread a state) and took 0.494 ms. ``csrc/ssm_scan_bwd.cu``
+splits the reverse sweep into chunks of 64 tokens: a carry pass and a fold
+in chunk order give each chunk the gradient carry that enters it, then
+3,200 blocks of (chunk, 32 channels), four threads a channel and four
+states a thread, recompute h from the forward's states (kept every
+:data:`CHUNK` = 16 tokens) and sweep back; a fourth launch takes the sums
+over channels and chunks in a fixed order. It takes 0.242 ms, bound by
+the chunk pass's instruction issue (PERF.md).
 """
 from __future__ import annotations
 
@@ -38,8 +53,8 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.mtgc_update import _check, _raise_on, _stream
 
 MAX_STATE = 16                 # csrc/ssm_scan.cu kMaxS
-CHUNK = 64                     # csrc/ssm_scan.cu kChunk: tokens between saved states
-_BWD_CHAINS = 32               # csrc/ssm_scan_bwd.cu kChains: chains a block
+CHUNK = 16                     # csrc/ssm_scan.cu kChunk: tokens between saved states
+BWD_LAUNCHES = 4               # carry pass, fold, chunk pass, reduction
 _U_DTYPES = (torch.float32, torch.bfloat16)
 _F32 = (torch.float32,)
 
@@ -172,8 +187,8 @@ def selective_scan_bwd(u, dt, Bm, Cm, log_a, d_skip, state0, dy, d_final=None, *
     but du.
 
     A CPU tensor takes :func:`selective_scan_bwd_ref`. A CUDA tensor
-    launches ``csrc/ssm_scan_bwd.cu`` (two kernels, counted on
-    ``selective_scan_bwd.launches``) on ``states``, the chunk-start states
+    launches ``csrc/ssm_scan_bwd.cu`` (:data:`BWD_LAUNCHES` kernels, counted
+    on ``selective_scan_bwd.launches``) on ``states``, the chunk-start states
     the forward kernel kept, or, when ``states`` is None, on those of a
     forward launch made here."""
     if _device(u, "selective_scan_bwd") == "cpu":
@@ -194,20 +209,28 @@ def selective_scan_bwd(u, dt, Bm, Cm, log_a, d_skip, state0, dy, d_final=None, *
             t.zero_()
         dstate0.copy_(d_final if d_final is not None else torch.zeros_like(state0))
         return du, ddt, dB, dC, dlog_a, dd_skip, dstate0
-    part = torch.empty(-(-Di // _BWD_CHAINS) * B * T * 2 * MAX_STATE, dtype=torch.float32,
-                       device=dev)
-    dla_part = torch.empty(B * Di * S, dtype=torch.float32, device=dev)
-    dds_part = torch.empty(B * Di, dtype=torch.float32, device=dev)
-    err = load("ssm_scan_bwd").selective_scan_bwd_launch(
+    lib = load("ssm_scan_bwd")
+    scratch = bwd_scratch(lib, B, T, Di, S, dev)
+    err = lib.selective_scan_bwd_launch(
         u.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), log_a.data_ptr(),
         d_skip.data_ptr(), dy.data_ptr(), None if d_final is None else d_final.data_ptr(),
         states.data_ptr(), du.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        dlog_a.data_ptr(), dd_skip.data_ptr(), dstate0.data_ptr(), part.data_ptr(),
-        dla_part.data_ptr(), dds_part.data_ptr(), B, T, Di, S,
-        int(u.dtype == torch.bfloat16), _stream(dev))
+        dlog_a.data_ptr(), dd_skip.data_ptr(), dstate0.data_ptr(),
+        *(t.data_ptr() for t in scratch), B, T, Di, S, int(u.dtype == torch.bfloat16),
+        _stream(dev))
     _raise_on(err, "selective_scan_bwd")
-    selective_scan_bwd.launches += 2   # the chunk kernel, the reduction
+    selective_scan_bwd.launches += BWD_LAUNCHES
     return du, ddt, dB, dC, dlog_a, dd_skip, dstate0
+
+
+def bwd_scratch(lib, B, T, Di, S, device):
+    """The float32 scratch (``torch.empty``) of the backward library ``lib``
+    at (B, T, Di, S), sized by its ``selective_scan_bwd_scratch_floats``:
+    dB's and dC's partial sums over each block's chains; per (b, chunk, di,
+    s) the carry pass's L, the fold's carries and dlog_a's terms; per (b,
+    chunk, di) the sums of dt and dd_skip's terms."""
+    return tuple(torch.empty(lib.selective_scan_bwd_scratch_floats(i, B, T, Di, S),
+                             dtype=torch.float32, device=device) for i in range(3))
 
 
 class SelectiveScan(torch.autograd.Function):

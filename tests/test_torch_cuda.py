@@ -907,10 +907,10 @@ def test_reduced_hybrid_sharded_round_on_card_matches_cpu(cuda):
     and the selective SSM, 1100 tokens a microbatch): on each of the 16
     layer passes the flash forward and the selective scan launch twice
     (remat), the attention backward's three kernels and the scan backward's
-    two once."""
+    four once."""
     _reduced_round_on_card_matches_cpu(cuda, "hymba-1.5b", {
         fa.flash_attention: 2 * 16, fa.flash_attention_bwd: 3 * 16,
-        ss.selective_scan: 2 * 16, ss.selective_scan_bwd: 2 * 16})
+        ss.selective_scan: 2 * 16, ss.selective_scan_bwd: ss.BWD_LAUNCHES * 16})
 
 
 def test_reduced_moe_sharded_round_on_card_matches_cpu(cuda):
@@ -1427,8 +1427,11 @@ def _assert_ssm_bwd_close(got, want, scales, udtype):
     (1, 2048, 3200, 16, 0.0, False),  # hymba's training shape, as the model calls it
     (2, 130, 40, 16, 0.0, True),      # ragged last chunk, a partial block of chains
     (3, 50, 33, 5, 0.0, True),        # S < 16, Di not 16-byte pieces: plain loads
-    (2, 300, 64, 16, 3.0, True),      # strong decays
+    (2, 300, 64, 16, 3.0, True),      # strong decays: every chunk's decay product is 0
     (1, 700, 96, 16, -4.0, False),    # weak decays: a memory of about a hundred tokens
+    (1, 1, 40, 16, 0.0, True),        # one token: one chunk, no fold step
+    (1, 64, 32, 16, 0.0, True),       # one whole chunk of 64 tokens
+    (1, 4096, 64, 16, -2.0, False),   # 64 chunks: the fold's longest carry at this size
 ])
 @pytest.mark.parametrize("udtype", [torch.float32, torch.bfloat16])
 def test_selective_scan_bwd_kernel_matches_plain(cuda, B, T, Di, S, dt_shift, d_final, udtype):
@@ -1440,7 +1443,7 @@ def test_selective_scan_bwd_kernel_matches_plain(cuda, B, T, Di, S, dt_shift, d_
     before = ss.selective_scan_bwd.launches
     got = ss.selective_scan_bwd(*args, dy, dfin, states=states)
     torch.cuda.synchronize()
-    assert ss.selective_scan_bwd.launches == before + 2
+    assert ss.selective_scan_bwd.launches == before + ss.BWD_LAUNCHES
     _assert_ssm_bwd_close(got, ss.selective_scan_bwd_ref(*args, dy, dfin),
                           _bwd_scales(args, dy, dfin), udtype)
     again = ss.selective_scan_bwd(*args, dy, dfin)        # states from its own forward

@@ -54,14 +54,21 @@ BOUND = 1e-5
 FWD_CASES = ((1, 1, 8, 16, True, 0.0), (2, 37, 37, 16, False, 0.0), (2, 70, 16, 16, True, 0.0),
              (3, 50, 33, 5, False, 0.0), (1, 150, 24, 16, False, -4.0),
              (2, 129, 40, 16, True, 0.0))
-# Backward (B, T, Di, S, bf16, d_final, dt shift): three chunks with a ragged
-# last one over two blocks (one partial) in bf16; the plain-load tiles
-# (Di 37); S = 5 in one whole chunk; strong decays; weak decays over four
-# chunks; two chunks of one block through the 16-byte copies (the smallest
-# case that reuses a tile buffer: the race check's).
+# Backward (B, T, Di, S, bf16, d_final, dt shift): three chunks of 64 tokens
+# with a ragged last one over two chain groups (one partial) in bf16; the
+# plain-load tiles (Di 37); S = 5 in one whole chunk; strong decays; weak
+# decays over four chunks; two chunks of one group through the 16-byte
+# copies (the race check's). Then the carries' structure: one token; one
+# whole chunk (no fold step); 65 tokens (a chunk of one token after a whole
+# one) over a partial group; eleven chunks of one group at weak decays (the
+# longest fold, the carry crossing every chunk); S = 5 at strong decays in
+# bf16 (every chunk's decay product 2^(a sum dt) underflows to 0).
 BWD_CASES = ((1, 130, 40, 16, True, True, 0.0), (2, 45, 37, 16, False, True, 0.0),
              (1, 64, 32, 5, False, False, 0.0), (2, 100, 16, 16, False, True, 3.0),
-             (1, 200, 8, 16, True, False, -4.0), (1, 70, 16, 16, False, True, 0.0))
+             (1, 200, 8, 16, True, False, -4.0), (1, 70, 16, 16, False, True, 0.0),
+             (1, 1, 8, 16, True, True, 0.0), (1, 64, 32, 16, False, True, 0.0),
+             (1, 65, 40, 16, True, True, 0.0), (1, 650, 32, 16, False, True, -4.0),
+             (2, 150, 24, 5, True, True, 3.0))
 
 
 def translate(source: str) -> str:
@@ -187,12 +194,13 @@ def run_backward(lib, flib, B, T, Di, S, bf16, d_final, shift, seed=0) -> dict:
     u = args[0]
     got = [_nan(B, T, Di, dtype=u.dtype), _nan(B, T, Di), _nan(B, T, S), _nan(B, T, S),
            _nan(Di, S), _nan(Di), _nan(B, Di, S)]
-    part = torch.empty(-(-Di // 32) * B * T * 32)
-    dla_part, dds_part = torch.empty(B * Di * S), torch.empty(B * Di)
+    # Scratch starts as NaN too: a partial read before it is written shows.
+    scratch = [t.fill_(float("nan")) for t in ss.bwd_scratch(lib, B, T, Di, S, "cpu")]
     ptr = [a.data_ptr() for a in args[:6]] + [
         dy.data_ptr(), None if dfin is None else dfin.data_ptr(), states.data_ptr()]
-    err = lib.selective_scan_bwd_launch(*ptr, *(a.data_ptr() for a in got), part.data_ptr(),
-                                        dla_part.data_ptr(), dds_part.data_ptr(), B, T, Di, S,
+    assert lib.selective_scan_bwd_state_interval() == ss.CHUNK
+    err = lib.selective_scan_bwd_launch(*ptr, *(a.data_ptr() for a in got),
+                                        *(a.data_ptr() for a in scratch), B, T, Di, S,
                                         int(bf16), None)
     assert err == 0, f"selective_scan_bwd_launch returned {err}"
     want = ss.selective_scan_bwd_ref(*args, dy, dfin)

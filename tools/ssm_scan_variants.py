@@ -12,8 +12,9 @@ toolkit. It builds, side by side (one nvcc each, all started together):
   cp.async, the decays of 8 tokens formed together, one-warp blocks of 8
   chains);
 * ``lanes2``, ``tile32s2``, ``group4``: the same source with two threads a
-  chain (16 chains a block), 2 ring stages of 32 tokens, or the decays of 4
-  tokens formed together;
+  chain (16 chains a block), 2 ring stages of 32 tokens (and states every
+  32 tokens, which this tool does not read), or the decays of 4 tokens
+  formed together;
 * each ``--source NAME=PATH``: another ``ssm_scan.cu`` with the same
   ``selective_scan_launch`` entry point, such as the first design's
   (``git show eaa80de:src/repro_torch/kernels/csrc/ssm_scan.cu``).
@@ -54,7 +55,8 @@ VARIANTS = {
     "shipped": [],
     "lanes2": [("constexpr int kLanes = 4;", "constexpr int kLanes = 2;")],
     "tile32s2": [("constexpr int kTile = 16;", "constexpr int kTile = 32;"),
-                 ("constexpr int kStages = 4;", "constexpr int kStages = 2;")],
+                 ("constexpr int kStages = 4;", "constexpr int kStages = 2;"),
+                 ("constexpr int kChunk = 16;", "constexpr int kChunk = 32;")],
     "group4": [("constexpr int kGroup = 8;", "constexpr int kGroup = 4;")],
 }
 PREFILL = (cs.LM_BATCH, cs.LM_PROMPT, cs.HYMBA_DI, cs.HYMBA_S)
