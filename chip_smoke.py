@@ -17,15 +17,19 @@ checkpoints, and on the multilevel backend over a 4 x 5 x 5 tree. Depth is
 cut: E = 2
 group rounds of H = 5 local steps, 1 or 2 global rounds per path. The
 serving phases serve qwen3-14b, rwkv6-1.6b, qwen2.5-32b, gemma3-27b,
-hymba-1.5b and granite-moe-1b-a400m at their full widths and depths.
+hymba-1.5b, granite-moe-1b-a400m, whisper-medium (with its stub frames)
+and internvl2-26b (with its stub patches) at their full widths and depths.
 After them it trains glm4-9b
 at full width (depth 2 of 40) on the sharded backend, plain, with compressed uploads, under partial
 participation, under faults, with async group rounds and with a virtual
 client population; rwkv6-1.6b at full width and full depth (24
 layers), through the scan's backward kernel; and granite-moe-1b-a400m at
 full width and full depth (24 layers), through the moe dispatch kernels;
-and hymba-1.5b at full width and full depth (32 layers), through the
-selective scan's forward and backward kernels.
+hymba-1.5b at full width and full depth (32 layers), through the
+selective scan's forward and backward kernels; and whisper-medium at full
+width and full depth (24 encoder and 24 decoder layers) with its frames in
+every sample. The tree variants of the last three ((v2), (w2), (y2)) run 4
+layers, so that the script stays under 1,000 s.
 The CNN's learning rate is 0.01: at 0.1 the loss of this CNN on the
 synthetic images spikes into the thousands and then settles at chance (ln
 10) in both packages
@@ -146,7 +150,10 @@ final line):
     tensor-core attention within half a bfloat16 ulp plus 5e-5 of the plain
     version in float32 on the same inputs), and at small ragged shapes in
     both dtypes (GQA, MQA, a window that is not tile-aligned,
-    ``q_offset > 0``, S and T not multiples of the tile or chunk); then
+    ``q_offset > 0``, S and T not multiples of the tile or chunk), and in
+    bfloat16 at (f5)'s and (f6)'s prefill shapes (q [4, 416, 16, 64]
+    against a [4, 448, 16, 64] cache, MHA; q [4, 2304, 48, 128] against a
+    [4, 2336, 8, 128] cache), within half an ulp plus 5e-5; then
     a strong-decay scan (logw in [-20, -5]) at the serving shape against
     ``rwkv6_chunk_parallel_ref`` (the kernel's arithmetic in PyTorch; the
     plain version's chunk-wide sums lose more than the tolerance there);
@@ -227,14 +234,25 @@ final line):
     the prefill (8192 tokens: capacity 2560) and in each decode step
     (dropless), 768 each in all; finite logits, tokens in
     range; init s, prefill ms, decode ms per step, tokens/s, the peak and
-    the memory held before the phase, busy shares and traces;
+    the memory held before the phase, busy shares and traces. Then (f5)
+    whisper-medium (24 + 24 layers, d 1024, 1.015 B params): 4 requests of
+    1500 stub frames, a 416-token prompt and 32 generated (448 positions,
+    its text context), the encoder run once at admission and timed apart,
+    its output the ``memory`` of the prefill and of every decode step;
+    flash once a decoder layer in the prefill (24; the encoder and the
+    cross-attention are plain products, as the reference's); and (f6)
+    internvl2-26b (48 layers, d 6144, 19.93 B params): 4 requests of 256
+    stub patch embeddings (width 3200, through the projector) before 2048
+    prompt tokens, 32 generated, the cache at 2336 positions; flash 48;
 14. reduced qwen3-14b, rwkv6-1.6b, qwen2.5-32b, gemma3-27b (7 layers: one
     global), hymba-1.5b and granite-moe-1b-a400m (float32) from the same
     params on the card and
     on the CPU: prefill logits within rtol/atol 1e-4, 8 greedy tokens
     equal;
 15. the attention backward at glm4-9b's training shape (q [1, 2048, 32,
-    128], k/v [1, 2048, 2, 128], causal) in float32 and bfloat16: dq, dk,
+    128], k/v [1, 2048, 2, 128], causal) in float32 and bfloat16, and in
+    bfloat16 at whisper's (q, k/v [1, 2048, 16, 64], MHA) and internvl2's
+    (q [1, 2304, 48, 128], k/v [1, 2304, 8, 128]): dq, dk,
     dv against ``flash_attention_bwd_ref`` within 1e-5 of each gradient's
     largest entry (bf16: beyond the outputs' own half-ulp rounding), the
     forward's output within 5e-5 (bf16: plus half an ulp) and its row
@@ -318,39 +336,61 @@ final line):
     layers (1.678 B params, bf16, remat, random params from seed 0),
     trained as (h)/(i) are (2 x 2 clients, E = H = A = 2, lr 0.05, 1 x 2048
     tokens a microbatch): (v1) flat + fused (two state buffers: bf16 and
-    the float32 ``u``/``decay_base``), (v2) tree + fused; a warm-up and a
-    timed round each, and a traced round of (v1) (the trace records the
-    device alone: the round makes about 283,000 launches); launches required as reckoned
-    (``rwkv6_scan`` 4608 and its backward 3072 over 768 layer passes,
-    ``mtgc_update_flat`` 8 on (v1), 76 leaf launches on (v2)); finite
+    the float32 ``u``/``decay_base``), (v2) tree + fused at 4 layers; a
+    warm-up and a timed round each, and a traced round of (v1) (the trace
+    records the device alone: the round makes about 283,000 launches);
+    launches required as reckoned (on (v1) ``rwkv6_scan`` 4608 and its
+    backward 3072 over 768 layer passes, ``mtgc_update_flat`` 8; on (v2)
+    over 128 passes, 76 leaf launches); finite
     losses and params, round ms, tokens/s, peak, busy share and the scan's
     shares; (v3) a reduced rwkv6 round (float32, remat, chunk 64, T = 1100)
     on the card against the CPU and fused against unfused, as phase 21;
 24. phase (w), moe training: granite-moe-1b-a400m at its published widths
     and all 24 layers (1.386 B params, bf16, remat), trained as (v) is:
-    (w1) flat + fused, (w2) tree + fused, a warm-up and a timed round each
-    and a traced one (the device alone) of (w1); launches required as
-    reckoned (768
-    layer passes: ``moe_gather`` and ``moe_combine`` 2304 each -- two
-    forwards and one backward a pass --, ``moe_gate_grad`` 768, flash 1536
-    forward and 2304 backward); (w3) a reduced granite round (float32,
+    (w1) flat + fused, (w2) tree + fused at 4 layers, a warm-up and a timed
+    round each and a traced one (the device alone) of (w1); launches
+    required as reckoned ((w1)'s 768 layer passes: ``moe_gather`` and
+    ``moe_combine`` 2304 each -- two forwards and one backward a pass --,
+    ``moe_gate_grad`` 768, flash 1536 forward and 2304 backward); (w3) a
+    reduced granite round (float32,
     remat, T = 1100, capacity routing) on the card against the CPU and
     fused against unfused, as phase 21;
 25. phase (y), hybrid training: hymba-1.5b at its published widths and all
     32 layers (d 1600, Di 3200, S 16, 25 / 5 heads of 64, window 1024; bf16,
-    remat), trained as (v) is: (y1) flat + fused, (y2) tree + fused, a
-    warm-up and a timed round each and a traced one (the device alone) of
-    (y1); launches required as reckoned (1024 layer passes: the selective
+    remat), trained as (v) is: (y1) flat + fused, (y2) tree + fused at 4
+    layers, a warm-up and a timed round each and a traced one (the device
+    alone) of (y1); launches required as reckoned ((y1)'s 1024 layer passes: the selective
     scan 2048 -- two forwards a pass --, its backward 4096 -- four kernels
     a pass --, flash 2048 forward and 3072 backward); (y3) a reduced hymba
     round (float32, remat, T = 1100: windowed flash and the selective scan
     forward and backward) on the card against the CPU and fused against
     unfused, as phase 21;
+26. phase (z), audio training: whisper-medium at its published widths and
+    all 24 + 24 layers (bf16, remat in the decoder, none in the encoder, as
+    the reference's scan), trained as (v) is, ``pack_arrays`` carrying a
+    stub frame embedding [1500, 1024] beside every sample's 2048 tokens:
+    (z1) flat + fused, a warm-up, a timed and a traced round (the device
+    alone), (z2) tree + fused, a warm-up and a timed round; launches
+    required as reckoned (768 decoder layer passes: flash 1536 forward and
+    2304 backward; ``mtgc_update_flat`` 4 on (z1)'s one bf16 buffer, 108 on
+    (z2)'s 27 leaves); the encoder's gradient on one packed sample of the
+    trained state finite and nonzero in every leaf;
+27. phase (z3): a reduced whisper round (frames) and a reduced internvl2
+    round (patches) on the card against the CPU and fused against unfused,
+    as phase 21; the reduced models' loss and every gradient with the stub
+    at 1100 text tokens, their prefill logits and 8 greedy tokens card
+    against CPU; internvl2 at full width with 2 of its 48 layers (2.0 B
+    params, bf16): the loss and backward with 256 patches before 2048
+    tokens (flash q [1, 2304, 48, 128], k/v [1, 2304, 8, 128]), finite
+    gradients, the projector's nonzero, the loss and every gradient against
+    the same model's with the attention kernels' plain versions swapped in
+    (VLM_LOSS_GAP of the loss, VLM_GRAD_GAP of each gradient's largest
+    entry), its time and peak;
 22. a JSON line of the serving and training runs, one per phase of 18-20,
     (n), (p), (q) and (s), one of (m), one of (o), one of (r), one of (t),
-    one of (u), one each of (v1), (v2), (v3), (w1), (w2), (w3), (y1), (y2)
-    and (y3), and one per kernel, then ``{"ok": true, "device": {...}}``
-    last.
+    one of (u), one each of (v1), (v2), (v3), (w1), (w2), (w3), (y1), (y2),
+    (y3), (z1), (z2) and (z3), and one per kernel, then ``{"ok": true,
+    "device": {...}}`` last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``) for the whole run, so every
@@ -400,6 +440,27 @@ MOE_ARCH, MOE_LAYERS, MOE_TRAIN_TOKENS = "granite-moe-1b-a400m", 24, LM_TRAIN_BA
 # trained as rwkv6-1.6b is; its selective scan and the scan's backward are
 # held at the training shape (one microbatch's tokens).
 HYBRID_TRAIN_ARCH, HYBRID_TRAIN_LAYERS = "hymba-1.5b", 32
+# The tree variants (v2), (w2) and (y2) run 4 layers (their flat variants
+# keep full depth), so that the script stays under 1,000 s with (f5)-(z3).
+TREE_VARIANT_LAYERS = 4
+# (f5), (z): whisper-medium served (a 416-token prompt and 32 generated: its
+# 448-position text context; 1500 stub frames a request, encoded once at
+# admission) and trained at full width and depth (24 + 24 layers) with its
+# frames in every sample. (f6), (z3): internvl2-26b served at full width and
+# all 48 layers (256 stub patch embeddings before 2048 prompt tokens), and
+# its loss and backward at full width with 2 of the 48 layers.
+AUDIO_ARCH, AUDIO_LAYERS, AUDIO_PROMPT = "whisper-medium", 24, 416
+# whisper's params tree: 14 stacked decoder leaves (3 norms, self- and
+# cross-attention's 8 matrices, 3 of the MLP), 9 stacked encoder leaves,
+# embed, unembed, ln_f and enc_pos.
+AUDIO_LEAVES = 27
+VLM_ARCH, VLM_LAYERS, VLM_LOSS_LAYERS = "internvl2-26b", 48, 2
+# (z3)'s full-width internvl2 loss and gradients with the attention kernels
+# against the same bf16 model with their plain versions: relative gap of the
+# loss, and each gradient's largest gap over its largest entry. Read on an
+# H100 at 6.3e-6 and 0.0115 at worst (the unembedding's; bf16 roundings,
+# 1-2 ulps of the largest entry); the limits are 8 and 4 times that.
+VLM_LOSS_GAP, VLM_GRAD_GAP = 5e-5, 5e-2
 # The special-function unit's 2^x: 16 results a clock on each of the H100
 # SXM's 132 SMs (the CUDA programming guide's throughput table for compute
 # capability 9.0) at its 1.98 GHz boost clock, as tools/sfu_rate.cu measures
@@ -948,6 +1009,8 @@ def phase_lm_kernels(torch, fa, rs):
     then times at the serving shapes."""
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_arch
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
 
@@ -1008,6 +1071,31 @@ def phase_lm_kernels(torch, fa, rs):
             errs[key] = max(errs[key], (got - want).abs().max().item())
     log("flash_attention small ragged shapes (GQA, MQA, window 64/100/9, q_offset 30/40/7, "
         "ragged S), f32 and bf16: within 5e-5 (bf16: plus half an ulp)")
+    # The prefill calls of (f5) and (f6) in bf16, the serving dtype: whisper's
+    # self-attention (MHA at head size 64) and internvl2's (6 query heads a kv
+    # head at 128, the patches' positions before the prompt's), each cache's
+    # last LM_GEN slots not yet written; against the plain version in float32
+    # on the same inputs, within half an ulp plus 5e-5.
+    for arch, t in ((AUDIO_ARCH, AUDIO_PROMPT),
+                    (VLM_ARCH, get_arch(VLM_ARCH).vision_tokens + LM_PROMPT)):
+        c = get_arch(arch)
+        h, kv, dh, s = c.num_heads, c.num_kv_heads, c.d_head, t + LM_GEN
+        q = randn(LM_BATCH, t, h, dh).bfloat16()
+        k, vv = randn(LM_BATCH, s, kv, dh).bfloat16(), randn(LM_BATCH, s, kv, dh).bfloat16()
+        k[:, t:] = 0.0
+        vv[:, t:] = 0.0
+        got = fa.flash_attention(q, k, vv).float()
+        want = fa.flash_attention_ref(q.float(), k.float(), vv.float())
+        err = (got - want).abs()
+        excess = (err - 2.0 ** -8 * want.abs()).max().item()
+        errs[f"flash_attention/{arch}"] = err.max().item()
+        errs["flash_attention"] = max(errs["flash_attention"], err.max().item())
+        log(f"flash_attention bf16 at {arch}'s prefill, q [{LM_BATCH},{t},{h},{dh}] kv "
+            f"[{LM_BATCH},{s},{kv},{dh}] causal: max |kernel - plain in f32| "
+            f"{errs[f'flash_attention/{arch}']} (beyond half an ulp: {excess})")
+        require(excess < 5e-5, f"flash_attention bf16 at {arch}'s prefill shape is off by more "
+                               f"than half an ulp + 5e-5")
+        del q, k, vv, got, want, err
 
     # RWKV-6 at the serving shape, in the model's [B, T, H, Dh] layout, from
     # a nonzero state; the decays are the model's -exp(-1 + tanh(.)).
@@ -1939,12 +2027,29 @@ def serve_launches(fa, rw, ss, md) -> dict:
             "moe_gate_grad": md.moe_gate_grad.launches}
 
 
-def phase_serve(torch, np, arch, counter):
-    """Phase 13: serve the full-width ``arch`` through ``generate``: warm-up
-    with 2 tokens, then the main path (counts set to 0 just before, read
-    just after), with the launches of the prefill recorded apart.
-    ``counter()`` returns the launch counts by kernel; the device memory
-    held when the phase starts is logged beside the peak."""
+def serve_stub(torch, np, cfg, batch: int, seed: int) -> dict:
+    """The modality stub a request of ``cfg`` brings (float32 on the card,
+    from a numpy seed): whisper's 1500 frame embeddings, internvl2's 256
+    patch embeddings of width 3200; none for the other families."""
+    rng = np.random.default_rng(seed)
+    if cfg.arch_type == "audio":
+        shape, key = (batch, cfg.encoder_frames, cfg.d_model), "frames"
+    elif cfg.arch_type == "vlm":
+        shape, key = (batch, cfg.vision_tokens, cfg.vision_dim), "patches"
+    else:
+        return {}
+    return {key: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()}
+
+
+def phase_serve(torch, np, arch, counter, prompt: int = LM_PROMPT):
+    """Phase 13, (f5) and (f6): serve the full-width ``arch`` through
+    ``generate`` (``prompt`` tokens a request, whisper's frames and
+    internvl2's patches beside them): warm-up with 2 tokens, then the main
+    path (counts set to 0 just before, read just after), with the launches
+    of the prefill recorded apart. ``counter()`` returns the launch counts
+    by kernel; the device memory held when the phase starts is logged
+    beside the peak; whisper's encoder, run once at admission, is timed
+    apart from the prefill."""
     from repro_torch.configs import get_arch
     from repro_torch.core.tree import tree_leaves
     from repro_torch.kernels import ops
@@ -1963,7 +2068,9 @@ def phase_serve(torch, np, arch, counter):
     init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(t.numel() for t in tree_leaves(params))
     toks = torch.from_numpy(np.random.default_rng(13).integers(
-        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).cuda()
+        0, cfg.vocab_size, (LM_BATCH, prompt)).astype(np.int32)).cuda()
+    stub = serve_stub(torch, np, cfg, LM_BATCH, 13)
+    P = cfg.vision_tokens if "patches" in stub else 0
     in_prefill = []
 
     def prefill(p, batch, cache):
@@ -1972,10 +2079,10 @@ def phase_serve(torch, np, arch, counter):
         return out
 
     spied = bundle._replace(prefill=prefill)
-    serve.generate(spied, params, toks, 2)                  # warm-up
+    serve.generate(spied, params, toks, 2, **stub)          # warm-up
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    res = serve.generate(spied, params, toks, LM_GEN)
+    res = serve.generate(spied, params, toks, LM_GEN, **stub)
     launches, prefill_launches = counter(), in_prefill[-1]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     logits = res.prefill_logits.float()
@@ -1986,33 +2093,44 @@ def phase_serve(torch, np, arch, counter):
             and int(tok.max()) < cfg.vocab_padded, f"{arch}: generated tokens out of range")
     require(bool(torch.isfinite(res.last_logits.float()).all()),
             f"{arch}: the last decode step's logits are not finite")
-    # Traces of one prefill and of one decode step after it.
-    cache = bundle.init_cache(LM_BATCH, LM_PROMPT + 1)
+    # Traces of one prefill and of one decode step after it (whisper's
+    # encoder output computed once before them, as at admission).
+    cache = bundle.init_cache(LM_BATCH, P + prompt + 1)
     with torch.no_grad():
-        pre = profile_round(torch, lambda: bundle.prefill(params, {"tokens": toks}, cache))
+        extra = ({"memory": bundle.memory(params, {"frames": stub["frames"]})}
+                 if "frames" in stub else {})
+        pre = profile_round(torch, lambda: bundle.prefill(
+            params, {"tokens": toks, **extra, **{k: v for k, v in stub.items()
+                                                 if k == "patches"}}, cache))
         dec = profile_round(torch, lambda: bundle.decode_step(
-            params, {"token": tok[:, :1], "index": LM_PROMPT}, cache))
-    del cache
+            params, {"token": tok[:, :1], "index": P + prompt, **extra}, cache))
+    del cache, extra
     step_ms = res.decode_ms / (LM_GEN - 1)
     out = {"arch": arch, "params": n_params, "init_s": init_s, "prefill_ms": res.prefill_ms,
-           "decode_ms_per_step": step_ms,
-           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / res.prefill_ms * 1e3,
+           "decode_ms_per_step": step_ms, "prompt": prompt,
+           "stub": {k: list(v.shape) for k, v in stub.items()},
+           "encode_ms": res.encode_ms if "frames" in stub else None,
+           "prefill_tokens_per_s": LM_BATCH * prompt / res.prefill_ms * 1e3,
            "decode_tokens_per_s": LM_BATCH / step_ms * 1e3,
-           "tokens_per_s": LM_BATCH * LM_GEN / (res.prefill_ms + res.decode_ms) * 1e3,
+           "tokens_per_s": (LM_BATCH * LM_GEN
+                            / (res.encode_ms + res.prefill_ms + res.decode_ms) * 1e3),
            "peak_gb": peak_gb, "init_peak_gb": init_peak_gb, "held_gb": held_gb,
            "launches": launches, "prefill_launches": prefill_launches,
            "prefill_busy_share": pre["busy"] / pre["wall_us"] if pre else None,
            "decode_busy_share": dec["busy"] / dec["wall_us"] if dec else None,
            "sample": tok[0, :8].tolist()}
+    with_stub = "".join(f" + {k} {list(v.shape[1:])}" for k, v in stub.items())
+    enc = f", encoder at admission {res.encode_ms:.1f} ms" if "frames" in stub else ""
     log(f"serve {arch} ({n_params / 1e9:.2f} B params, init {init_s:.1f} s): batch {LM_BATCH} x "
-        f"prompt {LM_PROMPT}, {LM_GEN} generated: prefill {res.prefill_ms:.1f} ms, decode "
-        f"{step_ms:.2f} ms/step, {out['tokens_per_s']:.1f} generated tokens/s end to end, "
+        f"prompt {prompt}{with_stub}, {LM_GEN} generated: prefill {res.prefill_ms:.1f} ms, "
+        f"decode {step_ms:.2f} ms/step{enc}, {out['tokens_per_s']:.1f} generated tokens/s end "
+        f"to end, "
         f"peak memory {peak_gb:.2f} GB (init {init_peak_gb:.2f} GB; {held_gb:.2f} GB held "
         f"before the phase); kernel launches {launches} ({prefill_launches} in the prefill); "
         f"tokens[0] {out['sample']}")
     log_trace(f"  {arch} prefill (traced)", pre)
     log_trace(f"  {arch} decode step (traced)", dec)
-    del params, res
+    del params, res, stub
     torch.cuda.empty_cache()
     return out
 
@@ -2048,11 +2166,13 @@ def phase_lm_card_vs_cpu(torch, np, convert):
 
 def phase_lm_backward(torch, fa):
     """Phase 15: the attention backward (and the forward's row statistics)
-    against their plain versions at the training shape, the autograd
+    against their plain versions at the training shapes, the autograd
     Function on the card against the plain versions on the CPU at a reduced
     shape, then the backward's time against its bound, its plain version and
     the backward of ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(15)
@@ -2064,7 +2184,12 @@ def phase_lm_backward(torch, fa):
     q32, k32, v32, do32 = randn(B, T, H, Dh), randn(B, T, Kv, Dh), randn(B, T, Kv, Dh), \
         randn(B, T, H, Dh)
     errs = {}
-    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+
+    def check(q32, k32, v32, do32, dt, tag, case):
+        """The forward with statistics and the backward against their plain
+        versions at one shape, in dtype ``dt``."""
+        b, t, h, dh = q32.shape
+        kv = k32.shape[2]
         q, k, v, do = (a.to(dt) for a in (q32, k32, v32, do32))
         o, m, l = fa.flash_attention(q, k, v, return_stats=True)
         wo, wm, wl = fa.flash_attention_ref(q.float(), k.float(), v.float(), block=64,
@@ -2073,8 +2198,8 @@ def phase_lm_backward(torch, fa):
         el = ((l - wl).abs() / wl).max().item()
         # The statistics to float32 rounding (bf16: the base-2 exponentials
         # of the tensor-core kernel): |dm| <= 1e-5, |dl| / l <= 1e-5.
-        require(em <= 1e-5 and el <= 1e-5, f"flash_attention {tag} row statistics differ: "
-                f"max |dm| {em}, max |dl|/l {el}")
+        require(em <= 1e-5 and el <= 1e-5, f"flash_attention {tag} row statistics differ at "
+                f"{case}: max |dm| {em}, max |dl|/l {el}")
         # The output as in phase 12: within 5e-5 of the plain version in
         # float32 (bf16: plus half an ulp, the output's own rounding).
         half_ulp = 2.0 ** -8 if dt == torch.bfloat16 else 0.0
@@ -2082,7 +2207,7 @@ def phase_lm_backward(torch, fa):
         errs[f"{tag}/o"] = eo.max().item()
         eo = (eo - half_ulp * wo.abs()).max().item()
         require(eo < 5e-5, f"flash_attention {tag} output differs from its plain version at "
-                f"the training shape by {eo} beyond {'half an ulp' if half_ulp else 'nothing'}")
+                f"{case} by {eo} beyond {'half an ulp' if half_ulp else 'nothing'}")
         del wo
         got = fa.flash_attention_bwd(q, k, v, o, do, m, l)
         again = fa.flash_attention_bwd(q, k, v, o, do, m, l)
@@ -2091,7 +2216,7 @@ def phase_lm_backward(torch, fa):
         torch.cuda.synchronize()
         # No atomics: a second call on the same inputs gives the same bits.
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
-                f"flash_attention_bwd {tag}: two calls on the same inputs differ")
+                f"flash_attention_bwd {tag}: two calls on the same inputs differ at {case}")
         del again
         worst = 0.0
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -2103,14 +2228,29 @@ def phase_lm_backward(torch, fa):
             worst = max(worst, rel)
             # float32 rounding: within 1e-5 of the gradient's largest entry.
             require(rel <= 1e-5, f"flash_attention_bwd {tag} {name} differs from its plain "
-                    f"version: {rel} of max |{name}| {scale}")
+                    f"version at {case}: {rel} of max |{name}| {scale}")
             errs[f"{tag}/{name}"] = (g.float() - w).abs().max().item()
-        log(f"flash_attention_bwd {tag} q [{B},{T},{H},{Dh}] k/v [{B},{T},{Kv},{Dh}] causal: "
-            f"max abs err dq {errs[f'{tag}/dq']:.3g} dk {errs[f'{tag}/dk']:.3g} dv "
+        log(f"flash_attention_bwd {tag} ({case}) q [{b},{t},{h},{dh}] k/v [{b},{t},{kv},{dh}] "
+            f"causal: max abs err dq {errs[f'{tag}/dq']:.3g} dk {errs[f'{tag}/dk']:.3g} dv "
             f"{errs[f'{tag}/dv']:.3g} (worst beyond the output rounding: {worst:.3g} of the "
             f"largest entry); forward max |do| {errs[f'{tag}/o']:.3g}, statistics max |dm| "
             f"{em:.3g}, max |dl|/l {el:.3g}")
-    errs["flash_attention_bwd"] = max(errs[f"bf16/{n}"] for n in ("dq", "dk", "dv"))
+
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        check(q32, k32, v32, do32, dt, tag, "glm4-9b")
+    # The training calls of (z1)/(z2) and (z3) in bf16, the training dtype:
+    # whisper's decoder self-attention (MHA at head size 64, 2048 tokens)
+    # and internvl2's (6 query heads a kv head, 256 patches before 2048
+    # tokens).
+    for arch, t in ((AUDIO_ARCH, LM_TRAIN_SEQ),
+                    (VLM_ARCH, get_arch(VLM_ARCH).vision_tokens + LM_TRAIN_SEQ)):
+        c = get_arch(arch)
+        h, kv, dh = c.num_heads, c.num_kv_heads, c.d_head
+        check(randn(1, t, h, dh), randn(1, t, kv, dh), randn(1, t, kv, dh), randn(1, t, h, dh),
+              torch.bfloat16, f"bf16/{arch}", arch)
+    errs["flash_attention_bwd"] = max(errs[f"{tag}/{n}"] for n in ("dq", "dk", "dv")
+                                      for tag in ("bf16", f"bf16/{AUDIO_ARCH}",
+                                                  f"bf16/{VLM_ARCH}"))
     errs["flash_attention_bwd/f32"] = max(errs[f"f32/{n}"] for n in ("dq", "dk", "dv"))
 
     # The Function on the card against the plain versions on the CPU.
@@ -2429,13 +2569,53 @@ def replica_fingerprints(torch, fields, replicas) -> list:
     return out
 
 
+def pack_lm_frames(torch, np, engine, cfg, toks, rng):
+    """Whisper's training data: ``LM_TRAIN_SEQ``-token windows of the
+    stream (targets shifted by one) beside a frame-embedding stub
+    ``[encoder_frames, d_model]`` a sample (float32, from ``rng``), four
+    samples a client, through ``engine.pack_arrays``."""
+    G, K = LM_TRAIN_LEVELS
+    per_client = 4
+    n = G * K * per_client
+    starts = rng.integers(0, len(toks) - LM_TRAIN_SEQ - 1, size=n)
+    win = np.stack([toks[s:s + LM_TRAIN_SEQ + 1] for s in starts]).astype(np.int32)
+    frames = rng.standard_normal((n, cfg.encoder_frames, cfg.d_model), dtype=np.float32)
+    pools = [[np.arange((g * K + k) * per_client, (g * K + k + 1) * per_client)
+              for k in range(K)] for g in range(G)]
+    return engine.pack_arrays(
+        {"tokens": win[:, :-1], "targets": win[:, 1:], "frames": frames}, pools,
+        batch_size=LM_TRAIN_BATCH, shards=2, rng=rng, generator=torch.Generator().manual_seed(1))
+
+
+def encoder_grad(torch, bundle, state, data) -> dict:
+    """The whisper loss's gradient on the encoder's leaves (and its learned
+    positions) at replica (0, 0) of the trained state, on the first packed
+    sample with its frames: finite and not all zero."""
+    from repro_torch.core.packer import is_flat
+    from repro_torch.core.tree import tree_leaves, tree_map
+
+    tree = state.params.to_tree() if is_flat(state.params) else state.params
+    p = tree_map(lambda t: t[0, 0].detach().requires_grad_(), tree)
+    leaves = tree_leaves({"encoder": p["encoder"], "enc_pos": p["enc_pos"]})
+    with torch.enable_grad():
+        loss = bundle.loss(p, {k: v[0, 0, 0, 0] for k, v in data.arrays.items()})
+        grads = torch.autograd.grad(loss, leaves)
+    sq = float(sum(torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in grads))
+    fz = [finite_and_nonzero(torch, g) for g in grads]
+    require(all(f for f, _ in fz) and all(z for _, z in fz),
+            "the encoder's gradient is not finite, or a leaf of it is all zero")
+    return {"loss": float(loss.detach()), "encoder_grad_norm": sq ** 0.5, "leaves": len(grads)}
+
+
 def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = "",
                    spec_kw: dict | None = None, arch: str = LM_TRAIN_ARCH,
                    layers: int = LM_TRAIN_LAYERS) -> dict:
-    """Phases 16-17, 19-21, (v), (w) and (y): HFL LM training at ``arch``'s
-    full width (glm4-9b's depth cut to ``LM_TRAIN_LAYERS``; rwkv6-1.6b's and
-    granite's all 24, hymba's all 32)
-    through ``build``/``pack_tokens``/``fit`` on the sharded backend, fused,
+    """Phases 16-17, 19-21, (v), (w), (y) and (z): HFL LM training at
+    ``arch``'s full width (glm4-9b's depth cut to ``LM_TRAIN_LAYERS``;
+    rwkv6-1.6b's and granite's all 24, hymba's all 32, whisper's 24 + 24;
+    the tree variants (v2), (w2), (y2) at 4)
+    through ``build``/``pack_tokens``/``fit`` on the sharded backend (whisper:
+    ``pack_arrays``, with its frames in every sample), fused,
     with the spec fields ``spec_kw`` (compressed uploads, partial
     participation). ``rounds`` rounds after a warm-up round; the launch
     counts are set to 0 just before them and read just after. The check of
@@ -2467,8 +2647,11 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     toks, _ = make_lm_tokens(rng, cfg.vocab_size, LM_TRAIN_TOKENS)
-    data = engine.pack_tokens(toks, batch_size=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
-                              shards=2, rng=rng, generator=torch.Generator().manual_seed(1))
+    if cfg.arch_type == "audio":
+        data = pack_lm_frames(torch, np, engine, cfg, toks, rng)
+    else:
+        data = engine.pack_tokens(toks, batch_size=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                                  shards=2, rng=rng, generator=torch.Generator().manual_seed(1))
     data_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     held_gb = torch.cuda.memory_allocated() / 1e9          # left by earlier phases
@@ -2591,6 +2774,7 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
     require(hz.metrics.loss.shape == (rounds, LM_TRAIN_E, LM_TRAIN_H), "loss shape")
     for t in tree_leaves(state.params):
         require(finite_and_nonzero(torch, t)[0], f"LM training ({tag}): params not finite")
+    enc = encoder_grad(torch, bundle, state, data) if cfg.arch_type == "audio" else None
     tokens = G * K * LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * LM_TRAIN_BATCH * LM_TRAIN_SEQ
     out = {"phase": tag, "arch": arch, "layers": cfg.num_layers, "layout": layout,
            "spec": {k: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
@@ -2607,7 +2791,8 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
            "timed_peak_gb": timed_peak_gb,
            "losses": [float(x) for x in losses], "data_s": data_s,
            "grad_norm": float(hz.metrics.grad_norm[-1]), "z_norm": float(hz.metrics.z_norm[-1]),
-           "y_norm": float(hz.metrics.y_norm[-1])}
+           "y_norm": float(hz.metrics.y_norm[-1]), "encoder_grad": enc,
+           "data": {k: [list(v.shape), str(v.dtype)] for k, v in data.arrays.items()}}
     log(f"({tag}) LM training {arch} ({cfg.num_layers} of {full.num_layers} layers, full width, "
         f"{n_params / 1e9:.3f} B params, bf16, remat), {layout} + fused, {G}x{K} clients, "
         f"{json.dumps(out['spec'])}, "
@@ -2620,12 +2805,16 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
     log(f"  loss per step {np.round(losses, 4).tolist()}; grad_norm {out['grad_norm']:.4g} "
         f"z_norm {out['z_norm']:.4g} y_norm {out['y_norm']:.4g}; comm_bytes {comm} (wire "
         f"model {wire}); residuals {residuals}; frozen replicas {frozen} kept their bits")
+    if enc is not None:
+        log(f"  ({tag}) packed {out['data']}; the encoder's gradient at replica (0, 0) on one "
+            f"sample with its frames: finite, every one of its {enc['leaves']} leaves nonzero, "
+            f"norm {enc['encoder_grad_norm']:.4g} (loss {enc['loss']:.4f})")
     if trace:
-        # rwkv6's round makes about 283,000 launches, granite's and hymba's
-        # like numbers: their traces record the device alone, as the busy
-        # share and the time by kernel need.
+        # rwkv6's round makes about 283,000 launches, granite's, hymba's and
+        # whisper's like numbers: their traces record the device alone, as
+        # the busy share and the time by kernel need.
         tr = profile_round(torch, lambda: api.fit(engine, data, 1, state=state),
-                           host=cfg.arch_type not in ("ssm", "moe", "hybrid"))
+                           host=cfg.arch_type not in ("ssm", "moe", "hybrid", "audio"))
         out["busy_share"] = tr["busy"] / tr["wall_us"] if tr else None
         log_trace(f"  ({tag}) LM training round ({layout}, traced)", tr, top_n=20)
         if tr:
@@ -2676,14 +2865,16 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
 
 
 def phase_lm_train_card_vs_cpu(torch, np, convert, arch: str = LM_TRAIN_ARCH) -> dict:
-    """Phases 21, (v3), (w3) and (y3): one sharded round of the reduced
-    ``arch`` (float32, remat, T = 1100: glm4-9b's, granite's and hymba's
-    layers run the flash kernels forward and backward (T > 1024), granite's
-    the moe kernels with capacity routing, hymba's the selective scan
-    forward and backward, rwkv6's the scan's at chunk 64 with a ragged last
-    chunk) on the card against the same round on the CPU (the plain
-    versions), tree + fused; the fused step against the unfused one on the
-    card; and, for glm4-9b, two async windows card against CPU."""
+    """Phases 21, (v3), (w3), (y3) and (z3): one sharded round of the
+    reduced ``arch`` (float32, remat, T = 1100: glm4-9b's, granite's,
+    hymba's, whisper's and internvl2's layers run the flash kernels forward
+    and backward (T > 1024), granite's the moe kernels with capacity
+    routing, hymba's the selective scan forward and backward, rwkv6's the
+    scan's at chunk 64 with a ragged last chunk; whisper's samples carry
+    frames, internvl2's patches) on the card against the same round on the
+    CPU (the plain versions), tree + fused; the fused step against the
+    unfused one on the card; and, for glm4-9b, two async windows card
+    against CPU."""
     from repro_torch import api
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import build_model
@@ -2695,6 +2886,8 @@ def phase_lm_train_card_vs_cpu(torch, np, convert, arch: str = LM_TRAIN_ARCH) ->
     rs = np.random.default_rng(18)
     batch = {k: torch.from_numpy(rs.integers(0, 256, (1, 1, 2, 2, 2, 1, 1100)).astype(np.int32))
              for k in ("tokens", "targets")}
+    batch.update({k: v.cpu().reshape((1, 1, 2, 2, 2, 1) + tuple(v.shape[1:]))
+                  for k, v in serve_stub(torch, np, bundle.cfg, 8, 19).items()})
     outs = {}
     # Deterministic algorithms: the embedding's backward (an index_put with
     # accumulation) otherwise adds with atomics in a varying order, and the
@@ -2763,6 +2956,157 @@ def lm_round_card_vs_cpu(np, outs: dict, arch: str) -> dict:
         f"and unfused steps on the card bit-identical")
     return {"arch": arch, "losses": card[1].reshape(-1).tolist(), "worst_rel": worst,
             "fused_equals_unfused": True}
+
+
+def phase_audio_vlm_checks(torch, np, convert) -> dict:
+    """(z3), the model checks. Reduced whisper and internvl2 (float32,
+    remat, attn_block 128) from one set of params on the card and on the
+    CPU: the loss (rtol 1e-5) and every gradient (rtol 1e-4 / atol 1e-5) at
+    1100 text tokens with frames or patches, the flash kernels twice
+    forward and once backward a layer, the encoder's or projector's
+    gradients nonzero; the prefill logits (rtol/atol 1e-4) and 8 greedy
+    tokens through ``generate`` with the stub. Then internvl2 at full width
+    with 2 of its 48 layers (bf16, remat) on the card: the loss and backward
+    with 256 patches before 2048 tokens (the flash kernels at [1, 2304, 48,
+    128] / [1, 2304, 8, 128]), every gradient finite, the projector's
+    nonzero; then the same loss and backward with the kernels' plain
+    versions swapped into ``FlashAttention``: the loss within VLM_LOSS_GAP
+    and each gradient within VLM_GRAD_GAP of its largest entry of theirs;
+    ms, and the peak."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import build_model
+
+    out = {}
+    stub_keys = {AUDIO_ARCH: ("encoder", "enc_pos"), VLM_ARCH: ("projector",)}
+    for arch in (AUDIO_ARCH, VLM_ARCH):
+        bundle = build_model(get_arch(arch).reduced(remat=True, attn_block=128))
+        params = bundle.init(0, device="cpu")
+        rs = np.random.default_rng(20)
+        batch = {k: torch.from_numpy(rs.integers(0, 256, (1, 1100)).astype(np.int32))
+                 for k in ("tokens", "targets")}
+        batch.update({k: v.cpu() for k, v in serve_stub(torch, np, bundle.cfg, 1, 21).items()})
+        res = []
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda t: t.requires_grad_(),
+                         convert.params_from_numpy(convert.to_numpy(params), dev))
+            ops.reset_launch_counts()
+            loss = bundle.loss(p, {k: v.to(dev) for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            res.append((float(loss.detach()), [g.cpu() for g in grads], all_launches()))
+        (card_loss, card, launches), (cpu_loss, cpu, _) = res
+        require(launches["flash_attention"] == 4 and launches["flash_attention_bwd"] == 6,
+                f"reduced {arch} loss launched {launches}: 2 layers, remat")
+        require(abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss),
+                f"reduced {arch}: loss {card_loss} on the card, {cpu_loss} on the CPU")
+        worst = 0.0
+        for (path, _), g, c in zip(_leaf_paths(params), card, cpu):
+            worst = max(worst, float(((g - c).abs() / (1e-5 + c.abs())).max()))
+            require(torch.allclose(g, c, rtol=1e-4, atol=1e-5),
+                    f"reduced {arch}: gradient {path} differs between card and CPU")
+            if path.split("/")[1] in stub_keys[arch]:
+                require(bool(c.abs().max() > 0), f"reduced {arch}: gradient {path} is zero")
+        toks = torch.from_numpy(rs.integers(0, 256, (2, 37)).astype(np.int32))
+        stub = {k: v.cpu() for k, v in serve_stub(torch, np, bundle.cfg, 2, 22).items()}
+        gen_card = generate(bundle, convert.params_from_numpy(convert.to_numpy(params), "cuda"),
+                            toks.cuda(), 8, **{k: v.cuda() for k, v in stub.items()})
+        gen_cpu = generate(bundle, params, toks, 8, **stub)
+        gl, cl = gen_card.prefill_logits.cpu(), gen_cpu.prefill_logits
+        require(torch.allclose(gl, cl, rtol=1e-4, atol=1e-4),
+                f"reduced {arch}: prefill logits differ between card and CPU")
+        require(torch.equal(gen_card.tokens.cpu(), gen_cpu.tokens),
+                f"reduced {arch}: greedy tokens differ between card and CPU")
+        out[arch] = {"loss": card_loss, "cpu_loss": cpu_loss, "worst_grad_rel": worst,
+                     "prefill_max_abs_diff": float((gl - cl).abs().max()),
+                     "launches": launches}
+        log(f"card vs CPU, reduced {arch} (f32, remat) with its {', '.join(stub)}: loss "
+            f"{card_loss:.6f} / {cpu_loss:.6f}, {len(card)} gradients within rtol 1e-4 (worst "
+            f"{worst:.2e}), launches {launches['flash_attention']} flash forward, "
+            f"{launches['flash_attention_bwd']} backward; prefill logits within 1e-4 (max "
+            f"{out[arch]['prefill_max_abs_diff']:.3g}), 8 greedy tokens equal")
+
+    # internvl2 at full width, 2 of 48 layers, on the card.
+    full = get_arch(VLM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VLM_LOSS_LAYERS)
+    bundle = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    params = bundle.init(0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rs = np.random.default_rng(24)
+    batch = {k: torch.from_numpy(rs.integers(0, cfg.vocab_size, (1, LM_TRAIN_SEQ))
+                                 .astype(np.int32)).cuda() for k in ("tokens", "targets")}
+    batch.update(serve_stub(torch, np, cfg, 1, 25))
+    p = tree_map(lambda t: t.requires_grad_(), params)
+    ms = []
+    for _ in range(2):                                  # the first call warms up
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = bundle.loss(p, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches = all_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(launches["flash_attention"] == 2 * VLM_LOSS_LAYERS
+            and launches["flash_attention_bwd"] == 3 * VLM_LOSS_LAYERS,
+            f"full-width {VLM_ARCH} loss launched {launches}")
+    for (path, _), g in zip(_leaf_paths(params), grads):
+        f, nz = finite_and_nonzero(torch, g)
+        require(f, f"full-width {VLM_ARCH}: gradient {path} is not finite")
+        if path.startswith("/projector"):
+            require(nz, f"full-width {VLM_ARCH}: gradient {path} is zero")
+    kernel_loss = float(loss.detach())
+    # The same loss and backward with the attention kernels' plain versions
+    # swapped into ``FlashAttention`` (float32 inside, bf16 in and out, as
+    # the kernels): every other operation is the same, so the gaps are the
+    # attention's rounding carried through the 2 layers.
+    ops.reset_launch_counts()
+    kernels = fa.flash_attention, fa.flash_attention_bwd
+    fa.flash_attention, fa.flash_attention_bwd = fa.flash_attention_ref, fa.flash_attention_bwd_ref
+    try:
+        loss = bundle.loss(p, batch)
+        plain = torch.autograd.grad(loss, tree_leaves(p))
+        torch.cuda.synchronize()
+    finally:
+        fa.flash_attention, fa.flash_attention_bwd = kernels
+    require(sum(all_launches().values()) == 0, f"full-width {VLM_ARCH}: the plain run launched "
+            f"{all_launches()}")
+    plain_loss = float(loss.detach())
+    loss_gap = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    grad_gap = {path: float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                for (path, _), g, w in zip(_leaf_paths(params), grads, plain)}
+    worst_path = max(grad_gap, key=grad_gap.get)
+    log(f"(z3) {VLM_ARCH} full width, kernels against their plain versions in the same bf16 "
+        f"model: loss {kernel_loss:.6f} / {plain_loss:.6f} (relative gap {loss_gap:.3g}); each "
+        f"gradient's max gap over its max entry: worst {grad_gap[worst_path]:.3g} "
+        f"({worst_path}), {json.dumps({k: float(f'{v:.3g}') for k, v in grad_gap.items()})}")
+    require(loss_gap <= VLM_LOSS_GAP, f"full-width {VLM_ARCH}: loss {kernel_loss} with the "
+            f"kernels, {plain_loss} with their plain versions")
+    require(grad_gap[worst_path] <= VLM_GRAD_GAP, f"full-width {VLM_ARCH}: gradient "
+            f"{worst_path} with the kernels is {grad_gap[worst_path]} of its max from the "
+            f"plain versions'")
+    del grads, plain, p, loss, params
+    torch.cuda.empty_cache()
+    out["full_width"] = {"arch": VLM_ARCH, "layers": VLM_LOSS_LAYERS, "params": n_params,
+                         "tokens": LM_TRAIN_SEQ, "patches": cfg.vision_tokens,
+                         "loss": kernel_loss, "plain_loss": plain_loss, "loss_gap": loss_gap,
+                         "grad_gap": grad_gap, "ms": ms[-1], "warmup_ms": ms[0],
+                         "peak_gb": peak_gb, "held_gb": held_gb, "launches": launches}
+    log(f"(z3) {VLM_ARCH} at full width, {VLM_LOSS_LAYERS} of {full.num_layers} layers "
+        f"({n_params / 1e9:.3f} B params, bf16, remat): loss and backward with "
+        f"{cfg.vision_tokens} patches before {LM_TRAIN_SEQ} tokens {ms[-1]:.1f} ms (warm-up "
+        f"{ms[0]:.1f}), loss {kernel_loss:.5f}, every gradient finite, the projector's "
+        f"nonzero, within {VLM_LOSS_GAP:g} (loss) and {VLM_GRAD_GAP:g} (gradients) of the "
+        f"plain versions'; launches {launches['flash_attention']} flash forward, "
+        f"{launches['flash_attention_bwd']} backward; peak {peak_gb:.2f} GB ({held_gb:.2f} "
+        f"held before)")
+    return out
 
 
 def _leaf_paths(tree, prefix=""):
@@ -4678,14 +5022,21 @@ def main() -> int:
     # flash and the moe dispatch and combine once a layer in the prefill,
     # and the dispatch and combine once a layer in each of the 31 decode
     # steps (dropless, 4 tokens).
+    # (f5) whisper: flash once a decoder layer in the prefill (its encoder and
+    # cross-attention are plain products, as the reference's); (f6)
+    # internvl2: once a layer.
     served = []
     moe_serve = {"moe_gather": MOE_LAYERS, "moe_combine": MOE_LAYERS}
-    for arch, want in (("qwen3-14b", {"flash_attention": 40}), ("rwkv6-1.6b", {"rwkv6_scan": 72}),
-                       ("qwen2.5-32b", {"flash_attention": 64}),
-                       ("gemma3-27b", {"flash_attention": 62}),
-                       ("hymba-1.5b", {"flash_attention": 32, "selective_scan": 32}),
-                       (MOE_ARCH, {"flash_attention": MOE_LAYERS, **moe_serve})):
-        run = phase_serve(torch, np, arch, lambda: serve_launches(fa, rw, ss, md))
+    for arch, want, prompt in (
+            ("qwen3-14b", {"flash_attention": 40}, LM_PROMPT),
+            ("rwkv6-1.6b", {"rwkv6_scan": 72}, LM_PROMPT),
+            ("qwen2.5-32b", {"flash_attention": 64}, LM_PROMPT),
+            ("gemma3-27b", {"flash_attention": 62}, LM_PROMPT),
+            ("hymba-1.5b", {"flash_attention": 32, "selective_scan": 32}, LM_PROMPT),
+            (MOE_ARCH, {"flash_attention": MOE_LAYERS, **moe_serve}, LM_PROMPT),
+            (AUDIO_ARCH, {"flash_attention": AUDIO_LAYERS}, AUDIO_PROMPT),
+            (VLM_ARCH, {"flash_attention": VLM_LAYERS}, LM_PROMPT)):
+        run = phase_serve(torch, np, arch, lambda: serve_launches(fa, rw, ss, md), prompt)
         want = {k: want.get(k, 0) for k in run["launches"]}
         total = dict(want, **{k: v * LM_GEN for k, v in want.items() if k in moe_serve})
         require(run["prefill_launches"] == want and run["launches"] == total,
@@ -4756,25 +5107,27 @@ def main() -> int:
     # Only (v1) is traced: (v2) is the same model on the tree layout, and
     # the phases (w) added after it share the script's time limit.
     lm_v = [phase_lm_train(torch, np, layout, rounds=1, trace=tag == "v1", tag=tag,
-                           arch=SSM_TRAIN_ARCH, layers=SSM_TRAIN_LAYERS)
-            for tag, layout in (("v1", "flat"), ("v2", "tree"))]
-    passes = LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * math.prod(LM_TRAIN_LEVELS) * SSM_TRAIN_LAYERS
+                           arch=SSM_TRAIN_ARCH, layers=layers)
+            for tag, layout, layers in (("v1", "flat", SSM_TRAIN_LAYERS),
+                                        ("v2", "tree", TREE_VARIANT_LAYERS))]
     for run, n_update in zip(lm_v, (2, 19)):
+        passes = LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * math.prod(LM_TRAIN_LEVELS) * run["layers"]
         want = {"rwkv6_scan": 3 * 2 * passes, "rwkv6_scan_bwd": 4 * passes,
                 "mtgc_update_flat": LM_TRAIN_E * LM_TRAIN_H * n_update}
         require({k: run["launches"][k] for k in want} == want,
-                f"({run['phase']}) launched {run['launches']}: 768 passes of the scan and its "
-                f"backward, the fused step on {n_update} buffers or leaves, expected {want}")
+                f"({run['phase']}) launched {run['launches']}: {passes} passes of the scan and "
+                f"its backward, the fused step on {n_update} buffers or leaves, expected {want}")
     lm_v3 = phase_lm_train_card_vs_cpu(torch, np, convert, arch=SSM_TRAIN_ARCH)
 
     # --- 24. (w) granite-moe-1b-a400m training at full width and depth ----
     # (w2) is not traced: its round is (w1)'s on the tree layout, and the
     # script's time limit is shared by every phase.
     lm_w = [phase_lm_train(torch, np, layout, rounds=1, trace=tag == "w1", tag=tag,
-                           arch=MOE_ARCH, layers=MOE_LAYERS)
-            for tag, layout in (("w1", "flat"), ("w2", "tree"))]
-    passes = LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * math.prod(LM_TRAIN_LEVELS) * MOE_LAYERS
+                           arch=MOE_ARCH, layers=layers)
+            for tag, layout, layers in (("w1", "flat", MOE_LAYERS),
+                                        ("w2", "tree", TREE_VARIANT_LAYERS))]
     for run in lm_w:
+        passes = LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * math.prod(LM_TRAIN_LEVELS) * run["layers"]
         # Under remat: two forwards and a backward a layer pass.
         want = {"moe_gather": 3 * passes, "moe_combine": 3 * passes, "moe_gate_grad": passes,
                 "flash_attention": 2 * passes, "flash_attention_bwd": 3 * passes}
@@ -4785,11 +5138,11 @@ def main() -> int:
     # --- 25. (y) hymba-1.5b training at full width and depth ---------------
     # (y2) is not traced: its round is (y1)'s on the tree layout.
     lm_y = [phase_lm_train(torch, np, layout, rounds=1, trace=tag == "y1", tag=tag,
-                           arch=HYBRID_TRAIN_ARCH, layers=HYBRID_TRAIN_LAYERS)
-            for tag, layout in (("y1", "flat"), ("y2", "tree"))]
-    passes = (LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * math.prod(LM_TRAIN_LEVELS)
-              * HYBRID_TRAIN_LAYERS)
+                           arch=HYBRID_TRAIN_ARCH, layers=layers)
+            for tag, layout, layers in (("y1", "flat", HYBRID_TRAIN_LAYERS),
+                                        ("y2", "tree", TREE_VARIANT_LAYERS))]
     for run in lm_y:
+        passes = LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * math.prod(LM_TRAIN_LEVELS) * run["layers"]
         # Under remat: two forwards and a backward a layer pass.
         want = {"selective_scan": 2 * passes, "selective_scan_bwd": ss.BWD_LAUNCHES * passes,
                 "flash_attention": 2 * passes, "flash_attention_bwd": 3 * passes}
@@ -4797,6 +5150,26 @@ def main() -> int:
                 f"({run['phase']}) launched {run['launches']}: {passes} layer passes, "
                 f"expected {want}")
     lm_y3 = phase_lm_train_card_vs_cpu(torch, np, convert, arch=HYBRID_TRAIN_ARCH)
+    # --- 26. (z) whisper-medium training at full width and depth, frames ----
+    # 32 microbatches a round (E x H x A x G x K) through 24 decoder layers:
+    # flash forward twice a layer pass under remat (1536), its backward three
+    # kernels once (768 calls, 2304 launches); the encoder and the
+    # cross-attention are plain products. The fused step once a step on the
+    # flat state's one bf16 buffer, once a leaf a step on the tree layout.
+    lm_z = [phase_lm_train(torch, np, layout, rounds=1, trace=tag == "z1", tag=tag,
+                           arch=AUDIO_ARCH, layers=AUDIO_LAYERS)
+            for tag, layout in (("z1", "flat"), ("z2", "tree"))]
+    passes = LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * math.prod(LM_TRAIN_LEVELS) * AUDIO_LAYERS
+    for run, n_update in zip(lm_z, (1, AUDIO_LEAVES)):
+        want = {"flash_attention": 2 * passes, "flash_attention_bwd": 3 * passes,
+                "mtgc_update_flat": LM_TRAIN_E * LM_TRAIN_H * n_update}
+        require({k: run["launches"][k] for k in want} == want,
+                f"({run['phase']}) launched {run['launches']}: {passes} decoder layer passes, "
+                f"the fused step on {n_update} buffers or leaves, expected {want}")
+    # --- 27. (z3) audio and vlm: card against CPU, and internvl2's loss -----
+    lm_z3 = {arch: phase_lm_train_card_vs_cpu(torch, np, convert, arch=arch)
+             for arch in (AUDIO_ARCH, VLM_ARCH)}
+    av_z3 = phase_audio_vlm_checks(torch, np, convert)
 
     # --- 22. results -----------------------------------------------------
     kernels = [
@@ -4967,7 +5340,7 @@ def main() -> int:
         # Phase (u)'s timed runs: the multilevel backend runs no kernel.
         for run, counts in hfl_u["launches"].items():
             k["training_launches"][run] = counts[name]
-        for run in lm_v + lm_w + lm_y:
+        for run in lm_v + lm_w + lm_y + lm_z:
             k["training_launches"][run["phase"]] = run["launches"].get(name, 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": served}))
@@ -4990,6 +5363,9 @@ def main() -> int:
     for run in lm_y:
         print(json.dumps({f"training_{run['phase']}": run}))
     print(json.dumps({"training_y3": lm_y3}))
+    for run in lm_z:
+        print(json.dumps({f"training_{run['phase']}": run}))
+    print(json.dumps({"training_z3": {"rounds": lm_z3, "models": av_z3}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -26,13 +26,11 @@ ARCH_IDS = (
 )
 
 PORTED = ("glm4-9b", "qwen3-14b", "rwkv6-1.6b", "qwen2.5-32b", "gemma3-27b", "hymba-1.5b",
-          "granite-moe-1b-a400m")
+          "granite-moe-1b-a400m", "whisper-medium", "internvl2-26b")
 
 # The slice of the port that brings each architecture still missing.
 _LATER = {
-    "internvl2-26b": "the vlm slice of the port",
     "mixtral-8x22b": "the multi-card slice of the port (about 141 B params)",
-    "whisper-medium": "the audio slice of the port",
 }
 
 

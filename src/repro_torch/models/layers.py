@@ -8,7 +8,9 @@ the apply functions are plain tensor code. Conventions:
 * params are stored in the param dtype (bfloat16 for the full-width
   archs); norms, RoPE and softmax compute in float32 and cast back;
 * attention supports GQA, RoPE (split-half), optional QKV bias, per-head
-  qk-RMSNorm (qwen3) and sliding windows (``window <= 0`` means global);
+  qk-RMSNorm (qwen3), sliding windows (``window <= 0`` means global),
+  bidirectional attention (``causal=False``: whisper's encoder) and
+  cross-attention over a memory (``kv_memory``: whisper's decoder);
 * ``attention_block`` routes one-token decode to
   :func:`gqa_decode_attention`, and everything else to the flash kernel
   (``attn_impl="blocked"``, ``kernels/flash_attention.py``; the model's
@@ -152,31 +154,37 @@ def gqa_decode_attention(q, k, v, *, window=0, q_offset=0):
 
 
 def attention_block(
-    p, x, *, n_heads, n_kv, d_head, rope_base, window=0, qk_norm=False,
-    kv_cache=None, cache_index=None, attn_impl="blocked", block=512,
+    p, x, *, n_heads, n_kv, d_head, rope_base, causal=True, window=0, qk_norm=False,
+    kv_cache=None, cache_index=None, attn_impl="blocked", block=512, kv_memory=None,
 ):
-    """Causal self-attention sub-block: proj -> qk-norm -> RoPE -> (cache)
-    -> attn -> out proj.
+    """Attention sub-block: proj -> qk-norm -> RoPE -> (cache) -> attn -> out
+    proj.
 
     kv_cache: optional dict(k=[B, S, Kv, Dh], v=...). The new K/V are written
     into it IN PLACE at ``cache_index`` (the reference returns an updated
     copy), and attention runs over the whole cache. ``cache_index`` is a
-    Python int. Returns (out, cache) -- the same cache tensors, or None
-    without a cache.
+    Python int; q and k are rotated at positions ``cache_index + arange(T)``.
+    kv_memory: optional [B, S_mem, d_model] for cross-attention (whisper's
+    decoder): K and V are projected from the memory, neither q nor k is
+    rotated, and attention is bidirectional, as it is with ``causal=False``. Returns (out, cache) -- the same cache
+    tensors, or None without a cache.
     """
     B, T, _ = x.shape
     q = linear(p["wq"], x).reshape(B, T, n_heads, d_head)
-    k = linear(p["wk"], x).reshape(B, T, n_kv, d_head)
-    v = linear(p["wv"], x).reshape(B, T, n_kv, d_head)
+    src = x if kv_memory is None else kv_memory
+    k = linear(p["wk"], src).reshape(B, src.shape[1], n_kv, d_head)
+    v = linear(p["wv"], src).reshape(B, src.shape[1], n_kv, d_head)
 
     if qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
 
-    base = 0 if cache_index is None else cache_index
-    positions = (torch.arange(T, device=x.device)[None, :] + base).expand(B, T)
-    q = apply_rope(q, positions, rope_base)
-    k = apply_rope(k, positions, rope_base)
+    if kv_memory is None:
+        base = 0 if cache_index is None else cache_index
+        positions = (torch.arange(T, device=x.device)[None, :] + base).expand(B, T)
+        q = apply_rope(q, positions, rope_base)
+        k = apply_rope(k, positions, rope_base)
+    causal = causal and kv_memory is None
 
     new_cache = None
     q_offset = 0
@@ -196,14 +204,14 @@ def attention_block(
         o = gqa_decode_attention(q, k, v, window=window, q_offset=q_offset)
     elif attn_impl == "blocked" and torch.is_grad_enabled():
         # Training: the backward kernel reads the forward's row statistics.
-        o = FlashAttention.apply(q, k, v, True, window, q_offset, block)
+        o = FlashAttention.apply(q, k, v, causal, window, q_offset, block)
     elif attn_impl == "blocked":
         # GQA kv heads stay unexpanded: the kernel reads kv head h // (H/Kv).
-        o = flash_attention(q.contiguous(), k, v, causal=True, window=window,
+        o = flash_attention(q.contiguous(), k, v, causal=causal, window=window,
                             q_offset=q_offset, block=block)
     else:
         o = naive_attention(q, _expand_kv(k, n_heads), _expand_kv(v, n_heads),
-                            causal=True, window=window, q_offset=q_offset)
+                            causal=causal, window=window, q_offset=q_offset)
     out = linear(p["wo"], o.reshape(B, T, n_heads * d_head))
     return out, new_cache
 

@@ -1,6 +1,6 @@
-"""The LM stack's decoder, for the families the port serves so far.
+"""The LM stack's decoder, for the six families of the reference.
 
-Port of ``src/repro/models/transformer.py`` for four families:
+Port of ``src/repro/models/transformer.py``:
 
   dense  -- pre-RMSNorm GQA attention + SwiGLU (qwen3: per-head qk-RMSNorm;
             qwen2.5: QKV bias; gemma3: 5 windowed layers to 1 global, tied
@@ -12,30 +12,43 @@ Port of ``src/repro/models/transformer.py`` for four families:
   ssm    -- RWKV6 time mix + RWKV channel mix (attention-free)
   hybrid -- windowed attention and selective-SSM heads in parallel on the
             same input, mean-fused (hymba; ``models/ssm.py``)
+  audio  -- whisper enc-dec: a bidirectional encoder over (stub) frame
+            embeddings, and a causal decoder that cross-attends to its
+            output after each self-attention
+  vlm    -- internvl2: a GELU projector over (stub) patch embeddings,
+            prepended to the token stream of a dense decoder; the loss runs
+            over the text positions only
 
-All four train, serve and decode. The other families (audio, vlm) raise
-``NotImplementedError`` naming the slice of the port that brings them. The
-params tree is the reference's: the layers' leaves are stacked on axis 0, so
-``convert.params_from_numpy`` carries the JAX package's weights across
-unchanged. A Python loop over the layer index takes the place of the
-reference's ``lax.scan``.
+All six train, serve and decode. The params tree is the reference's: the
+layers' leaves are stacked on axis 0, so ``convert.params_from_numpy``
+carries the JAX package's weights across unchanged. A Python loop over the
+layer index takes the place of the reference's ``lax.scan``.
 
 Every bundle provides:
   init(seed, device=None)          -> params (on the CUDA card by default)
   loss(params, batch)              -> scalar mean next-token cross-entropy
                                       (+ 0.01 * aux for moe)
-  forward(params, batch)           -> logits [B, T, vocab_padded]
+  forward(params, batch)           -> logits [B, T, vocab_padded] ([B, P + T, ...]
+                                      for vlm with P patches)
   init_cache(batch, seq, device=None) -> cache
   prefill(params, batch, cache)    -> (last-position logits [B, V], cache)
   decode_step(params, batch, cache) -> (logits [B, V], cache)
+  memory(params, batch)            -> the audio decoder's memory [B, F, D]:
+                                      batch["memory"], else batch["frames"]
+                                      encoded; None for the other families
 ``prefill`` and ``decode_step`` update the cache IN PLACE and return it
-(the reference returns a new one). ``loss`` is the training path: with
-``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
-(non-reentrant), as the reference wraps its scanned layer in
-``jax.checkpoint`` -- on the card the attention kernels, the RWKV scan
-(forward and backward kernels) and the moe dispatch and combine run again in
-the backward pass -- and the cross-entropy goes through
-:func:`chunked_xent`.
+(the reference returns a new one). A batch may carry the modality stubs:
+``frames`` [B, F, d_model] (audio: encoded by :func:`_encode`), ``memory``
+[B, F, d_model] (audio: the encoder's output, computed once at admission
+by ``memory`` when serving) or ``patches`` [B, P, vision_dim] (vlm:
+projected and prepended to the tokens in ``forward``, ``loss`` and
+``prefill``).
+``loss`` is the training path: with ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
+scanned layer in ``jax.checkpoint`` -- on the card the attention kernels,
+the RWKV scan (forward and backward kernels) and the moe dispatch and
+combine run again in the backward pass -- and the cross-entropy goes
+through :func:`chunked_xent`.
 """
 from __future__ import annotations
 
@@ -44,6 +57,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
@@ -54,11 +68,7 @@ from repro_torch.models import rwkv6 as RWKV
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_LATER = {
-    "audio": "the audio slice of the port",
-    "vlm": "the vlm slice of the port",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 class ModelBundle(NamedTuple):
@@ -69,6 +79,7 @@ class ModelBundle(NamedTuple):
     init_cache: Callable      # (batch, seq, device=None) -> cache
     prefill: Callable         # (params, batch, cache) -> (logits, cache)
     decode_step: Callable     # (params, batch, cache) -> (logits, cache)
+    memory: Callable          # (params, batch) -> what audio cross-attends to, else None
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -112,6 +123,10 @@ def _init_decoder_layer(cfg: ArchConfig, gen, device) -> dict:
         p["moe"] = MOE.init_moe(gen, d, cfg.d_ff, cfg.num_experts, dt, device)
     else:
         p["mlp"] = L.init_swiglu(gen, d, cfg.d_ff, dt, device)
+    if cfg.arch_type == "audio":
+        p["ln_x"] = L.init_rms(d, dt, device)
+        p["xattn"] = L.init_attention(gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.d_head, dt,
+                                      device)
     return p
 
 
@@ -126,15 +141,19 @@ def _rwkv_cmix(p, x, x_prev):
     return r * L.linear(p["wv"], k)
 
 
-def _apply_decoder_layer(cfg: ArchConfig, p: dict, x, *, window, cache=None,
+def _apply_decoder_layer(cfg: ArchConfig, p: dict, x, *, window, memory=None, cache=None,
                          cache_index=None, mode: str = "train"):
     """One decoder layer. Returns (x, new_cache, aux): aux is the moe
     layer's load-balance loss (a float32 scalar), 0.0 for the others.
+    ``memory`` [B, F, D]: what an audio layer cross-attends to (none: the
+    layer skips its cross-attention, as the reference's does).
 
     cache (per-layer slice) keys by family:
       attention: k, v           [B, S, Kv, Dh]  (written in place)
       ssm:       state, x_prev, ffn_prev
       hybrid:    k, v, sstate    (sstate [B, Di, S] float32)
+      audio:     k, v            (self-attention only; the memory's K/V are
+                                  projected again each call)
     """
     B, T, D = x.shape
     new_cache = {}
@@ -191,6 +210,14 @@ def _apply_decoder_layer(cfg: ArchConfig, p: dict, x, *, window, cache=None,
         # Hymba: parallel heads, mean-fused.
         attn_out = 0.5 * (attn_out + sout.to(attn_out.dtype))
     x = x + attn_out
+    if cfg.arch_type == "audio" and memory is not None:
+        # Cross-attention over the encoder's output: plain products, as the
+        # reference computes them (attn_impl "naive").
+        xo, _ = L.attention_block(
+            p["xattn"], L.rms_norm(x, p["ln_x"]),
+            n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, d_head=cfg.d_head,
+            rope_base=cfg.rope_base, causal=False, kv_memory=memory, attn_impl="naive")
+        x = x + xo
     h = L.rms_norm(x, p["ln2"])
     if cfg.arch_type == "moe":
         # Serving routes dropless while the [E, S, D] buffers stay modest;
@@ -204,6 +231,41 @@ def _apply_decoder_layer(cfg: ArchConfig, p: dict, x, *, window, cache=None,
         return x + mo, new_cache, aux
     x = x + L.swiglu(p["mlp"], h)
     return x, new_cache, 0.0
+
+
+# ------------------------------------------------------------------ encoder
+# (whisper: bidirectional attention over the stub frontend's frames)
+
+
+def _init_encoder_layer(cfg: ArchConfig, gen, device) -> dict:
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    return {
+        "ln1": L.init_rms(d, dt, device),
+        "ln2": L.init_rms(d, dt, device),
+        "attn": L.init_attention(gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.d_head, dt,
+                                 device),
+        "mlp": L.init_swiglu(gen, d, cfg.d_ff, dt, device),
+    }
+
+
+def _encode(cfg: ArchConfig, enc_params: dict, pos_emb, frames):
+    """Whisper's encoder: ``frames`` [B, F, D] cast to the param dtype plus
+    the learned positions ``pos_emb[:F]``, then ``cfg.encoder_layers``
+    pre-RMSNorm layers of bidirectional self-attention (RoPE over
+    ``arange(F)``, plain products, as the reference's ``attn_impl="naive"``)
+    and SwiGLU. No remat: the reference's encoder scan has none."""
+    x = frames.to(_dtype(cfg)) + pos_emb[None, :frames.shape[1]]
+    per_layer = tree_map(lambda t: t.unbind(0), enc_params)
+    for i in range(cfg.encoder_layers):
+        lp = tree_map(lambda t: t[i], per_layer)
+        o, _ = L.attention_block(
+            lp["attn"], L.rms_norm(x, lp["ln1"]),
+            n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, d_head=cfg.d_head,
+            rope_base=cfg.rope_base, causal=False, attn_impl="naive")
+        x = x + o
+        x = x + L.swiglu(lp["mlp"], L.rms_norm(x, lp["ln2"]))
+    return x
 
 
 # ------------------------------------------------------------------ model
@@ -242,9 +304,7 @@ def chunked_xent(logits_fn, hidden, targets, chunk=512):
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
     if cfg.arch_type not in FAMILIES:
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported yet: it needs "
-            f"{_LATER.get(cfg.arch_type, 'a later slice of the port')}")
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r}; choose from {FAMILIES}")
     dt = _dtype(cfg)
     windows = [int(w) for w in _layer_windows(cfg)]
 
@@ -263,6 +323,17 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         }
         if not cfg.tie_embeddings:
             p["unembed"] = L.init_linear(gen, cfg.d_model, cfg.vocab_padded, dt, dev)
+        if cfg.arch_type == "audio":
+            p["encoder"] = _stack_init(lambda: _init_encoder_layer(cfg, gen, dev),
+                                       cfg.encoder_layers)
+            w = torch.randn((cfg.encoder_frames, cfg.d_model), generator=gen,
+                            dtype=torch.float32, device=dev)
+            p["enc_pos"] = (0.02 * w).to(dt)
+        if cfg.arch_type == "vlm":
+            p["projector"] = {
+                "w1": L.init_linear(gen, cfg.vision_dim, cfg.d_model, dt, dev),
+                "w2": L.init_linear(gen, cfg.d_model, cfg.d_model, dt, dev),
+            }
         return p
 
     def _logits(p, hidden):
@@ -270,7 +341,30 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
             return L.unembed(p["embed"], hidden)
         return L.linear(p["unembed"], hidden)
 
-    def _run_layers(p, x, cache=None, cache_index=None, mode="train"):
+    def _embed_inputs(p, batch):
+        """Token embeddings [B, T, D], after the projected patches for vlm
+        ([B, P + T, D]): w1, GELU (tanh form, ``jax.nn.gelu``'s default),
+        w2."""
+        x = L.embed(p["embed"], batch["tokens"])
+        if cfg.arch_type == "vlm" and "patches" in batch:
+            pr = p["projector"]
+            v = F.gelu(L.linear(pr["w1"], batch["patches"].to(dt)), approximate="tanh")
+            x = torch.cat([L.linear(pr["w2"], v), x], dim=1)
+        return x.to(dt)
+
+    def memory(p, batch):
+        """What an audio decoder cross-attends to: the batch's ``memory``
+        (serving: the encoder ran once at admission), else its ``frames``
+        encoded, else None."""
+        if cfg.arch_type != "audio":
+            return None
+        if "memory" in batch:
+            return batch["memory"].to(dt)
+        if "frames" in batch:
+            return _encode(cfg, p["encoder"], p["enc_pos"], batch["frames"])
+        return None
+
+    def _run_layers(p, x, memory=None, cache=None, cache_index=None, mode="train"):
         """(x after the layers, the moe layers' summed aux loss: a float32
         scalar, 0.0 for the other families)."""
         remat = cfg.remat and mode == "train"
@@ -283,14 +377,17 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
             cl = None if cache is None else {k: v[i] for k, v in cache.items()}
             lp = tree_map(lambda t: t[i], per_layer)
             if remat:
-                # Only the layer's input is kept; its activations are
+                # Only the layer's inputs are kept; its activations are
                 # recomputed in the backward pass (jax.checkpoint's role).
+                # The memory is an input of its own, so that its gradient
+                # reaches the encoder from every layer's cross-attention.
                 # The checkpointed function returns (x, aux).
-                x, a = checkpoint(lambda h, lp=lp, w=windows[i]: _apply_decoder_layer(
-                    cfg, lp, h, window=w, mode=mode)[::2], x, use_reentrant=False)
+                x, a = checkpoint(lambda h, m, lp=lp, w=windows[i]: _apply_decoder_layer(
+                    cfg, lp, h, window=w, memory=m, mode=mode)[::2], x, memory,
+                    use_reentrant=False)
                 aux = aux + a
                 continue
-            x, nc, a = _apply_decoder_layer(cfg, lp, x, window=windows[i],
+            x, nc, a = _apply_decoder_layer(cfg, lp, x, window=windows[i], memory=memory,
                                             cache=cl, cache_index=cache_index, mode=mode)
             aux = aux + a
             if cache is not None:
@@ -300,17 +397,18 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         return x, aux
 
     def forward(p, batch):
-        x = L.embed(p["embed"], batch["tokens"]).to(dt)
-        x, _ = _run_layers(p, x, mode="eval")
+        x, _ = _run_layers(p, _embed_inputs(p, batch), memory(p, batch), mode="eval")
         return _logits(p, L.rms_norm(x, p["ln_f"]))
 
     def loss(p, batch):
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
-        ``batch["targets"]`` ([B, T] each), float32; the moe family adds
-        0.01 times its layers' summed load-balance loss."""
-        x = L.embed(p["embed"], batch["tokens"]).to(dt)
-        x, aux = _run_layers(p, x, mode="train")
+        ``batch["targets"]`` ([B, T] each), float32, over the text positions
+        only (vlm: the patches' positions are sliced off); the moe family
+        adds 0.01 times its layers' summed load-balance loss."""
+        x, aux = _run_layers(p, _embed_inputs(p, batch), memory(p, batch), mode="train")
         x = L.rms_norm(x, p["ln_f"])
+        if cfg.arch_type == "vlm" and "patches" in batch:
+            x = x[:, batch["patches"].shape[1]:]
         ce = chunked_xent(lambda h: _logits(p, h), x, batch["targets"])
         return ce + 0.01 * aux if cfg.arch_type == "moe" else ce
 
@@ -334,20 +432,22 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         return c
 
     def prefill(p, batch, cache):
-        """Forward the prompt ``batch["tokens"]`` [B, T], writing the cache
-        from position 0; returns the last position's logits."""
-        x = L.embed(p["embed"], batch["tokens"]).to(dt)
-        x, _ = _run_layers(p, x, cache=cache, cache_index=0, mode="prefill")
+        """Forward the prompt ``batch["tokens"]`` [B, T] (after its patches
+        for vlm), writing the cache from position 0; returns the last
+        position's logits."""
+        x, _ = _run_layers(p, _embed_inputs(p, batch), memory(p, batch), cache=cache,
+                           cache_index=0, mode="prefill")
         x = L.rms_norm(x[:, -1:], p["ln_f"])
         return _logits(p, x)[:, 0], cache
 
     def decode_step(p, batch, cache):
-        """One-token decode. batch: {'token': [B, 1], 'index': position}."""
+        """One-token decode. batch: {'token': [B, 1], 'index': position},
+        and for audio ``memory`` or ``frames``."""
         x = L.embed(p["embed"], batch["token"]).to(dt)
-        x, _ = _run_layers(p, x, cache=cache, cache_index=int(batch["index"]),
-                           mode="decode")
+        x, _ = _run_layers(p, x, memory(p, batch), cache=cache,
+                           cache_index=int(batch["index"]), mode="decode")
         x = L.rms_norm(x, p["ln_f"])
         return _logits(p, x)[:, 0], cache
 
     return ModelBundle(cfg=cfg, init=init, loss=loss, forward=forward, init_cache=init_cache,
-                       prefill=prefill, decode_step=decode_step)
+                       prefill=prefill, decode_step=decode_step, memory=memory)

@@ -2,7 +2,9 @@
 PyTorch versions (the element-wise kernels bit-exact in float32 and
 bfloat16; the attention and RWKV kernels, which reorder sums, within
 float32 rounding), small rounds of the engine on the card against the same
-rounds on the CPU, reduced LM serving on the card against the CPU, the
+rounds on the CPU, reduced LM serving on the card against the CPU (the
+audio and vlm families with their frames and patches, and their loss,
+every gradient, prefill and decode), the
 RWKV scan's backward kernel against its plain version and the float64
 definition of its gradients, the hybrid family's selective scan
 against its plain sequential loop and its backward against the plain
@@ -694,13 +696,30 @@ def test_scan_wrapper_rejects_bad_operands(cuda):
 # a layer (gemma3 at 7 layers, one of them global), rwkv6_scan three a layer,
 # hymba's selective scan one a layer beside its attention, all in the
 # prefill; granite's moe dispatch and combine once a layer in the prefill
-# and in each decode step (2 x 8).
+# and in each decode step (2 x 8). whisper's encoder and cross-attention are
+# plain products (the reference's "naive" attention): its flash launches are
+# the decoder's self-attention in the prefill, as are internvl2's (the
+# prompt after its patches).
 SERVE_LAUNCHES = {
     "qwen3-14b": {"flash_attention": 2}, "rwkv6-1.6b": {"rwkv6_scan": 6},
     "qwen2.5-32b": {"flash_attention": 2}, "gemma3-27b": {"flash_attention": 7},
     "hymba-1.5b": {"flash_attention": 2, "selective_scan": 2},
     "granite-moe-1b-a400m": {"flash_attention": 2, "moe_gather": 16, "moe_combine": 16},
+    "whisper-medium": {"flash_attention": 2}, "internvl2-26b": {"flash_attention": 2},
 }
+
+
+def _modality_stub(cfg, B, seed):
+    """The frames (audio) or patches (vlm) a request of ``cfg`` brings, as
+    float32 CPU tensors from a numpy seed; none for the other families."""
+    rng = np.random.default_rng(seed)
+    if cfg.arch_type == "audio":
+        return {"frames": torch.from_numpy(rng.normal(
+            size=(B, cfg.encoder_frames, cfg.d_model)).astype(np.float32))}
+    if cfg.arch_type == "vlm":
+        return {"patches": torch.from_numpy(rng.normal(
+            size=(B, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32))}
+    return {}
 
 
 @pytest.mark.parametrize("arch", list(SERVE_LAUNCHES))
@@ -708,7 +727,8 @@ def test_reduced_serve_on_card_matches_cpu(cuda, arch):
     """Reduced float32 models from the same params: prefill logits on the
     card (kernels) and on the CPU (plain versions) agree within rtol 1e-4 /
     atol 1e-4, and 8 greedy tokens are equal. 21 prompt tokens exceed the
-    reduced window (16) of gemma3 and hymba."""
+    reduced window (16) of gemma3 and hymba; whisper's requests bring frames
+    (encoded once) and internvl2's patches."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import generate
     from repro_torch.models.transformer import build_model
@@ -717,10 +737,11 @@ def test_reduced_serve_on_card_matches_cpu(cuda, arch):
     bundle = build_model(get_arch(arch).reduced(**over))
     params = bundle.init(0, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 21)).astype(np.int32))
+    stub = _modality_stub(bundle.cfg, 2, 1)
     ops.reset_launch_counts()
     card = generate(bundle, convert.params_from_numpy(convert.to_numpy(params), cuda),
-                    toks.to(cuda), 8)
-    cpu = generate(bundle, params, toks, 8)
+                    toks.to(cuda), 8, **{k: v.to(cuda) for k, v in stub.items()})
+    cpu = generate(bundle, params, toks, 8, **stub)
     counters = {"flash_attention": fa.flash_attention, "rwkv6_scan": rs.rwkv6_scan,
                 "selective_scan": ss.selective_scan, "moe_gather": md.moe_gather,
                 "moe_combine": md.moe_combine, "moe_gate_grad": md.moe_gate_grad}
@@ -729,6 +750,82 @@ def test_reduced_serve_on_card_matches_cpu(cuda, arch):
     torch.testing.assert_close(card.prefill_logits.cpu(), cpu.prefill_logits,
                                rtol=1e-4, atol=1e-4)
     assert torch.equal(card.tokens.cpu(), cpu.tokens)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-26b"])
+def test_reduced_audio_vlm_loss_on_card_matches_cpu(cuda, arch):
+    """The reduced whisper and internvl2 (float32, remat) from the same
+    params, with frames or patches, at 1100 text tokens (the decoder's
+    self-attention takes the flash kernels, forward twice a layer under
+    remat and backward once): the loss within rtol 1e-5 and every gradient
+    within rtol 1e-4 / atol 1e-5 of the CPU's; the encoder's or the
+    projector's gradients nonzero."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models.transformer import build_model
+
+    bundle = build_model(get_arch(arch).reduced(remat=True, attn_block=128))
+    params = bundle.init(0, device="cpu")
+    rs_ = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(rs_.integers(0, 256, (1, 1100)).astype(np.int32))
+             for k in ("tokens", "targets")}
+    batch.update(_modality_stub(bundle.cfg, 1, 3))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(),
+                     convert.params_from_numpy(convert.to_numpy(params), dev))
+        ops.reset_launch_counts()
+        loss = bundle.loss(p, {k: v.to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert fa.flash_attention.launches == 2 * 2
+            assert fa.flash_attention_bwd.launches == 3 * 2
+        out.append((loss.item(), [g.cpu() for g in grads]))
+    (card_loss, card), (cpu_loss, cpu) = out
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
+    stub_keys = ("encoder", "enc_pos") if arch == "whisper-medium" else ("projector",)
+    paths = [path for path, _ in _leaves(convert.to_numpy(params))]
+    for path, g, c in zip(paths, card, cpu):
+        torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-5, msg=path)
+        if path.split("/")[1] in stub_keys:
+            assert c.abs().max().item() > 0, path
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-26b"])
+def test_reduced_audio_vlm_decode_on_card_matches_cpu(cuda, arch):
+    """Prefill and 4 decode steps of the reduced model on the card against
+    the CPU: logits within rtol/atol 1e-4 after each call, whisper's
+    decode steps cross-attending to the encoder's output passed as
+    ``memory``, internvl2's decoding after its patches' positions."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+
+    bundle = build_model(get_arch(arch).reduced())
+    cfg = bundle.cfg
+    params = bundle.init(4, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 13)).astype(np.int32))
+    stub = _modality_stub(cfg, 2, 5)
+    P = cfg.vision_tokens if "patches" in stub else 0
+    logits = []
+    for dev in (cuda, torch.device("cpu")):
+        p = convert.params_from_numpy(convert.to_numpy(params), dev)
+        extra, pre = {}, {"tokens": toks.to(dev)}
+        if "frames" in stub:
+            extra["memory"] = bundle.memory(p, {"frames": stub["frames"].to(dev)})
+        if "patches" in stub:
+            pre["patches"] = stub["patches"].to(dev)
+        with torch.no_grad():
+            cache = bundle.init_cache(2, P + 17, device=dev)
+            lg, cache = bundle.prefill(p, {**pre, **extra}, cache)
+            seq = [lg.cpu()]
+            for i in range(4):
+                lg, cache = bundle.decode_step(p, {"token": toks[:, i:i + 1].to(dev),
+                                                   "index": P + 13 + i, **extra}, cache)
+                seq.append(lg.cpu())
+        logits.append(seq)
+    for i, (g, c) in enumerate(zip(*logits)):
+        torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-4, msg=f"call {i}")
 
 
 # ------------------------------------------------ attention backward (training)

@@ -6,8 +6,10 @@ glm4-9b, qwen3-14b, rwkv6-1.6b, qwen2.5-32b (QKV biases), gemma3-27b at 7
 layers (six windowed at the reduced window of 16 and one global, tied
 embeddings), hymba-1.5b (windowed attention and the selective SSM in
 parallel; its ``sstate`` cache leaf) and granite-moe-1b-a400m (4 experts,
-top 2; serving routes dropless at these sizes). The windowed archs take prompts
-longer than their window. Params come from the reference's ``init`` and
+top 2; serving routes dropless at these sizes), whisper-medium and
+internvl2-26b (here from tokens alone: their frames and patches are held in
+``test_torch_audio_vlm.py``). The windowed archs take prompts longer than
+their window. Params come from the reference's ``init`` and
 cross through ``repro_torch.convert``; inputs come from numpy seeds.
 
 Tolerances: float32 at rtol 1e-4 / atol 1e-5 (the two packages sum their
@@ -45,7 +47,7 @@ from repro_torch.models.config import ArchConfig  # noqa: E402
 from repro_torch.models.transformer import build_model as tbuild  # noqa: E402
 
 ARCHS = ("glm4-9b", "qwen3-14b", "rwkv6-1.6b", "qwen2.5-32b", "gemma3-27b", "hymba-1.5b",
-         "granite-moe-1b-a400m")
+         "granite-moe-1b-a400m", "whisper-medium", "internvl2-26b")
 RTOL, ATOL = 1e-4, 1e-5
 # gemma3 at 7 layers: its 6th is global (every (5 + 1)-th), the others windowed.
 OVER = {"gemma3-27b": dict(num_layers=7)}
@@ -114,23 +116,24 @@ def test_configs_are_the_reference_numbers(arch):
 
 
 def test_other_archs_name_their_slice():
+    """Only mixtral-8x22b is missing, and it names the slice that brings it
+    (the multi-card mesh); every family of the reference builds."""
     from repro.configs import ARCH_IDS
+    from repro.models.transformer import build_model as jbuild_family
     assert tconfigs.ARCH_IDS == ARCH_IDS
-    missing = set(ARCH_IDS) - set(ARCHS)
-    assert missing == {"internvl2-26b", "mixtral-8x22b", "whisper-medium"}
-    for arch in missing:
-        with pytest.raises(ValueError, match="slice"):
-            tconfigs.get_arch(arch)
-    with pytest.raises(KeyError):
-        tconfigs.get_arch("gpt-9")
-    for family in ("audio", "vlm"):
-        cfg = tconfigs.get_arch("qwen3-14b").reduced(arch_type=family)
-        with pytest.raises(NotImplementedError, match=f"{family} slice"):
-            tbuild(cfg)
-    # The moe family builds (granite's slice); mixtral waits for the mesh.
+    assert set(ARCH_IDS) - set(ARCHS) == {"mixtral-8x22b"}
+    assert set(tconfigs.PORTED) == set(ARCHS)
     with pytest.raises(ValueError, match="multi-card slice"):
         tconfigs.get_arch("mixtral-8x22b")
-    assert tbuild(tconfigs.get_arch("granite-moe-1b-a400m").reduced()).cfg.arch_type == "moe"
+    with pytest.raises(KeyError):
+        tconfigs.get_arch("gpt-9")
+    for arch in ARCHS:
+        cfg = tconfigs.get_arch(arch).reduced()
+        assert tbuild(cfg).cfg.arch_type == jbuild_family(jget_arch(arch).reduced()).cfg.arch_type
+    from repro_torch.models.transformer import FAMILIES
+    assert set(FAMILIES) == {jget_arch(a).arch_type for a in ARCH_IDS}
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        tbuild(tconfigs.get_arch("qwen3-14b").reduced(arch_type="diffusion"))
 
 
 def test_gemma3_layer_pattern():
