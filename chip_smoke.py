@@ -13,8 +13,9 @@ parameters) over 10 groups x 10 clients at batch 50, on synthetic data of
 CIFAR-10's 32x32x3 shape -- uncompressed at full participation, with
 compressed uploads, under partial participation, under faults, with
 async group rounds, with virtual client populations, through
-checkpoints, and on the multilevel backend over a 4 x 5 x 5 tree. Depth is
-cut: E = 2
+checkpoints, on the multilevel backend over a 4 x 5 x 5 tree, and
+through the reference's low-level surface (``make_global_round``,
+``make_round_step``, SCAFFOLD, the optimizers). Depth is cut: E = 2
 group rounds of H = 5 local steps, 1 or 2 global rounds per path. The
 serving phases serve qwen3-14b, rwkv6-1.6b, qwen2.5-32b, gemma3-27b,
 hymba-1.5b, granite-moe-1b-a400m, whisper-medium (with its stub frames)
@@ -138,6 +139,25 @@ final line):
     the leaves equal and the corrections summing to zero over the children
     (u1), a round on the card against the CPU (u1), flat against tree (u2),
     frozen subtrees' bits (u3), round ms and peaks;
+10f. phase (ls), the reference's low-level surface on path (a)
+    (``phase_low_level_surface``): (ls1) ``make_global_round`` on
+    ``hfl_init``'s flat state (fused), driven by ``make_round_step`` for 2
+    rounds, bit for bit ``run_rounds``' state and losses on the same shard
+    ids (deterministic cuDNN), ``mtgc_update_flat`` E * H times a round;
+    (ls2) one tree + fused round on (ls1)'s first ids within 1e-5 of max|x|
+    of (ls1)'s first, ``mtgc_update`` E * H * 8 times; (ls3)
+    ``bench_round.py``'s host loop: ``sample_round_batches`` on the host,
+    the upload, one round and the streaming ``accuracy``, each timed, and
+    the host's share; (ls4) MTGC at G = 1, E = 1 with the gradient init
+    (flat + fused) against ``make_scaffold_round`` option I, 3 rounds of 10
+    clients, within 1e-4 of max|x|; (ls5) ``resnet_gn(100, (32, 32, 3))``
+    and ``lstm(64)`` (``make_language`` sequences of 80 tokens): per-client
+    losses and gradients under ``vmap`` over 2 x 5 clients at batch 16, card
+    against CPU within 1e-4 of the largest entry; (ls6) ten ``sgd``
+    (momentum) and ``adamw`` (warmup + cosine) steps over the CNN's tree,
+    card against CPU: sgd within one ulp of each entry, adamw within one ulp
+    of each leaf's largest entry a step (the CPU's float32 ``sqrt`` is not
+    correctly rounded);
 11. the port on the card against the port on the CPU (the kernels' plain
     versions) on a small input: the uncompressed round, a compressed round
     under partial participation with injected draws, and two async windows
@@ -389,7 +409,8 @@ final line):
 22. a JSON line of the serving and training runs, one per phase of 18-20,
     (n), (p), (q) and (s), one of (m), one of (o), one of (r), one of (t),
     one of (u), one each of (v1), (v2), (v3), (w1), (w2), (w3), (y1), (y2),
-    (y3), (z1), (z2) and (z3), and one per kernel, then ``{"ok": true,
+    (y3), (z1), (z2) and (z3), one of (ls), and one per kernel, then
+    ``{"ok": true,
     "device": {...}}`` last.
 
 TF32 is switched off (``torch.backends.cudnn.allow_tf32`` and
@@ -4606,6 +4627,320 @@ def phase_multilevel_hfl(torch, np, api, train, p0, loss_fn) -> dict:
     return out
 
 
+# Phase (ls), the low-level surface: (ls4)'s SCAFFOLD reduction at G = 1,
+# K = 10, E = 1 over LS_SCAFFOLD_ROUNDS rounds; (ls5)'s 2 x 5 clients at
+# batch 16 (lstm on make_language sequences of 80 tokens); (ls6)'s steps.
+# LS_AGREE bounds (ls2) against (ls1) (phase 5's fused-against-unfused
+# bound), and LS_CNN_AGREE (ls4) and (ls5): ROADMAP queue 3 item 1's CNN
+# bound, relative to the largest entry.
+LS_SCAFFOLD_ROUNDS, LS_CLIENTS, LS_BATCH, LS_SEQ, LS_OPT_STEPS = 3, (2, 5), 16, 80, 10
+LS_AGREE, LS_CNN_AGREE = 1e-5, 1e-4
+# (ls5): the card against the CPU in float64, relative to the largest
+# entry; resnet_gn's float32 gradients against float64: a few ReLU units
+# on the other side of zero, each about 1e-3 (see the phase).
+LS_F64_AGREE, LS_RELU_GRAD = 1e-9, 1e-2
+
+
+def _max_gap(torch, got: dict, want: dict) -> tuple[float, float]:
+    """(max |got - want|, max |want|) over the leaves of two trees (a CPU
+    copy of ``got`` is taken)."""
+    from repro_torch.core.tree import tree_leaves
+
+    gap = scale = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        gap = max(gap, (g.cpu() - w.cpu()).abs().max().item())
+        scale = max(scale, w.abs().max().item())
+    return gap, scale
+
+
+def phase_low_level_surface(torch, np, api, spec, data, p0, loss_fn, apply, train, test,
+                            idx) -> dict:
+    """Phase (ls): the reference's low-level surface on path (a) -- the
+    legacy ``make_global_round`` driven by ``make_round_step``, flat (ls1)
+    and tree (ls2), ``bench_round.py``'s host loop (ls3), SCAFFOLD against
+    MTGC (ls4), ``resnet_gn`` and ``lstm`` (ls5) and the optimizers (ls6)
+    on the card against the CPU."""
+    import warnings
+
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch import core, optim
+    from repro_torch.core.driver import select_round
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import make_language, sample_round_batches
+    from repro_torch.kernels import mtgc_update as mu
+    from repro_torch.models import small
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "ms": {}, "readings": {}, "peak_gb": {}}
+    packer = core.make_packer(p0)
+    n_leaves = len(packer.segments)
+    cfg = core.HFLConfig(num_groups=GROUPS, clients_per_group=CLIENTS, local_steps=H,
+                         group_rounds=E, lr=LR, algorithm="mtgc", use_fused_update=True)
+    tree_cfg = dataclasses.replace(cfg, use_flat_state=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        rf, rf_tree = (core.make_global_round(loss_fn, c) for c in (cfg, tree_cfg))
+    sids = torch.randint(0, data.num_shards, (ROUNDS, E, GROUPS, CLIENTS),
+                         generator=torch.Generator().manual_seed(31))
+
+    # (ls1) flat + fused through make_round_step, against run_rounds on the
+    # same shard ids; (ls2) one tree + fused round from (ls1)'s first ids.
+    torch.backends.cudnn.deterministic = True
+    try:
+        engine = api.build(spec, loss_fn)
+        want, _, hz = core.run_rounds(engine.round_fn, engine.init(p0), data, ROUNDS,
+                                      shard_ids=sids)
+        torch.cuda.synchronize()
+        del engine
+        torch.cuda.reset_peak_memory_stats()
+        step = core.make_round_step(rf)
+        state = core.hfl_init(p0, cfg)
+        launches, ms = [], []
+        for t in range(ROUNDS):
+            mu.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, _, m = step(state, data, sids[t])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append([mu.mtgc_update_flat.launches, mu.mtgc_update.launches])
+            require(np.array_equal(m.loss.cpu().numpy(), hz.metrics.loss[t]),
+                    f"(ls1) round {t + 1}'s losses differ from run_rounds'")
+            if t == 0:
+                first = state.params.bufs["float32"].clone()
+        out["peak_gb"]["ls1"] = torch.cuda.max_memory_allocated() / 1e9
+        require(all(c == [E * H, 0] for c in launches),
+                f"(ls1) launched [flat, leaf] {launches} a round, expected [{E * H}, 0]")
+        for f in ("params", "z", "y", "dyn"):
+            require(torch.equal(getattr(state, f).bufs["float32"], getattr(want, f).bufs["float32"]),
+                    f"(ls1) make_round_step's {f} differs from run_rounds'")
+        require(torch.equal(state.round, want.round), "(ls1) round counters differ")
+        out["launches"]["ls1"] = {"mtgc_update_flat": sum(c[0] for c in launches),
+                                  "mtgc_update": sum(c[1] for c in launches)}
+        out["ms"]["ls1"] = ms
+        del want, hz, state
+        mu.reset_launch_counts()
+        t0 = time.perf_counter()
+        tstate, _, _ = core.make_round_step(rf_tree)(core.hfl_init(p0, tree_cfg), data, sids[0])
+        torch.cuda.synchronize()
+        out["ms"]["ls2"] = (time.perf_counter() - t0) * 1e3
+        out["launches"]["ls2"] = {"mtgc_update_flat": mu.mtgc_update_flat.launches,
+                                  "mtgc_update": mu.mtgc_update.launches}
+        require(out["launches"]["ls2"] == {"mtgc_update_flat": 0,
+                                           "mtgc_update": E * H * n_leaves},
+                f"(ls2) launched {out['launches']['ls2']}, expected mtgc_update "
+                f"{E * H * n_leaves}")
+        gap = (packer.flatten(tstate.params).bufs["float32"] - first).abs().max().item()
+        scale = first.abs().max().item()
+        out["readings"]["ls2_tree_vs_flat"] = {"max_abs": gap, "max_x": scale}
+        require(gap <= LS_AGREE * scale,
+                f"(ls2) tree and flat rounds differ by {gap} (max |x| {scale})")
+        del tstate, first
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log(f"(ls1) make_global_round + make_round_step, flat + fused, {ROUNDS} rounds: bit for "
+        f"bit run_rounds' state and losses; mtgc_update_flat {launches} [flat, leaf] a round; "
+        f"{[round(x, 1) for x in ms]} ms; peak {out['peak_gb']['ls1']:.2f} GB. (ls2) tree + "
+        f"fused, one round: {out['ms']['ls2']:.1f} ms, mtgc_update "
+        f"{out['launches']['ls2']['mtgc_update']}, max |dx| {gap} against (ls1)'s (max |x| "
+        f"{scale})")
+
+    # (ls3) bench_round.py's host loop: batches sampled on the host, moved
+    # to the card, one round, a streaming eval.
+    state = core.hfl_init(p0, cfg)
+    torch.cuda.synchronize()
+    mu.reset_launch_counts()
+    t0 = time.perf_counter()
+    b = sample_round_batches(train.x, train.y, idx, np.random.default_rng(41), E, H, BATCH)
+    t1 = time.perf_counter()
+    bt = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    state, m = rf(state, bt)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    acc = small.accuracy(apply, core.global_model(state), test.x, test.y)
+    t4 = time.perf_counter()
+    require(bool(torch.isfinite(m.loss).all()) and 0.0 <= acc <= 1.0,
+            f"(ls3) losses not finite or accuracy {acc}")
+    out["launches"]["ls3"] = {"mtgc_update_flat": mu.mtgc_update_flat.launches,
+                              "mtgc_update": mu.mtgc_update.launches}
+    require(out["launches"]["ls3"] == {"mtgc_update_flat": E * H, "mtgc_update": 0},
+            f"(ls3) launched {out['launches']['ls3']}")
+    host = {"sample_ms": (t1 - t0) * 1e3, "upload_ms": (t2 - t1) * 1e3,
+            "round_ms": (t3 - t2) * 1e3, "eval_ms": (t4 - t3) * 1e3,
+            "batch_bytes": int(sum(v.nbytes for v in b.values()))}
+    host["host_share"] = (host["sample_ms"] + host["upload_ms"]) / ((t3 - t0) * 1e3)
+    out["ms"]["ls3"] = host
+    out["readings"]["ls3_accuracy"] = acc
+    log(f"(ls3) host loop: sample {host['sample_ms']:.1f} ms, upload {host['upload_ms']:.1f} ms "
+        f"({host['batch_bytes'] / 1e6:.1f} MB), round {host['round_ms']:.1f} ms, eval "
+        f"{host['eval_ms']:.1f} ms; host share of sample + upload + round "
+        f"{host['host_share']:.3f}; accuracy {acc}")
+    del state, b, bt
+
+    # (ls4) MTGC at G = 1, E = 1, gradient init (flat + fused) against
+    # SCAFFOLD option I on the same batches, deterministic cuDNN. Neither
+    # carries anything but the model across rounds, so each round is held
+    # from a common start: SCAFFOLD from MTGC's pre-round model. The two
+    # round their corrections in another order; from p0 the CNN's early
+    # loss spike (ROADMAP queue 3 item 3) grows such one-ulp differences a
+    # thousandfold in a round. So each round also measures that growth:
+    # SCAFFOLD from the start model moved by one ulp. A round is held within
+    # LS_CNN_AGREE of max|x|, or within that growth where it is larger. The
+    # chained runs from p0 are logged.
+    k1 = dataclasses.replace(cfg, num_groups=1, group_rounds=1, correction_init="gradient")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        rf1 = core.make_global_round(loss_fn, k1)
+    s1, sc = core.hfl_init(p0, k1), core.scaffold_init(p0, CLIENTS)
+    sc_round = core.make_scaffold_round(loss_fn, CLIENTS, H, LR, option="I")
+    gen = torch.Generator().manual_seed(43)
+    per_round, chained, growth = [], [], []
+    mu.reset_launch_counts()
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        for _ in range(LS_SCAFFOLD_ROUNDS):
+            sb = select_round(data, torch.randint(0, data.num_shards, (E, GROUPS, CLIENTS),
+                                                  generator=gen))
+            bs = {k: v[0, :, 0].contiguous() for k, v in sb.items()}
+            start = core.scaffold_init(core.global_model(s1), CLIENTS)
+            s1, _ = rf1(s1, {k: v[:1, :, :1].contiguous() for k, v in sb.items()})
+            sc, _ = sc_round(sc, bs)
+            synced, _ = sc_round(start, bs)
+            moved, _ = sc_round(start._replace(params=tree_map(
+                lambda x: torch.nextafter(x, torch.full_like(x, math.inf)), start.params)), bs)
+            x_m, x_s = core.global_model(s1), tree_map(lambda x: x[0], synced.params)
+            per_round.append(_max_gap(torch, x_m, x_s))
+            growth.append(_max_gap(torch, tree_map(lambda x: x[0], moved.params), x_s))
+            chained.append(_max_gap(torch, x_m, tree_map(lambda x: x[0], sc.params)))
+        torch.cuda.synchronize()
+        out["ms"]["ls4"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["launches"]["ls4"] = {"mtgc_update_flat": mu.mtgc_update_flat.launches,
+                              "mtgc_update": mu.mtgc_update.launches}
+    require(out["launches"]["ls4"]["mtgc_update_flat"] == LS_SCAFFOLD_ROUNDS * H,
+            f"(ls4) mtgc_update_flat launched {out['launches']['ls4']}")
+    rel = [g / x for g, x in per_round]
+    ulp = [g / x for g, x in growth]
+    out["readings"]["ls4_mtgc_vs_scaffold"] = {
+        "per_round": [{"max_abs": g, "max_x": x} for g, x in per_round],
+        "one_ulp_growth": [{"max_abs": g, "max_x": x} for g, x in growth],
+        "chained": [{"max_abs": g, "max_x": x} for g, x in chained]}
+    log(f"(ls4) MTGC (G=1, E=1, gradient init, flat + fused) against SCAFFOLD I, "
+        f"{LS_SCAFFOLD_ROUNDS} rounds of {CLIENTS} clients x {H} steps: each round from a "
+        f"common start max |dx| / max |x| {[f'{r:.3e}' for r in rel]}; SCAFFOLD from a start "
+        f"one ulp away {[f'{r:.3e}' for r in ulp]}; chained from p0 "
+        f"{[f'{g / x:.3e}' for g, x in chained]}; {out['ms']['ls4']:.1f} ms")
+    require(all(r <= max(LS_CNN_AGREE, u) for r, u in zip(rel, ulp)),
+            "(ls4) a round of MTGC is not a round of SCAFFOLD")
+    del s1, sc, start, synced, moved
+
+    # (ls5) resnet_gn and lstm: per-client losses and gradients under vmap
+    # on the card, in float64 against the CPU's float64 (the same code path;
+    # no rounding reaches the limit), and in float32 against that float64.
+    # A ReLU net's float32 gradient is not within the CNN's 1e-4 of float64:
+    # a ReLU input within float32's rounding of zero lands on the other side
+    # of it (in one draw of these shapes on the CPU, 3 of 10 clients had one
+    # such input among their 2.1 M), and that unit moves a stage-2 weight's
+    # gradient by
+    # about 1 / (16 x 8 x 8) of its sum: up to 7.8e-4 of the largest entry
+    # (the reference's float32, which rounds otherwise, had none on those
+    # clients). So resnet_gn's float32 is held within LS_RELU_GRAD, lstm's
+    # (no kink) within LS_CNN_AGREE.
+    G5, K5 = LS_CLIENTS
+    rng = np.random.default_rng(45)
+    lang, _ = make_language(rng, num_styles=10, vocab=64, samples_per_style=G5 * K5 * LS_BATCH
+                            // 10, seq_len=LS_SEQ)
+    cases = {
+        "resnet_gn": (small.resnet_gn(100, IMAGE), {
+            "x": rng.normal(size=(G5, K5, LS_BATCH) + IMAGE).astype(np.float32),
+            "y": rng.integers(0, 100, size=(G5, K5, LS_BATCH)).astype(np.int32)}),
+        "lstm": (small.lstm(64), {"x": lang.x.reshape(G5, K5, LS_BATCH, LS_SEQ),
+                                  "y": lang.y.reshape(G5, K5, LS_BATCH, LS_SEQ)}),
+    }
+    f32, f64 = torch.float32, torch.float64
+    for name, ((init, mapply), batch) in cases.items():
+        params = init(torch.Generator().manual_seed(47), device="cpu")
+        stacked = tree_map(lambda x: x.expand((G5, K5) + tuple(x.shape)).contiguous(), params)
+        fn = vmap(vmap(grad_and_value(small.make_loss(mapply))))
+        res, times = {}, {}
+        for dev, dtype in (("cuda", f32), ("cpu", f32), ("cuda", f64), ("cpu", f64)):
+            p = tree_map(lambda x: x.to(dev, dtype), stacked)
+            bt = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            if bt["x"].is_floating_point():
+                bt["x"] = bt["x"].to(dtype)
+            t0 = time.perf_counter()
+            grads, losses = fn(p, bt)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            tag = f"{dev}_{'f32' if dtype == f32 else 'f64'}"
+            times[tag] = (time.perf_counter() - t0) * 1e3
+            res[tag] = (tree_map(lambda x: x.double().cpu(), grads), losses.double().cpu())
+        oracle_g, oracle_l = res["cpu_f64"]
+        gmax = max(g.abs().max().item() for g in tree_leaves(oracle_g))
+        lmax = oracle_l.abs().max().item()
+
+        def rel(a, b):
+            return {"grad": _max_gap(torch, res[a][0], res[b][0])[0] / gmax,
+                    "loss": (res[a][1] - res[b][1]).abs().max().item() / lmax}
+
+        reading = {"cuda_f64_vs_cpu_f64": rel("cuda_f64", "cpu_f64"),
+                   "cuda_f32_vs_cpu_f64": rel("cuda_f32", "cpu_f64"),
+                   "cpu_f32_vs_cpu_f64": rel("cpu_f32", "cpu_f64"),
+                   "cuda_f32_vs_cpu_f32": rel("cuda_f32", "cpu_f32")}
+        finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(res["cuda_f32"][0]))
+        out["readings"][f"ls5_{name}"] = dict(reading, grad_max=gmax, loss_max=lmax)
+        out["ms"][f"ls5_{name}"] = times
+        log(f"(ls5) {name}: per-client losses and gradients, {G5} x {K5} clients x {LS_BATCH}, "
+            f"relative to float64's largest entry: {reading}; "
+            f"{ {k: round(v, 1) for k, v in times.items()} } ms")
+        limit = LS_RELU_GRAD if name == "resnet_gn" else LS_CNN_AGREE
+        f64_gap, f32_gap = reading["cuda_f64_vs_cpu_f64"], reading["cuda_f32_vs_cpu_f64"]
+        require(finite and f64_gap["grad"] <= LS_F64_AGREE and f64_gap["loss"] <= LS_F64_AGREE,
+                f"(ls5) {name} in float64 differs between card and CPU: {f64_gap}")
+        require(f32_gap["grad"] <= limit and f32_gap["loss"] <= LS_CNN_AGREE,
+                f"(ls5) {name}'s float32 on the card misses float64 beyond {limit}: {f32_gap}")
+    del cases, res
+
+    # (ls6) ten sgd (momentum) and adamw (warmup + cosine) steps over the
+    # CNN's tree from random gradients, card against CPU.
+    gen = torch.Generator().manual_seed(49)
+    grads = [tree_map(lambda x: torch.randn(x.shape, generator=gen), p0)
+             for _ in range(LS_OPT_STEPS)]
+    for name, opt in (("sgd", optim.sgd(LR, momentum=0.9)),
+                      ("adamw", optim.adamw(optim.linear_warmup_cosine(1e-3, 3, LS_OPT_STEPS),
+                                            weight_decay=0.01))):
+        finals = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda x: x.to(dev), p0)
+            st = opt.init(p)
+            for i, g in enumerate(grads):
+                p, st = opt.update(tree_map(lambda x: x.to(dev), g), st, p, i)
+            finals[dev] = tree_map(lambda x: x.cpu(), p)
+        worst_leaf = worst_entry = 0.0
+        for gp, cp in zip(tree_leaves(finals["cuda"]), tree_leaves(finals["cpu"])):
+            d = (gp - cp).abs().numpy()
+            c = cp.abs().numpy()
+            worst_leaf = max(worst_leaf, float(d.max() / np.spacing(np.float32(c.max()))))
+            worst_entry = max(worst_entry, float((d / np.spacing(c)).max()))
+        out["readings"][f"ls6_{name}"] = {"ulps_of_entry": worst_entry,
+                                          "ulps_of_leaf_max": worst_leaf}
+        log(f"(ls6) {name}, {LS_OPT_STEPS} steps over the CNN's tree, card against CPU: "
+            f"{worst_entry} ulps of an entry's magnitude at most, {worst_leaf} of its leaf's "
+            f"largest entry")
+        # sgd: one ulp of each entry (mul and sub round alike on both); adamw:
+        # the CPU's float32 sqrt is not correctly rounded (ROADMAP queue 3),
+        # so one ulp of each leaf's largest entry a step.
+        require(worst_entry <= 1.0 if name == "sgd" else worst_leaf <= LS_OPT_STEPS,
+                f"(ls6) {name} differs between card and CPU")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"(ls) the low-level surface: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4915,6 +5250,9 @@ def main() -> int:
     # --- 10d. (r) virtual populations, (t) checkpoints, path (a) ---------
     hfl_r = phase_population_hfl(torch, np, api, spec, data, p0, loss_fn)
     hfl_t = phase_checkpoint_hfl(torch, np, api, spec, data, p0, loss_fn)
+    # --- 10f. (ls) the low-level surface on path (a) ---------------------
+    surface = phase_low_level_surface(torch, np, api, spec, data, p0, loss_fn, apply, train,
+                                      test, idx)
     del data
     torch.cuda.empty_cache()
     # --- 10e. (u) the multilevel backend over a 4 x 5 x 5 tree -----------
@@ -5337,6 +5675,9 @@ def main() -> int:
             k["training_launches"][run] = counts.get(name, 0)
         k["training_launches"]["s"] = lm_s["launches"].get(name, 0)
         k["training_launches"]["t"] = hfl_t["launches"].get(name, 0)
+        # Phase (ls)'s runs of the fused step.
+        for run, counts in surface["launches"].items():
+            k["training_launches"][run] = counts.get(name, 0)
         # Phase (u)'s timed runs: the multilevel backend runs no kernel.
         for run, counts in hfl_u["launches"].items():
             k["training_launches"][run] = counts[name]
@@ -5366,6 +5707,7 @@ def main() -> int:
     for run in lm_z:
         print(json.dumps({f"training_{run['phase']}": run}))
     print(json.dumps({"training_z3": {"rounds": lm_z3, "models": av_z3}}))
+    print(json.dumps({"surface_ls": surface}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

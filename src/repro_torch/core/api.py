@@ -46,7 +46,7 @@ import torch
 
 from repro_torch.core.compression import COMPRESSION_MODES, CompressionPlan
 from repro_torch.core.config import HFLConfig
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import clone_generator, resolve_device
 from repro_torch.core.faults import FAULT_KINDS, DefensePlan, FaultPlan
 from repro_torch.core.driver import (
     GuardSpec,
@@ -63,6 +63,7 @@ from repro_torch.core.engine import (
     hfl_init,
 )
 from repro_torch.core.packer import as_tree
+from repro_torch.core.participation import sample_hfl_masks
 from repro_torch.core.population import (
     PopulationStore,
     population_fields,
@@ -573,6 +574,24 @@ class _EngineBase:
             cache[retry] = build(dataclasses.replace(spec, defense=widened), self.loss_fn,
                                  device=self.device).round_fn
         return cache[retry]
+
+    def participation_masks(self, rng: torch.Generator):
+        """``(masks, next_rng)``: the participation masks the next two-level
+        round draws from a state whose generator is ``rng`` (the
+        reference's ``participation_masks``), and a generator in the state
+        that round leaves it in after the draw. The draw is made from a
+        copy, so ``rng`` is untouched; eval closures re-derive a round's
+        masks from ``prev.rng``."""
+        _require(len(self.spec.levels) == 2,
+                 "participation_masks is two-level; the multilevel backend "
+                 "draws hierarchical chain masks internally")
+        _require(rng is not None, "participation_masks needs the state's rng (a state "
+                 "without one draws no masks)")
+        spec = self.spec
+        gen = clone_generator(rng)
+        masks = sample_hfl_masks(gen, *spec.levels, spec.client_participation,
+                                 spec.group_participation, spec.participation_mode)
+        return masks, gen
 
     def _fault_download(self) -> bool:
         """Whether the state carries the realized-download mask ``dl``: only

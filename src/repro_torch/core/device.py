@@ -1,4 +1,5 @@
-"""Where the port runs: the GPU unless the caller asks for the CPU."""
+"""Where the port runs: the GPU unless the caller asks for the CPU; and
+copies of its random generators."""
 from __future__ import annotations
 
 import torch
@@ -20,3 +21,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the port runs on 'cuda' or 'cpu', got {dev}")
     return dev
+
+
+def clone_generator(gen: torch.Generator) -> torch.Generator:
+    """A new generator on ``gen``'s device in ``gen``'s current state: it
+    draws what ``gen`` would draw next, and drawing from it leaves ``gen``
+    as it is."""
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out

@@ -17,6 +17,8 @@ the device, and ``run_rounds`` (port of ``src/repro/core/driver.py``).
 * **Horizon** (:func:`run_rounds`): ``T`` rounds in a Python loop. Metrics
   come back to the host once per ``chunk`` rounds; the eval function runs
   at multiples of ``eval_every`` and at the final round.
+  :func:`make_round_step` is one round of it (selection + round), the
+  host-loop building block.
 * **Guarded horizon** (``run_rounds(..., guard=GuardSpec())``): each chunk
   is snapshotted to host memory before it runs, checked for divergence
   after, and rolled back and retried on divergence. The reference folds
@@ -34,6 +36,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.device import clone_generator
 from repro_torch.core.faults import all_finite
 
 Tree = Any
@@ -372,6 +375,58 @@ def eval_mask_for_chunk(done: int, n: int, T: int, eval_every: int) -> np.ndarra
                      for i in range(n)])
 
 
+def _pre_round(state):
+    """``state`` with a copy of its generator (a round advances the
+    generator in place), so that an eval reads ``prev.rng`` as it stood
+    before the round, e.g. to re-derive the round's participation masks."""
+    rng = getattr(state, "rng", None)
+    return state._replace(rng=clone_generator(rng)) if isinstance(rng, torch.Generator) else state
+
+
+def _undonated(state):
+    """A state a round may consume while ``state`` stays usable: its
+    generator copied, and, for the sharded backend, which writes its state
+    in place, every tensor copied too."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.train import ShardedHFLState
+
+    if isinstance(state, ShardedHFLState):
+        def copy(f):
+            if f is None:
+                return None
+            if isinstance(f, torch.Generator):
+                return clone_generator(f)
+            return tree_map(torch.clone, f)
+
+        return type(state)(*(copy(f) for f in state))
+    return _pre_round(state)
+
+
+def make_round_step(round_fn: Callable, *, donate: bool = True):
+    """One global round of the driver as a host-loop step (the reference's
+    ``make_round_step``; what :func:`run_rounds` runs for each round).
+
+    Returns ``step(state, data, shard_ids=None) -> (state, data,
+    metrics)``: one shard selection (``shard_ids`` ``[E, *dims]``, else
+    drawn from ``data.generator``, which advances in place as in
+    ``run_rounds``) and one ``round_fn`` call. With ``donate`` (the
+    default) the round may consume the state passed in, so the caller must
+    not reuse it (the sharded backend writes it in place, and the state's
+    generator advances). With ``donate=False`` the state passed in stays
+    usable and unchanged: the step hands the round a copy of its generator
+    (and, on the sharded backend, of its tensors), so a second step from it
+    on the same shard ids repeats the first, bit for bit.
+    """
+
+    def step(state, data: PackedBatches, shard_ids=None):
+        sid = draw_shard_ids(data) if shard_ids is None else shard_ids
+        batches = select_round(data, sid)
+        state, metrics = round_fn(state if donate else _undonated(state), batches)
+        return state, data, metrics
+
+    return step
+
+
 def dispatch_chunk(round_fn: Callable, state: Tree, data: PackedBatches, mask: np.ndarray, *,
                    done: int = 0, eval_fn: Callable | None = None, shard_ids=None,
                    draws=None) -> tuple[Tree, list, list]:
@@ -381,14 +436,16 @@ def dispatch_chunk(round_fn: Callable, state: Tree, data: PackedBatches, mask: n
     store's gather) while the card runs them; once the card's launch queue
     is full, queuing itself waits for the card. ``shard_ids`` (``[T, E, *dims]``) and
     ``draws`` (T entries) are indexed by the global round ``done + i``;
-    ``eval_fn(prev, state)`` runs where ``mask`` is True. Returns ``(state,
-    metrics, evals)``: per-round results still on the device, for
-    :func:`_to_host`."""
+    ``eval_fn(prev, state)`` runs where ``mask`` is True, ``prev`` the
+    state the round started from with its generator as it stood then (a
+    copy; a sharded state's tensors are the round's own, written in
+    place). Returns ``(state, metrics, evals)``: per-round results still
+    on the device, for :func:`_to_host`."""
     mets, evs = [], []
     for i in range(len(mask)):
         sid = shard_ids[done + i] if shard_ids is not None else draw_shard_ids(data)
         d = draws[done + i] if draws is not None else None
-        prev = state
+        prev = _pre_round(state) if eval_fn is not None and mask[i] else state
         batches = select_round(data, sid)
         state, metrics = (round_fn(state, batches) if d is None
                           else round_fn(state, batches, draws=d))

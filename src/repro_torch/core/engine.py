@@ -185,7 +185,10 @@ def hfl_init(params0: Tree, cfg: HFLConfig, rng=None, *, staleness_snapshots: bo
 
     ``device=None`` runs on the CUDA card and raises on a host without one;
     pass ``device="cpu"`` for the CPU. With ``cfg.use_flat_state`` the state
-    leaves are FlatBuffers (recover trees with ``as_tree``).
+    leaves are FlatBuffers (recover trees with ``as_tree``). Under partial
+    participation ``rng=None`` gets a generator on that device seeded with
+    0 (the reference's ``PRNGKey(0)``); otherwise the state carries the
+    ``rng`` given (None: the round draws nothing of its own).
     ``staleness_snapshots`` carries the download snapshots ``snap`` [G, ...]
     and ``glob`` [...] of delay-compensated async rounds, both copies of the
     initial model (the first compensation is exactly zero);
@@ -196,6 +199,8 @@ def hfl_init(params0: Tree, cfg: HFLConfig, rng=None, *, staleness_snapshots: bo
     """
     dev = resolve_device(device)
     G, K = cfg.num_groups, cfg.clients_per_group
+    if rng is None and min(cfg.client_participation, cfg.group_participation) < 1.0:
+        rng = torch.Generator(device=dev).manual_seed(0)
     params0 = tu.tree_map(lambda t: torch.as_tensor(t).to(dev), params0)
     round0 = torch.zeros((), dtype=torch.int32, device=dev)
     dl = torch.ones(G, dtype=torch.float32, device=dev) if fault_download else None
@@ -261,6 +266,34 @@ def _active_group_drift(xbar_j: Tree, xbar: Tree, gact: torch.Tensor, G: int) ->
     return tu.tree_masked_sq_norm(
         tu.tree_sub(xbar_j, tu.tree_broadcast_to_axis(xbar, 0, G)), gact
     ) / torch.clamp(torch.sum(gact), min=1.0)
+
+
+def make_global_round(loss_fn: Callable[[Tree, Tree], torch.Tensor], cfg: HFLConfig, *,
+                      device=None) -> Callable[..., tuple[HFLState, RoundMetrics]]:
+    """Build the global-round function for ``cfg.algorithm``.
+
+    .. deprecated::
+        ``make_global_round`` is the legacy constructor; new code declares
+        an ``ExperimentSpec(backend="simulator")`` and uses
+        ``repro_torch.api.build(spec, loss_fn)``. This shim returns that
+        engine's ``round_fn``, so both are the same program.
+
+    ``loss_fn(params, batch) -> scalar`` is a single-client loss; batches
+    passed to the returned function have leaves ``[E, H, G, K, ...]``. The
+    function takes the state ``hfl_init(params, cfg)`` makes and adapts to
+    its layout (flat or tree); ``loss_fn`` always sees model trees.
+    ``device`` places the engine (``None``: the CUDA card); the round runs
+    where its state lies.
+    """
+    import warnings
+
+    from repro_torch.core.api import ExperimentSpec, build
+
+    warnings.warn(
+        "make_global_round is deprecated: declare an "
+        "ExperimentSpec(backend='simulator') and use "
+        "repro_torch.api.build(spec, loss_fn)", DeprecationWarning, stacklevel=2)
+    return build(ExperimentSpec.from_hfl_config(cfg), loss_fn, device=device).round_fn
 
 
 def _build_global_round(

@@ -44,6 +44,15 @@ def tree_sub(a: Tree, b: Tree) -> Tree:
     return tree_map(torch.sub, a, b)
 
 
+def tree_scale(a: Tree, s) -> Tree:
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_axpy(alpha, x: Tree, y: Tree) -> Tree:
+    """alpha * x + y."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
 def tree_zeros_like(a: Tree) -> Tree:
     return tree_map(torch.zeros_like, a)
 
@@ -152,3 +161,17 @@ def tree_dot(a: Tree, b: Tree) -> torch.Tensor:
 
 def tree_sq_norm(a: Tree) -> torch.Tensor:
     return tree_dot(a, a)
+
+
+def tree_allclose(a: Tree, b: Tree, rtol=1e-5, atol=1e-6) -> bool:
+    """Whether every leaf pair is ``allclose`` in their promoted dtype (a NaN
+    is never close)."""
+    def close(x, y):
+        dt = torch.promote_types(x.dtype, y.dtype)
+        return bool(torch.allclose(x.to(dt), y.to(dt), rtol=rtol, atol=atol))
+
+    return all(close(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+
+def tree_cast(a: Tree, dtype) -> Tree:
+    return tree_map(lambda x: x.to(dtype), a)

@@ -1,8 +1,10 @@
-"""Dirichlet non-i.i.d. partitioning (paper Sec. 5.1 protocol).
+"""Dirichlet non-i.i.d. partitioning (paper Sec. 5.1 protocol), per-round
+host batch sampling and heterogeneity diagnostics.
 
-A copy of ``partition`` from ``src/repro/data/partition.py`` (numpy only),
-draw for draw, so both packages split a dataset identically from the same
-seed. Settings:
+A copy of ``partition``, ``sample_round_batches`` and ``partition_stats``
+from ``src/repro/data/partition.py`` (numpy only), draw for draw, so both
+packages split and sample a dataset identically from the same seed.
+Settings:
   'group_iid'     -- group i.i.d. & client non-i.i.d.
   'client_iid'    -- group non-i.i.d. & client i.i.d.
   'both_noniid'   -- Dirichlet over groups, then Dirichlet over clients.
@@ -87,3 +89,54 @@ def _label_shift(rng, labels, num_groups, clients_per_group,
             clients.append(np.sort(rng.choice(kidx, size=min(take, len(kidx)), replace=False)))
         out.append(clients)
     return out
+
+
+def sample_round_batches(
+    data_x: np.ndarray,
+    data_y: np.ndarray,
+    indices: list[list[np.ndarray]],
+    rng: np.random.Generator,
+    group_rounds: int,
+    local_steps: int,
+    batch_size: int,
+    client_mask: np.ndarray | None = None,
+):
+    """Sample one global round of batches on the host: numpy arrays
+    ``[E, H, G, K, b, ...]`` (the caller moves them to the device).
+
+    ``client_mask`` ([G, K] 0/1, e.g. ``round_masks``' client mask, on the
+    host) skips inactive clients: no draw is made for them and their slots
+    stay zero (the engine freezes them anyway).
+    """
+    G, K = len(indices), len(indices[0])
+    E, H, B = group_rounds, local_steps, batch_size
+    bx = np.zeros((E, H, G, K, B) + data_x.shape[1:], data_x.dtype)
+    by = np.zeros((E, H, G, K, B) + data_y.shape[1:], data_y.dtype)
+    for g in range(G):
+        for k in range(K):
+            if client_mask is not None and not client_mask[g][k]:
+                continue
+            sel = rng.choice(indices[g][k], size=(E, H, B), replace=True)
+            bx[:, :, g, k] = data_x[sel]
+            by[:, :, g, k] = data_y[sel]
+    return {"x": bx, "y": by}
+
+
+def partition_stats(labels: np.ndarray, indices) -> dict:
+    """Heterogeneity diagnostics: the mean total-variation distance of each
+    group's label distribution from the global one, and of each client's
+    from its group's."""
+    num_classes = int(labels.max()) + 1
+    gdist = []
+    for group in indices:
+        gi = np.concatenate(group)
+        gdist.append(np.bincount(labels[gi], minlength=num_classes) / len(gi))
+    gdist = np.stack(gdist)
+    global_dist = gdist.mean(0)
+    inter = float(np.abs(gdist - global_dist).sum(-1).mean())  # total variation
+    intra = []
+    for g, group in enumerate(indices):
+        cd = np.stack([np.bincount(labels[c], minlength=num_classes) / max(len(c), 1)
+                       for c in group])
+        intra.append(np.abs(cd - gdist[g]).sum(-1).mean())
+    return {"inter_group_tv": inter, "intra_group_tv": float(np.mean(intra))}

@@ -2,7 +2,8 @@
 PyTorch versions (the element-wise kernels bit-exact in float32 and
 bfloat16; the attention and RWKV kernels, which reorder sums, within
 float32 rounding), small rounds of the engine on the card against the same
-rounds on the CPU, reduced LM serving on the card against the CPU (the
+rounds on the CPU (also through the legacy ``make_global_round``), the
+ResNet's stride-2 SAME convolution on the card against the CPU, reduced LM serving on the card against the CPU (the
 audio and vlm families with their frames and patches, and their loss,
 every gradient, prefill and decode), the
 RWKV scan's backward kernel against its plain version and the float64
@@ -250,6 +251,64 @@ def test_fused_round_on_card_matches_cpu(cuda, layout):
     for name in ("params", "z", "y", "dyn"):
         _close(outs[0][0][name], outs[1][0][name], atol.get(name, 1e-5), name)
     _close(outs[0][1], outs[1][1], 1e-5, "metrics")
+
+
+def test_make_global_round_on_card_matches_cpu(cuda):
+    """The legacy constructor's round, flat + fused, from ``hfl_init`` on
+    each device: one reduced CNN round through the CUDA kernel on the card
+    (E * H launches) against the plain version on the CPU, at rtol 1e-4.
+    At lr 0.01, path (a)'s: at 0.1 this CNN on unnormalised inputs is in
+    its unstable early regime (ROADMAP queue 3 item 3), where four steps
+    grew the convolutions' reordering to 2.8e-3 on 2% of the params (an
+    H100 run of this test at lr 0.1)."""
+    import warnings
+
+    from repro_torch import core
+
+    init, apply = small.cnn(10, (8, 8, 1))
+    p0 = init(torch.Generator().manual_seed(1), device="cpu")
+    rng = np.random.default_rng(1)
+    b = {"x": torch.from_numpy(rng.normal(size=(2, 2, 2, 3, 4, 8, 8, 1)).astype(np.float32)),
+         "y": torch.from_numpy(rng.integers(0, 10, size=(2, 2, 2, 3, 4)).astype(np.int32))}
+    lr = 0.01
+    cfg = core.HFLConfig(num_groups=2, clients_per_group=3, local_steps=2, group_rounds=2,
+                         lr=lr, use_fused_update=True)
+    outs = []
+    mu.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            rf = core.make_global_round(small.make_loss(apply), cfg, device=dev)
+        state, metrics = rf(core.hfl_init(p0, cfg, device=dev),
+                            {k: v.to(dev) for k, v in b.items()})
+        outs.append((convert.to_numpy(state), convert.to_numpy(metrics)))
+    assert mu.mtgc_update_flat.launches == 2 * 2 and mu.mtgc_update.launches == 0
+    atol = {"z": 1e-5 / (2 * lr), "y": 1e-5 / (2 * 2 * lr)}
+    for name in ("params", "z", "y", "dyn"):
+        _close(outs[0][0][name], outs[1][0][name], atol.get(name, 1e-5), name)
+    _close(outs[0][1], outs[1][1], 1e-5, "metrics")
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (7, 6)])
+def test_resnet_gn_stride2_conv_on_card_matches_cpu(cuda, hw):
+    """``resnet_gn``'s SAME convolution at stride 2 (an even size pads only
+    the bottom and right) and the whole forward, card against CPU."""
+    from repro_torch.models.small import _apply_conv
+
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 4) + hw, generator=gen)
+    p = {"w": torch.randn(3, 3, 4, 5, generator=gen), "b": torch.randn(5, generator=gen)}
+    want = _apply_conv(p, x, 2)
+    got = _apply_conv({k: v.to(cuda) for k, v in p.items()}, x.to(cuda), 2).cpu()
+    assert tuple(got.shape) == (2, 5, (hw[0] + 1) // 2, (hw[1] + 1) // 2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    init, apply = small.resnet_gn(10, hw + (3,))
+    params = init(torch.Generator().manual_seed(3), device="cpu")
+    xs = torch.randn((4,) + hw + (3,), generator=gen)
+    want = apply(params, xs)
+    got = apply(convert.params_from_numpy(convert.to_numpy(params), cuda), xs.to(cuda)).cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
 
 
 def _close(got, want, atol, tag):
