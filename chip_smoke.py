@@ -30,7 +30,10 @@ hymba-1.5b at full width and full depth (32 layers), through the
 selective scan's forward and backward kernels; and whisper-medium at full
 width and full depth (24 encoder and 24 decoder layers) with its frames in
 every sample. The tree variants of the last three ((v2), (w2), (y2)) run 4
-layers, so that the script stays under 1,000 s.
+layers, so that the script stays under 1,000 s. Path (i)'s round also runs
+on ``torch.distributed`` meshes of the one card (phase (mesh)), and
+mixtral-8x22b serves and takes its loss and backward at full width with 2
+of its 56 layers (phase (mx)).
 The CNN's learning rate is 0.01: at 0.1 the loss of this CNN on the
 synthetic images spikes into the thousands and then settles at chance (ln
 10) in both packages
@@ -298,6 +301,23 @@ final line):
     training tokens/s, peak memory, and a traced round;
 17. LM training, flat + fused (phase (i)): the same, ``mtgc_update_flat``
     once per step, its check on the one [2, 2, N] buffer (6.6e9 elements);
+17a. phase (mesh), the sharded round on a ``torch.distributed`` mesh
+    (``phase_mesh``): path (i)'s round from a fresh state, its spec, params,
+    packed tokens and shard draws, through ``api.build(..., mesh=)`` and
+    ``fit`` on (mesh1) a (group 2, client 1, fsdp 1, model 1) mesh and
+    (mesh2) a (1, 2, 1, 1) mesh, two ranks each, started by this script
+    (``chip_smoke.py --mesh-rank R ...``) on cuda:0 over a gloo group
+    (NCCL refuses two ranks on one device), and (mesh3) a (1, 1, 1, 1) mesh
+    of one NCCL rank in this process: each rank's rows of params and z and
+    its groups' rows of y against (i)'s warm-up round by their float64
+    sums and sums of squares (within 1e-5, plus 1e-6 / (H lr) an entry for
+    z and 1e-6 / (H E lr) for y) and by the sums of their 16-bit patterns
+    ((mesh3) must have every row's bits), the launches per rank (flash
+    forward 2 x layers x the rank's replicas x A x E x H, backward three
+    kernels a call, ``mtgc_update_flat`` once a step), round ms, the time in
+    all-reduces (the device synchronized around each) and the peak per rank;
+    then a reduced glm4 round (float32, T = 256) on each mesh entry by entry
+    against one device's ((mesh3) bit for bit);
 17b. phase (s), a virtual population on the sharded backend: the training
     of (i) at population 4 a group (3 when MemAvailable, printed first, is
     under 70 GB; a 26.4 GB bf16 store, two page-locked cohort buffers of
@@ -406,10 +426,24 @@ final line):
     the same model's with the attention kernels' plain versions swapped in
     (VLM_LOSS_GAP of the loss, VLM_GRAD_GAP of each gradient's largest
     entry), its time and peak;
+28. phase (mx), mixtral-8x22b at its published widths with 2 of its 56
+    layers (5.41 B params, bf16): served through ``generate`` (4 prompts of
+    8192 tokens, past its 4096-token window, and 32 generated: the flash
+    forward once a layer in the prefill, the moe dispatch and combine once a
+    routed chunk of 16384 tokens a layer in the prefill and once a layer a
+    decode step), then its loss and backward at 1 x 8192 (remat; chunks of
+    4096 tokens) with the kernels and again with the flash reference and
+    the one-hot einsums swapped in, on the kernels' routing (each routing
+    call replayed: the plain attention's rounding flips some tokens' top-2
+    experts, a discrete choice, and the share it would flip is reported):
+    the loss and every gradient within MX_LOSS_GAP and MX_GRAD_GAP of
+    theirs, every gradient finite and nonzero, the launches as reckoned,
+    times and peaks;
 22. a JSON line of the serving and training runs, one per phase of 18-20,
     (n), (p), (q) and (s), one of (m), one of (o), one of (r), one of (t),
     one of (u), one each of (v1), (v2), (v3), (w1), (w2), (w3), (y1), (y2),
-    (y3), (z1), (z2) and (z3), one of (ls), and one per kernel, then
+    (y3), (z1), (z2) and (z3), one of (ls), one of (mesh), one of (mx), and
+    one per kernel, then
     ``{"ok": true,
     "device": {...}}`` last.
 
@@ -2062,8 +2096,9 @@ def serve_stub(torch, np, cfg, batch: int, seed: int) -> dict:
     return {key: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()}
 
 
-def phase_serve(torch, np, arch, counter, prompt: int = LM_PROMPT):
-    """Phase 13, (f5) and (f6): serve the full-width ``arch`` through
+def phase_serve(torch, np, arch, counter, prompt: int = LM_PROMPT, layers: int | None = None):
+    """Phase 13, (f5), (f6) and (mx): serve the full-width ``arch`` (its
+    depth cut to ``layers`` when given) through
     ``generate`` (``prompt`` tokens a request, whisper's frames and
     internvl2's patches beside them): warm-up with 2 tokens, then the main
     path (counts set to 0 just before, read just after), with the launches
@@ -2078,6 +2113,8 @@ def phase_serve(torch, np, arch, counter, prompt: int = LM_PROMPT):
     from repro_torch.models.transformer import build_model
 
     cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     bundle = build_model(cfg)
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated() / 1e9
@@ -2703,6 +2740,9 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
         torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
     warm_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # (i)'s warm-up round, from a fresh state, is what the (mesh) phase's
+    # rounds are held against: its rows' fingerprints.
+    rows = row_fingerprints(torch, state) if tag == "i" else None
     upd = uploads = threshold = topk_timing = None
     if spec_kw is None and arch == LM_TRAIN_ARCH:
         upd = check_update_on_state(torch, mu, state, LM_TRAIN_LR, 1.0 / LM_TRAIN_A)
@@ -2812,7 +2852,8 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
            "timed_peak_gb": timed_peak_gb,
            "losses": [float(x) for x in losses], "data_s": data_s,
            "grad_norm": float(hz.metrics.grad_norm[-1]), "z_norm": float(hz.metrics.z_norm[-1]),
-           "y_norm": float(hz.metrics.y_norm[-1]), "encoder_grad": enc,
+           "y_norm": float(hz.metrics.y_norm[-1]), "encoder_grad": enc, "rows": rows,
+           "warmup_losses": [float(x) for x in np.asarray(hz0.metrics.loss).reshape(-1)],
            "data": {k: [list(v.shape), str(v.dtype)] for k, v in data.arrays.items()}}
     log(f"({tag}) LM training {arch} ({cfg.num_layers} of {full.num_layers} layers, full width, "
         f"{n_params / 1e9:.3f} B params, bf16, remat), {layout} + fused, {G}x{K} clients, "
@@ -4941,11 +4982,507 @@ def phase_low_level_surface(torch, np, api, spec, data, p0, loss_fn, apply, trai
     return out
 
 
+# --------------------------------------------------------------------------
+# (mesh) the sharded round on a torch.distributed mesh, on the one card, and
+# (mx) mixtral-8x22b at full width.
+
+MESH_NAMES = ("group", "client", "fsdp", "model")
+# (mesh1) and (mesh2): two ranks each, spawned by the script, on cuda:0 over
+# a gloo group (NCCL refuses two ranks on one device); (mesh3): one rank
+# over NCCL, in the script's own process.
+MESH_RUNS = (("mesh1", (2, 1), "gloo"), ("mesh2", (1, 2), "gloo"), ("mesh3", (1, 1), "nccl"))
+MESH_RTOL = 1e-5
+# The whole-state comparison's reduced glm4: float32, T = 256 a microbatch.
+MESH_REDUCED_SEQ = 256
+MESH_RANK_TIMEOUT_S = 420
+# (mx): mixtral-8x22b at its published widths, 2 of its 56 layers: served
+# at 4 prompts of 8192 tokens (past its 4096 window) and 32 generated, its
+# loss and backward at 1 x 8192 against the plain attention and one-hot moe.
+MX_ARCH, MX_LAYERS, MX_PROMPT, MX_SEQ = "mixtral-8x22b", 2, 8192, 8192
+# A moe layer routes its tokens in chunks of 16384 when serving and 4096 in
+# training (``models/transformer.py``'s ``chunk_tokens``), one dispatch and
+# one combine a chunk: 2 chunks a layer at 4 x 8192 and at 1 x 8192.
+MX_SERVE_CHUNKS = LM_BATCH * MX_PROMPT // 16384
+MX_TRAIN_CHUNKS = MX_SEQ // 4096
+# The limits of (mx)'s kernels-against-plain gaps (loss, gradients), as
+# (z3)'s for internvl2.
+MX_LOSS_GAP, MX_GRAD_GAP = VLM_LOSS_GAP, VLM_GRAD_GAP
+
+
+class CollectiveClock:
+    """Times each ``torch.distributed.all_reduce`` of this process, the
+    device synchronized before and after (what a rank waits on the
+    collective, its host copies on gloo included), with its calls and
+    bytes."""
+
+    def __init__(self, torch):
+        import torch.distributed as dist
+
+        self.torch, self.dist = torch, dist
+        self.seconds, self.calls, self.bytes = 0.0, 0, 0
+
+    def __enter__(self):
+        self.orig = self.dist.all_reduce
+
+        def timed(t, *args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(t, *args, **kw)
+            self.torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.bytes += t.numel() * t.element_size()
+            return out
+
+        self.dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.orig
+
+
+def row_fingerprints(torch, state, g0: int = 0, k0: int = 0) -> dict:
+    """Each [g, k] row of params and z and each [g] row of y (by their
+    whole-topology indices: this block starts at (g0, k0)): the float64 sum
+    and sum of squares of its entries, and the sum and sum of squares of
+    their 16-bit patterns (int64), read in 2^26-element pieces."""
+    import itertools
+
+    from repro_torch.core.tree import tree_leaves
+
+    out = {}
+    for field, lead in (("params", 2), ("z", 2), ("y", 1)):
+        for li, t in enumerate(tree_leaves(getattr(state, field))):
+            rows = t.reshape(tuple(t.shape[:lead]) + (-1,))
+            for idx in itertools.product(*(range(s) for s in rows.shape[:lead])):
+                row = rows[idx]
+                s = sq = 0.0
+                b1 = b2 = 0
+                for st in range(0, row.numel(), 1 << 26):
+                    p = row[st:st + (1 << 26)]
+                    d = p.double()
+                    s += float(d.sum())
+                    sq += float((d * d).sum())
+                    del d
+                    bits = p.view(torch.int16).to(torch.int64)
+                    b1 += int(bits.sum())
+                    b2 += int((bits * bits).sum())
+                    del bits
+                key = f"{field}/{li}/" + ",".join(str(i + o) for i, o in zip(idx, (g0, k0)))
+                out[key] = {"sum": s, "sumsq": sq, "bits": [b1, b2],
+                            "n": row.numel()}
+    return out
+
+
+def mesh_train_round(torch, np, mesh) -> dict:
+    """Path (i)'s first round (glm4-9b at full width, 2 of 40 layers, flat +
+    fused, 2 x 2 clients, E = H = A = 2, 1 x 2048 tokens a microbatch) from
+    a fresh state on ``mesh``: the same spec, params, packed tokens and
+    shard draws as ``phase_lm_train``'s warm-up round, through
+    ``api.build(..., mesh=)`` and ``fit``. Returns this rank's row
+    fingerprints, round ms, collective time, peak and launches."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import make_lm_tokens
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import build_model
+    from repro_torch.sharding.state import MeshAxes
+
+    cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH), num_layers=LM_TRAIN_LAYERS)
+    bundle = build_model(cfg)
+    G, K = LM_TRAIN_LEVELS
+    spec = api.ExperimentSpec(
+        levels=(G, K), backend="sharded", algorithm="mtgc", lr=LM_TRAIN_LR, fusion="fused",
+        state_layout="flat", schedule=api.RoundSchedule(
+            group_rounds=LM_TRAIN_E, local_steps=LM_TRAIN_H, microbatches=LM_TRAIN_A))
+    engine = api.build(spec, bundle.loss, mesh=mesh)
+    rng = np.random.default_rng(0)
+    toks, _ = make_lm_tokens(rng, cfg.vocab_size, LM_TRAIN_TOKENS)
+    data = engine.pack_tokens(toks, batch_size=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                              shards=2, rng=rng, generator=torch.Generator().manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    params = bundle.init(0)
+    state = engine.init(params)
+    del params
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with CollectiveClock(torch) as clock:
+        t0 = time.perf_counter()
+        state, hz = api.fit(engine, data, 1, state=state)
+        torch.cuda.synchronize()
+        round_ms = (time.perf_counter() - t0) * 1e3
+    launches = all_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite_metrics(np, hz)
+    ax = MeshAxes(mesh)
+    gs, ks = ax.block(G, K)
+    rows = row_fingerprints(torch, state, gs.start, ks.start)
+    out = {"round_ms": round_ms, "collective_ms": clock.seconds * 1e3,
+           "collective_calls": clock.calls, "collective_bytes": clock.bytes,
+           "peak_gb": peak_gb, "held_gb": held_gb, "launches": launches,
+           "block": [gs.start, gs.stop, ks.start, ks.stop], "rows": rows,
+           "losses": [float(x) for x in np.asarray(hz.metrics.loss).reshape(-1)]}
+    del state, engine, data, hz
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_reduced_round(torch, np, mesh) -> dict:
+    """One round of the reduced glm4-9b (float32, flat + fused, 2 x 2
+    clients, E = H = A = 2, 1 x MESH_REDUCED_SEQ tokens a microbatch,
+    random tokens from a numpy seed) on the card, on ``mesh`` or on one
+    device (None): this rank's block of the flat params, z and y (numpy)
+    and where the block lies."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.sharding.state import MeshAxes
+
+    cfg = get_arch(LM_TRAIN_ARCH).reduced()
+    bundle = build_model(cfg)
+    G, K = LM_TRAIN_LEVELS
+    spec = api.ExperimentSpec(
+        levels=(G, K), backend="sharded", algorithm="mtgc", lr=LM_TRAIN_LR, fusion="fused",
+        state_layout="flat", schedule=api.RoundSchedule(
+            group_rounds=LM_TRAIN_E, local_steps=LM_TRAIN_H, microbatches=LM_TRAIN_A))
+    engine = api.build(spec, bundle.loss, mesh=mesh)
+    rs = np.random.default_rng(31)
+    shape = (LM_TRAIN_E, LM_TRAIN_H, LM_TRAIN_A, G, K, 1, MESH_REDUCED_SEQ)
+    batches = {k: torch.from_numpy(rs.integers(0, cfg.vocab_size, shape).astype(np.int32)).cuda()
+               for k in ("tokens", "targets")}
+    state, _ = engine.round_fn(engine.init(bundle.init(0)), batches)
+    gs, ks = (slice(0, G), slice(0, K)) if mesh is None else MeshAxes(mesh).block(G, K)
+    out = {"block": [gs.start, gs.stop, ks.start, ks.stop]}
+    for f in ("params", "z", "y"):
+        out[f] = {k: b.cpu().numpy() for k, b in getattr(state, f).bufs.items()}
+    return out
+
+
+def mesh_rank_main(argv) -> int:
+    """One rank of (mesh1)/(mesh2): ``chip_smoke.py --mesh-rank R --world W
+    --mesh G,C --out DIR`` on cuda:0, over a gloo group whose store is a
+    file in DIR; writes DIR/rank<R>.pt."""
+    import argparse
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mesh-rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--mesh", required=True)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch.mesh import smoke_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    out = Path(args.out)
+    g, c = (int(v) for v in args.mesh.split(","))
+    dist.init_process_group("gloo", store=dist.FileStore(str(out / "store"), args.world),
+                            rank=args.mesh_rank, world_size=args.world,
+                            timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT_S))
+    try:
+        mesh = smoke_mesh((g, c, 1, 1), MESH_NAMES)
+        backend = dist.get_backend(mesh.get_group("group"))
+        full = mesh_train_round(torch, np, mesh)
+        reduced = mesh_reduced_round(torch, np, mesh)
+        torch.save({"full": full, "reduced": reduced, "backend": backend,
+                    "coordinate": list(mesh.get_coordinate())}, out / f"rank{args.mesh_rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _rows_agree(got: dict, want: dict, H: int, E: int, lr: float) -> tuple[int, float]:
+    """(rows with the same bits, the worst gap over its limit) of a rank's
+    rows against the single-card round's: each float64 sum and sum of
+    squares within MESH_RTOL of the single card's plus, for z and y, the
+    atol 1e-6 / (H lr) (y: / (H E lr)) a row entry."""
+    same, worst = 0, 0.0
+    for key, g in got.items():
+        w = want[key]
+        same += int(g["bits"] == w["bits"])
+        field = key.split("/")[0]
+        atol = {"params": 0.0, "z": 1e-6 / (H * lr), "y": 1e-6 / (H * E * lr)}[field]
+        for stat, a in (("sum", atol * g["n"]), ("sumsq", atol * atol * g["n"])):
+            lim = MESH_RTOL * abs(w[stat]) + a
+            gap = abs(g[stat] - w[stat])
+            worst = max(worst, gap / lim if lim > 0 else (0.0 if gap == 0 else math.inf))
+    return same, worst
+
+
+def phase_mesh(torch, np, lm_flat: dict) -> dict:
+    """(mesh): path (i)'s round on three meshes of the one card, each held
+    against (i)'s warm-up round (the same start and batches) by its rows'
+    fingerprints, and the reduced glm4's round entry by entry against the
+    same round on one device. (mesh1) (group 2, client 1) and (mesh2)
+    (group 1, client 2) spawn two ranks each (gloo); (mesh3) runs one rank
+    over NCCL in this process and must give the single card's bits."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import smoke_mesh
+
+    H, E, lr = LM_TRAIN_H, LM_TRAIN_E, LM_TRAIN_LR
+    ref_rows = lm_flat["rows"]
+    ref_red = mesh_reduced_round(torch, np, None)
+    torch.cuda.empty_cache()
+    out = {}
+    for tag, (g, c), backend in MESH_RUNS:
+        tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_"))
+        try:
+            t0 = time.perf_counter()
+            if backend == "gloo":
+                world = g * c
+                procs = [subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(r),
+                     "--world", str(world), "--mesh", f"{g},{c}", "--out", str(tmp)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                    for r in range(world)]
+                logs = []
+                try:
+                    for p in procs:
+                        logs.append(p.communicate(timeout=MESH_RANK_TIMEOUT_S)[0])
+                finally:
+                    for p in procs:
+                        if p.poll() is None:
+                            p.kill()
+                            p.wait()
+                for r, (p, text) in enumerate(zip(procs, logs)):
+                    require(p.returncode == 0, f"({tag}) rank {r} exited {p.returncode}: "
+                            f"{text[-3000:]}")
+                ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                         for r in range(world)]
+            else:
+                dist.init_process_group("nccl", store=dist.FileStore(str(tmp / "store"), 1),
+                                        rank=0, world_size=1,
+                                        timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT_S))
+                try:
+                    mesh = smoke_mesh((g, c, 1, 1), MESH_NAMES)
+                    ranks = [{"full": mesh_train_round(torch, np, mesh),
+                              "reduced": mesh_reduced_round(torch, np, mesh),
+                              "backend": dist.get_backend(mesh.get_group("group")),
+                              "coordinate": list(mesh.get_coordinate())}]
+                finally:
+                    dist.destroy_process_group()
+            wall_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        require(all(r["backend"] == backend for r in ranks),
+                f"({tag}) the mesh's groups run {[r['backend'] for r in ranks]}, not {backend}")
+        # Full width: each rank's rows against (i)'s warm-up round.
+        same = total = 0
+        worst = 0.0
+        for r in ranks:
+            s, w = _rows_agree(r["full"]["rows"], ref_rows, H, E, lr)
+            same, total, worst = same + s, total + len(r["full"]["rows"]), max(worst, w)
+        require(worst <= 1.0, f"({tag}) a row's sum or sum of squares is {worst:.3g} of its "
+                f"limit away from (i)'s")
+        if tag == "mesh3":
+            require(same == total, f"({tag}) {total - same} of {total} rows differ in their bits "
+                    "from (i)'s warm-up round")
+        # Reduced: the ranks' blocks, entry by entry, against one device.
+        red_gap = 0.0
+        red_same = True
+        for r in ranks:
+            g0, g1, k0, k1 = r["reduced"]["block"]
+            for f in ("params", "z", "y"):
+                for key, got in r["reduced"][f].items():
+                    want = ref_red[f][key][g0:g1] if f == "y" else ref_red[f][key][g0:g1, k0:k1]
+                    red_same &= bool(np.array_equal(got, want))
+                    atol = {"params": 1e-6, "z": 1e-6 / (H * lr), "y": 1e-6 / (H * E * lr)}[f]
+                    gap = np.abs(got.astype(np.float64) - want) - MESH_RTOL * np.abs(want)
+                    red_gap = max(red_gap, float(gap.max() / atol))
+        require(red_gap <= 1.0, f"({tag}) the reduced round's state departs from one device's "
+                f"by {red_gap:.3g} of its tolerance")
+        if tag == "mesh3":
+            require(red_same, f"({tag}) the reduced round's state is not one device's, bit for bit")
+        G, K = LM_TRAIN_LEVELS
+        passes = LM_TRAIN_E * LM_TRAIN_H * LM_TRAIN_A * (G // g) * (K // c) * LM_TRAIN_LAYERS
+        want = {"flash_attention": 2 * passes, "flash_attention_bwd": 3 * passes,
+                "mtgc_update_flat": LM_TRAIN_E * LM_TRAIN_H}
+        for i, r in enumerate(ranks):
+            got = {k: r["full"]["launches"][k] for k in want}
+            require(got == want, f"({tag}) rank {i} launched {got}, expected {want}")
+        res = {"mesh": {"group": g, "client": c, "fsdp": 1, "model": 1}, "backend": backend,
+               "wall_s": wall_s, "rows_same_bits": same, "rows": total,
+               "rows_worst_over_limit": worst, "reduced_same_bits": red_same,
+               "reduced_worst_over_limit": red_gap,
+               "ranks": [{k: r["full"][k] for k in (
+                   "round_ms", "collective_ms", "collective_calls", "collective_bytes",
+                   "peak_gb", "held_gb", "launches", "block", "losses")}
+                   for r in ranks]}
+        out[tag] = res
+        per_rank = "; ".join(
+            f"rank {i} block {r['block']}: round {r['round_ms']:.1f} ms, collectives "
+            f"{r['collective_ms']:.1f} ms ({r['collective_calls']} all-reduces, "
+            f"{r['collective_bytes'] / 1e9:.2f} GB), peak {r['peak_gb']:.2f} GB "
+            f"({r['held_gb']:.2f} held), mtgc_update_flat {r['launches']['mtgc_update_flat']}, "
+            f"flash forward {r['launches']['flash_attention']}, backward "
+            f"{r['launches']['flash_attention_bwd']}" for i, r in enumerate(res["ranks"]))
+        log(f"({tag}) path (i)'s round on a (group {g}, client {c}, 1, 1) mesh over {backend} "
+            f"({len(ranks)} rank(s) on cuda:0, {wall_s:.1f} s with start-up): {per_rank}; "
+            f"against (i)'s warm-up round ({lm_flat['warmup_round_ms']:.1f} ms): {same} of "
+            f"{total} rows with the same bits, worst sum gap {worst:.3g} of its limit; reduced "
+            f"glm4 entry by entry: same bits {red_same}, worst {red_gap:.3g} of the tolerance")
+    return out
+
+
+def phase_mixtral(torch, np, fa, md, counter) -> dict:
+    """(mx): mixtral-8x22b at full width with MX_LAYERS of its 56 layers:
+    served through ``generate`` (4 prompts of MX_PROMPT tokens, 32
+    generated: the window of 4096 binds in the prefill), then its loss and
+    backward at 1 x MX_SEQ tokens with the kernels, and again with the
+    attention kernels' and the moe kernels' plain versions swapped in (the
+    flash reference, the one-hot einsums)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import build_model
+
+    full = get_arch(MX_ARCH)
+    serve = phase_serve(torch, np, MX_ARCH, counter, MX_PROMPT, layers=MX_LAYERS)
+    want = {k: 0 for k in serve["launches"]}
+    moe = MX_LAYERS * MX_SERVE_CHUNKS
+    want.update(flash_attention=MX_LAYERS, moe_gather=moe, moe_combine=moe)
+    # Each of the LM_GEN - 1 decode steps: one dispatch and combine a layer.
+    dec = MX_LAYERS * (LM_GEN - 1)
+    total = dict(want, moe_gather=moe + dec, moe_combine=moe + dec)
+    require(serve["prefill_launches"] == want and serve["launches"] == total,
+            f"(mx) launched {serve['prefill_launches']} in the prefill and {serve['launches']} "
+            f"in all; expected {want} and {total}")
+    cfg = dataclasses.replace(full, num_layers=MX_LAYERS)
+    require(cfg.remat and cfg.param_dtype == "bfloat16", f"{MX_ARCH} trains in bf16 with remat")
+    bundle = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    params = bundle.init(0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rs = np.random.default_rng(27)
+    batch = {k: torch.from_numpy(rs.integers(0, cfg.vocab_size, (1, MX_SEQ))
+                                 .astype(np.int32)).cuda() for k in ("tokens", "targets")}
+    p = tree_map(lambda t: t.requires_grad_(), params)
+    # The routing of each call of the kernels' run, replayed in the plain
+    # run: a token's top-2 experts are a discrete choice, and the plain
+    # attention's rounding flips it for a share of the tokens (each flip
+    # moves that token's output by a whole expert's), so the two runs are
+    # held on one routing; the share the plain run would have flipped is
+    # reported.
+    route, routes, flips = moe_mod.route, [], []
+
+    def recording(*args, **kw):
+        out = route(*args, **kw)
+        routes.append(out[2])
+        return out
+
+    def pinned(p_, xf, **kw):
+        probs, _, own = route(p_, xf, **kw)
+        r = routes[len(flips)]
+        flips.append(float((own.gate_idx != r.gate_idx).any(1).float().mean()))
+        gate = probs.gather(1, r.gate_idx)
+        return probs, gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9), r
+
+    ms = []
+    for i in range(2):                                  # the first call warms up
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        moe_mod.route = recording if i == 1 else route
+        try:
+            t0 = time.perf_counter()
+            loss = bundle.loss(p, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            moe_mod.route = route
+        launches = all_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # Under remat a layer runs its forward twice and its backward once; its
+    # moe block routes MX_TRAIN_CHUNKS chunks in each.
+    passes, chunks = MX_LAYERS, MX_LAYERS * MX_TRAIN_CHUNKS
+    want = {"flash_attention": 2 * passes, "flash_attention_bwd": 3 * passes,
+            "moe_gather": 3 * chunks, "moe_combine": 3 * chunks, "moe_gate_grad": chunks}
+    require({k: launches[k] for k in want} == want,
+            f"(mx) the loss and backward launched {launches}, expected {want}")
+    for (path, _), g in zip(_leaf_paths(params), grads):
+        f, nz = finite_and_nonzero(torch, g)
+        require(f and nz, f"(mx) gradient {path} is not finite or is zero")
+    kernel_loss = float(loss.detach())
+    ops.reset_launch_counts()
+    saved = (fa.flash_attention, fa.flash_attention_bwd, md.moe_gather, md.moe_combine,
+             md.moe_gate_grad)
+    (fa.flash_attention, fa.flash_attention_bwd, md.moe_gather, md.moe_combine,
+     md.moe_gate_grad) = (fa.flash_attention_ref, fa.flash_attention_bwd_ref,
+                          md.moe_gather_ref, md.moe_combine_ref, md.moe_gate_grad_ref)
+    moe_mod.route = pinned
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = bundle.loss(p, batch)
+        plain = torch.autograd.grad(loss, tree_leaves(p))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        (fa.flash_attention, fa.flash_attention_bwd, md.moe_gather, md.moe_combine,
+         md.moe_gate_grad) = saved
+        moe_mod.route = route
+    require(sum(all_launches().values()) == 0, f"(mx) the plain run launched {all_launches()}")
+    require(len(flips) == len(routes), f"(mx) the plain run routed {len(flips)} times, the "
+            f"kernels' {len(routes)}")
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain_loss = float(loss.detach())
+    loss_gap = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    grad_gap = {path: float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                for (path, _), g, w in zip(_leaf_paths(params), grads, plain)}
+    worst_path = max(grad_gap, key=grad_gap.get)
+    log(f"(mx) {MX_ARCH} kernels against their plain versions in the same bf16 model, on the "
+        f"kernels' routing (the plain attention would have changed the top-2 choice of "
+        f"{min(flips):.4f}-{max(flips):.4f} of the tokens of its {len(flips)} routing calls): "
+        f"loss {kernel_loss:.6f} / {plain_loss:.6f} (relative gap {loss_gap:.3g}); each gradient's "
+        f"max gap over its max entry: worst {grad_gap[worst_path]:.3g} ({worst_path}), "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in grad_gap.items()})}")
+    require(loss_gap <= MX_LOSS_GAP, f"(mx) loss {kernel_loss} with the kernels, {plain_loss} "
+            f"with their plain versions")
+    require(grad_gap[worst_path] <= MX_GRAD_GAP, f"(mx) gradient {worst_path} with the kernels "
+            f"is {grad_gap[worst_path]} of its max from the plain versions'")
+    del grads, plain, p, loss, params
+    torch.cuda.empty_cache()
+    out = {"arch": MX_ARCH, "layers": MX_LAYERS, "params": n_params, "serve": serve,
+           "tokens": MX_SEQ, "loss": kernel_loss, "plain_loss": plain_loss,
+           "loss_gap": loss_gap, "grad_gap": grad_gap, "ms": ms[-1], "warmup_ms": ms[0],
+           "plain_route_flips": flips,
+           "plain_ms": plain_ms, "peak_gb": peak_gb, "plain_peak_gb": plain_peak_gb,
+           "held_gb": held_gb, "launches": launches}
+    log(f"(mx) {MX_ARCH} at full width, {MX_LAYERS} of {full.num_layers} layers "
+        f"({n_params / 1e9:.3f} B params, bf16, remat): serve 4 x {MX_PROMPT} prompt tokens, "
+        f"prefill {serve['prefill_ms']:.1f} ms, decode {serve['decode_ms_per_step']:.2f} ms a "
+        f"step, peak {serve['peak_gb']:.2f} GB; loss and backward at 1 x {MX_SEQ} "
+        f"{ms[-1]:.1f} ms (warm-up {ms[0]:.1f}; plain versions {plain_ms:.1f}), loss "
+        f"{kernel_loss:.5f}, every gradient finite and nonzero, within {MX_LOSS_GAP:g} (loss) "
+        f"and {MX_GRAD_GAP:g} (gradients) of the plain versions'; launches {launches}; peak "
+        f"{peak_gb:.2f} GB, {plain_peak_gb:.2f} with the plain versions ({held_gb:.2f} held)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank_main(sys.argv[1:])
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout (src/repro_torch not found)",
@@ -5394,6 +5931,8 @@ def main() -> int:
     lm_tree = phase_lm_train(torch, np, "tree", rounds=1, trace=True, tag="h")
     # --- 17. LM training, flat + fused ------------------------------------
     lm_flat = phase_lm_train(torch, np, "flat", rounds=1, trace=False, tag="i")
+    # --- 17a. (mesh) path (i)'s round on torch.distributed meshes ----------
+    mesh_runs = phase_mesh(torch, np, lm_flat)
     # --- 17b. (s) a virtual population on the sharded backend ------------
     lm_s = phase_lm_population(torch, np, lm_flat["peak_gb"])
     # --- 18-20. LM training: compressed uploads, partial participation ---
@@ -5508,6 +6047,8 @@ def main() -> int:
     lm_z3 = {arch: phase_lm_train_card_vs_cpu(torch, np, convert, arch=arch)
              for arch in (AUDIO_ARCH, VLM_ARCH)}
     av_z3 = phase_audio_vlm_checks(torch, np, convert)
+    # --- 28. (mx) mixtral-8x22b at full width, 2 of 56 layers ---------------
+    mx = phase_mixtral(torch, np, fa, md, lambda: serve_launches(fa, rw, ss, md))
 
     # --- 22. results -----------------------------------------------------
     kernels = [
@@ -5683,6 +6224,11 @@ def main() -> int:
             k["training_launches"][run] = counts[name]
         for run in lm_v + lm_w + lm_y + lm_z:
             k["training_launches"][run["phase"]] = run["launches"].get(name, 0)
+        # (mesh)'s rounds, rank by rank; (mx)'s loss and backward.
+        for tag, run in mesh_runs.items():
+            k["training_launches"][tag] = [r["launches"].get(name, 0) for r in run["ranks"]]
+        k["training_launches"]["mx"] = mx["launches"].get(name, 0)
+        k["serving_launches_mx"] = mx["serve"]["launches"].get(name, 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": served}))
     print(json.dumps({"training": [lm_tree, lm_flat]}))
@@ -5708,6 +6254,9 @@ def main() -> int:
         print(json.dumps({f"training_{run['phase']}": run}))
     print(json.dumps({"training_z3": {"rounds": lm_z3, "models": av_z3}}))
     print(json.dumps({"surface_ls": surface}))
+    print(json.dumps({"mesh": mesh_runs}))
+    print(json.dumps({"mixtral_mx": {k: v for k, v in mx.items() if k != "serve"},
+                      "serving_mx": mx["serve"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

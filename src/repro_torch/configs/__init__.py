@@ -1,16 +1,16 @@
-"""Architecture registry (copy of ``src/repro/configs``' ``get_arch`` and
-``ARCH_IDS``).
+"""Assigned-architecture registry (copy of ``src/repro/configs``).
 
-The port carries the ``CONFIG`` of the architectures its slices serve,
-number for number. The reference's ``PLAN``/``MeshPlan`` (the multi-card
-mesh of the sharded backend) belongs to the multi-card slice. Every other
-id raises ``ValueError`` naming the slice of the port that brings it.
+Every architecture from the assignment pool is a module exporting
+``CONFIG: ArchConfig`` (exact published hyper-parameters, source cited) and
+``PLAN: MeshPlan`` (how it factors the production mesh). Select with
+``get_arch("<id>")`` or ``--arch <id>`` on the launchers.
 """
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.plan import MeshPlan
 
 ARCH_IDS = (
     "internvl2-26b",
@@ -25,19 +25,27 @@ ARCH_IDS = (
     "gemma3-27b",
 )
 
-PORTED = ("glm4-9b", "qwen3-14b", "rwkv6-1.6b", "qwen2.5-32b", "gemma3-27b", "hymba-1.5b",
-          "granite-moe-1b-a400m", "whisper-medium", "internvl2-26b")
+# Every architecture of the reference is ported.
+PORTED = ARCH_IDS
 
-# The slice of the port that brings each architecture still missing.
-_LATER = {
-    "mixtral-8x22b": "the multi-card slice of the port (about 141 B params)",
-}
+# Input shapes from the assignment (see configs/shapes.py for specs).
+SHAPE_IDS = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+def _module(arch_id: str):
+    mod = arch_id.replace("-", "_").replace(".", "_")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
 
 
 def get_arch(arch_id: str) -> ArchConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; choose from {ARCH_IDS}")
-    if arch_id not in PORTED:
-        raise ValueError(f"arch {arch_id!r} is not ported yet: it needs {_LATER[arch_id]}")
-    mod = arch_id.replace("-", "_").replace(".", "_")
-    return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
+    return _module(arch_id).CONFIG
+
+
+def get_plan(arch_id: str) -> MeshPlan:
+    return _module(arch_id).PLAN
+
+
+def all_archs() -> dict[str, ArchConfig]:
+    return {a: get_arch(a) for a in ARCH_IDS}

@@ -1,6 +1,7 @@
 """Gemma-3-27B dense decoder [hf:google/gemma-3 family]:
 5 local (SWA-1024) layers per 1 global layer, 128k context, huge vocab."""
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.plan import MeshPlan
 
 CONFIG = ArchConfig(
     name="gemma3-27b",
@@ -18,3 +19,5 @@ CONFIG = ArchConfig(
     tie_embeddings=True,
     source="hf:google/gemma-3-1b-pt card family (assignment)",
 )
+
+PLAN = MeshPlan(train_factors=(2, 2, 4, 16), microbatch=1)

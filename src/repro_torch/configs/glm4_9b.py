@@ -1,5 +1,6 @@
 """GLM-4-9B dense decoder [hf:THUDM/glm-4-9b]: RoPE + aggressive GQA (kv=2)."""
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.plan import MeshPlan
 
 CONFIG = ArchConfig(
     name="glm4-9b",
@@ -15,3 +16,5 @@ CONFIG = ArchConfig(
     qkv_bias=True,
     source="hf:THUDM/glm-4-9b",
 )
+
+PLAN = MeshPlan(train_factors=(4, 2, 4, 8), microbatch=2)

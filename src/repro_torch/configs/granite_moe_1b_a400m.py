@@ -1,6 +1,7 @@
 """Granite-3.0-1B-A400M sparse MoE: 32 experts, top-8
 [hf:ibm-granite/granite-3.0-1b-a400m-base]."""
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.plan import MeshPlan
 
 CONFIG = ArchConfig(
     name="granite-moe-1b-a400m",
@@ -16,3 +17,5 @@ CONFIG = ArchConfig(
     top_k=8,
     source="hf:ibm-granite/granite-3.0-1b-a400m-base",
 )
+
+PLAN = MeshPlan(train_factors=(8, 4, 1, 8), microbatch=4)

@@ -7,6 +7,7 @@ path carries global context; we make all attention layers SWA-1024 so the
 arch is sub-quadratic end-to-end). 25 heads / kv=5.
 """
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.plan import MeshPlan
 
 CONFIG = ArchConfig(
     name="hymba-1.5b",
@@ -23,3 +24,5 @@ CONFIG = ArchConfig(
     ssm_d_inner=3200,
     source="Hymba [arXiv:2411.13676]",
 )
+
+PLAN = MeshPlan(train_factors=(8, 4, 1, 8), microbatch=2)

@@ -5,6 +5,7 @@ patch embeddings (pixel-shuffled tile tokens) of width 3200 a sample; the
 MLP projector and the decoder are implemented.
 """
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.plan import MeshPlan
 
 CONFIG = ArchConfig(
     name="internvl2-26b",
@@ -21,3 +22,5 @@ CONFIG = ArchConfig(
     vision_dim=3200,
     source="InternVL2 [arXiv:2404.16821]; InternLM2-20B backbone",
 )
+
+PLAN = MeshPlan(train_factors=(2, 2, 4, 16), microbatch=2)

@@ -1,5 +1,6 @@
 """Qwen2.5-32B dense decoder [hf:Qwen/Qwen2.5-* family]: GQA kv=8 + QKV bias."""
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.plan import MeshPlan
 
 CONFIG = ArchConfig(
     name="qwen2.5-32b",
@@ -15,3 +16,5 @@ CONFIG = ArchConfig(
     qkv_bias=True,
     source="hf:Qwen/Qwen2.5 model card family (0.5B cited in assignment)",
 )
+
+PLAN = MeshPlan(train_factors=(2, 2, 8, 8), microbatch=1)

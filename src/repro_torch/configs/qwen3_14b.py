@@ -1,5 +1,6 @@
 """Qwen3-14B dense decoder [hf:Qwen/Qwen3 family]: per-head qk-RMSNorm + GQA."""
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.plan import MeshPlan
 
 CONFIG = ArchConfig(
     name="qwen3-14b",
@@ -15,3 +16,5 @@ CONFIG = ArchConfig(
     qk_norm=True,
     source="hf:Qwen/Qwen3-8B card family (assignment)",
 )
+
+PLAN = MeshPlan(train_factors=(4, 2, 4, 8), microbatch=2)

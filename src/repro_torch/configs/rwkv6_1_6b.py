@@ -1,6 +1,7 @@
 """RWKV-6 "Finch" 1.6B: attention-free, data-dependent decay
 [arXiv:2404.05892]. 32 heads of 64 (time-mix state per head is 64x64)."""
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.plan import MeshPlan
 
 CONFIG = ArchConfig(
     name="rwkv6-1.6b",
@@ -15,3 +16,5 @@ CONFIG = ArchConfig(
     rwkv_chunk=64,
     source="RWKV-6 Finch [arXiv:2404.05892]",
 )
+
+PLAN = MeshPlan(train_factors=(8, 4, 1, 8), microbatch=2)

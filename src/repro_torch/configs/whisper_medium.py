@@ -6,6 +6,7 @@ those frames and the 24-layer causal decoder cross-attends to its output.
 MHA (kv == heads = 16).
 """
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.plan import MeshPlan
 
 CONFIG = ArchConfig(
     name="whisper-medium",
@@ -21,3 +22,5 @@ CONFIG = ArchConfig(
     encoder_frames=1500,
     source="Whisper [arXiv:2212.04356], medium.en card",
 )
+
+PLAN = MeshPlan(train_factors=(8, 4, 1, 8), microbatch=2)

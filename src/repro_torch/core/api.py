@@ -790,14 +790,25 @@ class ShardedEngine(_EngineBase):
         place (the reference donates them), so a caller keeps only the
         state it returns.
     metric_fields: the names of ``ShardedMetrics``' fields.
+    mesh: the ``DeviceMesh`` the round runs over (None: one device). Its
+        states are this rank's blocks (``sharding/state.py``); packed data
+        stays whole and the round reads its rows.
     """
 
-    def __init__(self, spec: ExperimentSpec, loss_fn: LossFn, device: torch.device):
+    def __init__(self, spec: ExperimentSpec, loss_fn: LossFn, device: torch.device,
+                 mesh=None):
         from repro_torch.launch import train as _train
 
         self.spec = spec
         self.loss_fn = loss_fn
         self.device = device
+        self.mesh = mesh
+        if mesh is not None:
+            for on, what in ((spec.population is not None, "virtual client populations"),
+                             (spec.correction_dtype is not None,
+                              "narrow corrections (correction_dtype)")):
+                _require(not on, f"{what} on a mesh are not supported yet: they come with "
+                                 f"{_train.MESH_LATER}")
         self.metric_fields = _train.ShardedMetrics._fields
         self._plan = spec.staleness_plan()
         self.round_fn = _train._build_sharded_round(
@@ -807,7 +818,7 @@ class ShardedEngine(_EngineBase):
             group_participation=spec.group_participation,
             participation_mode=spec.participation_mode,
             participation_weighting=spec.participation_weighting, plan=self._plan,
-            faults=spec.faults, defense=spec.defense, compression=spec.compression)
+            faults=spec.faults, defense=spec.defense, compression=spec.compression, mesh=mesh)
         self._wrap_stateless()
 
     @property
@@ -825,11 +836,17 @@ class ShardedEngine(_EngineBase):
         and realized-download mask. A partial-participation, fault-injecting or
         stochastic-rounding run draws from the state's ``rng``; without one
         it gets a generator on the engine's device seeded with 0 (the
-        reference's ``PRNGKey(0)``)."""
+        reference's ``PRNGKey(0)``). On a mesh: this rank's block of that
+        state (every rank passes the same params and generator state)."""
         from repro_torch.launch.train import sharded_init
 
         spec = self.spec
         G, K = spec.levels
+        if self.mesh is not None:
+            from repro_torch.sharding.state import MeshAxes
+
+            gs, ks = MeshAxes(self.mesh).block(G, K)
+            G, K = gs.stop - gs.start, ks.stop - ks.start
         comp = spec.compression if spec.compressed else None
         if rng is None and self._needs_rng():
             rng = torch.Generator(device=self.device).manual_seed(0)
@@ -846,20 +863,33 @@ class ShardedEngine(_EngineBase):
     def global_model(self, state) -> Tree:
         """The global model, read from replica [0, 0] (under an async
         schedule, replica 0 of the plan's fastest group; flat states
-        unpacked)."""
+        unpacked). On a mesh every rank calls it and gets replica [0, 0],
+        broadcast from the rank that holds it."""
         g = 0 if self._plan is None else self._plan.fastest_group
-        return as_tree(tree_map(lambda x: x[g, 0], state.params))
+        model = tree_map(lambda x: x[g, 0], state.params)
+        if self.mesh is not None:
+            from repro_torch.sharding.state import MeshAxes
+
+            ax = MeshAxes(self.mesh)
+            model = tree_map(lambda t: ax.broadcast_(t.clone(), "client", "group"), model)
+        return as_tree(model)
 
 
 _ENGINES = {"simulator": SimulatorEngine, "multilevel": MultiLevelEngine,
             "sharded": ShardedEngine}
 
 
-def build(spec: ExperimentSpec, loss_fn: LossFn, *, device=None):
+def build(spec: ExperimentSpec, loss_fn: LossFn, *, device=None, mesh=None):
     """Validate ``spec`` and construct its backend's engine on ``device``
     (``None``: the CUDA card; a host without one raises -- pass
-    ``device="cpu"``)."""
+    ``device="cpu"``). ``mesh`` (a ``torch.distributed`` ``DeviceMesh``
+    with ``group`` and ``client`` dims) runs the sharded backend's round
+    over it; every rank of the mesh builds the engine alike."""
     spec = spec.validate()
+    if mesh is not None:
+        _require(spec.backend == "sharded", "mesh= runs the sharded backend's round; "
+                 f"backend {spec.backend!r} runs on one device")
+        return ShardedEngine(spec, loss_fn, resolve_device(device), mesh=mesh)
     return _ENGINES[spec.backend](spec, loss_fn, resolve_device(device))
 
 

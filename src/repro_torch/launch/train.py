@@ -48,11 +48,29 @@ gradients are a Python loop over the replicas, each ``torch.autograd.grad``
 of the loss at views of the stacked leaves, added into a ``[G, K]``
 accumulator in the reference's order (``(0 + g_1) + g_2 ...``). That loop
 composes with ``torch.utils.checkpoint`` in the model and holds one
-replica's activations at a time. This is the single-card form of the
-backend; the reference's mesh (``sharding/``, ``launch/mesh.py``) is a later
-slice. Virtual client populations wrap the round from outside
-(``core.population``; ``--population``/``--cohort-size``/``--client-state``
-on the CLI).
+replica's activations at a time. Virtual client populations wrap the round
+from outside (``core.population``; ``--population``/``--cohort-size``/
+``--client-state`` on the CLI).
+
+On a mesh (``mesh=``, a ``torch.distributed`` ``DeviceMesh`` with
+``group`` and ``client`` dims, e.g. ``launch.mesh.make_train_mesh``; the
+counterpart of jitting the reference's round with ``train_state_specs``
+shardings) the round is the same and only the layout of the state
+changes: each rank holds its block ``[G / |group|, K / |client|, ...]`` of
+params and z and ``[G / |group|, ...]`` of y (``sharding/state.py``;
+``shard_state``/``gather_state`` move a whole state on and off), runs the
+client loop and the local step over it, and every mean over an axis the
+mesh shards is a float32 sum over the block, an all-reduce (SUM) over
+that axis's process group and the reference's division: the group mean
+over ``client`` (the paper's fast timescale), the global mean over
+``group`` (the slow one), the masked means and their counts, and the
+metrics. An axis of size 1 takes the single-card code. Every rank draws
+the whole ``[G, K]`` participation mask from the same generator (or takes
+it from ``draws=``) and reads its own rows. The mesh runs mtgc and
+hfedavg, tree and flat, fused and unfused, at full and partial
+participation; compression, faults and the defense, async plans,
+populations, narrow corrections and ``fsdp``/``model`` dims larger than 1
+raise, naming the slice that brings them.
 
 Memory: the round updates the state's tensors IN PLACE and returns them in
 the new state, as the reference's driver donates the state to each round:
@@ -321,6 +339,11 @@ def _correction_step(c: torch.Tensor, src: torch.Tensor, ref: torch.Tensor,
     c.copy_(d)
 
 
+# What a mesh round does not run yet, and where it comes from.
+MESH_LATER = ("the mesh under compression, faults, async plans, populations and narrow "
+              "corrections (ROADMAP queue 1)")
+
+
 def _build_sharded_round(
     loss_fn: Callable[[Tree, Tree], torch.Tensor],
     *, E: int, H: int, lr: float, algorithm: str = "mtgc",
@@ -334,6 +357,7 @@ def _build_sharded_round(
     faults=None,
     defense=None,
     compression=None,
+    mesh=None,
 ) -> Callable[..., tuple[ShardedHFLState, ShardedMetrics]]:
     """The production-round builder behind ``repro_torch.api``'s sharded
     engine (the reference's signature). Returns ``round_fn(state, batches,
@@ -354,7 +378,10 @@ def _build_sharded_round(
     the simulator engine does. ``plan`` (a ``StalenessPlan``) runs async
     group rounds as the simulator engine does, ``E`` being the padded loop
     length ``max(E_g)``; the state then carries the window counter (and,
-    by the plan, ``snap``/``glob`` and ``dl``)."""
+    by the plan, ``snap``/``glob`` and ``dl``). ``mesh`` (a ``DeviceMesh``)
+    runs the round over its (group, client) dims: the state is each rank's
+    block, the batches the whole ``[E, H, A, G, K, ...]`` or the rank's
+    block of them, ``draws.masks`` the whole ``[G, K]`` masks."""
     use_corr = algorithm == "mtgc"
     if algorithm not in ("mtgc", "hfedavg"):
         raise ValueError(f"unknown sharded algorithm {algorithm!r} (choose 'mtgc' or 'hfedavg')")
@@ -413,6 +440,18 @@ def _build_sharded_round(
     # client link's delta, a corrupted delta, the screen's norm and clip, and
     # the revert of a fully screened group.
     keep_start = comp_c or f_corrupt or defended
+    mx = None
+    if mesh is not None:
+        from repro_torch.sharding.state import MeshAxes
+
+        for on, what in ((comp is not None, "compressed uploads"), (fault_mode, "faults"),
+                         (defended, "the defense"), (async_mode, "async group rounds")):
+            if on:
+                raise ValueError(f"{what} on a mesh are not supported yet: they come with "
+                                 f"{MESH_LATER}")
+        mx = MeshAxes(mesh)
+        if mx.trivial:
+            mx = None
 
     def client_grads(x_tree: Tree, acc_tree: Tree, batch_h: Tree, G: int, K: int):
         """Per-client summed loss [G, K] and the gradient summed over the A
@@ -450,6 +489,18 @@ def _build_sharded_round(
         G, K = tu.tree_leaves(x)[0].shape[:2]
         dev = tu.tree_leaves(x)[0].device
         draws = draws if draws is not None else RoundDraws()
+        # The whole topology (Gt, Kt) and this rank's rows of it (a mesh
+        # holds the block [gs, ks]; one card, all of it).
+        Gt, Kt, gs, ks = G, K, slice(None), slice(None)
+        if mx is not None:
+            Gt, Kt = mx.totals(G, K)
+            gs, ks = mx.block(Gt, Kt)
+            lead = tuple(tu.tree_leaves(batches)[0].shape[3:5])
+            if lead == (Gt, Kt) and (Gt, Kt) != (G, K):
+                batches = tu.tree_map(lambda b: b[:, :, :, gs, ks], batches)
+            elif lead != (G, K):
+                raise ValueError(f"batches [E, H, A, G, K, ...] of (G, K) = {lead}: expected the "
+                                 f"whole {(Gt, Kt)} or this rank's block {(G, K)}")
 
         def generator(what: str) -> torch.Generator:
             if state.rng is None:
@@ -460,18 +511,24 @@ def _build_sharded_round(
 
         # Masks first, then the fault masks, then the rounding noise (drawn
         # where it is used).
-        cmask = gmask = cdenom = gdenom = None
+        cmask = gmask = cdenom = gdenom = cm_all = None
         if partial:
             if draws.masks is not None:
                 masks = ParticipationMasks(
                     *(torch.as_tensor(m).to(dev, torch.float32) for m in draws.masks))
             else:
-                masks = sample_hfl_masks(generator("per-round masks"), G, K,
+                masks = sample_hfl_masks(generator("per-round masks"), Gt, Kt,
                                          client_participation, group_participation,
                                          participation_mode)
             cmask, gmask = masks.client, masks.group
-            cdenom = inclusion_prob(client_participation, K, participation_mode) * K if ht else None
-            gdenom = inclusion_prob(group_participation, G, participation_mode) * G if ht else None
+            if mx is not None:
+                # Every rank holds the whole mask and reads its own rows.
+                cm_all = cmask
+                cmask, gmask = cmask[gs, ks].contiguous(), gmask[gs].contiguous()
+            cdenom = (inclusion_prob(client_participation, Kt, participation_mode) * Kt
+                      if ht else None)
+            gdenom = (inclusion_prob(group_participation, Gt, participation_mode) * Gt
+                      if ht else None)
         if fault_mode:
             fm = (draws.faults if draws.faults is not None
                   else fault_masks(generator("fault masks"), faults, G, K))
@@ -511,13 +568,26 @@ def _build_sharded_round(
                 fresh = state.dl
         # One host copy: the activity mask (which replicas to touch) and the
         # window's report mask (which groups merge and download).
-        host = [m.reshape(-1) for m in (cmask, rep if rep_read else None) if m is not None]
+        host = [m.reshape(-1) for m in (cmask if cm_all is None else cm_all,
+                                         rep if rep_read else None) if m is not None]
         host = torch.cat(host).cpu().numpy() != 0 if host else None
         rep_host = (host[-G:] if rep_read else np.ones(G, dtype=bool)) if async_mode else None
+        active_all = gact_all = cnt_all = None
         if cmask is not None:
-            n_active = torch.clamp(torch.sum(cmask), min=1.0)
-            active = host[:G * K].reshape(G, K)
-            gact = (torch.sum(cmask, dim=1) > 0).to(torch.float32)
+            if cm_all is None:
+                n_active = torch.clamp(torch.sum(cmask), min=1.0)
+                active = host[:G * K].reshape(G, K)
+                gact = (torch.sum(cmask, dim=1) > 0).to(torch.float32)
+            else:
+                # The counts and the groups' activity from the whole mask;
+                # the host rows of the whole mask decide, alike on every
+                # rank of a collective, which groups aggregate.
+                n_active = torch.clamp(torch.sum(cm_all), min=1.0)
+                active_all = host[:Gt * Kt].reshape(Gt, Kt)
+                active = active_all[gs, ks]
+                cnt_all = torch.sum(cm_all, dim=1)
+                gact_all = (cnt_all > 0).to(torch.float32)
+                gact = gact_all[gs].contiguous()
         else:
             n_active = active = gact = None
         bad = bad_host = None
@@ -603,6 +673,11 @@ def _build_sharded_round(
 
         def step_loss_mean(lsum, inv_a):
             lpc = lsum * inv_a
+            if mx is not None:
+                # This rank's share of the numerator; the round reduces it
+                # over the mesh and divides once at its end.
+                return (torch.sum(torch.where(am != 0, lpc, 0)) if am is not None
+                        else torch.sum(lpc))
             if defended:
                 # A corrupted client that has not healed yet has a non-finite
                 # loss while its upload is screened: so is the metric.
@@ -711,7 +786,10 @@ def _build_sharded_round(
             cols = _cols(x_leaves[i].shape[-1])
             for g in range(G):
                 act_g = None if act is None else act[g]
-                if act_g is not None and not act_g.any() and not comp_c:
+                # On a mesh the whole group's activity decides (alike on
+                # every rank of the client all-reduce).
+                act_w = act_g if active_all is None else active_all[gs][g]
+                if act_w is not None and not act_w.any() and not comp_c:
                     # No active replica (a straggler's idle iteration): its
                     # mean is an exact zero that nothing reads, and no
                     # replica or z is written. (The client link draws its
@@ -733,7 +811,9 @@ def _build_sharded_round(
                         # The residual advances only for an upload that entered
                         # the mean.
                         _put(efc[i][g, :, sl], u - deq, srv)
-                    if am is None:
+                    if mx is not None and mx.pg["client"] is not None:
+                        xbar = client_mean(x_up, None if am is None else smask_g[0], g)
+                    elif am is None:
                         xbar = _mean(x_up, 0)
                     else:
                         xbar = tu.tree_masked_mean(x_up[None], smask_g, axis=1,
@@ -761,13 +841,55 @@ def _build_sharded_round(
                                                                    or act_g.any()):
                             xs[i][g, sl].copy_(xbar)
 
+        def client_mean(xk: torch.Tensor, mk, g: int) -> torch.Tensor:
+            """Group g's mean over the client axis of the mesh from this
+            rank's rows ``xk`` [K_l, piece] (masked by ``mk`` [K_l]): the
+            float32 sum of the rows, all-reduced over ``client``, then the
+            single-card expression's division -- ``torch.mean``'s (the sum
+            over K, in the rows' dtype), or the masked mean's (the sum
+            rounded to the rows' dtype, over the group's active count or
+            the inverse-probability denominator)."""
+            if mk is None:
+                s = mx.sum_(torch.sum(xk, dim=0, dtype=torch.float32), "client")
+                return s.div_(Kt).to(xk.dtype)
+            s = torch.sum(torch.where(mk[:, None] != 0, xk, 0), dim=0, dtype=torch.float32)
+            s = mx.sum_(s, "client").to(xk.dtype)
+            if cdenom is not None:
+                return s / cdenom
+            return s / torch.clamp(cnt_all[gs][g:g + 1], min=1)
+
         def own(i: int, sl: slice) -> torch.Tensor:
             """The groups' own (pre-wire) aggregates of one piece of leaf i
             [G, piece]: the recovery mean under a mask (every active replica
             of a group holds its xbar_j), else replica 0."""
             x3 = x_leaves[i]
-            return (x3[:, 0, sl] if cmask is None
-                    else tu.tree_masked_mean(x3[:, :, sl], cmask, axis=1))
+            if cmask is None:
+                return x3[:, 0, sl]
+            if mx is not None and mx.pg["client"] is not None:
+                xp = x3[:, :, sl]
+                s = torch.sum(torch.where(tu.expand_mask(cmask, xp) != 0, xp, 0), dim=1,
+                              dtype=torch.float32)
+                s = mx.sum_(s, "client").to(xp.dtype)
+                return s / tu.expand_mask(torch.clamp(cnt_all[gs], min=1), s)
+            return tu.tree_masked_mean(x3[:, :, sl], cmask, axis=1)
+
+        def group_mean(wire: torch.Tensor) -> torch.Tensor:
+            """The global mean over the group axis of the mesh from this
+            rank's group reports ``wire`` [G_l, piece], as
+            :func:`client_mean` forms the group mean: float32 sums
+            all-reduced over ``group``, then the single-card division."""
+            def total(w):
+                s = torch.sum(w, dim=0, dtype=torch.float32)
+                return mx.sum_(s, "group")
+
+            if cmask is None:
+                return total(wire).div_(Gt).to(wire.dtype)
+            if gdenom is None:
+                s = total(torch.where(tu.expand_mask(gact, wire) != 0, wire, 0)).to(wire.dtype)
+                return s / torch.clamp(torch.sum(gact_all), min=1).reshape(1)
+            live = torch.where(tu.expand_mask(gact, wire) != 0, wire, 0)
+            s = total(torch.where(tu.expand_mask(gmask, live) != 0, live, 0)).to(wire.dtype)
+            return s / gdenom
 
         def group_u(i: int, sl: slice, xbar_j: torch.Tensor) -> torch.Tensor:
             """The group link's input: the G report deltas plus residuals."""
@@ -813,7 +935,9 @@ def _build_sharded_round(
                 xbar_j, wire, ug, deq = global_reports(i, sl, param, gact)
                 if ef_g:
                     _put(efg[i][:, sl], ug - deq, gact_host)
-                if cmask is None:
+                if mx is not None and mx.pg["group"] is not None:
+                    xbar = group_mean(wire)
+                elif cmask is None:
                     xbar = _mean(wire, 0)
                 elif gdenom is None:
                     xbar = tu.tree_masked_mean(wire, gact, axis=0)
@@ -966,13 +1090,14 @@ def _build_sharded_round(
         # The merging groups: active, not timed out, and (defended) with a
         # finite report -- the backstop reads every report first. (Under an
         # async schedule a timed-out group is out of the report mask.)
-        gup = G
+        gup = Gt
         gact_host = rows = gfin = None
         if cmask is not None:
             if f_timeout and not async_mode:
                 gact = gact * (1.0 - fm.timeout)
             # Reports actually sent (before the screen).
-            gup = torch.sum(gact) if not async_mode else torch.sum(rep * gact)
+            gup = (torch.sum(gact if gact_all is None else gact_all) if not async_mode
+                   else torch.sum(rep * gact))
             if defended and defense.screen_nonfinite:
                 gfin = torch.ones(G, dtype=torch.bool, device=dev)
                 rng_state = replayable() if comp_g else None
@@ -1051,13 +1176,25 @@ def _build_sharded_round(
             n_up_c = (torch.sum(em_all[:, :, None] * cmask[None]) if cmask is not None
                       else torch.sum(em_all) * K)
         else:
-            n_up_c = E * torch.sum(cmask) if cmask is not None else E * G * K
+            n_up_c = (E * torch.sum(cmask if cm_all is None else cm_all) if cmask is not None
+                      else E * Gt * Kt)
+        loss, z_sq, y_sq = torch.stack(losses), _sq_norm(z), _sq_norm(y)
+        if mx is not None:
+            # One all-reduce over the mesh for the loss numerators, the last
+            # gradient's and z's squared norms; y's over ``group`` alone (it
+            # is replicated over ``client``).
+            red = mx.sum_(torch.cat([loss.reshape(-1), last_g.reshape(1), z_sq.reshape(1)]),
+                          "client", "group")
+            loss = red[:-2].reshape(loss.shape) / (n_active if cmask is not None else Gt * Kt)
+            last_g, z_sq = red[-2], red[-1]
+            y_sq = mx.sum_(y_sq.reshape(1), "group")[0]
         metrics = ShardedMetrics(
-            loss=torch.stack(losses),
+            loss=loss,
             grad_norm=last_g,
-            z_norm=_sq_norm(z) / (G * K),
-            y_norm=_sq_norm(y) / G,
-            participation=(torch.sum(cmask) / (G * K) if cmask is not None
+            z_norm=z_sq / (Gt * Kt),
+            y_norm=y_sq / Gt,
+            participation=(torch.sum(cmask if cm_all is None else cm_all) / (Gt * Kt)
+                           if cmask is not None
                            else torch.ones((), dtype=torch.float32, device=dev)),
             screened=screened,
             comm_bytes=round_comm_bytes(x, comp, n_up_c, gup),

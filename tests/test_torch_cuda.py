@@ -1775,3 +1775,58 @@ def test_moe_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError, match="top_k"):
         big = _moe_case(cuda, 4, 33, 40, 4, 64, torch.float32, 1)[0]
         md.moe_gate_grad(dout[:4].contiguous(), torch.zeros(40, 4, 64, device=cuda), big)
+
+
+@pytest.mark.parametrize("layout,part", [("flat", "full"), ("tree", "partial")])
+def test_one_rank_nccl_mesh_matches_one_card(cuda, tmp_path, layout, part):
+    """The sharded round on a (1, 1, 1, 1) mesh of one NCCL rank is the
+    single-card round, bit for bit (quadratic problem, fused, 2 rounds)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import smoke_mesh
+
+    G, K, E, H, A, D = 2, 2, 2, 2, 2, 6
+    rng = np.random.default_rng(3)
+    shape = (E, H, A, G, K, D)
+    batches = {"a": torch.from_numpy(rng.normal(size=shape).astype(np.float32) + 2).cuda(),
+               "b": torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()}
+
+    def loss(p, b):
+        r = b["a"] * p["w"] - b["b"]
+        return 0.5 * torch.sum(r * r)
+
+    kw = {} if part == "full" else dict(client_participation=0.5, participation_mode="fixed")
+    spec = api.ExperimentSpec(levels=(G, K), backend="sharded", lr=0.05, fusion="fused",
+                              state_layout=layout, schedule=api.RoundSchedule(
+                                  group_rounds=E, local_steps=H, microbatches=A), **kw)
+    masks = [ParticipationMasks(torch.ones(G), torch.tensor([[1.0, 0.0], [0.0, 1.0]])),
+             ParticipationMasks(torch.ones(G), torch.tensor([[0.0, 1.0], [1.0, 0.0]]))]
+
+    def run(mesh):
+        eng = api.build(spec, loss, mesh=mesh)
+        st = eng.init({"w": torch.zeros(D, device="cuda")})
+        ms = []
+        for r in range(2):
+            st, m = eng.round_fn(st, batches,
+                                 draws=None if part == "full" else RoundDraws(masks=masks[r]))
+            ms.append(m)
+        return st, ms
+
+    st1, m1 = run(None)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = smoke_mesh((1, 1, 1, 1), ("group", "client", "fsdp", "model"))
+        assert dist.get_backend(mesh.get_group("client")) == "nccl"
+        st2, m2 = run(mesh)
+    finally:
+        dist.destroy_process_group()
+    for f in ("params", "z", "y"):
+        a, b = getattr(st1, f), getattr(st2, f)
+        a, b = (a.to_tree(), b.to_tree()) if hasattr(a, "to_tree") else (a, b)
+        assert torch.equal(a["w"], b["w"]), f
+    for x, y in zip(m1, m2):
+        for f in x._fields:
+            assert torch.equal(getattr(x, f), getattr(y, f)), f

@@ -49,7 +49,9 @@ def test_port_files_exist():
             "configs/qwen2_5_32b.py", "configs/gemma3_27b.py", "configs/hymba_1_5b.py",
             "models/moe.py", "kernels/moe_dispatch.py", "configs/granite_moe_1b_a400m.py",
             "core/scaffold.py", "optim/__init__.py", "optim/optimizers.py",
-            "optim/schedule.py"} <= names
+            "optim/schedule.py", "sharding/__init__.py", "sharding/plan.py",
+            "sharding/specs.py", "sharding/state.py", "launch/mesh.py", "configs/shapes.py",
+            "configs/mixtral_8x22b.py"} <= names
     for src in ("mtgc_update", "quantize", "flash_attention", "rwkv6_scan", "rwkv6_scan_bwd",
                 "ssm_scan", "moe_dispatch"):
         assert (PORT / "kernels" / "csrc" / f"{src}.cu").is_file()
@@ -74,7 +76,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs.gemma3_27b, repro_torch.configs.hymba_1_5b, "
             "repro_torch.models.moe, repro_torch.kernels.moe_dispatch, "
             "repro_torch.configs.granite_moe_1b_a400m, repro_torch.core, "
-            "repro_torch.core.scaffold, repro_torch.optim; "
+            "repro_torch.core.scaffold, repro_torch.optim, repro_torch.sharding.plan, "
+            "repro_torch.sharding.specs, repro_torch.sharding.state, "
+            "repro_torch.launch.mesh, repro_torch.configs.shapes, "
+            "repro_torch.configs.mixtral_8x22b; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
