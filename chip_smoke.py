@@ -439,11 +439,24 @@ final line):
     the loss and every gradient within MX_LOSS_GAP and MX_GRAD_GAP of
     theirs, every gradient finite and nonzero, the launches as reckoned,
     times and peaks;
+29. phase (audit): right after the build (1b, ``phase_audit_matrix``)
+    ``launch/audit.py``'s 17 cases on the card -- every invariant, the
+    counted FLOPs, bytes and collective bytes equal to the CPU's stamp
+    (``budgets.check_route``), each case's kernel launches three ways,
+    wrapper by wrapper (the wrappers' calls and launches,
+    ``torch.profiler``'s kernels), equal to its expected calls, no host
+    sync outside the known table --; after (mx) (``phase_audit``) the dry
+    run's cost counter on ``meta`` over path (i)'s round and (f)'s prefill:
+    counted FLOPs and bytes beside the measured ms and each roofline term's
+    share, (i)'s state bytes equal to the card's, and the live-bytes
+    tracker's peak beside (i)'s ``max_memory_allocated``. Every kernel
+    phase's bound comes from its kernel module's ``cost(...)``, held to the
+    phase's own reckoning;
 22. a JSON line of the serving and training runs, one per phase of 18-20,
     (n), (p), (q) and (s), one of (m), one of (o), one of (r), one of (t),
     one of (u), one each of (v1), (v2), (v3), (w1), (w2), (w3), (y1), (y2),
-    (y3), (z1), (z2) and (z3), one of (ls), one of (mesh), one of (mx), and
-    one per kernel, then
+    (y3), (z1), (z2) and (z3), one of (ls), one of (mesh), one of (mx), one
+    of (audit), and one per kernel, then
     ``{"ok": true,
     "device": {...}}`` last.
 
@@ -522,9 +535,6 @@ VLM_LOSS_GAP, VLM_GRAD_GAP = 5e-5, 5e-2
 # it (4.185e12 a second); the selective scan forms one decay a (b, t, di, s)
 # on it, its backward two.
 SFU_EXP2_PER_S = 16 * 132 * 1.98e9
-# The scan backward's four kernels, in launch order (passes A', B', C', D').
-SCAN_BWD_PASSES = ("rwkv6_bwd_chunk_grad_kernel", "rwkv6_bwd_state_scan_kernel",
-                   "rwkv6_bwd_chunk_out_kernel", "rwkv6_bwd_du_kernel")
 # Phases 19-21 ((j)-(l)): the same training, with compressed uploads and
 # partial participation (client_participation 0.5, fixed masks); top-k keeps
 # 1% of a row. Recorded column slices of an upload block are 2^16 wide.
@@ -533,6 +543,30 @@ LM_TRAIN_PARTIAL, LM_TRAIN_TOPK_FRAC, UPLOAD_SPAN = 0.5, 0.01, 1 << 16
 
 def log(*args):
     print(*args, flush=True)
+
+
+def kernel_names(wrapper: str) -> tuple:
+    """The ``__global__`` functions ``wrapper`` launches, in launch order
+    (``kernels/ops.py::KERNEL_NAMES``): the scan backward's four passes A',
+    B', C', D', the selective scan backward's carry, fold, chunk and
+    reduction kernels."""
+    from repro_torch.kernels import ops
+
+    return ops.KERNEL_NAMES[wrapper]
+
+
+def cost_bound(cost, old_bytes: float, old_flops: float, peak: float, what: str) -> dict:
+    """A kernel's bound from its module's ``cost(...)`` (FLOPs, bytes), held
+    to the phase's own reckoning of the same work (within 1e-4: the cost
+    counts every operand, the reckoning left out a few bytes of u in the
+    RWKV scan)."""
+    flops, nbytes = cost
+    require(abs(nbytes - old_bytes) <= 1e-4 * old_bytes
+            and abs(flops - old_flops) <= 1e-4 * max(old_flops, 1.0),
+            f"{what}: cost(...) gives {flops} FLOP, {nbytes} bytes; the phase reckons "
+            f"{old_flops} FLOP, {old_bytes} bytes")
+    b, by = bound_ms(nbytes, flops, peak)
+    return {"bound_ms": b, "bound_by": by, "bytes": nbytes, "flops": flops}
 
 
 def device_line() -> str:
@@ -695,7 +729,7 @@ def log_kernel_resources(build, logs: dict) -> None:
                               "rwkv6_chunk_out_kernel")):
         log(f"  {name}: {sc.rwkv6_scan_smem_bytes(i)} B of dynamic shared memory")
     sb = build.load("rwkv6_scan_bwd")
-    for i, name in enumerate(SCAN_BWD_PASSES):
+    for i, name in enumerate(kernel_names("rwkv6_scan_bwd")):
         log(f"  {name}: {sb.rwkv6_scan_bwd_smem_bytes(i, 1)} B (bf16) / "
             f"{sb.rwkv6_scan_bwd_smem_bytes(i, 0)} B (float32) of dynamic shared memory, "
             f"{sb.rwkv6_scan_bwd_blocks_per_sm(i, 1)} / {sb.rwkv6_scan_bwd_blocks_per_sm(i, 0)} "
@@ -821,8 +855,8 @@ def phase_kernels(torch, mu, N, leaf_shapes):
     flat = timed(torch, lambda: mu.mtgc_update_flat(x, g, z, y, None, lr=0.1),
                  lambda: mu.mtgc_update_flat_ref(x, g, z, y, None, 0.1))
     nbytes = sum(t.numel() * t.element_size() for t in (x, g, z, y)) + x.numel() * 4
-    flat["bound_ms"], flat["bound_by"] = bound_ms(nbytes, FLOPS_PER_ELEMENT * x.numel())
-    flat["bytes"] = nbytes
+    flat.update(cost_bound(mu.mtgc_update_flat_cost(x, g, z, y), nbytes,
+                           FLOPS_PER_ELEMENT * x.numel(), F32_FLOPS_PER_S, "mtgc_update_flat"))
     del x, g, z, y
     leaves = [[randn(*s) for _ in range(4)] for s in leaf_shapes]
 
@@ -832,9 +866,10 @@ def phase_kernels(torch, mu, N, leaf_shapes):
     leaf = timed(torch, step(lambda *a: mu.mtgc_update(*a, lr=0.1)),
                  step(lambda *a: mu.mtgc_update_ref(*a, 0.1)))
     nbytes = sum(5 * a[0].numel() * 4 for a in leaves)
-    leaf["bound_ms"], leaf["bound_by"] = bound_ms(
-        nbytes, FLOPS_PER_ELEMENT * sum(a[0].numel() for a in leaves))
-    leaf["bytes"] = nbytes
+    costs = [mu.mtgc_update_cost(*a) for a in leaves]
+    leaf.update(cost_bound((sum(c[0] for c in costs), sum(c[1] for c in costs)), nbytes,
+                           FLOPS_PER_ELEMENT * sum(a[0].numel() for a in leaves),
+                           F32_FLOPS_PER_S, "mtgc_update"))
     del leaves
     torch.cuda.empty_cache()
     for name, t in (("mtgc_update_flat", flat), ("mtgc_update (8 leaves)", leaf)):
@@ -911,14 +946,12 @@ def phase_quantize(torch, qz, N):
         u, noise, scale, thresh = operands(rows, N)
         t = timed(torch, lambda: qz.int8_roundtrip(u, scale, noise),
                   lambda: qz.int8_roundtrip_ref(u, scale, noise))
-        nbytes = 3 * u.numel() * 4 + rows * 4
-        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, INT8_FLOPS * u.numel())
-        t["bytes"] = nbytes
+        t.update(cost_bound(qz.int8_roundtrip_cost(u, scale, noise), 3 * u.numel() * 4 + rows * 4,
+                            INT8_FLOPS * u.numel(), F32_FLOPS_PER_S, "int8_roundtrip"))
         times[f"int8_roundtrip/{tag}"] = t
         t = timed(torch, lambda: qz.topk_mask(u, thresh), lambda: qz.topk_mask_ref(u, thresh))
-        nbytes = 2 * u.numel() * 4 + rows * 4
-        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, TOPK_FLOPS * u.numel())
-        t["bytes"] = nbytes
+        t.update(cost_bound(qz.topk_mask_cost(u, thresh), 2 * u.numel() * 4 + rows * 4,
+                            TOPK_FLOPS * u.numel(), F32_FLOPS_PER_S, "topk_mask"))
         times[f"topk_mask/{tag}"] = t
         k = max(1, math.ceil(TOPK_FRAC * N))
         times[f"threshold/{tag}"] = {"ms": cuda_ms(torch, lambda: torch.topk(
@@ -1208,9 +1241,9 @@ def phase_lm_kernels(torch, fa, rs):
                .transpose(1, 2).float() - fa.flash_attention(qb, kb, vb).float()).abs().max().item()
     pairs = B * H * causal_pairs(T, S)
     nbytes = 2 * qb.numel() * 2 + 2 * kb.numel() * 2     # q read, o written, k and v read
-    flops = 4 * Dh * pairs
-    flash["bound_ms"], flash["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
-    flash.update(bytes=nbytes, flops=flops, pairs=pairs, sdpa_max_abs_diff=lib_err)
+    flash.update(cost_bound(fa.flash_attention_cost(qb, kb, vb), nbytes, 4 * Dh * pairs,
+                            BF16_FLOPS_PER_S, "flash_attention"))
+    flash.update(pairs=pairs, sdpa_max_abs_diff=lib_err)
     flash["passes"] = profile_round(torch, lambda: [fa.flash_attention(qb, kb, vb)
                                                      for _ in range(3)])
     del qb, kb, vb, qt, kt, vt
@@ -1220,10 +1253,11 @@ def phase_lm_kernels(torch, fa, rs):
     nc = T // C
     nbytes = 3 * rb.numel() * 2 + logw.numel() * 4 * 2 + 2 * s0.numel() * 4  # r/k/v, logw + o, S
     flops = LM_BATCH * Hr * nc * (2 * 2 * C * Dr * Dr + 2 * 2 * C * C * Dr)
-    scan["bound_ms"], scan["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    scan.update(cost_bound(rs.rwkv6_scan_cost(rb, kb_, vb_, logw, u, s0, chunk=C), nbytes, flops,
+                           BF16_FLOPS_PER_S, "rwkv6_scan"))
     sub = rs.SUB_CHUNK
     exps_per_chunk = ((C // sub) * (sub * (sub - 1) // 2) + 4 * C) * Dr   # pairs + rx, kq, ra, A
-    scan.update(bytes=nbytes, flops=flops, library_ms=None, exps=LM_BATCH * Hr * nc * exps_per_chunk,
+    scan.update(library_ms=None, exps=LM_BATCH * Hr * nc * exps_per_chunk,
                 passes=profile_round(torch, lambda: [rs.rwkv6_scan_bthd(rb, kb_, vb_, logw, u, s0,
                                                                         chunk=C)
                                                      for _ in range(3)]))
@@ -1289,10 +1323,10 @@ def phase_window_kernels(torch, fa):
         t["sdpa_max_abs_diff"] = (lib.float() - fa.flash_attention(q, k, v, window=W).float()
                                   ).abs().max().item()
         pairs = B * H * window_pairs(T, S, W)
-        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
-        flops = 4 * Dh * pairs
-        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
-        t.update(bytes=nbytes, flops=flops, pairs=pairs, max_abs_err=max_err,
+        t.update(cost_bound(fa.flash_attention_cost(q, k, v, window=W),
+                            2 * q.numel() * 2 + 2 * k.numel() * 2, 4 * Dh * pairs,
+                            BF16_FLOPS_PER_S, "flash_attention (windowed)"))
+        t.update(pairs=pairs, max_abs_err=max_err,
                  bound_share=t["bound_ms"] / t["ms"],
                  shape=f"q [{B},{T},{H},{Dh}] bf16, k/v [{B},{S},{Kv},{Dh}], window {W}")
         log(f"  kernel {t['ms']:.4f} ms {t['ms_readings']}, plain {t['plain_ms']:.4f} ms, bound "
@@ -1402,8 +1436,9 @@ def phase_ssm_kernel(torch, ss):
     # dt * A, exp, (dt u) B, h's multiply-add, y's multiply-add per state;
     # dt * u and the skip's multiply-add per (b, t, di).
     flops = elems * S * 7 + elems * 3
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
-    t.update(bytes=nbytes, flops=flops, exps=elems * S, library_ms=None,
+    t.update(cost_bound(ss.selective_scan_cost(*args), nbytes, flops, F32_FLOPS_PER_S,
+                        "selective_scan"))
+    t.update(exps=elems * S, library_ms=None,
              bound_share=t["bound_ms"] / t["ms"], sfu_floor_ms=elems * S / SFU_EXP2_PER_S * 1e3)
     # A trace of a few milliseconds this late in the script may come back
     # without device events (phase 12b's note): 100 calls take about 45 ms.
@@ -1427,9 +1462,9 @@ def phase_ssm_kernel(torch, ss):
     tt = timed(torch, lambda: ss.selective_scan(*args), lambda: ss.selective_scan_ref(*args),
                iters=20, plain_iters=1)
     tt["graph_ms"] = graph_ms(torch, [lambda a=a: ss.selective_scan(*a) for a in sets])
-    tt["bound_ms"], tt["bound_by"] = bound_ms(nbytes, elems * S * 7 + elems * 3,
-                                              F32_FLOPS_PER_S)
-    tt.update(bytes=nbytes, exps=elems * S, cold_sets=len(sets),
+    tt.update(cost_bound(ss.selective_scan_cost(*args), nbytes, elems * S * 7 + elems * 3,
+                         F32_FLOPS_PER_S, "selective_scan (training shape)"))
+    tt.update(exps=elems * S, cold_sets=len(sets),
               sfu_floor_ms=elems * S / SFU_EXP2_PER_S * 1e3,
               bound_share=tt["bound_ms"] / tt["graph_ms"])
     t["training"] = tt
@@ -1473,8 +1508,6 @@ def ssm_bwd_scales(ss, args, dy, dfin) -> dict:
 
 SSM_GRADS = ("du", "ddt", "dB", "dC", "dlog_a", "dd_skip", "dstate0")
 # The selective scan backward's four kernels, in launch order.
-SSM_BWD_PASSES = ("ssm_bwd_carry_kernel", "ssm_bwd_fold_kernel", "ssm_bwd_chunk_kernel",
-                  "ssm_bwd_reduce_kernel")
 # Phase 12d's ragged cases (B, T, Di, S, dt shift, d_final): a ragged last
 # chunk over a partial block of chains; S 5 with Di not 16-byte pieces;
 # strong decays (every chunk's decay product underflows to 0); weak decays;
@@ -1589,7 +1622,8 @@ def phase_ssm_backward(torch, ss, logs: dict):
     # product, du's and ddt's terms and their sums, dB's and dC's terms and
     # their sums: about 20 float32 operations, and two exponentials.
     flops = elems * S * 20
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    t.update(cost_bound(ss.selective_scan_bwd_cost(*args, dy), nbytes, flops, F32_FLOPS_PER_S,
+                        "selective_scan_bwd"))
     # Reckoned for this design from the library's own queries, not measured:
     # the bound's bytes with the kept states in place of state0, the carry
     # pass's second read of dt, dy and C, and each scratch float written and
@@ -1603,12 +1637,12 @@ def phase_ssm_backward(torch, ss, logs: dict):
                                      for a in sets])
     smem = {n: {"bf16": bwd_lib.selective_scan_bwd_smem_bytes(i, 1),
                 "f32": bwd_lib.selective_scan_bwd_smem_bytes(i, 0)}
-            for i, n in enumerate(SSM_BWD_PASSES)}
+            for i, n in enumerate(kernel_names("selective_scan_bwd"))}
     per_sm = {n: {"bf16": bwd_lib.selective_scan_bwd_blocks_per_sm(i, 1),
                   "f32": bwd_lib.selective_scan_bwd_blocks_per_sm(i, 0)}
-              for i, n in enumerate(SSM_BWD_PASSES)}
+              for i, n in enumerate(kernel_names("selective_scan_bwd"))}
     grid = {n: bwd_lib.selective_scan_bwd_grid(i, Bt, Tt, Di, S)
-            for i, n in enumerate(SSM_BWD_PASSES)}
+            for i, n in enumerate(kernel_names("selective_scan_bwd"))}
     t.update(bytes=nbytes, flops=flops, exps=2 * elems * S, library_ms=None,
              sfu_floor_ms=2 * elems * S / SFU_EXP2_PER_S * 1e3,
              reckoned_design_bytes=design, reckoned_design_exps=design_exps,
@@ -1828,8 +1862,11 @@ def phase_moe_kernels(torch, md, logs: dict):
                 e = [cuda_ms(torch, fns[0], 50), cuda_ms(torch, fns[0], 50)]
                 t.update(ms=sum(e) / 2, ms_readings=e)
             t["library_ms"] = cuda_ms(torch, lib_fns[0], 50) if lib_fns else None
-            t["bound_ms"], t["bound_by"] = bound_ms(nbytes[name], flops[name], F32_FLOPS_PER_S)
-            t.update(bytes=nbytes[name], bound_share=t["bound_ms"] / t["ms"],
+            t.update(cost_bound({"moe_gather": lambda: md.moe_gather_cost(x, r),
+                                 "moe_combine": lambda: md.moe_combine_cost(y, r, w),
+                                 "moe_gate_grad": lambda: md.moe_gate_grad_cost(dout, y, r)}[
+                                     name](), nbytes[name], flops[name], F32_FLOPS_PER_S, name))
+            t.update(bound_share=t["bound_ms"] / t["ms"],
                      graph_bound_share=t["bound_ms"] / t["graph_ms"],
                      plan=plans.get(name.removeprefix("moe_")))
             if shape == "training":
@@ -2022,7 +2059,8 @@ def phase_scan_backward(torch, rs, logs: dict):
     nbytes = (3 * n * 2 + 2 * n * 4 + states.numel() * 4 + s_fin.numel() * 4 + u.numel() * 4
               + 3 * n * 2 + n * 4 + u.numel() * 4 + s_fin.numel() * 4)
     flops = B * H * nc * (8 * C * Dh * Dh + 10 * C * C * Dh)
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    t.update(cost_bound(rs.rwkv6_scan_bwd_cost(r, k, v, logw, u, s0, do, chunk=C), nbytes, flops,
+                        BF16_FLOPS_PER_S, "rwkv6_scan_bwd"))
     t["f32_operations_ms"] = flops / F32_FLOPS_PER_S * 1e3
     t["tf32x3_operations_ms"] = 3 * flops / TF32_FLOPS_PER_S * 1e3
     t["pass_bytes"] = scan_bwd_pass_bytes(B, T, H, Dh, C, 2, False)
@@ -2032,7 +2070,7 @@ def phase_scan_backward(torch, rs, logs: dict):
     sb = build.load("rwkv6_scan_bwd")
     t["blocks_per_sm"] = {name: {"bf16": sb.rwkv6_scan_bwd_blocks_per_sm(i, 1),
                                  "float32": sb.rwkv6_scan_bwd_blocks_per_sm(i, 0)}
-                          for i, name in enumerate(SCAN_BWD_PASSES)}
+                          for i, name in enumerate(kernel_names("rwkv6_scan_bwd"))}
     require(t["blocks_per_sm"]["rwkv6_bwd_chunk_out_kernel"]["bf16"] >= 2,
             f"rwkv6_bwd_chunk_out_kernel keeps fewer than two blocks an SM: {t['blocks_per_sm']}")
     t["bound_share"] = t["bound_ms"] / t["ms"]
@@ -2343,15 +2381,15 @@ def phase_lm_backward(torch, fa):
     del out
     pairs = B * H * causal_pairs(T, T)
     nbytes = (4 * q.numel() + 2 * k.numel()) * 2 + 2 * k.numel() * 2 + 2 * m.numel() * 4
-    flops = 10 * Dh * pairs
-    bwd["bound_ms"], bwd["bound_by"] = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
-    bwd.update(bytes=nbytes, flops=flops, pairs=pairs)
+    bwd.update(cost_bound(fa.flash_attention_bwd_cost(q, k, v, o, do, m, l), nbytes,
+                          10 * Dh * pairs, BF16_FLOPS_PER_S, "flash_attention_bwd"))
+    bwd.update(pairs=pairs)
     bwd["bound_share"] = bwd["bound_ms"] / bwd["ms"]
     fwd_off = cuda_ms(torch, lambda: fa.flash_attention(q, k, v), iters=20)
     fwd_on = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, return_stats=True), iters=20)
     log(f"flash_attention_bwd bf16: kernel {bwd['ms']:.4f} ms {bwd['ms_readings']}, plain "
         f"{bwd['plain_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}; "
-        f"{nbytes} bytes, {flops:.4g} FLOP, {pairs} live pairs; bound share "
+        f"{nbytes} bytes, {bwd['flops']:.4g} FLOP, {pairs} live pairs; bound share "
         f"{bwd['bound_share']:.3f}), SDPA backward {bwd['library_ms']:.4f} ms; forward at this "
         f"shape {fwd_off:.4f} ms (statistics on: {fwd_on:.4f} ms)")
     trace = profile_round(torch, lambda: [fa.flash_attention_bwd(q, k, v, o, do, m, l)
@@ -2562,8 +2600,9 @@ def time_topk_blocks(torch, qz, blocks) -> dict:
     for u_host, th_host in blocks:
         u, th = u_host.cuda(), th_host.cuda()
         t = cuda_ms(torch, lambda: qz.topk_mask(u, th), iters=5, warmup=1)
-        b, by = bound_ms(2 * u.numel() * u.element_size() + th.numel() * th.element_size(),
-                         TOPK_FLOPS * u.numel())
+        b = cost_bound(qz.topk_mask_cost(u, th),
+                       2 * u.numel() * u.element_size() + th.numel() * th.element_size(),
+                       TOPK_FLOPS * u.numel(), F32_FLOPS_PER_S, "topk_mask block")["bound_ms"]
         per.append({"shape": list(u.shape), "ms": t, "bound_ms": b})
         ms, bound = ms + t, bound + b
         del u, th
@@ -2911,7 +2950,7 @@ def phase_lm_train(torch, np, layout: str, rounds: int, trace: bool, tag: str = 
                     f"kernels: {sel} ms, {out['selective_scan_share']:.3f} of busy")
             if cfg.arch_type == "ssm":
                 out["scan_bwd_pass_ms"] = {p: busy_ms(lambda name, p=p: p in name)
-                                           for p in SCAN_BWD_PASSES}
+                                           for p in kernel_names("rwkv6_scan_bwd")}
                 log(f"  the scan's forward kernels (both passes under remat): {scan_f:.1f} ms, "
                     f"{out['scan_share']:.3f} of busy; its backward's four kernels: "
                     f"{scan_b:.1f} ms, {out['scan_bwd_share']:.3f} of busy (by pass, ms: "
@@ -5476,6 +5515,162 @@ def phase_mixtral(torch, np, fa, md, counter) -> dict:
     return out
 
 
+# Phase (audit): the auditor's matrix on the card, and the dry run's cost
+# counter on path (i)'s round and (f)'s prefill beside their measured times.
+# NVLink 450 GB/s each way (H100 SXM data sheet): the collective term's
+# rate, which one card's round never uses.
+NVLINK_BYTES_PER_S = 450e9
+AUDIT_PREFILL_ARCH = "qwen3-14b"
+
+
+def counted_shares(costs, ms: float) -> dict:
+    """The roofline terms (ms) of counted work on the data sheet's peaks,
+    and each term's share of a measured time."""
+    from repro_torch.launch.cost_analysis import roofline
+
+    terms = roofline(costs, bf16_flops_per_s=BF16_FLOPS_PER_S, f32_flops_per_s=F32_FLOPS_PER_S,
+                     hbm_bytes_per_s=HBM_BYTES_PER_S, link_bytes_per_s=NVLINK_BYTES_PER_S)
+    terms_ms = {k.replace("_s", "_ms"): v * 1e3 for k, v in terms.items()}
+    return {"flops": costs.flops, "flops_by_kind": dict(costs.by_kind), "bytes": costs.bytes,
+            "collective_bytes": costs.collective_bytes, "measured_ms": ms, "terms_ms": terms_ms,
+            "shares": {k: v / ms for k, v in terms_ms.items()},
+            "kernels": {k: v["calls"] for k, v in costs.kernels.items()}}
+
+
+def audit_on_card(case_names=None, tag: str = "(audit)") -> dict:
+    """``launch/audit.py``'s cases (all, or ``case_names``) on the card, held
+    to: every invariant; each case's kernel launches three ways, wrapper by
+    wrapper -- the wrappers' calls and launches, ``torch.profiler``'s
+    kernels -- equal to its ``expected_by_wrapper``; no host sync outside
+    the known table; and its counted FLOPs, bytes and collective bytes equal
+    to the CPU's stamp in ``analysis/budgets.json`` (``budgets.check_route``:
+    the count does not depend on the route)."""
+    from repro_torch.analysis import budgets
+    from repro_torch.launch import audit
+
+    report = audit.run_audit(case_names=case_names, device="cuda", strict_budgets=True,
+                             verbose=False)
+    for name, prog in report["programs"].items():
+        three = (prog["calls_by_wrapper"], prog["launches_by_wrapper"],
+                 prog["profiled_by_wrapper"])
+        require(three == (prog["expected_by_wrapper"],) * 3,
+                f"{tag} {name}: calls, launches and profiled kernels by wrapper {three}, "
+                f"expected {prog['expected_by_wrapper']}")
+    route = budgets.check_route({n: {m: p[m] for m in budgets.METRICS}
+                                 for n, p in report["programs"].items()})
+    require(not route, f"{tag} the card's counts against the CPU's stamp: "
+            f"{[str(f) for f in route]}")
+    require(report["ok"], f"{tag} the auditor on the card: {report['errors']}")
+    return report
+
+
+def phase_audit_matrix(torch) -> dict:
+    """Phase (audit), its first part, right after the build: the full
+    matrix on the card (:func:`audit_on_card`). It runs first because the
+    profiler's count of a chunk's kernels is exact early in a process and
+    not late in this script: after (mx) a case's trace has kept 9 of 14
+    kernels with no pad at its ends, 5 of 8 with 0.05 s and 5 of 8 with 0.5
+    s (``core/driver.py::_TRACE_PAD_S``; PERF.md, open questions)."""
+    t_phase = time.perf_counter()
+    report = audit_on_card()
+    sites = {}
+    for prog in report["programs"].values():
+        for site in prog["syncs"] or []:
+            key = f"{site[0]}:{site[1]} ({site[2]}: {site[3]})" if site else "outside the port"
+            sites[key] = sites.get(key, 0) + 1
+    audit_s = time.perf_counter() - t_phase
+    launched = {n: p["launches_by_wrapper"] for n, p in report["programs"].items()
+                if p["kernel_launches"]}
+    log(f"(audit) {len(report['cases'])} cases on the card in {audit_s:.1f} s: ok; launches "
+        f"{launched} (calls = launches = profiled = expected, wrapper by wrapper); counts "
+        f"equal to the CPU's stamp; host syncs seen (known sites "
+        f"only): {sites}")
+    return {"cases": report["cases"], "programs": {
+        n: {k: p[k] for k in ("kernel_calls", "kernel_launches", "profiled_launches",
+                              "expected_calls", "expected_by_wrapper", "flops", "bytes",
+                              "collective_bytes")}
+        for n, p in report["programs"].items()}, "syncs": sites, "audit_s": audit_s,
+        "notes": len(report["notes"])}
+
+
+def phase_audit(torch, np, lm_flat: dict, prefill: dict, matrix: dict) -> dict:
+    """Phase (audit), its second part: the dry run's counter
+    (``launch/cost_analysis.py`` on ``meta``) on path (i)'s round and on
+    (f)'s prefill at the shapes the script runs: the counted FLOPs and bytes
+    beside the measured ms and the share of each roofline term, the state's
+    bytes (equal to (i)'s on the card) and the tracker's peak beside (i)'s
+    ``max_memory_allocated``; ``matrix`` is the first part's record."""
+    from repro_torch import api
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import param_specs
+    from repro_torch.core.device import MetaFactories
+    from repro_torch.core.driver import _state_tensors
+    from repro_torch.launch.cost_analysis import CostCounter
+    from repro_torch.models.transformer import build_model
+
+    t_phase = time.perf_counter()
+    # (i)'s round, counted on meta.
+    cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH), num_layers=LM_TRAIN_LAYERS)
+    bundle = build_model(cfg)
+    G, K = LM_TRAIN_LEVELS
+    spec = api.ExperimentSpec(
+        levels=(G, K), backend="sharded", algorithm="mtgc", lr=LM_TRAIN_LR, fusion="fused",
+        state_layout="flat", schedule=api.RoundSchedule(
+            group_rounds=LM_TRAIN_E, local_steps=LM_TRAIN_H, microbatches=LM_TRAIN_A))
+    engine = api.build(spec, bundle.loss)
+    t0 = time.perf_counter()
+    state = engine.abstract_state(param_specs(cfg, bundle))
+    lead = (LM_TRAIN_E, LM_TRAIN_H, LM_TRAIN_A, G, K, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    batch = {k: torch.empty(lead, dtype=torch.int32, device="meta") for k in ("tokens", "targets")}
+    state_bytes = sum(t.numel() * t.element_size() for t in _state_tensors(state))
+    held = state_bytes + sum(t.numel() * t.element_size() for t in batch.values())
+    with CostCounter(track_live=True) as cc:
+        engine.round_fn(state, batch)
+    count_i_s = time.perf_counter() - t0
+    card_state = lm_flat["state_gb"] * 1e9
+    require(abs(state_bytes - card_state) <= 1e-9 * card_state,
+            f"(audit) the meta state of (i) holds {state_bytes} bytes, the card's {card_state}")
+    i_out = counted_shares(cc.costs, lm_flat["round_ms"])
+    i_out.update(state_bytes=state_bytes, tracker_peak_bytes=held + cc.peak_bytes,
+                 card_peak_gb=lm_flat["peak_gb"], card_held_gb=lm_flat["held_gb"],
+                 count_s=count_i_s)
+    want = lm_train_launches(cfg, 1)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        calls = i_out["kernels"].get(name, 0)
+        require(calls * (3 if name == "flash_attention_bwd" else 1) == want[name],
+                f"(audit) the meta round of (i) called {name} {calls} times; the card's round "
+                f"launched {want[name]}")
+    # (f)'s prefill, counted on meta.
+    pcfg = get_arch(AUDIT_PREFILL_ARCH)
+    pbundle = build_model(pcfg)
+    t0 = time.perf_counter()
+    params = param_specs(pcfg, pbundle)
+    with MetaFactories():
+        cache = pbundle.init_cache(LM_BATCH, LM_PROMPT + LM_GEN, device="cuda")
+    tokens = torch.empty((LM_BATCH, LM_PROMPT), dtype=torch.int32, device="meta")
+    with torch.no_grad(), CostCounter(track_live=True) as pc:
+        pbundle.prefill(params, {"tokens": tokens}, cache)
+    f_out = counted_shares(pc.costs, prefill["prefill_ms"])
+    f_out["count_s"] = time.perf_counter() - t0
+    require(f_out["kernels"].get("flash_attention") == pcfg.num_layers,
+            f"(audit) the meta prefill called flash {f_out['kernels']}")
+    out = dict(matrix, i=i_out, f=f_out)
+    for tag, r in (("(i) round", i_out), ("(f) prefill", f_out)):
+        log(f"(audit) {tag}: counted {r['flops']:.4e} FLOP ({r['flops_by_kind']['bf16']:.4e} "
+            f"on the tensor cores), {r['bytes']:.4e} bytes; measured {r['measured_ms']:.1f} ms; "
+            f"terms (data sheet) { {k: round(v, 3) for k, v in r['terms_ms'].items()} } ms; "
+            f"achieved shares { {k: round(v, 4) for k, v in r['shares'].items()} }")
+    log(f"(audit) (i)'s state: {state_bytes} bytes on meta = the card's; tracker peak "
+        f"{i_out['tracker_peak_bytes'] / 1e9:.2f} GB against the card's "
+        f"max_memory_allocated {lm_flat['peak_gb']:.2f} GB ({lm_flat['held_gb']:.2f} GB held "
+        f"by earlier phases)")
+    out["counts_s"] = time.perf_counter() - t_phase
+    out["seconds"] = out["audit_s"] + out["counts_s"]
+    log(f"(audit) phase: {out['seconds']:.1f} s ({out['audit_s']:.1f} s the matrix, "
+        f"{out['counts_s']:.1f} s the counts)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5522,6 +5717,8 @@ def main() -> int:
         for entry, regs, spills in ptxas_entries(text):
             log(f"  {name}: {entry}: {regs}; {spills}")
     log_kernel_resources(build, built["log"])
+    # --- 1b. (audit) the auditor's matrix on the card ----------------------
+    audit_matrix = phase_audit_matrix(torch)
 
     init, apply = small.cnn(10, IMAGE)
     p0 = init(torch.Generator().manual_seed(0), device="cuda")
@@ -6049,6 +6246,8 @@ def main() -> int:
     av_z3 = phase_audio_vlm_checks(torch, np, convert)
     # --- 28. (mx) mixtral-8x22b at full width, 2 of 56 layers ---------------
     mx = phase_mixtral(torch, np, fa, md, lambda: serve_launches(fa, rw, ss, md))
+    # --- 29. (audit) the auditor on the card; the dry run's counter -------
+    audit_out = phase_audit(torch, np, lm_flat, qwen, audit_matrix)
 
     # --- 22. results -----------------------------------------------------
     kernels = [
@@ -6257,6 +6456,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh_runs}))
     print(json.dumps({"mixtral_mx": {k: v for k, v in mx.items() if k != "serve"},
                       "serving_mx": mx["serve"]}))
+    print(json.dumps({"audit": audit_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

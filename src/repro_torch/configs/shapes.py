@@ -23,8 +23,8 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.overrides import TorchFunctionMode
 
+from repro_torch.core.device import MetaFactories
 from repro_torch.models.config import ArchConfig
 from repro_torch.sharding.plan import MeshPlan
 
@@ -120,25 +120,9 @@ def serve_specs(cfg: ArchConfig, shape_id: str) -> dict[str, Any]:
     return {"batch": batch, "cache": cache}
 
 
-class _MetaFactories(TorchFunctionMode):
-    """Every tensor factory call makes its tensor on the ``meta`` device
-    and draws nothing: a random factory's ``generator`` is dropped."""
-
-    _FACTORIES = frozenset((torch.randn, torch.rand, torch.randint, torch.normal,
-                            torch.zeros, torch.ones, torch.empty, torch.full,
-                            torch.arange, torch.linspace, torch.eye))
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = dict(kwargs or {})
-        if func in self._FACTORIES:
-            kwargs.pop("generator", None)
-            kwargs["device"] = "meta"
-        return func(*args, **kwargs)
-
-
 def param_specs(cfg: ArchConfig, bundle) -> Any:
     """The model's full-size parameter tree as ``meta`` tensors (no
     allocation, nothing drawn): ``bundle.init`` run with every factory
     call sent to the meta device."""
-    with _MetaFactories():
+    with MetaFactories():
         return bundle.init(0, device="cpu")

@@ -46,15 +46,19 @@ import torch
 
 from repro_torch.core.compression import COMPRESSION_MODES, CompressionPlan
 from repro_torch.core.config import HFLConfig
-from repro_torch.core.device import clone_generator, resolve_device
+from repro_torch.core.device import MetaFactories, clone_generator, resolve_device
 from repro_torch.core.faults import FAULT_KINDS, DefensePlan, FaultPlan
 from repro_torch.core.driver import (
+    GuardReport,
     GuardSpec,
     Horizon,
+    LoweredChunk,
     PackedBatches,
+    materialize,
     pack_client_shards,
     pack_lm_shards,
     run_rounds,
+    trace_chunk,
 )
 from repro_torch.core.engine import (
     RoundMetrics,
@@ -528,9 +532,38 @@ def _index_depth(indices) -> int:
     return depth
 
 
-class _EngineBase:
-    """What both engines share: the stateless-client wrapper, the population
-    store, and the guarded horizon's retry rounds."""
+class Engine:
+    """What every engine shares (the reference's ``Engine``): the
+    stateless-client wrapper, the population store, the guarded horizon's
+    retry rounds, and the static surface the auditor reads
+    (:meth:`abstract_state`, :meth:`lower_chunk`)."""
+
+    def abstract_state(self, params: Tree):
+        """The engine's round state as ``meta`` tensors (shapes and dtypes,
+        nothing allocated and nothing drawn): :meth:`init` run with every
+        tensor factory sent to ``meta`` (``core.device.MetaFactories``).
+        ``params`` may be real or ``meta``. A state that carries a
+        generator keeps a real one (a generator is not a tensor)."""
+        with MetaFactories():
+            return self.init(params)
+
+    def lower_chunk(self, data: PackedBatches, *, params: Tree | None = None, state=None,
+                    chunk: int = 2, eval_fn=None, donate: bool = True,
+                    device=None) -> LoweredChunk:
+        """Record one driver chunk of this engine (``core.driver.trace_chunk``;
+        the auditor's input). Pass the initial ``params`` (real or
+        ``meta``: ``meta`` ones are drawn on the engine's device) or a
+        ready ``state``, which the chunk consumes when ``donate``; ``data``
+        may hold ``meta`` arrays in the packed layout. The reference
+        traces and compiles the chunk without running it; the port runs it
+        (see ``trace_chunk``)."""
+        if state is None:
+            _require(params is not None, "lower_chunk needs `state` or `params` to run over")
+            # No local name holds the new state: the chunk consumes it.
+            return trace_chunk(self.round_fn, self.init(materialize(params, self.device)), data,
+                               chunk, eval_fn=eval_fn, donate=donate, device=device)
+        return trace_chunk(self.round_fn, state, data, chunk, eval_fn=eval_fn, donate=donate,
+                           device=device)
 
     def _wrap_stateless(self) -> None:
         """Wrap the round once at build time under ``client_state="stateless"``
@@ -655,7 +688,7 @@ class _EngineBase:
                 or (comp is not None and comp.stochastic))
 
 
-class SimulatorEngine(_EngineBase):
+class SimulatorEngine(Engine):
     """The paper engine (``core.engine``) behind the uniform surface.
 
     spec: the validated :class:`ExperimentSpec`.
@@ -717,7 +750,7 @@ class MultiLevelMetrics(NamedTuple):
     loss: torch.Tensor  # [P_1] mean training loss per local step
 
 
-class MultiLevelEngine(_EngineBase):
+class MultiLevelEngine(Engine):
     """Appendix E's M-level engine (``core.multilevel``) behind the uniform
     surface.
 
@@ -779,7 +812,7 @@ class MultiLevelEngine(_EngineBase):
         return multilevel_global_model(state)
 
 
-class ShardedEngine(_EngineBase):
+class ShardedEngine(Engine):
     """The production microbatched round (``launch.train``) behind the
     uniform surface.
 
@@ -1204,13 +1237,16 @@ __all__ = [
     "CliFlag",
     "CompressionPlan",
     "DefensePlan",
+    "Engine",
     "ExperimentSpec",
     "FAULT_KINDS",
     "FUSIONS",
     "FaultPlan",
+    "GuardReport",
     "GuardSpec",
     "Horizon",
     "LAYOUTS",
+    "LoweredChunk",
     "MultiLevelEngine",
     "MultiLevelMetrics",
     "PackedBatches",
@@ -1222,5 +1258,6 @@ __all__ = [
     "add_spec_args",
     "build",
     "fit",
+    "run_population_rounds",
     "spec_from_args",
 ]

@@ -283,6 +283,9 @@ def round_comm_bytes(params, plan, n_client_uploads, n_group_uploads,
     frac = plan.topk_frac if on else 0.01
     cb = upload_bytes(sizes, cmode, frac)
     gb = upload_bytes(sizes, gmode, frac)
-    nc = torch.as_tensor(n_client_uploads, dtype=torch.float32, device=device)
-    ng = torch.as_tensor(n_group_uploads, dtype=torch.float32, device=device)
+    nc, ng = (n.to(device, torch.float32) if isinstance(n, torch.Tensor)
+              # A fill on the device, not a copy of a host scalar (which
+              # waits for the card).
+              else torch.full((), float(n), dtype=torch.float32, device=device)
+              for n in (n_client_uploads, n_group_uploads))
     return nc * cb + ng * gb

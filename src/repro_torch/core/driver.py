@@ -25,12 +25,19 @@ the device, and ``run_rounds`` (port of ``src/repro/core/driver.py``).
   the retry into its JAX keys; here a retry reseeds the state's and the
   data's generators from (their snapshot, salt), so it draws another
   realization, deterministically.
+* **A recorded chunk** (:func:`trace_chunk` -> :class:`LoweredChunk`): what
+  the static auditor (``repro_torch.analysis``) inspects.
 """
 from __future__ import annotations
 
+import gc
 import hashlib
+import linecache
 import math
+import sys
 import time
+import warnings
+import weakref
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -581,3 +588,261 @@ def run_rounds(
               if guard is not None else None)
     return state, data, Horizon(metrics=_concat(mets), evals=evals, eval_rounds=eval_rounds,
                                 data=data, guard=report)
+
+
+# ------------------------------------------------------------ the recorded chunk
+
+
+class LoweredChunk(NamedTuple):
+    """One driver chunk as :func:`trace_chunk` recorded it: what the auditor
+    (``repro_torch.analysis.invariants``) checks.
+
+    ops: an ``OpRecord`` (name, outputs' dtypes and shapes, scope) of every
+        aten op and hand-kernel call the chunk dispatched, in order.
+    calls / launches: each kernel wrapper's ``calls`` (every route) and
+        ``launches`` (CUDA kernels) over the chunk.
+    profiled: kernel launches by wrapper from ``torch.profiler``'s CUDA
+        activity (a card run), else None.
+    state: the input state, its tensors as ``meta`` tensors of their dtypes
+        and shapes (the input itself may be gone: a donated state is
+        consumed); ``out_state``: the state the chunk returned.
+    data: the :class:`PackedBatches` it ran over.
+    costs: the cost counter's ``Costs`` of the chunk.
+    donate: whether the state was handed over to the chunk.
+    shared: per leaf of the state, whether the output's leaf shares the
+        input's storage (the sharded backend's update in place).
+    kept: ``"dtype[shape]"`` of every input tensor still alive after the
+        chunk that the output state does not hold: a second copy of the
+        state the driver kept.
+    syncs: host synchronizations the card reported during the chunk
+        (``torch.cuda.set_sync_debug_mode``), as ``(file, line, function,
+        source text)`` of the port's innermost frame; None when not watched
+        (the CPU).
+    device: where the chunk ran.
+    """
+
+    ops: list
+    calls: dict
+    launches: dict
+    profiled: dict | None
+    state: Any
+    out_state: Any
+    data: Any
+    costs: Any
+    donate: bool
+    shared: list
+    kept: list
+    syncs: list | None
+    device: Any
+
+
+def map_state(fn: Callable, state):
+    """``state`` with ``fn`` applied to each of its tensors (NamedTuple
+    fields, trees, flat buffers and lists of them; generators and None kept
+    as they are)."""
+    from repro_torch.core.packer import FlatBuffers
+    from repro_torch.core.tree import tree_map
+
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(map_state(fn, f) for f in state))
+    if isinstance(state, (list, tuple)):
+        return type(state)(map_state(fn, f) for f in state)
+    if isinstance(state, (dict, FlatBuffers)):
+        return tree_map(lambda t: map_state(fn, t), state)
+    return state
+
+
+def materialize(tree, device, seed: int = 0):
+    """A tree (or state, or :class:`PackedBatches`) whose ``meta`` tensors
+    are made real on ``device``: floating ones drawn from N(0, 1) with a
+    generator seeded ``seed``, the others zeros. Real tensors move to
+    ``device``."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def real(t):
+        if t.device.type != "meta":
+            return t.to(dev)
+        if t.is_floating_point():
+            return torch.randn(t.shape, generator=gen, dtype=t.dtype, device=dev)
+        return torch.zeros(t.shape, dtype=t.dtype, device=dev)
+
+    if isinstance(tree, PackedBatches):
+        return PackedBatches({k: real(v) for k, v in tree.arrays.items()},
+                             torch.Generator(device=dev).manual_seed(seed), tree.group_rounds,
+                             tree.local_steps, tree.microbatches, tree.topo_ndim)
+    return map_state(real, tree)
+
+
+def _port_frame(frame):
+    """``(file under repro_torch/, line, function, source text)`` of the
+    innermost frame of the port outside its instrumentation (the recorder,
+    the cost counter), or None. ``function`` is the innermost named one:
+    a generator expression or lambda reports the function around it."""
+    skip_files = ("kernels/accounting.py", "launch/cost_analysis.py")
+    skip_funcs = ("trace_chunk", "_hook")
+    while frame is not None:
+        code = frame.f_code
+        fn = code.co_filename.replace("\\", "/")
+        i = fn.rfind("/repro_torch/")
+        if i >= 0:
+            rel = fn[i + len("/repro_torch/"):]
+            if rel not in skip_files and not (rel == "core/driver.py"
+                                              and code.co_name in skip_funcs):
+                named = [p for p in code.co_qualname.split(".") if not p.startswith("<")]
+                func = named[-1] if named else code.co_name
+                text = linecache.getline(code.co_filename, frame.f_lineno).strip()
+                return rel, frame.f_lineno, func, text
+        frame = frame.f_back
+    return None
+
+
+class _SyncWatch:
+    """Collects the card's host synchronizations while entered, each at the
+    port's frame that made it (``torch.cuda.set_sync_debug_mode("warn")``
+    reports those CUDA can see: copies to the host, ``.item()``, waits)."""
+
+    def __init__(self):
+        self.sites: list = []
+        self.armed = False
+
+    def _hook(self, message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            self._show(message, category, filename, lineno, file, line)
+        elif self.armed:
+            self.sites.append(_port_frame(sys._getframe(1)))
+
+    def __enter__(self):
+        self._ctx = warnings.catch_warnings()
+        self._ctx.__enter__()
+        warnings.simplefilter("always")
+        self._show, warnings.showwarning = warnings.showwarning, self._hook
+        # The first switch in a process reports a synchronization of its
+        # own; the watch counts the chunk's from here on.
+        torch.cuda.set_sync_debug_mode("warn")
+        self.armed = True
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._ctx.__exit__(*exc)
+
+
+# Idle host time at each end of a chunk's trace on the card. A trace that
+# starts or stops right at a chunk's kernels can miss some of them: with no
+# pad, ``tools/profiler_window_probe.py`` saw a 20-kernel trace keep one
+# kernel fewer for every 15 s of a process's age after its first 15 s,
+# where traces padded by 0.5 s mostly kept all. The pad does not make the
+# count exact late in a long process (PERF.md, open questions), so the
+# audit runs early.
+_TRACE_PAD_S = 0.1
+
+
+def trace_chunk(round_fn: Callable, state, data: PackedBatches, chunk: int = 2, *,
+                eval_fn: Callable | None = None, donate: bool = True,
+                device=None) -> LoweredChunk:
+    """Run one :func:`dispatch_chunk` of ``chunk`` rounds under a recorder
+    and return what it saw (:class:`LoweredChunk`).
+
+    The reference's ``trace_chunk`` traces, lowers and compiles the chunk
+    over abstract inputs and never runs it. Eager PyTorch has no program to
+    inspect before it runs, so the port runs the chunk: the audit matrix is
+    tiny, and the recorder executes it on real tensors, on the CPU by
+    default or on ``device``. ``meta`` tensors in ``state`` and ``data``
+    are made real there first (:func:`materialize`); the state is otherwise
+    used as given. Nothing at full width goes through here: that is the
+    dryrun's job (``launch/dryrun.py``, on ``meta``).
+
+    With ``donate`` (the default) the chunk consumes ``state``, as the
+    reference's donated buffers are consumed: a caller that keeps another
+    reference to it makes its tensors outlive the chunk, which
+    :attr:`LoweredChunk.kept` then reports. With ``donate=False`` the chunk
+    runs on a copy (``make_round_step(donate=False)``'s). On the card the
+    chunk also runs under ``torch.profiler`` (its kernel launches by
+    wrapper) and the host-sync watch.
+    """
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.cost_analysis import CostCounter
+
+    box = [state]
+    del state
+    leaves = _state_tensors(box[0])
+    if device is None:
+        device = leaves[0].device if leaves else torch.device("cpu")
+        if device.type == "meta":
+            device = torch.device("cpu")
+    device = torch.device(device)
+    if any(t.device.type == "meta" for t in leaves):
+        box[0] = materialize(box[0], device)
+    if any(t.device.type == "meta" for t in data.arrays.values()):
+        data = materialize(data, device)
+    if not donate:
+        box[0] = _undonated(box[0])
+    abstract = map_state(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), box[0])
+    leaves = _state_tensors(box[0])
+    # The input's storages are held through the chunk, so that no output
+    # can be given a freed input's address and pass for it.
+    held = [t.untyped_storage() for t in leaves]
+    refs = [(weakref.ref(t), f"{str(t.dtype).removeprefix('torch.')}{list(t.shape)}")
+            for t in leaves]
+    del leaves
+    card = device.type == "cuda"
+    mask = np.zeros(int(chunk), dtype=bool)
+    if eval_fn is not None:
+        mask[-1] = True
+    calls0, launches0 = kops.calls(), kops.launches()
+    prof = watch = None
+    if card:
+        from torch.profiler import ProfilerActivity
+        torch.cuda.synchronize(device)          # earlier work ends before the trace
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+        time.sleep(_TRACE_PAD_S)
+    try:
+        if card:
+            watch = _SyncWatch().__enter__()
+        try:
+            with CostCounter(record_ops=True) as cc:
+                out, _, _ = dispatch_chunk(round_fn, box.pop(), data, mask, eval_fn=eval_fn)
+        finally:
+            if watch is not None:
+                watch.__exit__(None, None, None)
+        if card:
+            torch.cuda.synchronize(device)      # the chunk's own end, outside the watch
+            time.sleep(_TRACE_PAD_S)
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    calls = {k: v - calls0[k] for k, v in kops.calls().items()}
+    launches = {k: v - launches0[k] for k, v in kops.launches().items()}
+    profiled = None
+    if prof is not None:
+        profiled = {k: 0 for k in calls}
+        for ev in prof.events():
+            w = kops.wrapper_of_kernel(ev.name) if _is_device_kernel(ev) else None
+            if w is not None:
+                profiled[w] += 1
+    outs = _state_tensors(out)
+    out_ptrs = {t.untyped_storage().data_ptr() for t in outs}
+    shared = [a.data_ptr() == b.untyped_storage().data_ptr() for a, b in zip(held, outs)]
+    if len(outs) != len(held):
+        shared = [False] * len(held)
+    del held
+
+    def kept():
+        return [d for r, d in refs if r() is not None
+                and r().untyped_storage().data_ptr() not in out_ptrs]
+
+    if kept():
+        gc.collect()        # a reference cycle may hold them until the next collection
+    return LoweredChunk(cc.ops, calls, launches, profiled, abstract, out, data, cc.costs,
+                        bool(donate), shared, kept(), None if watch is None else watch.sites,
+                        device)
+
+
+def _is_device_kernel(ev) -> bool:
+    """Whether a profiler event is a kernel that ran on the card."""
+    dev = getattr(ev, "device_type", None)
+    return dev is not None and str(dev).endswith("CUDA") and "cudaLaunch" not in ev.name

@@ -439,7 +439,8 @@ def _build_global_round(
 
         if async_mode:
             if dev not in plan_on:
-                plan_on[dev] = tuple(torch.from_numpy(a).to(dev) for a in plan_np)
+                plan_on[dev] = tuple(torch.from_numpy(a).to(dev, non_blocking=True)
+                                     for a in plan_np)
             em_all, dw, e_eff = plan_on[dev]
             # The window's report and fresh masks from the round counter.
             rep = plan.report_mask(state.round)                # [G]

@@ -156,7 +156,10 @@ def payload(delta: torch.Tensor, plan: FaultPlan) -> torch.Tensor:
     ``delta + nan/inf``, in the delta's dtype (the factor rounded into it
     first, as JAX's weakly typed scalar is)."""
     if plan.corrupt_kind == "explode":
-        return delta * torch.tensor(plan.explode_factor, dtype=delta.dtype, device=delta.device)
+        # A fill on the device, not a copy of a host scalar (which waits
+        # for the card); the factor is rounded into the delta's dtype.
+        return delta * torch.full((), plan.explode_factor, dtype=delta.dtype,
+                                  device=delta.device)
     return delta + (float("nan") if plan.corrupt_kind == "nan" else float("inf"))
 
 
@@ -214,12 +217,12 @@ def screen_tests(sqn: torch.Tensor, finite: torch.Tensor | None, defense: Defens
     if defense.screen_nonfinite:
         ok = ok * finite
     if defense.screen_norm is not None:
-        thr = torch.tensor(defense.screen_norm, dtype=torch.float32, device=sqn.device) ** 2
+        thr = torch.full((), defense.screen_norm, dtype=torch.float32, device=sqn.device) ** 2
         # NaN/Inf squared norms compare False: screened here too.
         ok = ok * (sqn <= thr).to(torch.float32)
     if defense.clip_norm is None:
         return ok, None, None
-    c = torch.tensor(defense.clip_norm, dtype=torch.float32, device=sqn.device)
+    c = torch.full((), defense.clip_norm, dtype=torch.float32, device=sqn.device)
     hit = torch.isfinite(sqn) & (sqn > c * c)
     scale = torch.where(hit, c * torch.rsqrt(torch.maximum(sqn, c * c)), 1.0)
     return ok, hit, scale

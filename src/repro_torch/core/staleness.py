@@ -124,7 +124,8 @@ class StalenessPlan:
         t = torch.as_tensor(t)
         if not self.needs_round_counter:
             return torch.ones(self.num_groups, dtype=torch.float32, device=t.device)
-        r = torch.tensor(self.periods, dtype=torch.int32, device=t.device)
+        # non_blocking: a copy of host data that need not wait for the card.
+        r = torch.tensor(self.periods, dtype=torch.int32).to(t.device, non_blocking=True)
         return ((t.to(torch.int32) + shift) % r == 0).to(torch.float32)
 
     def report_mask(self, t) -> torch.Tensor:

@@ -21,14 +21,22 @@ into a ``torch.autograd.Function`` (the counterpart of
 
 Dispatch is by the device of the tensors, as in the other kernel modules:
 a CPU tensor takes the plain version, a CUDA tensor launches the kernel
-(building it on first use) or raises. ``flash_attention.launches`` and
+(building it on first use), a ``meta`` tensor gets its outputs' shapes, any
+other device raises. ``flash_attention.launches`` and
 ``flash_attention_bwd.launches`` count the kernel launches they make:
-one a call for the forward, three for the backward.
+one a call for the forward, three for the backward; their ``calls`` count
+the calls on every route. ``flash_attention_cost`` and
+``flash_attention_bwd_cost`` give a call's (FLOPs, bytes) from its live
+(query, key) pairs (:func:`live_pairs`).
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from repro_torch.kernels.accounting import kernel_call, nbytes, peak_kind
 from repro_torch.kernels.build import load
 from repro_torch.kernels.mtgc_update import _check, _raise_on, _stream
 
@@ -142,6 +150,38 @@ def flash_attention_bwd_ref(q, k, v, o, do, m, l, *, causal=True, window=0, q_of
             unblock(dvs).to(v.dtype))
 
 
+@functools.lru_cache(maxsize=1024)
+def live_pairs(T: int, S: int, q_offset: int = 0, window: int = 0, causal: bool = True) -> int:
+    """Live (query, key) pairs of one head: query t (position q_offset + t)
+    sees the keys k < S with k > q_offset + t - window (``window <= 0``:
+    all) and, when causal, k <= q_offset + t -- the kernel's mask."""
+    w_eff = window if window > 0 else S + T
+    pos = np.arange(T, dtype=np.int64) + q_offset
+    hi = np.minimum(pos + 1, S) if causal else np.full(T, S, dtype=np.int64)
+    lo = np.maximum(pos - w_eff + 1, 0)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def flash_attention_cost(q, k, v, *, causal=True, window=0, q_offset=0, return_stats=False,
+                         **_):
+    """(FLOPs, bytes) of one forward call: q and k, v read once, o (and the
+    float32 row statistics) written once; QK^T and PV, 2 Dh FLOPs each a
+    live pair."""
+    B, T, H, Dh = q.shape
+    pairs = B * H * live_pairs(T, k.shape[1], int(q_offset), int(window), bool(causal))
+    stats = 2 * B * H * T * 4 if return_stats else 0
+    return 4 * Dh * pairs, 2 * nbytes(q) + nbytes(k, v) + stats
+
+
+def flash_attention_bwd_cost(q, k, v, o, do, m, l, *, causal=True, window=0, q_offset=0, **_):
+    """(FLOPs, bytes) of one backward call: q, o, do, k, v, m and l read
+    once, dq, dk and dv written once; QK^T, dO V^T, dV, dQ and dK, 2 Dh
+    FLOPs each a live pair."""
+    B, T, H, Dh = q.shape
+    pairs = B * H * live_pairs(T, k.shape[1], int(q_offset), int(window), bool(causal))
+    return 10 * Dh * pairs, 4 * nbytes(q) + 4 * nbytes(k) + nbytes(m, l)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, block=512,
                     return_stats=False):
     """Forward attention (replaces the Pallas ``flash_attention``,
@@ -164,11 +204,24 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, block=512,
     running max and sum (float32 [B, H, T], the plain version's units), which
     the backward reads; the kernel writes them in its epilogue, and skips
     them when they are not asked for."""
+    return kernel_call(flash_attention, lambda: _forward(q, k, v, causal, window, q_offset, block,
+                       return_stats), flash_attention_cost, peak_kind(q.dtype), q, k, v,
+                       causal=causal, window=window, q_offset=q_offset, return_stats=return_stats)
+
+
+def _forward(q, k, v, causal, window, q_offset, block, return_stats):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, block=block, return_stats=return_stats)
+    if q.device.type == "meta":
+        B, T, H, _ = q.shape
+        out = torch.empty_like(q)
+        if not return_stats:
+            return out
+        return out, *(torch.empty((B, H, T), dtype=torch.float32, device="meta")
+                      for _ in range(2))
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, got {q.device}")
+        raise ValueError(f"flash_attention runs on cpu or cuda (or meta, shapes only), got {q.device}")
     B, T, H, Dh, S, Kv = _check_attention_operands("forward", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
@@ -236,11 +289,19 @@ def flash_attention_bwd(q, k, v, o, do, m, l, *, causal=True, window=0, q_offset
     same inputs give the same bits. Operand rules: the forward's
     (contiguous, 16-byte aligned, Dh in (32, 64, 128)); m and l contiguous
     float32."""
+    return kernel_call(flash_attention_bwd, lambda: _backward(q, k, v, o, do, m, l, causal, window,
+                       q_offset, block), flash_attention_bwd_cost, peak_kind(q.dtype), q, k, v, o,
+                       do, m, l, causal=causal, window=window, q_offset=q_offset)
+
+
+def _backward(q, k, v, o, do, m, l, causal, window, q_offset, block):
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, m, l, causal=causal, window=window,
                                        q_offset=q_offset, block=block)
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, got {q.device}")
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda (or meta, shapes only), got {q.device}")
     B, T, H, Dh, S, Kv = _check_attention_operands("backward", q, k, v)
     _check("o", o, q.device, (q.dtype,), q.shape)
     _check("do", do, q.device, (q.dtype,), q.shape)
@@ -302,11 +363,15 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-flash_attention.launches = 0
-flash_attention_bwd.launches = 0
+flash_attention.cost = flash_attention_cost
+flash_attention_bwd.cost = flash_attention_bwd_cost
+WRAPPERS = (flash_attention, flash_attention_bwd)
 
 
 def reset_launch_counts() -> None:
-    """Set both wrappers' ``launches`` counters to 0."""
-    flash_attention.launches = 0
-    flash_attention_bwd.launches = 0
+    """Set both wrappers' ``launches`` and ``calls`` counters to 0."""
+    for w in WRAPPERS:
+        w.launches = w.calls = 0
+
+
+reset_launch_counts()

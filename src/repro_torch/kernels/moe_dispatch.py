@@ -31,8 +31,11 @@ same). They build ``[S, E, C]`` one-hots: the CPU tests use them, and the
 card's main path never does.
 
 Dispatch is by device: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel (building it on first use) or raises. Each wrapper's
-``launches`` counts its kernel's launches, one a call. :class:`MoEDispatch`
+launches the kernel (building it on first use), a ``meta`` tensor gets its
+output's shape, any other device raises. Each wrapper's ``launches``
+counts its kernel's launches, one a call, and its ``calls`` its calls on
+every route; ``moe_gather_cost``, ``moe_combine_cost`` and
+``moe_gate_grad_cost`` give a call's (FLOPs, bytes) at its routing. :class:`MoEDispatch`
 and :class:`MoECombine` are the differentiable forms the model calls; their
 backward passes are the same kernels, and they recompute alike under
 non-reentrant ``torch.utils.checkpoint`` (the routing is deterministic and
@@ -46,6 +49,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.accounting import kernel_call
 from repro_torch.kernels.build import load
 from repro_torch.kernels.mtgc_update import _check, _raise_on, _stream
 
@@ -139,14 +143,62 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def kept_choices(r: Routing) -> int:
+    """The kept (token, choice) pairs of a routing: counted on a CPU or
+    CUDA routing (the work this data needs), the most there can be on a
+    ``meta`` one (every choice, or every slot)."""
+    S, k = r.gate_idx.shape
+    if r.keep.device.type == "meta":
+        return min(S * k, r.num_experts * r.capacity)
+    return int(r.keep.sum())
+
+
+def moe_gather_cost(src, r: Routing, scale=None):
+    """(FLOPs, bytes) of one ``moe_gather`` call: src, the slot map (int32)
+    and the scale read once, every slot row written once; a multiply an
+    element of a kept row when scaled."""
+    S, D = src.shape
+    k, elt, n_slots = r.gate_idx.shape[1], src.element_size(), r.num_experts * r.capacity
+    flops = 0 if scale is None else kept_choices(r) * D
+    return flops, (S * D * elt + n_slots * 4 + (0 if scale is None else S * k * elt)
+                   + n_slots * D * elt)
+
+
+def moe_combine_cost(y, r: Routing, w=None):
+    """(FLOPs, bytes) of one ``moe_combine`` call: the kept rows of y, the
+    row map (int32) and w read once, the tokens written once; a
+    multiply-add an element of a kept row."""
+    S, k = r.gate_idx.shape
+    D, elt, kept = y.shape[-1], y.element_size(), kept_choices(r)
+    return 2 * kept * D, (kept * D * elt + S * k * 4 + (0 if w is None else S * k * elt)
+                          + S * D * elt)
+
+
+def moe_gate_grad_cost(dout, y, r: Routing):
+    """(FLOPs, bytes) of one ``moe_gate_grad`` call: dout, the kept rows of
+    y and the row map read once, dg written once; a multiply-add an element
+    of a kept row."""
+    S, D = dout.shape
+    k, elt, kept = r.gate_idx.shape[1], dout.element_size(), kept_choices(r)
+    return 2 * kept * D, S * D * elt + kept * D * elt + S * k * 4 + S * k * elt
+
+
 def moe_gather(src, r: Routing, scale=None):
     """src [S, D] float32 or bfloat16 -> [E, C, D] of its dtype (see the
     module docstring); scale [S, k] of src's dtype or None. On a CUDA tensor
     all contiguous on one card."""
+    return kernel_call(moe_gather, lambda: _gather(src, r, scale), moe_gather_cost, "f32", src, r,
+                       scale)
+
+
+def _gather(src, r, scale):
     if src.device.type == "cpu":
         return moe_gather_ref(src, r, scale)
+    if src.device.type == "meta":
+        return torch.empty((r.num_experts, r.capacity, src.shape[1]), dtype=src.dtype,
+                           device="meta")
     if src.device.type != "cuda":
-        raise ValueError(f"moe_gather runs on cpu or cuda, got {src.device}")
+        raise ValueError(f"moe_gather runs on cpu or cuda (or meta, shapes only), got {src.device}")
     S, D = src.shape
     _check("src", src, src.device, _DTYPES)
     k = _check_routing(r, S, src.device)
@@ -165,10 +217,16 @@ def moe_combine(y, r: Routing, w=None):
     """y [E, C, D] float32 or bfloat16 -> [S, D] of its dtype (see the
     module docstring); w [S, k] of y's dtype or None. On a CUDA tensor all
     contiguous on one card."""
+    return kernel_call(moe_combine, lambda: _combine(y, r, w), moe_combine_cost, "f32", y, r, w)
+
+
+def _combine(y, r, w):
     if y.device.type == "cpu":
         return moe_combine_ref(y, r, w)
+    if y.device.type == "meta":
+        return torch.empty((r.gate_idx.shape[0], y.shape[-1]), dtype=y.dtype, device="meta")
     if y.device.type != "cuda":
-        raise ValueError(f"moe_combine runs on cpu or cuda, got {y.device}")
+        raise ValueError(f"moe_combine runs on cpu or cuda (or meta, shapes only), got {y.device}")
     S = r.gate_idx.shape[0]
     D = y.shape[-1]
     _check("y", y, y.device, _DTYPES, (r.num_experts, r.capacity, D))
@@ -188,10 +246,17 @@ def moe_gate_grad(dout, y, r: Routing):
     """dout [S, D] and y [E, C, D] of one dtype -> dg [S, k] of that dtype
     (see the module docstring). On a CUDA tensor all contiguous on one
     card."""
+    return kernel_call(moe_gate_grad, lambda: _gate_grad(dout, y, r), moe_gate_grad_cost, "f32",
+                       dout, y, r)
+
+
+def _gate_grad(dout, y, r):
     if dout.device.type == "cpu":
         return moe_gate_grad_ref(dout, y, r)
+    if dout.device.type == "meta":
+        return torch.empty(tuple(r.gate_idx.shape), dtype=dout.dtype, device="meta")
     if dout.device.type != "cuda":
-        raise ValueError(f"moe_gate_grad runs on cpu or cuda, got {dout.device}")
+        raise ValueError(f"moe_gate_grad runs on cpu or cuda (or meta, shapes only), got {dout.device}")
     S, D = dout.shape
     _check("dout", dout, dout.device, _DTYPES)
     _check("y", y, dout.device, (dout.dtype,), (r.num_experts, r.capacity, D))
@@ -205,9 +270,10 @@ def moe_gate_grad(dout, y, r: Routing):
     return dg
 
 
-moe_gather.launches = 0
-moe_combine.launches = 0
-moe_gate_grad.launches = 0
+moe_gather.cost = moe_gather_cost
+moe_combine.cost = moe_combine_cost
+moe_gate_grad.cost = moe_gate_grad_cost
+WRAPPERS = (moe_gather, moe_combine, moe_gate_grad)
 
 _PLAN_KERNELS = {"gather": 0, "gather_scaled": 1, "combine": 2}
 
@@ -233,10 +299,12 @@ def launch_plan(kernel: str, rows: int, D: int, k: int, dtype) -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Set every wrapper's ``launches`` counter to 0."""
-    moe_gather.launches = 0
-    moe_combine.launches = 0
-    moe_gate_grad.launches = 0
+    """Set every wrapper's ``launches`` and ``calls`` counters to 0."""
+    for w in WRAPPERS:
+        w.launches = w.calls = 0
+
+
+reset_launch_counts()
 
 
 # ---------------------------------------------------------------- autograd

@@ -8,9 +8,13 @@ live beside them in this module.
 
 Dispatch is by the device of the tensors and nothing else: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel (building it on
-first use) or raises. There is no fallback from the kernel to the plain
-version. Each wrapper carries an integer ``launches`` counter that goes up
-by one exactly where its kernel is launched.
+first use), a ``meta`` tensor gets an output of the right shape and dtype
+and nothing computed, and any other device raises. There is no fallback
+from the kernel to the plain version. Each wrapper carries an integer
+``launches`` counter that goes up by one exactly where its kernel is
+launched, and a ``calls`` counter that goes up on every route
+(``kernels/accounting.py``). ``mtgc_update_flat_cost`` and
+``mtgc_update_cost`` give the work a call's bound counts: (FLOPs, bytes).
 
 Arithmetic: the correction sum runs in float32 whatever the storage type
 (``((g * g_scale + z) + y)``, then ``x - lr * d``), and the result is
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.accounting import kernel_call, nbytes
 from repro_torch.kernels.build import load
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -83,6 +88,20 @@ def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
 
 
+FLOPS_PER_ELEMENT = 5         # g * g_scale, + z, + y, lr * d, x - ...
+
+
+def mtgc_update_flat_cost(x, g, z, y, mask=None, **_):
+    """(FLOPs, bytes) of one ``mtgc_update_flat`` call: x, g, z, y (and the
+    mask) read once, the result written once; five operations an element."""
+    return FLOPS_PER_ELEMENT * x.numel(), nbytes(x, g, z, y, mask) + nbytes(x)
+
+
+def mtgc_update_cost(x, g, z, y, **_):
+    """(FLOPs, bytes) of one ``mtgc_update`` call (as the flat one's)."""
+    return FLOPS_PER_ELEMENT * x.numel(), nbytes(x, g, z, y) + nbytes(x)
+
+
 def mtgc_update_flat(x, g, z, y, mask=None, *, lr: float, g_scale: float = 1.0, out=None):
     """Whole-model fused update over flat buffers (replaces the Pallas
     ``mtgc_update_flat``, src/repro/kernels/mtgc_update.py:94).
@@ -93,6 +112,11 @@ def mtgc_update_flat(x, g, z, y, mask=None, *, lr: float, g_scale: float = 1.0, 
     buffer: ``out`` when given (``out=x`` updates x in place, as the
     reference's donated state does), else a new one.
     """
+    return kernel_call(mtgc_update_flat, lambda: _update_flat(x, g, z, y, mask, lr, g_scale, out),
+                       mtgc_update_flat_cost, "f32", x, g, z, y, mask)
+
+
+def _update_flat(x, g, z, y, mask, lr, g_scale, out):
     if out is not None:
         _check("out", out, x.device, (x.dtype,), x.shape)
         if out.data_ptr() != x.data_ptr() and any(_overlaps(out, t) for t in (x, g, z, y)):
@@ -100,8 +124,10 @@ def mtgc_update_flat(x, g, z, y, mask=None, *, lr: float, g_scale: float = 1.0, 
     if x.device.type == "cpu":
         res = mtgc_update_flat_ref(x, g, z, y, mask, lr, g_scale)
         return res if out is None else out.copy_(res)
+    if x.device.type == "meta":
+        return torch.empty_like(x) if out is None else out
     if x.device.type != "cuda":
-        raise ValueError(f"mtgc_update_flat runs on cpu or cuda, got {x.device}")
+        raise ValueError(f"mtgc_update_flat runs on cpu or cuda (or meta, shapes only), got {x.device}")
     if x.dim() != 3:
         raise ValueError(f"x must be [G, K, N], got shape {tuple(x.shape)}")
     G, K, N = x.shape
@@ -132,10 +158,17 @@ def mtgc_update(x, g, z, y, *, lr: float, g_scale: float = 1.0):
     """Fused update over four equal-shape tensors (one model leaf; replaces
     the Pallas ``mtgc_update``, src/repro/kernels/mtgc_update.py:52).
     Returns a new tensor shaped like ``x``."""
+    return kernel_call(mtgc_update, lambda: _update_leaf(x, g, z, y, lr, g_scale),
+                       mtgc_update_cost, "f32", x, g, z, y)
+
+
+def _update_leaf(x, g, z, y, lr, g_scale):
     if x.device.type == "cpu":
         return mtgc_update_ref(x, g, z, y, lr, g_scale)
+    if x.device.type == "meta":
+        return torch.empty_like(x)
     if x.device.type != "cuda":
-        raise ValueError(f"mtgc_update runs on cpu or cuda, got {x.device}")
+        raise ValueError(f"mtgc_update runs on cpu or cuda (or meta, shapes only), got {x.device}")
     _check("x", x, x.device, _DTYPES)
     for name, t in (("g", g), ("z", z), ("y", y)):
         _check(name, t, x.device, _DTYPES, x.shape)
@@ -154,11 +187,15 @@ def mtgc_update(x, g, z, y, *, lr: float, g_scale: float = 1.0):
     return out
 
 
-mtgc_update_flat.launches = 0
-mtgc_update.launches = 0
+mtgc_update_flat.cost = mtgc_update_flat_cost
+mtgc_update.cost = mtgc_update_cost
+WRAPPERS = (mtgc_update_flat, mtgc_update)
 
 
 def reset_launch_counts() -> None:
-    """Set both wrappers' ``launches`` counters to 0."""
-    mtgc_update_flat.launches = 0
-    mtgc_update.launches = 0
+    """Set both wrappers' ``launches`` and ``calls`` counters to 0."""
+    for w in WRAPPERS:
+        w.launches = w.calls = 0
+
+
+reset_launch_counts()

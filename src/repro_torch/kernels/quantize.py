@@ -16,14 +16,18 @@ beside them in this module.
 
 Dispatch is by the device of the tensors and nothing else, as in
 ``kernels/mtgc_update.py``: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel (building it on first use) or raises. Each
-wrapper carries an integer ``launches`` counter that goes up by one exactly
-where its kernel is launched.
+tensor launches the kernel (building it on first use), a ``meta`` tensor
+gets its output's shape, any other device raises. Each wrapper carries an
+integer ``launches`` counter that goes up by one exactly where its kernel
+is launched and a ``calls`` counter that goes up on every route;
+``int8_roundtrip_cost`` and ``topk_mask_cost`` give a call's (FLOPs,
+bytes).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.accounting import kernel_call, nbytes
 from repro_torch.kernels.build import load
 from repro_torch.kernels.mtgc_update import _DTYPES, _check, _raise_on, _stream
 
@@ -54,15 +58,40 @@ def _check_rows(u: torch.Tensor) -> tuple[int, int]:
     return u.shape[0], u.shape[1]
 
 
+INT8_FLOPS = 6                # u / s, + noise, floor, two clip compares, q * s
+TOPK_FLOPS = 2                # |u|, compare
+
+
+def int8_roundtrip_cost(u, scale, noise):
+    """(FLOPs, bytes) of one ``int8_roundtrip`` call: u, noise and the
+    scales read once, the result written once; six operations an element."""
+    return INT8_FLOPS * u.numel(), nbytes(u, noise, scale) + nbytes(u)
+
+
+def topk_mask_cost(u, thresh):
+    """(FLOPs, bytes) of one ``topk_mask`` call: u and the thresholds read
+    once (in u's dtype), the result written once; two operations an
+    element."""
+    return (TOPK_FLOPS * u.numel(),
+            2 * nbytes(u) + thresh.numel() * u.element_size())
+
+
 def int8_roundtrip(u, scale, noise):
     """Stochastic int8 round trip of upload rows (replaces the Pallas
     ``int8_roundtrip``, src/repro/kernels/quantize.py:66). u: [R, N]
     float32 or bfloat16; noise: [R, N] float32; scale: [R] float32.
     Returns a new [R, N] tensor of u's dtype."""
+    return kernel_call(int8_roundtrip, lambda: _int8(u, scale, noise), int8_roundtrip_cost, "f32",
+                       u, scale, noise)
+
+
+def _int8(u, scale, noise):
     if u.device.type == "cpu":
         return int8_roundtrip_ref(u, scale, noise)
+    if u.device.type == "meta":
+        return torch.empty_like(u)
     if u.device.type != "cuda":
-        raise ValueError(f"int8_roundtrip runs on cpu or cuda, got {u.device}")
+        raise ValueError(f"int8_roundtrip runs on cpu or cuda (or meta, shapes only), got {u.device}")
     R, N = _check_rows(u)
     _check("noise", noise, u.device, (torch.float32,), (R, N))
     _check("scale", scale, u.device, (torch.float32,), (R,))
@@ -82,10 +111,16 @@ def topk_mask(u, thresh):
     ``topk_mask``, src/repro/kernels/quantize.py:96). u: [R, N] float32 or
     bfloat16; thresh: [R], cast to u's dtype as the reference casts it.
     Returns a new [R, N] tensor of u's dtype."""
+    return kernel_call(topk_mask, lambda: _topk(u, thresh), topk_mask_cost, "f32", u, thresh)
+
+
+def _topk(u, thresh):
     if u.device.type == "cpu":
         return topk_mask_ref(u, thresh)
+    if u.device.type == "meta":
+        return torch.empty_like(u)
     if u.device.type != "cuda":
-        raise ValueError(f"topk_mask runs on cpu or cuda, got {u.device}")
+        raise ValueError(f"topk_mask runs on cpu or cuda (or meta, shapes only), got {u.device}")
     R, N = _check_rows(u)
     thresh = thresh.to(u.dtype).contiguous()  # a [R] column of topk's values
     _check("thresh", thresh, u.device, _DTYPES, (R,))
@@ -100,11 +135,15 @@ def topk_mask(u, thresh):
     return out
 
 
-int8_roundtrip.launches = 0
-topk_mask.launches = 0
+int8_roundtrip.cost = int8_roundtrip_cost
+topk_mask.cost = topk_mask_cost
+WRAPPERS = (int8_roundtrip, topk_mask)
 
 
 def reset_launch_counts() -> None:
-    """Set both wrappers' ``launches`` counters to 0."""
-    int8_roundtrip.launches = 0
-    topk_mask.launches = 0
+    """Set both wrappers' ``launches`` and ``calls`` counters to 0."""
+    for w in WRAPPERS:
+        w.launches = w.calls = 0
+
+
+reset_launch_counts()

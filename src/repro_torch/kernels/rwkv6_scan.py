@@ -40,12 +40,18 @@ the differentiable recurrence the model trains through on the card: its
 forward keeps the scan kernel's chunk-start states for the backward.
 
 Dispatch is by device: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel (building it on first use) or raises.
+launches the kernel (building it on first use), a ``meta`` tensor gets its
+outputs' shapes, any other device raises. ``rwkv6_scan.calls`` counts the
+forward's calls on every route (either entry point, or
+:class:`RWKV6Scan`), ``rwkv6_scan_bwd.calls`` the backward's;
+``rwkv6_scan_cost`` and ``rwkv6_scan_bwd_cost`` give a call's (FLOPs,
+bytes).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.accounting import kernel_call, nbytes, peak_kind
 from repro_torch.kernels.build import load
 from repro_torch.kernels.mtgc_update import _check, _raise_on, _stream
 
@@ -318,6 +324,39 @@ def rwkv6_scan_bwd_ref(r, k, v, logw, u, state, do, d_final=None, *, chunk=64,
             _from_chunks(dlogw, T), du, G)
 
 
+def _rows(r) -> tuple[int, int, int]:
+    """(sequences B * H, T, Dh) of r in either layout."""
+    if r.dim() == 3:
+        return r.shape[0], r.shape[1], r.shape[2]
+    B, T, H, Dh = r.shape
+    return B * H, T, Dh
+
+
+def rwkv6_scan_cost(r, k, v, logw, u, state, *, chunk=64):
+    """(FLOPs, bytes) of one forward call, in either layout: r, k, v, logw,
+    u and the state read once, o (float32) and the final state written
+    once; per chunk of C tokens, the state update's and the intra-chunk
+    products (4 C Dh^2 + 4 C^2 Dh FLOPs)."""
+    BH, T, Dh = _rows(r)
+    C = min(chunk, T)
+    flops = BH * -(-T // C) * (4 * C * Dh * Dh + 4 * C * C * Dh)
+    return flops, nbytes(r, k, v, logw, u, state) + r.numel() * 4 + nbytes(state)
+
+
+def rwkv6_scan_bwd_cost(r, k, v, logw, u, state, do, d_final=None, *, chunk=64, **_):
+    """(FLOPs, bytes) of one backward call: r, k, v, logw, do, u, the
+    chunk-start states the forward keeps and the final state read once
+    (and d_final), dr, dk, dv, dlogw, du and dstate written once; per chunk
+    8 C Dh^2 + 10 C^2 Dh FLOPs."""
+    BH, T, Dh = _rows(r)
+    C = min(chunk, T)
+    nc = -(-T // C)
+    states = nc * BH * Dh * Dh * 4
+    flops = BH * nc * (8 * C * Dh * Dh + 10 * C * C * Dh)
+    read = nbytes(r, k, v, logw, do, u, state, d_final) + states
+    return flops, read + nbytes(r, k, v, logw, u, state)
+
+
 def rwkv6_scan_ref(r, k, v, logw, u, state, *, chunk=64):
     """Plain version on the Pallas signature: r/k/v/logw [BH, T, Dh]; u
     [BH, Dh]; state [BH, Dh, Dh]. Returns (o [BH, T, Dh] f32, state)."""
@@ -367,10 +406,21 @@ def rwkv6_scan(r, k, v, logw, u, state, *, chunk=64):
     ``rwkv6_scan``, src/repro/kernels/rwkv6_scan.py:79). r/k/v: [BH, T, Dh]
     float32 or bfloat16; logw [BH, T, Dh], u [BH, Dh], state [BH, Dh, Dh]
     float32. Returns (o [BH, T, Dh] float32, final state)."""
+    return kernel_call(rwkv6_scan, lambda: _scan(r, k, v, logw, u, state, chunk), rwkv6_scan_cost,
+                       peak_kind(r.dtype), r, k, v, logw, u, state, chunk=chunk)
+
+
+def _meta_forward(r, state):
+    return torch.empty(r.shape, dtype=torch.float32, device="meta"), torch.empty_like(state)
+
+
+def _scan(r, k, v, logw, u, state, chunk):
     if r.device.type == "cpu":
         return rwkv6_scan_ref(r, k, v, logw, u, state, chunk=chunk)
+    if r.device.type == "meta":
+        return _meta_forward(r, state)
     if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan runs on cpu or cuda, got {r.device}")
+        raise ValueError(f"rwkv6_scan runs on cpu or cuda (or meta, shapes only), got {r.device}")
     if r.dim() != 3 or u.dim() != 2 or state.dim() != 3:
         raise ValueError("rwkv6_scan takes r [BH, T, Dh], u [BH, Dh], state [BH, Dh, Dh]")
     BH, T, Dh = r.shape
@@ -394,10 +444,17 @@ def rwkv6_scan_bthd(r, k, v, logw, u, state, *, chunk=64):
     """The recurrence in the model's layout: r/k/v [B, T, H, Dh] float32 or
     bfloat16, logw [B, T, H, Dh] float32, u [H, Dh] float32, state
     [B, H, Dh, Dh] float32. Returns (o [B, T, H, Dh] float32, final state)."""
+    return kernel_call(rwkv6_scan, lambda: _scan_bthd(r, k, v, logw, u, state, chunk),
+                       rwkv6_scan_cost, peak_kind(r.dtype), r, k, v, logw, u, state, chunk=chunk)
+
+
+def _scan_bthd(r, k, v, logw, u, state, chunk):
     if r.device.type == "cpu":
         return rwkv6_chunked_ref(r, k, v, logw, u, state, chunk=chunk)
+    if r.device.type == "meta":
+        return _meta_forward(r, state)
     if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan runs on cpu or cuda, got {r.device}")
+        raise ValueError(f"rwkv6_scan runs on cpu or cuda (or meta, shapes only), got {r.device}")
     B, T, H, Dh = _check_bthd(r, u, state, "rwkv6_scan_bthd")
     return _launch(r, k, v, logw, u, state, chunk, B, H, T, Dh, 0)[:2]
 
@@ -415,10 +472,18 @@ def rwkv6_scan_bwd(r, k, v, logw, u, state, do, d_final=None, *, chunk=64, saved
     ``rwkv6_scan_bwd.launches``) on ``saved`` = (chunk-start states
     [nc, B*H, Dh, Dh], final state) as the forward kernel left them, or, when
     ``saved`` is None, on those of a forward launch made here."""
+    return kernel_call(rwkv6_scan_bwd, lambda: _scan_bwd(r, k, v, logw, u, state, do, d_final,
+                       chunk, saved), rwkv6_scan_bwd_cost, peak_kind(r.dtype), r, k, v, logw, u,
+                       state, do, d_final, chunk=chunk)
+
+
+def _scan_bwd(r, k, v, logw, u, state, do, d_final, chunk, saved):
     if r.device.type == "cpu":
         return rwkv6_scan_bwd_ref(r, k, v, logw, u, state, do, d_final, chunk=chunk)
+    if r.device.type == "meta":
+        return (*(torch.empty_like(t) for t in (r, k, v, logw, u)), torch.empty_like(state))
     if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan_bwd runs on cpu or cuda, got {r.device}")
+        raise ValueError(f"rwkv6_scan_bwd runs on cpu or cuda (or meta, shapes only), got {r.device}")
     B, T, H, Dh = _check_bthd(r, u, state, "rwkv6_scan_bwd")
     if saved is None:
         _, s_final, states = _launch(r, k, v, logw, u, state, chunk, B, H, T, Dh, 0)
@@ -477,12 +542,17 @@ class RWKV6Scan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, state, chunk):
-        if r.device.type == "cuda":
-            B, T, H, Dh = _check_bthd(r, u, state, "RWKV6Scan")
-            o, s_final, states = _launch(r, k, v, logw, u, state, chunk, B, H, T, Dh, 0)
+        def run():
+            if r.device.type == "cuda":
+                B, T, H, Dh = _check_bthd(r, u, state, "RWKV6Scan")
+                return _launch(r, k, v, logw, u, state, chunk, B, H, T, Dh, 0)
+            return (*_scan_bthd(r, k, v, logw, u, state, chunk), None)
+
+        o, s_final, states = kernel_call(rwkv6_scan, run, rwkv6_scan_cost, peak_kind(r.dtype),
+                                         r, k, v, logw, u, state, chunk=chunk)
+        if states is not None:
             ctx.save_for_backward(r, k, v, logw, u, state, states, s_final)
         else:
-            o, s_final = rwkv6_chunked_ref(r, k, v, logw, u, state, chunk=chunk)
             ctx.save_for_backward(r, k, v, logw, u, state)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
@@ -499,11 +569,15 @@ class RWKV6Scan(torch.autograd.Function):
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
 
 
-rwkv6_scan.launches = 0
-rwkv6_scan_bwd.launches = 0
+rwkv6_scan.cost = rwkv6_scan_cost
+rwkv6_scan_bwd.cost = rwkv6_scan_bwd_cost
+WRAPPERS = (rwkv6_scan, rwkv6_scan_bwd)
 
 
 def reset_launch_counts() -> None:
-    """Set the kernels' ``launches`` counters to 0."""
-    rwkv6_scan.launches = 0
-    rwkv6_scan_bwd.launches = 0
+    """Set the kernels' ``launches`` and ``calls`` counters to 0."""
+    for w in WRAPPERS:
+        w.launches = w.calls = 0
+
+
+reset_launch_counts()

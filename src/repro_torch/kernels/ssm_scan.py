@@ -23,9 +23,12 @@ that), form them token by token and never write them out.
   in ``csrc/ssm_scan_bwd.cu``'s note).
 * :func:`selective_scan` / :func:`selective_scan_bwd` -- dispatch by device:
   a CPU tensor takes the plain version, a CUDA tensor launches the kernel
-  (building it on first use) or raises. ``selective_scan.launches`` counts
-  one a forward call; ``selective_scan_bwd.launches`` :data:`BWD_LAUNCHES`
-  a backward call.
+  (building it on first use), a ``meta`` tensor gets its outputs' shapes,
+  any other device raises. ``selective_scan.launches`` counts one a
+  forward call; ``selective_scan_bwd.launches`` :data:`BWD_LAUNCHES` a
+  backward call; their ``calls`` count the calls on every route
+  (:class:`SelectiveScan`'s included). ``selective_scan_cost`` and
+  ``selective_scan_bwd_cost`` give a call's (FLOPs, bytes).
 * :class:`SelectiveScan` -- the differentiable scan that training runs: on
   the card its forward keeps h at the start of every chunk of
   :data:`CHUNK` tokens, from which the backward kernel recomputes h.
@@ -49,6 +52,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.accounting import kernel_call, nbytes
 from repro_torch.kernels.build import load
 from repro_torch.kernels.mtgc_update import _check, _raise_on, _stream
 
@@ -110,6 +114,31 @@ def selective_scan_bwd_ref(u, dt, Bm, Cm, log_a, d_skip, state0, dy, d_final=Non
     return (du.to(u.dtype), ddt, dB, dC, A * dla, (dy32 * u32).sum((0, 1)), carry)
 
 
+def selective_scan_cost(u, dt, Bm, Cm, log_a, d_skip, state0, *, keep_states=False):
+    """(FLOPs, bytes) of one forward call: u, dt, B, C, log_a, d_skip and
+    state0 read once, y (float32) and the final state (and the kept chunk
+    states) written once; per (b, t, di, s) dt * A, its exponential, (dt u)
+    B, h's and y's multiply-adds (7 FLOPs), per (b, t, di) dt * u and the
+    skip's multiply-add (3)."""
+    B, T, Di = u.shape
+    S = Bm.shape[-1]
+    elems = u.numel()
+    kept = B * -(-T // CHUNK) * Di * S * 4 if keep_states else 0
+    return (elems * S * 7 + elems * 3,
+            nbytes(u, dt, Bm, Cm, log_a, d_skip, state0) + elems * 4 + nbytes(state0) + kept)
+
+
+def selective_scan_bwd_cost(u, dt, Bm, Cm, log_a, d_skip, state0, dy, d_final=None, **_):
+    """(FLOPs, bytes) of one backward call, what the gradients need whatever
+    the design: u, dt, dy, B, C, log_a, d_skip and state0 (and d_final) read
+    once, du, ddt, dB, dC, dlog_a, dd_skip and dstate0 written once (the
+    states the forward keeps for the recompute are a design's, and are not
+    counted); about 20 float32 operations a (b, t, di, s)."""
+    S = Bm.shape[-1]
+    read = nbytes(u, dt, dy, Bm, Cm, log_a, d_skip, state0, d_final)
+    return u.numel() * S * 20, read + nbytes(u, dt, Bm, Cm, log_a, d_skip, state0)
+
+
 def _check_operands(u, dt, Bm, Cm, log_a, d_skip, state0):
     """The kernel's operand rules; returns (B, T, Di, S)."""
     if u.dim() != 3 or Bm.dim() != 3:
@@ -156,8 +185,8 @@ def _launch(u, dt, Bm, Cm, log_a, d_skip, state0, keep_states):
 
 
 def _device(u, name):
-    if u.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda, got {u.device}")
+    if u.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} runs on cpu or cuda (or meta, shapes only), got {u.device}")
     return u.device.type
 
 
@@ -169,6 +198,24 @@ def selective_scan(u, dt, Bm, Cm, log_a, d_skip, state0, *, keep_states=False):
     [B, Di, S] float32, a new tensor); with ``keep_states`` (CUDA tensors
     only) also h at the start of every chunk of :data:`CHUNK` tokens, [B,
     ceil(T / CHUNK), Di, S] float32 (chunk 0: state0)."""
+    return kernel_call(selective_scan, lambda: _forward(u, dt, Bm, Cm, log_a, d_skip, state0,
+                       keep_states), selective_scan_cost, "f32", u, dt, Bm, Cm, log_a, d_skip,
+                       state0, keep_states=keep_states)
+
+
+def _meta_forward(u, state0, keep_states):
+    B, T, Di = u.shape
+    y = torch.empty((B, T, Di), dtype=torch.float32, device="meta")
+    if not keep_states:
+        return y, torch.empty_like(state0)
+    states = torch.empty((B, -(-T // CHUNK)) + tuple(state0.shape[1:]), dtype=torch.float32,
+                         device="meta")
+    return y, torch.empty_like(state0), states
+
+
+def _forward(u, dt, Bm, Cm, log_a, d_skip, state0, keep_states):
+    if _device(u, "selective_scan") == "meta":
+        return _meta_forward(u, state0, keep_states)
     if _device(u, "selective_scan") == "cpu":
         if keep_states:
             raise ValueError("keep_states: the plain version keeps no chunk states")
@@ -191,6 +238,14 @@ def selective_scan_bwd(u, dt, Bm, Cm, log_a, d_skip, state0, dy, d_final=None, *
     on ``selective_scan_bwd.launches``) on ``states``, the chunk-start states
     the forward kernel kept, or, when ``states`` is None, on those of a
     forward launch made here."""
+    return kernel_call(selective_scan_bwd, lambda: _backward(u, dt, Bm, Cm, log_a, d_skip, state0,
+                       dy, d_final, states), selective_scan_bwd_cost, "f32", u, dt, Bm, Cm, log_a,
+                       d_skip, state0, dy, d_final)
+
+
+def _backward(u, dt, Bm, Cm, log_a, d_skip, state0, dy, d_final, states):
+    if _device(u, "selective_scan_bwd") == "meta":
+        return tuple(torch.empty_like(t) for t in (u, dt, Bm, Cm, log_a, d_skip, state0))
     if _device(u, "selective_scan_bwd") == "cpu":
         return selective_scan_bwd_ref(u, dt, Bm, Cm, log_a, d_skip, state0, dy, d_final)
     B, T, Di, S = _check_operands(u, dt, Bm, Cm, log_a, d_skip, state0)
@@ -250,7 +305,7 @@ class SelectiveScan(torch.autograd.Function):
                                                 keep_states=True)
             ctx.save_for_backward(u, dt, Bm, Cm, log_a, d_skip, state0, states)
         else:
-            y, s_final = selective_scan_ref(u, dt, Bm, Cm, log_a, d_skip, state0)
+            y, s_final = selective_scan(u, dt, Bm, Cm, log_a, d_skip, state0)
             ctx.save_for_backward(u, dt, Bm, Cm, log_a, d_skip, state0)
         ctx.set_materialize_grads(False)
         return y, s_final
@@ -266,11 +321,15 @@ class SelectiveScan(torch.autograd.Function):
         return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 
-selective_scan.launches = 0
-selective_scan_bwd.launches = 0
+selective_scan.cost = selective_scan_cost
+selective_scan_bwd.cost = selective_scan_bwd_cost
+WRAPPERS = (selective_scan, selective_scan_bwd)
 
 
 def reset_launch_counts() -> None:
-    """Set the wrappers' ``launches`` counters to 0."""
-    selective_scan.launches = 0
-    selective_scan_bwd.launches = 0
+    """Set the wrappers' ``launches`` and ``calls`` counters to 0."""
+    for w in WRAPPERS:
+        w.launches = w.calls = 0
+
+
+reset_launch_counts()

@@ -550,7 +550,8 @@ def _build_sharded_round(
                     "build the state with sharded_init(..., round_counter=True) "
                     "(repro_torch.api.build does this for you)")
             if dev not in plan_on:
-                plan_on[dev] = (torch.from_numpy(em_np).to(dev), torch.from_numpy(dw_np).to(dev))
+                plan_on[dev] = tuple(torch.from_numpy(a).to(dev, non_blocking=True)
+                                     for a in (em_np, dw_np))
             em_all, dw = plan_on[dev]
             t = (state.round if state.round is not None
                  else torch.zeros((), dtype=torch.int32, device=dev))

@@ -23,6 +23,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import tree as tu
+from repro_torch.kernels import accounting
 
 Tree = Any
 
@@ -85,12 +86,17 @@ class MeshAxes:
 
     def sum_(self, t: torch.Tensor, *axes: str) -> torch.Tensor:
         """All-reduce ``t`` (SUM, in place) over each of ``axes`` whose dim
-        is larger than 1, on the process group the mesh was built on."""
+        is larger than 1, on the process group the mesh was built on. Each
+        all-reduce is reported to the cost counter
+        (``launch/cost_analysis.py``); on a ``meta`` tensor it is counted
+        and not made."""
         import torch.distributed as dist
 
         for a in axes:
             if self.pg[a] is not None:
-                dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg[a])
+                accounting.collective("all-reduce", t)
+                if t.device.type != "meta":
+                    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg[a])
         return t
 
     def broadcast_(self, t: torch.Tensor, *axes: str) -> torch.Tensor:

@@ -44,6 +44,7 @@ from repro_torch.core.participation import ParticipationMasks  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.models import small as tsmall  # noqa: E402
+from torch_devices import other_device  # noqa: E402
 
 G, K, E, H = 2, 3, 2, 2
 RTOL, ATOL = 1e-5, 1e-6
@@ -143,11 +144,14 @@ def test_ops_exports_the_wrappers_and_cpu_takes_plain_without_a_launch():
     thresh = torch.topk(u.abs(), 30, dim=1).values[:, -1]
     assert torch.equal(ops.topk_mask(u, thresh), qz.topk_mask_ref(u, thresh))
     assert qz.int8_roundtrip.launches == 0 and qz.topk_mask.launches == 0
+    other, row = other_device(2, 3), other_device(2)
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        qz.int8_roundtrip(other, row, other)
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        qz.topk_mask(other, row)
     meta = torch.empty((2, 3), device="meta")
-    with pytest.raises(ValueError, match="runs on cpu or cuda"):
-        qz.int8_roundtrip(meta, meta[:, 0], meta)
-    with pytest.raises(ValueError, match="runs on cpu or cuda"):
-        qz.topk_mask(meta, meta[:, 0])
+    for got in (qz.int8_roundtrip(meta, meta[:, 0], meta), qz.topk_mask(meta, meta[:, 0])):
+        assert got.device.type == "meta" and got.shape == meta.shape
 
 
 # ------------------------------------------------- compression module

@@ -1830,3 +1830,43 @@ def test_one_rank_nccl_mesh_matches_one_card(cuda, tmp_path, layout, part):
     for x, y in zip(m1, m2):
         for f in x._fields:
             assert torch.equal(getattr(x, f), getattr(y, f)), f
+
+
+# ---------------------------------------------------------------- the auditor
+
+
+def _audit_cases(fast_only):
+    from repro_torch.analysis import specs
+
+    return specs.audit_cases(fast_only=fast_only)
+
+
+@pytest.mark.parametrize("case", _audit_cases(True), ids=lambda c: c.name)
+def test_audit_fast_matrix_on_card(cuda, case):
+    """Every fast case's chunk on the card: every invariant clean with the
+    host-sync watch on (the known sites of the sharded round notes, nothing
+    else), the kernel launches three ways -- the wrappers' ``calls``, their
+    ``launches`` and ``torch.profiler``'s kernels -- equal to the case's
+    ``expected_by_wrapper``, wrapper by wrapper, and the counted work equal
+    to the CPU's stamp (the count does not depend on the route)."""
+    from repro_torch.analysis import budgets, invariants, specs
+
+    engine = case.build_engine(device="cuda")
+    lc = engine.lower_chunk(specs.abstract_data(engine), params=specs.abstract_params())
+    found = invariants.run_invariants(case, lc)
+    assert [str(f) for f in found if f.severity == "error"] == []
+    assert lc.syncs is not None
+    want = case.expected_by_wrapper
+    assert invariants.nonzero_counts(lc.calls) == invariants.nonzero_counts(lc.launches) == want
+    assert invariants.nonzero_counts(lc.profiled) == want
+    assert sum(want.values()) == case.expected_calls
+    drift = budgets.check_route({case.name: budgets.measure(lc)})
+    assert [str(f) for f in drift] == []
+
+
+def test_audit_cli_on_card(cuda, tmp_path):
+    from repro_torch.launch import audit
+
+    rc = audit.main(["--fast", "--device", "cuda", "--strict-budgets", "-q",
+                     "--report", str(tmp_path / "r.json")])
+    assert rc == 0

@@ -55,6 +55,7 @@ from repro_torch.core.tree import tree_leaves  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
+from torch_devices import other_device  # noqa: E402
 
 GRADS = ("du", "ddt", "dB", "dC", "dlog_a", "dd_skip", "dstate0")
 SUMS = ("dB", "dC", "dlog_a", "dd_skip")
@@ -182,9 +183,12 @@ def test_scan_bwd_wrapper_takes_the_plain_version_on_cpu():
     for g, w in zip(got, ss.selective_scan_bwd_ref(*targs, torch.from_numpy(dy),
                                                    torch.from_numpy(dfin))):
         assert torch.equal(g, w)
-    meta = torch.zeros(1, 2, 4, device="meta")
+    other = other_device(1, 2, 4)
     with pytest.raises(ValueError, match="cpu or cuda"):
-        ss.selective_scan_bwd(meta, meta, meta, meta, meta, meta, meta, meta)
+        ss.selective_scan_bwd(other, other, other, other, other, other, other, other)
+    meta = [t.to("meta") for t in targs]
+    got = ss.selective_scan_bwd(*meta, torch.empty(tuple(meta[0].shape), device="meta"))
+    assert [(g.device.type, g.shape) for g in got] == [("meta", t.shape) for t in meta]
     with pytest.raises(ValueError, match="keep_states"):
         ss.selective_scan(*targs, keep_states=True)
 

@@ -21,6 +21,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.convert import tensor_from_numpy, to_numpy  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import mtgc_update as mu  # noqa: E402
+from torch_devices import other_device  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -175,13 +176,18 @@ def test_flat_out_argument_rejects_overlap_and_bad_shape():
 
 
 def test_other_devices_raise():
-    """Neither wrapper falls back to the plain version off the CPU."""
-    x = torch.empty((2, 3, 4), device="meta")
-    y = torch.empty((2, 4), device="meta")
+    """Neither wrapper falls back to the plain version off the CPU; a meta
+    tensor gets the output's shape."""
+    x, y = other_device(2, 3, 4), other_device(2, 4)
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
         mu.mtgc_update_flat(x, x, x, y, lr=0.1)
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
         mu.mtgc_update(x, x, x, x, lr=0.1)
+    x = torch.empty((2, 3, 4), device="meta")
+    y = torch.empty((2, 4), device="meta")
+    assert mu.mtgc_update_flat(x, x, x, y, lr=0.1).shape == x.shape
+    assert mu.mtgc_update_flat(x, x, x, y, lr=0.1, out=x) is x
+    assert mu.mtgc_update(x, x, x, x, lr=0.1).device.type == "meta"
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -28,6 +28,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rs  # noqa: E402
 from repro_torch.models import rwkv6 as trwkv  # noqa: E402
+from torch_devices import other_device  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -124,9 +125,12 @@ def test_flash_plain_bf16():
 
 
 def test_flash_rejects_other_devices():
-    q = torch.zeros(1, 4, 2, 32, device="meta")
+    q = other_device(1, 4, 2, 32)
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 4, 2, 32, device="meta")
+    o, m, l = fa.flash_attention(q, q, q, return_stats=True)
+    assert o.shape == q.shape and m.shape == l.shape == (1, 2, 4) and m.device.type == "meta"
 
 
 # -------------------------------------------------------------- rwkv scan

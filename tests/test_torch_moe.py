@@ -46,6 +46,7 @@ from repro_torch.core.tree import tree_leaves  # noqa: E402
 from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models.transformer import build_model as tbuild  # noqa: E402
+from torch_devices import other_device  # noqa: E402
 
 ARCH = "granite-moe-1b-a400m"
 RTOL, ATOL = 1e-4, 1e-5
@@ -283,11 +284,14 @@ def test_autograd_matches_the_one_hot_form():
 
 def test_wrappers_refuse_other_devices():
     x, gate, r = _routing_case(4, 8, 8)
-    meta = x.to("meta")
-    for call in (lambda: md.moe_gather(meta, r), lambda: md.moe_combine(meta.reshape(1, 8, D), r),
-                 lambda: md.moe_gate_grad(meta, meta, r)):
+    other, y = other_device(*x.shape), other_device(1, 8, D)
+    for call in (lambda: md.moe_gather(other, r), lambda: md.moe_combine(y, r),
+                 lambda: md.moe_gate_grad(other, y, r)):
         with pytest.raises(ValueError, match="cpu or cuda"):
             call()
+    meta = x.to("meta")
+    assert md.moe_gather(meta, r).shape == (r.num_experts, r.capacity, D)
+    assert md.moe_combine(meta.reshape(1, 8, D), r).shape == meta.shape
 
 
 # ------------------------------------------------------------------ model

@@ -107,14 +107,13 @@ def test_multilevel_specs_match_reference(kwargs):
 
 
 def test_api_all_snapshot():
-    """The port's ``api.__all__``: the reference's names less those of its
-    JAX-only surface (``Engine``, ``GuardReport``, ``LoweredChunk``,
-    ``run_population_rounds``), the multilevel engine and its metrics
-    included (tests/test_api_surface.py's snapshot)."""
+    """The port's ``api.__all__`` is the reference's (tests/test_api_surface.py's
+    snapshot): ``Engine``, ``GuardReport``, ``LoweredChunk`` and
+    ``run_population_rounds`` included, the multilevel engine and its
+    metrics too."""
     from test_api_surface import EXPECTED_ALL
 
-    jax_only = {"Engine", "GuardReport", "LoweredChunk", "run_population_rounds"}
-    assert tapi.__all__ == [n for n in EXPECTED_ALL if n not in jax_only]
+    assert tapi.__all__ == EXPECTED_ALL
     assert {"MultiLevelEngine", "MultiLevelMetrics"} <= set(tapi.__all__)
     for name in tapi.__all__:
         assert getattr(tapi, name) is not None, name

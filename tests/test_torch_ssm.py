@@ -34,6 +34,7 @@ from repro.models import ssm as JS  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
+from torch_devices import other_device  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -196,6 +197,9 @@ def test_scan_wrapper_routes_by_device():
     y, st = ss.selective_scan(z, z, torch.zeros(1, 0, 2), torch.zeros(1, 0, 2),
                               torch.zeros(4, 2), torch.ones(4), torch.ones(1, 4, 2))
     assert tuple(y.shape) == (1, 0, 4) and torch.equal(st, torch.ones(1, 4, 2))
-    meta = torch.zeros(1, 2, 4, device="meta")
+    other = other_device(1, 2, 4)
     with pytest.raises(ValueError, match="cpu or cuda"):
-        ss.selective_scan(meta, meta, meta, meta, meta, meta, meta)
+        ss.selective_scan(other, other, other, other, other, other, other)
+    y, st = ss.selective_scan(*(torch.zeros(s, device="meta") for s in (
+        (1, 2, 4), (1, 2, 4), (1, 2, 3), (1, 2, 3), (4, 3), (4,), (1, 4, 3))))
+    assert y.shape == (1, 2, 4) and st.shape == (1, 4, 3) and y.device.type == "meta"
